@@ -15,7 +15,10 @@ from __future__ import annotations
 import torch
 
 __all__ = ["resolve_device", "NeuralNetConfiguration", "MultiLayerNetwork",
-           "InferenceServer", "ModelRegistry", "ServedModel"]
+           "InferenceServer", "ModelRegistry", "ServedModel", "DataSet",
+           "DataSetIterator", "ListDataSetIterator", "LossFunction", "Sgd", "Adam",
+           "AdaMax", "Nadam", "Nesterovs", "RmsProp", "AdaGrad", "AdaDelta", "NoOp",
+           "AMSGrad"]
 
 
 def resolve_device(device="cuda") -> torch.device:
@@ -35,6 +38,10 @@ def resolve_device(device="cuda") -> torch.device:
     return dev
 
 
+from .datasets.dataset import DataSet, DataSetIterator, ListDataSetIterator  # noqa: E402
 from .nn.conf import NeuralNetConfiguration  # noqa: E402
+from .nn.losses import LossFunction  # noqa: E402
+from .nn.updaters import (AdaDelta, AdaGrad, AdaMax, Adam, AMSGrad, Nadam,  # noqa: E402
+                          Nesterovs, NoOp, RmsProp, Sgd)
 from .nn.multilayer import MultiLayerNetwork  # noqa: E402
 from .serving import InferenceServer, ModelRegistry, ServedModel  # noqa: E402

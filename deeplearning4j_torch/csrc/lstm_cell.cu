@@ -1,7 +1,9 @@
-// K1: persistent LSTM forward for one layer, inference (no BPTT reserve).
+// K1: persistent LSTM forward for one layer, with the BPTT reserve on the
+// training path.
 //
 // Replaces the Pallas kernel deeplearning4j_tpu/ops/lstm_cell.py
-// `_fwd_kernel` (wrapper `_fwd`, called with save_reserve=False by `_lstm`).
+// `_fwd_kernel` (wrapper `_fwd`): inference calls it with
+// save_reserve=False (`_lstm`), training with the reserve (`_lstm_fwd`).
 //
 // What it computes, per step t (time-major, gate layout i|f|o|g):
 //   z = xp[t] + bf16(h) @ RW          (f32 accumulation; h, c stay f32)
@@ -9,6 +11,11 @@
 //   zo += c'*po; h' = sig(zo)*tanh(c')          (peepholes optional)
 //   h = m*h' + (1-m)*h; c = m*c' + (1-m)*c      (fractional mask optional)
 //   ys[t] = h
+// and, in the training instantiation (kReserve), gates[t] = the
+// post-activation i|f|o|g and cseq[t] = the post-mask c. The block that
+// owns a unit writes its reserve, so the reserve costs no exchange. The
+// serving instantiation has no reserve code at all: a runtime null check
+// per cell cost the serving launch 2-3% on an H100 (PERF.md, findings).
 //
 // What bounds it on an H100: not bytes or FLOPs (at b=32, H=512 a step is
 // 33 MFLOP and RW is 2 MB) but the dependency chain: step t needs all of
@@ -25,7 +32,7 @@
 
 namespace dl4j {
 
-template <typename W>
+template <typename W, bool kReserve>
 __global__ void __launch_bounds__(kThreads)
 lstm_fwd_kernel(const float* __restrict__ xp,    // [T, B, 4H]
                 const W* __restrict__ rw,        // [H, 4H]
@@ -34,6 +41,8 @@ lstm_fwd_kernel(const float* __restrict__ xp,    // [T, B, 4H]
                 const float* __restrict__ h0,    // [B, H]
                 const float* __restrict__ c0,    // [B, H]
                 float* ys,                       // [T, B, H]
+                float* __restrict__ gates,       // [T, B, 4H] reserve or null
+                float* __restrict__ cseq,        // [T, B, H] reserve or null
                 float* __restrict__ hT,          // [B, H]
                 float* __restrict__ cT,          // [B, H]
                 int T, int B, int H, int HB) {
@@ -70,6 +79,7 @@ lstm_fwd_kernel(const float* __restrict__ xp,    // [T, B, 4H]
       const float* z = z_s + r * G;
       const float c = c_s[e];
       CellOut s = cell(z[u], z[HB + u], z[2 * HB + u], z[3 * HB + u], c, pi, pf, po, hu);
+      if constexpr (kReserve) store_gates(gates + ((size_t)t * B + r) * 4 * H, H, hu, s);
       if (mask != nullptr) {
         const float m = mask[(size_t)t * B + r];
         s.h = m * s.h + (1.0f - m) * __ldcg(hprev + (size_t)r * H + hu);
@@ -77,6 +87,7 @@ lstm_fwd_kernel(const float* __restrict__ xp,    // [T, B, 4H]
       }
       c_s[e] = s.c;
       yst[(size_t)r * H + hu] = s.h;
+      if constexpr (kReserve) cseq[(size_t)t * B * H + (size_t)r * H + hu] = s.c;
       if (t == T - 1) {
         hT[(size_t)r * H + hu] = s.h;
         cT[(size_t)r * H + hu] = s.c;
@@ -88,9 +99,10 @@ lstm_fwd_kernel(const float* __restrict__ xp,    // [T, B, 4H]
 
 template <typename W>
 int launch(const void* xp, const void* rw, const void* peep, const void* mask, const void* h0,
-           const void* c0, void* ys, void* hT, void* cT, int T, int B, int H, cudaStream_t stream) {
+           const void* c0, void* ys, void* gates, void* cseq, void* hT, void* cT, int T, int B,
+           int H, cudaStream_t stream) {
   if (H % 8) return (int)cudaErrorInvalidValue;
-  auto kernel = lstm_fwd_kernel<W>;
+  auto kernel = gates != nullptr ? lstm_fwd_kernel<W, true> : lstm_fwd_kernel<W, false>;
   auto smem_for = [&](int hb) {
     return (size_t)B * 5 * hb * sizeof(float) + ((size_t)H * 4 * hb + (size_t)B * H) * sizeof(W);
   };
@@ -104,9 +116,12 @@ int launch(const void* xp, const void* rw, const void* peep, const void* mask, c
   const float* h0_ = static_cast<const float*>(h0);
   const float* c0_ = static_cast<const float*>(c0);
   float* ys_ = static_cast<float*>(ys);
+  float* gates_ = static_cast<float*>(gates);
+  float* cseq_ = static_cast<float*>(cseq);
   float* hT_ = static_cast<float*>(hT);
   float* cT_ = static_cast<float*>(cT);
-  void* args[] = {&xp_, &rw_, &peep_, &mask_, &h0_, &c0_, &ys_, &hT_, &cT_, &T, &B, &H, &HB};
+  void* args[] = {&xp_, &rw_, &peep_, &mask_, &h0_, &c0_, &ys_,
+                  &gates_, &cseq_, &hT_, &cT_, &T, &B, &H, &HB};
   cudaError_t err = cudaLaunchCooperativeKernel((const void*)kernel, dim3(H / HB), dim3(kThreads),
                                                 args, smem, stream);
   if (err != cudaSuccess) return (int)err;
@@ -116,13 +131,16 @@ int launch(const void* xp, const void* rw, const void* peep, const void* mask, c
 }  // namespace dl4j
 
 // Plain C entry bound with ctypes. rw_bf16 selects the weights' type
-// (bf16 or f32); every other tensor is f32 and contiguous. Returns a
-// cudaError_t (0 on success).
+// (bf16 or f32); every other tensor is f32 and contiguous; gates and cseq
+// are both set (training) or both null (inference). Returns a cudaError_t
+// (0 on success).
 extern "C" int dl4j_lstm_fwd(const void* xp, const void* rw, int rw_bf16, const void* peep,
-                             const void* mask, const void* h0, const void* c0, void* ys, void* hT,
-                             void* cT, int T, int B, int H, void* stream) {
+                             const void* mask, const void* h0, const void* c0, void* ys,
+                             void* gates, void* cseq, void* hT, void* cT, int T, int B, int H,
+                             void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (rw_bf16)
-    return dl4j::launch<__nv_bfloat16>(xp, rw, peep, mask, h0, c0, ys, hT, cT, T, B, H, s);
-  return dl4j::launch<float>(xp, rw, peep, mask, h0, c0, ys, hT, cT, T, B, H, s);
+    return dl4j::launch<__nv_bfloat16>(xp, rw, peep, mask, h0, c0, ys, gates, cseq, hT, cT, T, B,
+                                       H, s);
+  return dl4j::launch<float>(xp, rw, peep, mask, h0, c0, ys, gates, cseq, hT, cT, T, B, H, s);
 }

@@ -1,10 +1,14 @@
-// Shared pieces of the persistent-LSTM kernels (lstm_cell.cu, lstm_fused.cu).
+// Shared pieces of the persistent-LSTM kernels: the forwards (lstm_cell.cu,
+// lstm_fused.cu) and their BPTT backwards (lstm_cell_bwd.cu,
+// lstm_fused_bwd.cu).
 //
-// Both kernels split the hidden units over the blocks of one cooperative
+// All four split the hidden units over the blocks of one cooperative
 // grid: block k owns units [k*HB, (k+1)*HB) and ALL FOUR gate columns of
 // them (i|f|o|g are four contiguous H-blocks of the [H, 4H] weights), so
-// the cell update is local to the block and only h_t crosses blocks,
-// through global memory (L2-resident at serving sizes) and a grid.sync().
+// the cell update (and its gradient) is local to the block. Only the
+// recurrent operand crosses blocks, through global memory (L2-resident at
+// these sizes) and a grid.sync(): h_t in the forwards, dz_t in the
+// backwards.
 #pragma once
 
 #include <cooperative_groups.h>
@@ -66,6 +70,25 @@ __device__ void load_h(W* dst, const float* src, int n) {
   }
 }
 
+// Eight consecutive values of a tensor that another block wrote in this
+// launch: read through L2 only (__ldcg), 16-byte aligned.
+__device__ __forceinline__ void load8_cg(const float* p, float (&f)[8]) {
+  const float4 a = __ldcg(reinterpret_cast<const float4*>(p));
+  const float4 b = __ldcg(reinterpret_cast<const float4*>(p) + 1);
+  f[0] = a.x; f[1] = a.y; f[2] = a.z; f[3] = a.w;
+  f[4] = b.x; f[5] = b.y; f[6] = b.z; f[7] = b.w;
+}
+__device__ __forceinline__ void load8_cg(const __nv_bfloat16* p, float (&f)[8]) {
+  const uint4 u = __ldcg(reinterpret_cast<const uint4*>(p));
+  const __nv_bfloat162* b = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 t = __bfloat1622float2(b[i]);
+    f[2 * i] = t.x;
+    f[2 * i + 1] = t.y;
+  }
+}
+
 __device__ __forceinline__ void load8(const float* p, float (&f)[8]) {
   const float4 a = reinterpret_cast<const float4*>(p)[0], b = reinterpret_cast<const float4*>(p)[1];
   f[0] = a.x; f[1] = a.y; f[2] = a.z; f[3] = a.w;
@@ -99,6 +122,7 @@ __device__ __forceinline__ float dot_col(const W* h_row, const W* w, int H, int 
 
 struct CellOut {
   float h, c;
+  float i, f, o, g;  // post-activation gates: the BPTT reserve
 };
 
 // One LSTM cell from pre-activations (Graves peepholes when pi != nullptr):
@@ -114,8 +138,97 @@ __device__ __forceinline__ CellOut cell(float zi, float zf, float zo, float zg, 
   const float cn = f * c + i * g;
   if (po != nullptr) zo = zo + cn * po[hu];
   const float o = sigm(zo);
-  return {o * tanhf(cn), cn};
+  return {o * tanhf(cn), cn, i, f, o, g};
 }
+
+// Write a cell's gates into a [.., 4H] reserve row at unit hu (i|f|o|g).
+__device__ __forceinline__ void store_gates(float* row, int H, int hu, const CellOut& s) {
+  row[hu] = s.i;
+  row[H + hu] = s.f;
+  row[2 * H + hu] = s.o;
+  row[3 * H + hu] = s.g;
+}
+
+struct CellGrad {
+  float dzi, dzf, dzo, dzg;  // pre-activation gradients
+  float dc_prev;             // gradient to c_{t-1} through this cell
+};
+
+// BPTT of one cell (the math of the JAX _bwd_kernel): dh and dc are the
+// gradients reaching h_t and c_t (already scaled by the step mask where
+// there is one), i/f/o/g the saved gates, c_cand the pre-mask c_t and
+// c_prev = c_{t-1}. Peephole terms when pi != nullptr.
+__device__ __forceinline__ CellGrad cell_bwd(float i, float f, float o, float g, float c_cand,
+                                             float c_prev, float dh, float dc, const float* pi,
+                                             const float* pf, const float* po, int hu) {
+  const float tc = tanhf(c_cand);
+  const float dzo = dh * tc * o * (1.0f - o);
+  float dcc = dc + dh * o * (1.0f - tc * tc);
+  if (po != nullptr) dcc = dcc + dzo * po[hu];
+  const float dzi = dcc * g * i * (1.0f - i);
+  const float dzf = dcc * c_prev * f * (1.0f - f);
+  const float dzg = dcc * i * (1.0f - g * g);
+  float dcp = dcc * f;
+  if (pi != nullptr) dcp = dcp + dzi * pi[hu] + dzf * pf[hu];
+  return {dzi, dzf, dzo, dzg, dcp};
+}
+
+// The backward's recurrent product, dh[r, u] = sum_k bf16(dz[r, k]) *
+// W[u0 + u, k] over k < K = 4H, for all HB units of the block at once.
+// kSplit consecutive lanes share one row r, each taking every kSplit-th
+// 8-wide chunk of k (a warp reads four rows' 128-byte runs of dz through
+// L2 and the matching 128 bytes of each weight row from shared memory,
+// conflict-free); lane_reduce then folds the kSplit partial sums.
+constexpr int kSplit = 8;
+constexpr int kMaxHB = 8;  // accumulators per thread and weight slice
+
+// acc[n][u] += dz_row[k] * w[n][u * K + k] over this lane's chunks.
+template <typename W, int N>
+__device__ __forceinline__ void row_dot(const W* dz_row, const W* const (&w)[N], int K, int HB,
+                                        int s, float (&acc)[N][kMaxHB]) {
+  for (int c = s; c < K / 8; c += kSplit) {
+    float dv[8];
+    load8_cg(dz_row + c * 8, dv);
+#pragma unroll
+    for (int n = 0; n < N; ++n) {
+#pragma unroll
+      for (int u = 0; u < kMaxHB; ++u) {
+        if (u < HB) {
+          float wv[8];
+          load8(w[n] + (size_t)u * K + c * 8, wv);
+#pragma unroll
+          for (int q = 0; q < 8; ++q) acc[n][u] = fmaf(dv[q], wv[q], acc[n][u]);
+        }
+      }
+    }
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void lane_reduce(float (&acc)[N][kMaxHB]) {
+#pragma unroll
+  for (int off = kSplit / 2; off > 0; off /= 2)
+#pragma unroll
+    for (int n = 0; n < N; ++n)
+#pragma unroll
+      for (int u = 0; u < kMaxHB; ++u) acc[n][u] += __shfl_xor_sync(0xffffffffu, acc[n][u], off);
+}
+
+// Copy rows [u0, u0 + HB) of a [H, 4H] weight into shared memory as
+// [HB][4H] (the layout row_dot reads).
+template <typename W>
+__device__ void load_unit_rows(W* dst, const W* __restrict__ src, int H, int HB, int u0) {
+  const int K = 4 * H;
+  for (int idx = threadIdx.x; idx < HB * K; idx += blockDim.x)
+    dst[idx] = src[(size_t)(u0 + idx / K) * K + idx % K];
+}
+
+__device__ __forceinline__ void store_w(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store_w(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
+
+// Work items of row_dot: kSplit lanes per row, padded to whole warps so
+// that every lane of a warp takes part in the shuffles.
+__host__ __device__ __forceinline__ int dot_items(int B) { return (B * kSplit + 31) / 32 * 32; }
 
 constexpr int kThreads = 512;
 

@@ -1,15 +1,21 @@
-// K3: fused two-layer persistent LSTM forward, inference, no step mask.
+// K3: fused two-layer persistent LSTM forward, no step mask, with the BPTT
+// reserve on the training path.
 //
 // Replaces the Pallas kernel deeplearning4j_tpu/ops/lstm_fused.py
-// `_fwd2_kernel` (wrapper `_fwd2`, called with save_reserve=False by
-// `_lstm2`).
+// `_fwd2_kernel` (wrapper `_fwd2`): inference calls it with
+// save_reserve=False (`_lstm2`), training with the reserve (`_lstm2_fwd`).
 //
 // What it computes, per step t (gate layout i|f|o|g, f32 accumulation):
 //   z1 = xp[t] + bf16(h1) @ RW1                 -> cell -> h1, c1
 //   z2 = b2 + bf16(h1) @ W2 + bf16(h2) @ RW2    -> cell -> h2, c2
 //   ys2[t] = h2
-// with the same cell (and optional Graves peepholes) as lstm_cell.cu. The
-// layer-1 output never goes to memory as a sequence: no ys1, no xp2.
+// with the same cell (and optional Graves peepholes) as lstm_cell.cu. In
+// inference the layer-1 output never goes to memory as a sequence (no
+// ys1, no xp2). Training also writes ys1 (layer 1's h, which the backward
+// needs for dW2 and dRW1), g1/g2 (post-activation i|f|o|g) and c1/c2 (the
+// c sequences); each block writes its own units' reserve. The reserve is
+// a template parameter (kReserve), so the serving instantiation carries no
+// reserve code.
 //
 // What bounds it on an H100: the dependency chain again (two cells per
 // step, each needing the whole previous h); the three [H, 4H] weights are
@@ -21,12 +27,13 @@
 // step p-1. Both need only h1_{p-1} and h2_{p-2}, which the previous phase
 // published, so one grid.sync() per phase serves both layers: T+1 phases,
 // not 2T. h1 crosses blocks through a two-slot f32 scratch buffer (slot
-// p&1 written in phase p, slot (p-1)&1 read), h2 through ys2.
+// p&1 written in phase p, slot (p-1)&1 read), or through ys1 when the
+// reserve is written; h2 through ys2.
 #include "lstm_common.cuh"
 
 namespace dl4j {
 
-template <typename W>
+template <typename W, bool kReserve>
 __global__ void __launch_bounds__(kThreads)
 lstm2_fwd_kernel(const float* __restrict__ xp,    // [T, B, 4H] layer-1 projection + bias
                  const W* __restrict__ rw1,       // [H, 4H]
@@ -35,8 +42,13 @@ lstm2_fwd_kernel(const float* __restrict__ xp,    // [T, B, 4H] layer-1 projecti
                  const float* __restrict__ b2,    // [4H]
                  const float* __restrict__ peep,  // [6, H] (layer 1 pi,pf,po; layer 2) or null
                  const float* __restrict__ h0,    // [4, B, H] (h1, c1, h2, c2)
-                 float* hx,                       // [2, B, H] scratch: h1 exchange
+                 float* hx,                       // [2, B, H] h1 exchange, or null with ys1
                  float* ys2,                      // [T, B, H]
+                 float* ys1,                      // [T, B, H] reserve or null
+                 float* __restrict__ g1,          // [T, B, 4H] reserve or null
+                 float* __restrict__ c1,          // [T, B, H] reserve or null
+                 float* __restrict__ g2,          // [T, B, 4H] reserve or null
+                 float* __restrict__ c2,          // [T, B, H] reserve or null
                  float* __restrict__ hc,          // [4, B, H] final (h1, c1, h2, c2)
                  int T, int B, int H, int HB) {
   cg::grid_group grid = cg::this_grid();
@@ -67,7 +79,9 @@ lstm2_fwd_kernel(const float* __restrict__ xp,    // [T, B, 4H] layer-1 projecti
 
   for (int p = 0; p <= T; ++p) {
     const bool l1 = p < T, l2 = p >= 1;  // layer 1 at step p, layer 2 at step p-1
-    const float* h1prev = p == 0 ? h0 : hx + ((p - 1) & 1) * BH;          // h1_{p-1}
+    const float* h1prev = p == 0 ? h0
+                          : kReserve ? ys1 + (size_t)(p - 1) * BH
+                                     : hx + ((p - 1) & 1) * BH;  // h1_{p-1}
     const float* h2prev = p < 2 ? h0 + 2 * BH : ys2 + (size_t)(p - 2) * BH;  // h2_{p-2}
     load_h(h1_s, h1prev, (int)BH);
     if (l2) load_h(h2_s, h2prev, (int)BH);
@@ -91,7 +105,13 @@ lstm2_fwd_kernel(const float* __restrict__ xp,    // [T, B, 4H] layer-1 projecti
         CellOut s = cell(z[u], z[HB + u], z[2 * HB + u], z[3 * HB + u], c1_s[e], p1,
                          p1 ? p1 + H : nullptr, p1 ? p1 + 2 * H : nullptr, hu);
         c1_s[e] = s.c;
-        hx[(p & 1) * BH + at] = s.h;
+        if constexpr (kReserve) {
+          ys1[(size_t)p * BH + at] = s.h;
+          store_gates(g1 + ((size_t)p * B + r) * 4 * H, H, hu, s);
+          c1[(size_t)p * BH + at] = s.c;
+        } else {
+          hx[(p & 1) * BH + at] = s.h;
+        }
         if (p == T - 1) {
           hc[at] = s.h;
           hc[BH + at] = s.c;
@@ -103,6 +123,10 @@ lstm2_fwd_kernel(const float* __restrict__ xp,    // [T, B, 4H] layer-1 projecti
                          p2 ? p2 + H : nullptr, p2 ? p2 + 2 * H : nullptr, hu);
         c2_s[e] = s.c;
         ys2[(size_t)(p - 1) * BH + at] = s.h;
+        if constexpr (kReserve) {
+          store_gates(g2 + ((size_t)(p - 1) * B + r) * 4 * H, H, hu, s);
+          c2[(size_t)(p - 1) * BH + at] = s.c;
+        }
         if (p == T) {
           hc[2 * BH + at] = s.h;
           hc[3 * BH + at] = s.c;
@@ -115,10 +139,10 @@ lstm2_fwd_kernel(const float* __restrict__ xp,    // [T, B, 4H] layer-1 projecti
 
 template <typename W>
 int launch2(const void* xp, const void* rw1, const void* w2, const void* rw2, const void* b2,
-            const void* peep, const void* h0, void* hx, void* ys2, void* hc, int T, int B, int H,
-            cudaStream_t stream) {
+            const void* peep, const void* h0, void* hx, void* ys2, void* ys1, void* g1, void* c1,
+            void* g2, void* c2, void* hc, int T, int B, int H, cudaStream_t stream) {
   if (H % 8) return (int)cudaErrorInvalidValue;
-  auto kernel = lstm2_fwd_kernel<W>;
+  auto kernel = ys1 != nullptr ? lstm2_fwd_kernel<W, true> : lstm2_fwd_kernel<W, false>;
   auto smem_for = [&](int hb) {
     return (size_t)B * 10 * hb * sizeof(float) +
            ((size_t)3 * H * 4 * hb + (size_t)2 * B * H) * sizeof(W);
@@ -135,9 +159,14 @@ int launch2(const void* xp, const void* rw1, const void* w2, const void* rw2, co
   const float* h0_ = static_cast<const float*>(h0);
   float* hx_ = static_cast<float*>(hx);
   float* ys2_ = static_cast<float*>(ys2);
+  float* ys1_ = static_cast<float*>(ys1);
+  float* g1_ = static_cast<float*>(g1);
+  float* c1_ = static_cast<float*>(c1);
+  float* g2_ = static_cast<float*>(g2);
+  float* c2_ = static_cast<float*>(c2);
   float* hc_ = static_cast<float*>(hc);
-  void* args[] = {&xp_, &rw1_, &w2_, &rw2_, &b2_, &peep_, &h0_, &hx_, &ys2_, &hc_,
-                  &T, &B, &H, &HB};
+  void* args[] = {&xp_, &rw1_, &w2_, &rw2_, &b2_, &peep_, &h0_, &hx_, &ys2_, &ys1_,
+                  &g1_, &c1_, &g2_, &c2_, &hc_, &T, &B, &H, &HB};
   cudaError_t err = cudaLaunchCooperativeKernel((const void*)kernel, dim3(H / HB), dim3(kThreads),
                                                 args, smem, stream);
   if (err != cudaSuccess) return (int)err;
@@ -147,13 +176,17 @@ int launch2(const void* xp, const void* rw1, const void* w2, const void* rw2, co
 }  // namespace dl4j
 
 // Plain C entry bound with ctypes. w_bf16 selects the type of rw1/w2/rw2
-// (bf16 or f32); every other tensor is f32 and contiguous. Returns a
-// cudaError_t (0 on success).
+// (bf16 or f32); every other tensor is f32 and contiguous. Inference
+// passes hx and null reserves; training passes ys1, g1, c1, g2, c2 and a
+// null hx. Returns a cudaError_t (0 on success).
 extern "C" int dl4j_lstm2_fwd(const void* xp, const void* rw1, const void* w2, const void* rw2,
                               int w_bf16, const void* b2, const void* peep, const void* h0,
-                              void* hx, void* ys2, void* hc, int T, int B, int H, void* stream) {
+                              void* hx, void* ys2, void* ys1, void* g1, void* c1, void* g2,
+                              void* c2, void* hc, int T, int B, int H, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (w_bf16)
-    return dl4j::launch2<__nv_bfloat16>(xp, rw1, w2, rw2, b2, peep, h0, hx, ys2, hc, T, B, H, s);
-  return dl4j::launch2<float>(xp, rw1, w2, rw2, b2, peep, h0, hx, ys2, hc, T, B, H, s);
+    return dl4j::launch2<__nv_bfloat16>(xp, rw1, w2, rw2, b2, peep, h0, hx, ys2, ys1, g1, c1, g2,
+                                        c2, hc, T, B, H, s);
+  return dl4j::launch2<float>(xp, rw1, w2, rw2, b2, peep, h0, hx, ys2, ys1, g1, c1, g2, c2, hc, T,
+                              B, H, s);
 }

@@ -3,10 +3,10 @@
 Counterpart of ``deeplearning4j_tpu/nn/conf/__init__.py``. Global settings
 live once in :class:`GlobalConfig` and per-layer configs override them,
 resolved at network init. ``dtype``/``compute_dtype`` are the
-mixed-precision policy (f32 parameters, bf16 matmul operands). Updater and
+mixed-precision policy (f32 parameters, bf16 matmul operands). Updaters and
+learning-rate schedules decode to the classes of ``nn/updaters.py``;
 weight-distribution configs are carried as data (:class:`serde.PlainConfig`)
-so that JSON written by the JAX package decodes; the port serves and does
-not train yet.
+so that JSON written by the JAX package decodes.
 """
 from __future__ import annotations
 
@@ -19,19 +19,34 @@ from .serde import register, to_json, from_json
 from .inputs import InputType
 from .layers import Layer
 
+from ..updaters import SCHEDULES, UPDATERS, Sgd
+
 __all__ = ["GlobalConfig", "MultiLayerConfiguration", "ListBuilder",
-           "Builder", "NeuralNetConfiguration", "InputType"]
+           "Builder", "NeuralNetConfiguration", "InputType",
+           "GradientNormalization", "BackpropType"]
+
+for _cls in (*UPDATERS.values(), *SCHEDULES.values()):
+    register(_cls)
 
 serde.register_plain(
-    # updaters (deeplearning4j_tpu/nn/updaters.py)
-    "Sgd", "Adam", "AdaMax", "Nadam", "Nesterovs", "RmsProp", "AdaGrad",
-    "AdaDelta", "NoOp", "AMSGrad",
-    # learning-rate schedules
-    "FixedSchedule", "ExponentialSchedule", "InverseSchedule", "PolySchedule",
-    "SigmoidSchedule", "StepSchedule", "MapSchedule", "WarmupCosineSchedule",
     # weight-init distributions (deeplearning4j_tpu/nn/weights.py)
     "NormalDistribution", "GaussianDistribution", "UniformDistribution",
     "ConstantDistribution", "BinomialDistribution")
+
+
+class GradientNormalization:
+    """Reference ``nn/conf/GradientNormalization.java``."""
+    None_ = "none"
+    RenormalizeL2PerLayer = "renormalize_l2_per_layer"
+    RenormalizeL2PerParamType = "renormalize_l2_per_param_type"
+    ClipElementWiseAbsoluteValue = "clip_elementwise_absolute_value"
+    ClipL2PerLayer = "clip_l2_per_layer"
+    ClipL2PerParamType = "clip_l2_per_param_type"
+
+
+class BackpropType:
+    Standard = "standard"
+    TruncatedBPTT = "tbptt"
 
 
 @register
@@ -40,7 +55,7 @@ class GlobalConfig:
     """Defaults applied to every layer unless overridden per-layer. The
     field set is the JAX package's, so its JSON decodes unchanged."""
     seed: int = 12345
-    updater: Any = None
+    updater: Any = None                      # IUpdater; Sgd(1e-1) if unset
     weight_init: str = "xavier"
     dist: Any = None
     activation: str = "sigmoid"
@@ -74,7 +89,7 @@ class MultiLayerConfiguration:
     input_type: Any = None
     backprop: bool = True
     pretrain: bool = False
-    backprop_type: str = "standard"
+    backprop_type: str = BackpropType.Standard
     tbptt_fwd_length: int = 20
     tbptt_back_length: int = 20
 
@@ -97,6 +112,9 @@ class ListBuilder:
         self._global = global_conf
         self._layers: List[Layer] = []
         self._input_type = None
+        self._backprop_type = BackpropType.Standard
+        self._tbptt_fwd = 20
+        self._tbptt_back = 20
 
     def layer(self, idx_or_layer, layer=None) -> "ListBuilder":
         if layer is None:
@@ -114,6 +132,24 @@ class ListBuilder:
 
     setInputType = set_input_type
 
+    def backprop_type(self, t) -> "ListBuilder":
+        self._backprop_type = t
+        return self
+
+    backpropType = backprop_type
+
+    def t_bptt_forward_length(self, n) -> "ListBuilder":
+        self._tbptt_fwd = int(n)
+        return self
+
+    tBPTTForwardLength = t_bptt_forward_length
+
+    def t_bptt_backward_length(self, n) -> "ListBuilder":
+        self._tbptt_back = int(n)
+        return self
+
+    tBPTTBackwardLength = t_bptt_backward_length
+
     def build(self) -> MultiLayerConfiguration:
         layers = list(self._layers)
         if any(l is None for l in layers):
@@ -125,7 +161,10 @@ class ListBuilder:
                 layer.set_n_in(it, override=False)
                 it = layer.get_output_type(i, it)
         return MultiLayerConfiguration(global_conf=self._global, layers=layers,
-                                       input_type=self._input_type)
+                                       input_type=self._input_type,
+                                       backprop_type=self._backprop_type,
+                                       tbptt_fwd_length=self._tbptt_fwd,
+                                       tbptt_back_length=self._tbptt_back)
 
 
 class Builder:
@@ -141,8 +180,37 @@ class Builder:
     def seed(self, s):
         return self._set("seed", int(s))
 
+    def iterations(self, n):
+        """n optimizer iterations per minibatch (TBPTT segment)."""
+        return self._set("iterations", int(n))
+
     def updater(self, u):
         return self._set("updater", u)
+
+    def l1(self, v):
+        return self._set("l1", float(v))
+
+    def l2(self, v):
+        return self._set("l2", float(v))
+
+    def l1_bias(self, v):
+        return self._set("l1_bias", float(v))
+
+    def l2_bias(self, v):
+        return self._set("l2_bias", float(v))
+
+    def minimize(self, flag=True):
+        return self._set("minimize", bool(flag))
+
+    def gradient_normalization(self, g):
+        return self._set("gradient_normalization", g)
+
+    gradientNormalization = gradient_normalization
+
+    def gradient_normalization_threshold(self, t):
+        return self._set("gradient_normalization_threshold", float(t))
+
+    gradientNormalizationThreshold = gradient_normalization_threshold
 
     def weight_init(self, w):
         return self._set("weight_init", w)
@@ -172,11 +240,16 @@ class Builder:
     def compute_dtype(self, d):
         return self._set("compute_dtype", str(d))
 
+    def _with_default_updater(self) -> GlobalConfig:
+        if self._conf.updater is None:
+            self._conf.updater = Sgd(learning_rate=1e-1)
+        return copy.deepcopy(self._conf)
+
     def list(self) -> ListBuilder:
-        return ListBuilder(copy.deepcopy(self._conf))
+        return ListBuilder(self._with_default_updater())
 
     def build(self) -> GlobalConfig:
-        return copy.deepcopy(self._conf)
+        return self._with_default_updater()
 
 
 class NeuralNetConfiguration:

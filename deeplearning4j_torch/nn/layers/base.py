@@ -2,8 +2,13 @@
 
 Counterpart of ``deeplearning4j_tpu/nn/layers/base.py``. Each
 implementation is an ``nn.Module`` built from its layer config; its
-parameters carry the reference names (``W``, ``RW``, ``b``, ``pi`` ...)
-and ``forward(x, mask=None, ctx=None)`` runs inference.
+trainable parameters carry the reference names (``W``, ``RW``, ``b``,
+``pi`` ...), ``forward(x, mask=None, ctx=None)`` runs the layer (autograd
+records it when the caller trains), and ``regularization()`` gives the
+L1/L2 penalty. Dropout and weight noise draw from the JAX package's random
+streams and are not ported: a training forward of a layer that configures
+either raises (:meth:`LayerImpl.check_trainable`); inference ignores them,
+as the reference does.
 
 Dtype policy (``base.py:78-86``, ``:211-226`` of the JAX package):
 parameters live in ``dtype`` (f32 masters); matmul operands are cast to
@@ -56,6 +61,10 @@ def impl_for(conf, global_conf) -> "LayerImpl":
     return _IMPL_REGISTRY[name](conf, global_conf)
 
 
+def _is_bias_key(k: str) -> bool:
+    return k == "b" or k.endswith("_b") or k == "beta"
+
+
 def _resolved(conf, gc, field, default=None):
     v = getattr(conf, field, None)
     if v is None:
@@ -80,7 +89,29 @@ class LayerImpl(nn.Module):
         self.weight_init = _resolved(conf, gc, "weight_init", "xavier")
         self.dist = _resolved(conf, gc, "dist")
         self.bias_init = float(_resolved(conf, gc, "bias_init", 0.0))
+        self.l1 = float(_resolved(conf, gc, "l1", 0.0))
+        self.l2 = float(_resolved(conf, gc, "l2", 0.0))
+        self.l1_bias = float(_resolved(conf, gc, "l1_bias", 0.0))
+        self.l2_bias = float(_resolved(conf, gc, "l2_bias", 0.0))
         self.dropout_p = _resolved(conf, gc, "dropout")
+        self.weight_noise = getattr(conf, "weight_noise", None)
+
+    def dropout_active(self) -> bool:
+        """Whether dropout applies in training: a retain probability below 1
+        (the JAX ``resolve_dropout``) or a dropout object."""
+        p = self.dropout_p
+        return p is not None and not (isinstance(p, (int, float)) and p >= 1.0)
+
+    def check_trainable(self) -> None:
+        """Raise for what a training forward of this layer would need and the
+        port does not have yet, rather than skip it silently."""
+        for what, on in (("dropout", self.dropout_active()),
+                         ("weight noise", self.weight_noise is not None),
+                         ("parameter constraints", bool(getattr(self.conf, "constraints", None)))):
+            if on:
+                raise NotImplementedError(
+                    f"layer {self.index} ({type(self.conf).__name__}): training with "
+                    f"{what} is not ported yet")
 
     # ----------------------------------------------------------- parameters
     def param_shapes(self) -> Dict[str, Tuple[int, ...]]:
@@ -94,8 +125,8 @@ class LayerImpl(nn.Module):
                            self.dist, self.dtype)
 
     def set_params(self, params: Dict[str, torch.Tensor], device) -> None:
-        """Install ``params`` (shape-checked against the config, cast to
-        ``dtype``) on ``device``."""
+        """Install copies of ``params`` (shape-checked against the config,
+        cast to ``dtype``) on ``device`` as trainable parameters."""
         want = self.param_shapes()
         if set(params) != set(want):
             raise ValueError(f"layer {self.index} ({type(self.conf).__name__}):"
@@ -108,10 +139,22 @@ class LayerImpl(nn.Module):
                                  f"shape {tuple(t.shape)}, config needs "
                                  f"{tuple(shape)}")
             self.register_parameter(name, nn.Parameter(
-                t.to(device=device, dtype=self.dtype), requires_grad=False))
+                t.detach().to(device=device, dtype=self.dtype).clone()))
 
     def param_dict(self) -> Dict[str, torch.Tensor]:
         return {k: v for k, v in self.named_parameters(recurse=False)}
+
+    def regularization(self):
+        """L1/L2 penalty (reference ``BaseLayer.calcL1/calcL2``), weights and
+        biases with their own coefficients; 0.0 when none is set."""
+        total = 0.0
+        for k, v in self.param_dict().items():
+            l1, l2 = (self.l1_bias, self.l2_bias) if _is_bias_key(k) else (self.l1, self.l2)
+            if l1:
+                total = total + l1 * v.abs().sum()
+            if l2:
+                total = total + 0.5 * l2 * (v * v).sum()
+        return total
 
     def forward(self, x, mask=None, ctx=None):
         raise NotImplementedError

@@ -1,9 +1,12 @@
-"""Recurrent layer implementations: LSTM and GravesLSTM (inference).
+"""Recurrent layer implementations: LSTM and GravesLSTM.
 
 Counterpart of ``deeplearning4j_tpu/nn/layers/recurrent.py``. The input
 projection is hoisted out of the time loop: one [b*T, nIn] x [nIn, 4H]
 matmul (``recurrent.py:97-100``), left to ``torch.matmul``; the sequential
-part runs in the persistent-LSTM kernel (``ops/lstm_cell.py``, K1).
+part runs in the persistent-LSTM kernels (``ops/lstm_cell.py``): K1 for
+inference and, while autograd records (training), K1 writing the BPTT
+reserve forward and K2 backward. The step mask is data and gets no
+gradient (``recurrent.py:92``).
 
 Sequence layout is [batch, time, features]; gate order in the 4H dimension
 is i, f, o, g. Param keys: "W" [nIn, 4H], "RW" [H, 4H], "b" [4H]; Graves

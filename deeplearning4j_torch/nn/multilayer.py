@@ -1,17 +1,25 @@
-"""MultiLayerNetwork: sequential network container (inference).
+"""MultiLayerNetwork: sequential network container.
 
-Counterpart of ``deeplearning4j_tpu/nn/multilayer.py``: ``init``,
-``output``, ``rnn_time_step``, ``rnn_clear_previous_state`` and the
-pair-fusion routing of ``_apply_layers`` (``multilayer.py:272-374``). Two
-consecutive plain LSTM layers run as one fused kernel (``ops/lstm_fused.py``,
-K3) when :meth:`MultiLayerNetwork._lstm_pair_fusable` admits them; every
-other recurrent layer runs the per-layer kernel (``ops/lstm_cell.py``, K1).
+Counterpart of ``deeplearning4j_tpu/nn/multilayer.py``. Inference:
+``init``, ``output``, ``rnn_time_step``, ``rnn_clear_previous_state``.
+Training: ``fit`` (a DataSet, an iterator, or arrays), one update per
+minibatch or, with truncated BPTT, per segment (``_fit_batch``,
+``_fit_tbptt``), ``score`` and ``compute_gradient_and_score``. The update
+is the JAX step core (``_raw_update_core``/``_raw_step``): loss ->
+autograd gradients -> minimize flip -> ``normalize_gradients`` -> the
+layer's updater -> ``p - u``, applied in place.
 
-Training is not ported yet: the network is built for inference and runs
-under ``torch.inference_mode``.
+Two consecutive plain LSTM layers run as one fused kernel
+(``ops/lstm_fused.py``: K3, and K4 backward in training) when
+:meth:`MultiLayerNetwork._lstm_pair_fusable` admits them
+(``multilayer.py:299-334``); every other recurrent layer runs the
+per-layer kernel (``ops/lstm_cell.py``: K1, and K2 backward). Eager
+PyTorch takes the place of the JAX package's jitted step and its
+``lax.scan`` over TBPTT segments.
 """
 from __future__ import annotations
 
+import logging
 from typing import Dict, Optional
 
 import numpy as np
@@ -19,13 +27,29 @@ import torch
 from torch import nn
 
 from .. import resolve_device
-from .conf import MultiLayerConfiguration
+from .conf import BackpropType, MultiLayerConfiguration
 from .conf.layers import FeedForwardLayer
 from .layers import impl_for
 from .layers.recurrent import _BaseLSTMImpl
+from .updaters import Sgd
+from ..datasets.dataset import DataSet, ListDataSetIterator
 from ..ops import lstm_fused
+from ..optimize.updater import NetworkUpdater, normalize_gradients
 
 __all__ = ["MultiLayerNetwork"]
+
+log = logging.getLogger(__name__)
+
+
+def _n_iterations(gc) -> int:
+    """Optimizer iterations per minibatch or TBPTT segment (0.9.x
+    ``iterations``)."""
+    return int(getattr(gc, "iterations", 1) or 1)
+
+
+def _detached(state):
+    return None if state is None else {i: tuple(t.detach() for t in hc)
+                                       for i, hc in state.items()}
 
 
 class MultiLayerNetwork(nn.Module):
@@ -35,17 +59,21 @@ class MultiLayerNetwork(nn.Module):
         self.gc = conf.global_conf
         self.impls = None
         self.device = None
+        self.updater = None         # NetworkUpdater
+        self.updater_state = None   # {"0": {"W": state, ...}, ...}
         self.iteration_count = 0
         self.epoch_count = 0
+        self.score_ = float("nan")
         self._rnn_state = None      # streaming state for rnn_time_step
+        self._warned_tbptt = False
 
     # ------------------------------------------------------------------ init
     def init(self, params: Optional[Dict[str, Dict]] = None, device="cuda"):
         """Build the layer implementations on ``device`` (the card unless
         ``device="cpu"``). ``params`` ({"0": {"W": ...}, ...}, tensors or
-        arrays) installs given weights, shape-checked against the config;
-        without it, weights are drawn from a ``torch.Generator`` seeded with
-        the config's seed."""
+        arrays) installs copies of given weights, shape-checked against the
+        config; without it, weights are drawn from a ``torch.Generator``
+        seeded with the config's seed. Updater state starts at zero."""
         dev = resolve_device(device)
         layers = self.conf.layers
         it = self.conf.input_type
@@ -74,10 +102,21 @@ class MultiLayerNetwork(nn.Module):
         self.impls = nn.ModuleList(impls)
         self.device = dev
         self._rnn_state = None
+        # one updater per layer: its own override or the global default
+        self.updater = NetworkUpdater({
+            str(i): getattr(lc, "updater", None) or self.gc.updater or Sgd(learning_rate=1e-1)
+            for i, lc in enumerate(layers)})
+        self.updater_state = self.updater.init_state(self.params)
         return self
 
     @property
     def params(self) -> Dict[str, Dict[str, torch.Tensor]]:
+        """{"0": {"W": tensor, ...}, ...}: detached views of the parameters
+        (they share storage, so they follow training)."""
+        return {i: {k: p.detach() for k, p in ps.items()}
+                for i, ps in self._trainable().items()}
+
+    def _trainable(self) -> Dict[str, Dict[str, nn.Parameter]]:
         return {str(i): impl.param_dict() for i, impl in enumerate(self.impls)}
 
     # -------------------------------------------------------------- forward
@@ -89,14 +128,16 @@ class MultiLayerNetwork(nn.Module):
             t = t.float()
         return t.to(self.device)
 
-    def _apply_layers(self, x, fmask, rnn_state_in=None):
+    def _apply_layers(self, x, fmask, rnn_state_in=None, train=False, upto=None):
+        """Run layers [0, upto). Returns (x, ctx); ``ctx["rnn_state_out"]``
+        holds each recurrent layer's final (h, c)."""
         ctx = {}
         if rnn_state_in is not None:
             ctx["rnn_state_in"] = rnn_state_in
-        n = len(self.impls)
+        n = len(self.impls) if upto is None else upto
         i = 0
         while i < n:
-            if i + 1 < n and self._lstm_pair_fusable(i, x, fmask):
+            if i + 1 < n and self._lstm_pair_fusable(i, x, fmask, train):
                 x = self._fused_lstm_forward(x, ctx, i)
                 i += 2
                 continue
@@ -104,25 +145,31 @@ class MultiLayerNetwork(nn.Module):
             i += 1
         return x, ctx
 
-    def _lstm_pair_fusable(self, i, x, fmask) -> bool:
-        """Whether layers (i, i+1) run as one K3 launch: no step mask, both
-        plain LSTM layers with the kernel's activations, matching
-        peepholes, ``n_out == n_in == n_out`` through the pair, and no
-        dropout configured on the second layer."""
+    def _lstm_pair_fusable(self, i, x, fmask, train=False) -> bool:
+        """Whether layers (i, i+1) run as one fused launch (K3, and K4 in
+        training): no step mask, both plain LSTM layers with the kernels'
+        activations, matching peepholes and compute dtype, ``n_out == n_in
+        == n_out`` through the pair, and, in training, no weight noise on
+        either layer and no dropout on the second."""
         if fmask is not None or x.dim() != 3:
             return False
         a, b = self.impls[i], self.impls[i + 1]
         if not (isinstance(a, _BaseLSTMImpl) and isinstance(b, _BaseLSTMImpl)):
             return False
+        if train and (a.weight_noise is not None or b.weight_noise is not None):
+            return False
         if a.peepholes != b.peepholes or not (a.kernel_ok() and b.kernel_ok()):
             return False
-        if b.dropout_p is not None or a.compute_dtype != b.compute_dtype:
+        if train and b.dropout_active():
+            return False
+        if a.compute_dtype != b.compute_dtype:
             return False
         return a.conf.n_out == b.conf.n_in == b.conf.n_out
 
     def _fused_lstm_forward(self, x, ctx, i):
-        """Layers (i, i+1) through K3, with the hoisted layer-1 projection
-        and the ctx-carried (h, c) state of both layer indices."""
+        """Layers (i, i+1) through the fused kernel, with the hoisted
+        layer-1 projection and the ctx-carried (h, c) state of both layer
+        indices."""
         a, b = self.impls[i], self.impls[i + 1]
         cd = a.compute_dtype
         bsz = x.shape[0]
@@ -173,3 +220,121 @@ class MultiLayerNetwork(nn.Module):
 
     rnnClearPreviousState = rnn_clear_previous_state
 
+    # -------------------------------------------------------------- training
+    def _loss_fn(self, f, l, fm, lm, train, rnn_state_in=None):
+        """Loss + L1/L2 penalty (``_loss_fn`` of the JAX package). Returns
+        (loss, rnn_state_out)."""
+        if train:
+            for impl in self.impls:
+                impl.check_trainable()
+        n = len(self.impls)
+        x, ctx = self._apply_layers(f, fm, rnn_state_in, train, upto=n - 1)
+        out = self.impls[-1]
+        if not hasattr(out, "loss_on"):
+            raise ValueError(f"Last layer {type(out).__name__} is not an output layer")
+        mask = lm if lm is not None else (fm if x.dim() == 3 else None)
+        loss = out.loss_on(x, l, mask=mask)
+        reg = 0.0
+        for impl in self.impls:
+            reg = reg + impl.regularization()
+        return loss + reg, ctx.get("rnn_state_out")
+
+    def _grads(self, loss) -> Dict[str, Dict[str, torch.Tensor]]:
+        params = self._trainable()
+        flat = [(i, k, p) for i, ps in params.items() for k, p in ps.items()]
+        gs = torch.autograd.grad(loss, [p for _, _, p in flat], allow_unused=True)
+        grads = {i: {} for i in params}
+        for (i, k, p), g in zip(flat, gs):
+            grads[i][k] = torch.zeros_like(p) if g is None else g
+        return grads
+
+    def _step(self, f, l, fm, lm, iteration, rnn_state_in=None):
+        """One update. Returns (detached loss, detached rnn state out)."""
+        loss, rnn_out = self._loss_fn(f, l, fm, lm, True, rnn_state_in)
+        grads = self._grads(loss)
+        if not self.gc.minimize:
+            grads = {i: {k: -g for k, g in gs.items()} for i, gs in grads.items()}
+        grads = normalize_gradients(grads, self.gc.gradient_normalization,
+                                    self.gc.gradient_normalization_threshold)
+        updates, self.updater_state = self.updater.apply(self.updater_state, grads, iteration)
+        with torch.no_grad():
+            for i, ps in self._trainable().items():
+                for k, p in ps.items():
+                    p.sub_(updates[i][k].to(p.dtype))
+        return loss.detach(), _detached(rnn_out)
+
+    def _steps(self, f, l, fm, lm, rnn_state_in=None):
+        """``iterations(n)`` updates on one minibatch or segment, each from
+        the same carried-in state; the last loss and state are kept."""
+        for k in range(_n_iterations(self.gc)):
+            loss, rnn_out = self._step(f, l, fm, lm, self.iteration_count + k, rnn_state_in)
+        self.iteration_count += _n_iterations(self.gc)
+        return loss, rnn_out
+
+    def _tensors(self, ds: DataSet):
+        return tuple(self._to_device(a) for a in
+                     (ds.features, ds.labels, ds.features_mask, ds.labels_mask))
+
+    def fit(self, data, labels=None, epochs=1):
+        """Train (reference ``fit(DataSetIterator)``). Accepts a DataSet, a
+        DataSetIterator (or any iterable of DataSets), or (features, labels)
+        arrays."""
+        if labels is not None:
+            data = DataSet(np.asarray(data), np.asarray(labels))
+        if isinstance(data, DataSet):
+            data = ListDataSetIterator([data])
+        for _ in range(epochs):
+            for ds in data:
+                self._fit_batch(ds)
+            self.epoch_count += 1
+        return self
+
+    def _fit_batch(self, ds: DataSet):
+        f, l, fm, lm = self._tensors(ds)
+        if (self.conf.backprop_type == BackpropType.TruncatedBPTT and f.dim() == 3
+                and f.shape[1] > self.conf.tbptt_fwd_length):
+            self._fit_tbptt(f, l, fm, lm)
+            return
+        self.score_, _ = self._steps(f, l, fm, lm)
+
+    def _fit_tbptt(self, f, l, fm, lm):
+        """Truncated BPTT (reference ``doTruncatedBPTT``): segments of
+        ``tbptt_fwd_length`` steps (the last one ragged), one update per
+        segment, (h, c) carried detached from segment to segment; labels
+        and masks are sliced per segment, ``score_`` is the last segment's
+        loss. A differing ``tbptt_back_length`` is treated as the forward
+        length (warned once), as in the JAX package."""
+        L = self.conf.tbptt_fwd_length
+        if self.conf.tbptt_back_length != L and not self._warned_tbptt:
+            log.warning("tbptt_back_length=%d differs from tbptt_fwd_length=%d; "
+                        "backprop truncation uses the forward chunk length",
+                        self.conf.tbptt_back_length, L)
+            self._warned_tbptt = True
+        T = int(f.shape[1])
+        state = self._init_rnn_state(int(f.shape[0]))
+        for start in range(0, T, L):
+            sl = slice(start, min(start + L, T))
+
+            def seg(a):
+                return None if a is None else a[:, sl]
+
+            loss, state = self._steps(seg(f), seg(l) if l.dim() == 3 else l, seg(fm), seg(lm),
+                                      state)
+        self.score_ = loss
+
+    def score(self, ds: Optional[DataSet] = None, training=False) -> float:
+        """Loss (+ penalty) on a dataset (reference ``score(DataSet)``), or the
+        last training score when called without arguments."""
+        if ds is None:
+            return float(self.score_)
+        with torch.no_grad():
+            loss, _ = self._loss_fn(*self._tensors(ds), training)
+        return float(loss)
+
+    def compute_gradient_and_score(self, ds: DataSet):
+        """Reference ``computeGradientAndScore``: ({layer: {param: grad}},
+        score) without updating the parameters."""
+        loss, _ = self._loss_fn(*self._tensors(ds), True)
+        grads = self._grads(loss)
+        self.score_ = loss.detach()
+        return grads, float(self.score_)

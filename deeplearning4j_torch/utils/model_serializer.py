@@ -7,7 +7,11 @@ model_serializer.py``. The zip holds ``configuration.json`` (``{"type",
 parameter keypath (``"0/W"``, ``"1/RW"`` ...); a bfloat16 array is stored
 as its uint16 bit pattern under ``"__bf16__" + keypath``
 (``model_serializer.py:46-82``). This is how weights carry across from
-the JAX package. Updater and layer state are not read: the port serves.
+the JAX package. ``updaterState.bin`` (same layout, keypaths
+``"<layer>/<param>/<slot>"``, e.g. Adam's m at ``0/W/0`` and v at ``0/W/1``)
+and ``iteration_count`` are read too, so a JAX checkpoint resumes training
+in the port with the same updater moments and bias correction. Layer state
+(``states.bin``) is not read: no layer of the port has any.
 """
 from __future__ import annotations
 
@@ -24,10 +28,11 @@ from ..nn.conf import MultiLayerConfiguration
 from ..nn.conf.serde import decode
 from ..nn.multilayer import MultiLayerNetwork
 
-__all__ = ["restore_multi_layer_network", "params_from_numpy"]
+__all__ = ["restore_multi_layer_network", "params_from_numpy", "updater_state_from_numpy"]
 
 CONFIG_JSON = "configuration.json"
 COEFFICIENTS_BIN = "coefficients.bin"
+UPDATER_BIN = "updaterState.bin"
 _BF16 = "__bf16__"
 
 
@@ -38,6 +43,14 @@ def _tensor(a: np.ndarray, bf16: bool) -> torch.Tensor:
     return torch.from_numpy(np.array(a))
 
 
+def _decoded(arrays: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+    out = {}
+    for key, a in arrays.items():
+        bf16 = key.startswith(_BF16)
+        out[key[len(_BF16):] if bf16 else key] = _tensor(a, bf16)
+    return out
+
+
 def params_from_numpy(conf: MultiLayerConfiguration,
                       arrays: Mapping[str, np.ndarray]
                       ) -> Dict[str, Dict[str, torch.Tensor]]:
@@ -46,24 +59,62 @@ def params_from_numpy(conf: MultiLayerConfiguration,
     every shape against ``conf``."""
     out: Dict[str, Dict[str, torch.Tensor]] = {
         str(i): {} for i in range(len(conf.layers))}
-    for key, a in arrays.items():
-        bf16 = key.startswith(_BF16)
-        path = key[len(_BF16):] if bf16 else key
+    for path, t in _decoded(arrays).items():
         layer, _, name = path.partition("/")
         if layer not in out or not name or "/" in name:
             raise ValueError(f"parameter '{path}' does not name a parameter of "
                              f"one of the {len(conf.layers)} layers")
-        out[layer][name] = _tensor(a, bf16)
+        out[layer][name] = t
     return out
 
 
-def restore_multi_layer_network(path, device="cuda") -> MultiLayerNetwork:
+def updater_state_from_numpy(net: MultiLayerNetwork, arrays: Mapping[str, np.ndarray]):
+    """{keypath: ndarray} (an ``updaterState.bin``) -> updater state shaped
+    like ``net.updater_state`` (per parameter: a tensor, or a tuple of slot
+    tensors at ``"<layer>/<param>/<slot>"``), on the network's device.
+    Every slot must be present with its parameter's shape; unknown keypaths
+    are refused."""
+    stored = _decoded(arrays)
+    used = set()
+
+    def one(path, like):
+        if path not in stored:
+            raise KeyError(f"saved updater state is missing '{path}'")
+        t = stored[path]
+        if tuple(t.shape) != tuple(like.shape):
+            raise ValueError(f"updater state '{path}': shape {tuple(t.shape)}, model "
+                             f"needs {tuple(like.shape)}")
+        used.add(path)
+        return t.to(device=like.device, dtype=like.dtype)
+
+    state = {}
+    for i, layer in net.updater_state.items():
+        state[i] = {}
+        for k, s in layer.items():
+            state[i][k] = (tuple(one(f"{i}/{k}/{j}", x) for j, x in enumerate(s))
+                           if isinstance(s, tuple) else one(f"{i}/{k}", s))
+    extra = set(stored) - used
+    if extra:
+        raise ValueError(f"saved updater state has entries the model's updaters do not: "
+                         f"{sorted(extra)}")
+    return state
+
+
+def _npz(data: bytes) -> Dict[str, np.ndarray]:
+    with np.load(io.BytesIO(data)) as npz:
+        return {k: npz[k] for k in npz.files}
+
+
+def restore_multi_layer_network(path, device="cuda", load_updater=True) -> MultiLayerNetwork:
     """The network saved at ``path``, on ``device`` (the card unless
-    ``device="cpu"``)."""
+    ``device="cpu"``), with its updater state when the zip has one (and
+    ``load_updater``) and its iteration and epoch counts."""
     dev = resolve_device(device)
     with zipfile.ZipFile(path, "r") as z:
         conf_doc = json.loads(z.read(CONFIG_JSON).decode("utf-8"))
         coeff = z.read(COEFFICIENTS_BIN)
+        upd = (z.read(UPDATER_BIN) if load_updater and UPDATER_BIN in z.namelist()
+               else None)
     if conf_doc.get("type") != "MultiLayerNetwork":
         raise ValueError(f"Saved model is a {conf_doc.get('type')}; the port "
                          f"restores MultiLayerNetwork only")
@@ -71,10 +122,10 @@ def restore_multi_layer_network(path, device="cuda") -> MultiLayerNetwork:
     if not isinstance(conf, MultiLayerConfiguration):
         raise ValueError("configuration.json does not describe a "
                          "MultiLayerConfiguration")
-    with np.load(io.BytesIO(coeff)) as npz:
-        arrays = {k: npz[k] for k in npz.files}
-    net = MultiLayerNetwork(conf).init(params=params_from_numpy(conf, arrays),
+    net = MultiLayerNetwork(conf).init(params=params_from_numpy(conf, _npz(coeff)),
                                        device=dev)
+    if upd is not None:
+        net.updater_state = updater_state_from_numpy(net, _npz(upd))
     net.iteration_count = int(conf_doc.get("iteration_count", 0))
     net.epoch_count = int(conf_doc.get("epoch_count", 0))
     return net

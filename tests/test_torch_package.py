@@ -61,6 +61,7 @@ conf = (NeuralNetConfiguration.builder().seed(1).activation("tanh").list()
 net = MultiLayerNetwork(conf).init(device="cpu")
 x = np.eye(4, dtype=np.float32)[np.arange(6).reshape(2, 3) % 4]
 y = net.output(x, mask=np.ones((2, 3), np.float32)) + net.output(x)
+net.fit(x, x)
 srv = InferenceServer()
 srv.register("m", net, device="cpu")
 srv.registry.predict("m", x)
