@@ -27,7 +27,24 @@ and the CUDA toolkit; run from the root of the repository. It
    with-reserve and two K2 launches), checks that the loss is finite and
    falls, prints a fit's time and a profile of one fit, and holds the
    card's gradients against the CPU reference's (unmasked and masked);
-6. prints a ``{"kernels": [...]}`` line and, last, the ``{"ok": true,
+6. holds the flash-attention kernels K5 (forward), K6 (dq) and K7 (dk/dv)
+   against their plain versions at small shapes over their options (f32
+   and bf16, head dims 16 and 80, Tq != Tk, masks, dropout) and at the
+   TransformerLM's shape (b=4, h=8,
+   T=8192, d=64, bf16): causal (timed, beside the card's bound and
+   ``scaled_dot_product_attention``), non-causal, with a key mask that pads
+   one example whole (its rows and gradients must be exactly 0), and with
+   dropout at a seed and nonzero offsets; and checks the kernel's dropout
+   keep bits against ``dropout_keep_mask``;
+7. builds the 8-block TransformerLM of bench.py:1730 (vocab 4096, embed
+   512, 8 heads, FFN 4x, bf16 compute, Adam) on the card from a seed, runs
+   ``output`` on one b=4, T=8192 batch (one K5 launch per block) and
+   trains it with ``fit`` on period-23 token text (per step one K5, one K6
+   and one K7 launch per block), checks that the loss is finite and falls,
+   prints a step's time and a profile of one step, and holds the card's
+   score and gradients against the CPU reference's at reduced width and
+   depth on the flash route (T=4096);
+8. prints a ``{"kernels": [...]}`` line and, last, the ``{"ok": true,
    "device": ...}`` line.
 
 Any failure raises, and the script exits nonzero without the last line.
@@ -98,6 +115,36 @@ TRAIN_GRAD_RTOL = 3e-2
 # three fits with the first: 19.5% lower on the card; it must be at least
 # 10% lower.
 LOSS_DROP = 0.10
+
+# TransformerLM of bench.py:1730: b=4, T=8192, vocab 4096, embed 512, 8
+# heads (d=64), 8 blocks, FFN 4x, bf16 compute, Adam 1e-3.
+LM_B, LM_T, LM_VOCAB, LM_E, LM_HEADS, LM_BLOCKS = 4, 8192, 4096, 512, 8, 8
+LM_D = LM_E // LM_HEADS
+LM_STEPS, LM_TIMED_STEPS = 6, 3
+# Flash kernels vs their plain versions, as max |kernel - plain| over max
+# |plain| per output (o, dq, dk, dv in bf16): the same f32 sums in another
+# order, and p, ds rounded to bf16 against the running max in the kernel
+# but the row's final max in the plain version, so an output may differ
+# by about one bf16 unit of the largest entry (2^-8 = 3.9e-3). On an H100
+# the worst reading was 5.3e-3 at full width and 4.3e-3 at the small
+# shapes; the limit is about four times that. lse is f32 and compared
+# absolutely (measured 1.9e-6).
+FLASH_RTOL = 2e-2
+LSE_ATOL = 1e-4
+# f32 operands: the kernels' CUDA-core products sum in another order than
+# the plain version's matmul (measured 3.7e-6 on an H100).
+FLASH_F32_RTOL = 3e-5
+# Fraction by which the TransformerLM's loss must fall from the first to
+# the last of LM_STEPS Adam steps on period-23 text: on an H100 it fell
+# 61.0% (68400 at the first step, 26676 at the sixth); at least 30%.
+LM_LOSS_DROP = 0.30
+# Card vs CPU reference for the TransformerLM at reduced width and depth
+# (E=128, 2 heads, 2 blocks, b=1, T=4096, flash route on both): cuBLAS and
+# the CPU round bf16 activations and logits at other places. Measured on
+# an H100: score 1.0e-4 relative, gradients 5.3e-3 of their largest entry;
+# the limits are about ten and four times that.
+LM_REF_SCORE_RTOL = 1e-3
+LM_REF_GRAD_RTOL = 2e-2
 
 
 def log(msg):
@@ -444,11 +491,13 @@ def check_reference(conf, net):
 
 def counters():
     """Every kernel's launch counter, by name."""
-    from deeplearning4j_torch.ops import lstm_cell, lstm_fused
+    from deeplearning4j_torch.ops import flash_attention, lstm_cell, lstm_fused
 
     return {c.name: c for c in (lstm_cell.COUNTER, lstm_cell.TRAIN_COUNTER,
                                 lstm_cell.BWD_COUNTER, lstm_fused.COUNTER,
-                                lstm_fused.TRAIN_COUNTER, lstm_fused.BWD_COUNTER)}
+                                lstm_fused.TRAIN_COUNTER, lstm_fused.BWD_COUNTER,
+                                flash_attention.FWD_COUNTER, flash_attention.DQ_COUNTER,
+                                flash_attention.DKV_COUNTER)}
 
 
 def reset_counts():
@@ -469,17 +518,17 @@ def periodic_text(rng, b, t, period=23):
     return eye[ids[:, :-1]], eye[ids[:, 1:]]
 
 
-def profile_fit(net, ds):
-    """One fit under torch.profiler: device time by kernel, and the card's
-    busy share of the fit's wall time (profiler on, so slightly slower
-    than an unprofiled fit)."""
+def profile_call(label, fn):
+    """One call of ``fn`` under torch.profiler: device time by kernel, and
+    the card's busy share of the call's wall time (profiler on, so slightly
+    slower than an unprofiled call)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        net.fit(ds)
+        fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     spans, by_name = [], {}
@@ -488,7 +537,7 @@ def profile_fit(net, ds):
             spans.append((e.time_range.start, e.time_range.end))
             by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
     if not spans:
-        log("profile of one fit: the profiler recorded no device events")
+        log(f"profile of {label}: the profiler recorded no device events")
         return None
     spans.sort()
     busy, (lo, hi) = 0.0, spans[0]
@@ -499,7 +548,7 @@ def profile_fit(net, ds):
             hi = max(hi, b)
     busy += hi - lo
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
-    log(f"profile of one unmasked fit: wall {wall_us / 1e3:.3f} ms, device busy "
+    log(f"profile of {label}: wall {wall_us / 1e3:.3f} ms, device busy "
         f"{busy / 1e3:.3f} ms ({100 * busy / wall_us:.1f}%), device time by kernel:")
     for name, us in top:
         log(f"  {us / 1e3:9.3f} ms  {name[:100]}")
@@ -562,7 +611,7 @@ def train(conf):
         log(f"smoke number, not a benchmark: a {label} fit {times[label]:.3f} ms (mean of "
             f"{TIMED_FITS}), {TRAIN_B * TRAIN_SEQ / times[label] * 1e3:.0f} characters/s")
     return {"launches": launches, "losses": losses, "fit_ms": times,
-            "profile": profile_fit(net, ds)}
+            "profile": profile_call("one unmasked fit", lambda: net.fit(ds))}
 
 
 def check_train_reference(conf):
@@ -599,24 +648,342 @@ def check_train_reference(conf):
     return worst
 
 
+def check_flash_kernels():
+    """K5, K6 and K7 against their plain versions at the TransformerLM's
+    shape: causal (timed), non-causal, a key mask that pads example 1
+    whole, and dropout at a seed with ring-style offsets. Each backward
+    gets the plain forward's o and lse, so it is checked on its own."""
+    from deeplearning4j_torch.ops import flash_attention as fa
+
+    dev = torch.device("cuda")
+    g = torch.Generator().manual_seed(20)
+    bh, t, d = LM_B * LM_HEADS, LM_T, LM_D
+    q, k, v, do = (torch.randn((bh, t, d), generator=g).to(dev, torch.bfloat16)
+                   for _ in range(4))
+    scale = d ** -0.5
+    km = torch.ones((LM_B, t))
+    km[1] = 0.0                                     # example 1: every key padded
+    km[2, 3 * t // 4:] = 0.0
+    km[3, 3 * t // 8:] = 0.0
+    km = km[:, None, :].expand(LM_B, LM_HEADS, t).reshape(bh, t).contiguous().to(dev)
+    padded = slice(LM_HEADS, 2 * LM_HEADS)           # the bh rows of example 1
+    seed = fa.seed3(1234567, 3 * t, 3 * t)
+    cases = (("causal", True, None, 0.0, None), ("non-causal", False, None, 0.0, None),
+             ("key mask", True, km, 0.0, None), ("dropout 0.1", True, None, 0.1, seed))
+
+    def rel(a, b):
+        return ((a.float() - b.float()).abs().max() / b.float().abs().max()).item()
+
+    errs = {"flash_fwd": 0.0, "flash_dq": 0.0, "flash_dkv": 0.0}
+    abs_errs = dict(errs)
+    for label, causal, mask, rate, sd in cases:
+        o, lse = fa.flash_fwd(q, k, v, mask, causal, scale, rate, sd)
+        torch.cuda.synchronize()
+        o_p, lse_p = fa.flash_fwd_plain(q, k, v, mask, causal, scale, rate, sd)
+        delta = fa.rowwise_delta(do, o_p)
+        args = (q, k, v, mask, do, delta, lse_p, causal, scale, sd, rate)
+        dq = fa.dq_block(*args)
+        dk, dv = fa.dkv_block(*args)
+        torch.cuda.synchronize()
+        dq_p = fa.flash_dq_plain(*args)
+        dk_p, dv_p = fa.flash_dkv_plain(*args)
+        e = {"o": rel(o, o_p), "lse": (lse - lse_p).abs().max().item(), "dq": rel(dq, dq_p),
+             "dk": rel(dk, dk_p), "dv": rel(dv, dv_p)}
+        log(f"K5/K6/K7 {label} b={LM_B} h={LM_HEADS} T={t} d={d} bf16: rel err o {e['o']:.2e} "
+            f"lse(abs) {e['lse']:.2e} dq {e['dq']:.2e} dk {e['dk']:.2e} dv {e['dv']:.2e}")
+        if not (max(e["o"], e["dq"], e["dk"], e["dv"]) <= FLASH_RTOL and e["lse"] <= LSE_ATOL):
+            raise AssertionError(f"flash kernels ({label}) disagree with their plain versions: {e}")
+        if mask is not None:
+            nz = [torch.count_nonzero(x[padded]).item() for x in (o, dq, dk, dv)]
+            if any(nz) or not torch.all(lse[padded] == -1e30):
+                raise AssertionError(f"fully padded example: nonzero o/dq/dk/dv counts {nz}")
+            log("  fully padded example: o, dq, dk, dv exactly 0, lse -1e30")
+        for name, pairs in (("flash_fwd", ((o, o_p), (lse, lse_p))), ("flash_dq", ((dq, dq_p),)),
+                            ("flash_dkv", ((dk, dk_p), (dv, dv_p)))):
+            errs[name] = max(errs[name], *(rel(a, b) for a, b in pairs if a.dtype != torch.float32))
+            abs_errs[name] = max(abs_errs[name], *((a.float() - b.float()).abs().max().item()
+                                                   for a, b in pairs))
+    check_keep_bits(fa, seed)
+
+    # timing at the main path's case: causal, no mask, no dropout
+    o, lse = fa.flash_fwd(q, k, v, None, True, scale)
+    delta = fa.rowwise_delta(do, o)
+    args = (q, k, v, None, do, delta, lse, True, scale)
+    ms = {"flash_fwd": cuda_ms(lambda: fa.flash_fwd(q, k, v, None, True, scale), 10),
+          "flash_dq": cuda_ms(lambda: fa.dq_block(*args), 10),
+          "flash_dkv": cuda_ms(lambda: fa.dkv_block(*args), 10)}
+    plain_ms = {"flash_fwd": cuda_ms(lambda: fa.flash_fwd_plain(q, k, v, None, True, scale), 1),
+                "flash_dq": cuda_ms(lambda: fa.flash_dq_plain(*args), 1),
+                "flash_dkv": cuda_ms(lambda: fa.flash_dkv_plain(*args), 1)}
+    # yardstick only, never on the port's path: PyTorch's fused attention
+    # on the same [b, h, T, d] operands; its backward gives dq, dk, dv in
+    # one call, so it stands beside K6 + K7 together
+    qs, ks, vs, dos = (x.view(LM_B, LM_HEADS, t, d).detach().requires_grad_(x is not do)
+                       for x in (q, k, v, do))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    sdpa_fwd = cuda_ms(lambda: sdpa(qs, ks, vs, is_causal=True), 10)
+    out = sdpa(qs, ks, vs, is_causal=True)
+    sdpa_bwd = cuda_ms(lambda: torch.autograd.grad(out, (qs, ks, vs), dos, retain_graph=True), 10)
+    library = {"flash_fwd": sdpa_fwd, "flash_dq": sdpa_bwd, "flash_dkv": sdpa_bwd}
+
+    cells = bh * t * (t + 1) // 2                   # visible (q, k) pairs, causal
+    x = bh * t * d * 2                               # one [bh, T, d] bf16 tensor
+    rows = bh * t * 4                                # one [bh, T] f32 vector
+    work = {"flash_fwd": (4 * x + rows, 2 * 2 * d * cells),       # q k v -> o lse; 2 products
+            "flash_dq": (5 * x + 2 * rows, 3 * 2 * d * cells),    # q k v do delta lse -> dq
+            "flash_dkv": (6 * x + 2 * rows, 4 * 2 * d * cells)}   # ... -> dk dv; 4 products
+    results = {}
+    for name, (nbytes, flops) in work.items():
+        bms, by = bound(nbytes, flops, 0)
+        results[name] = dict(max_abs_err=abs_errs[name], max_rel_err=errs[name], ms=ms[name],
+                             plain_ms=plain_ms[name], bound_ms=bms, bound_by=by,
+                             library_ms=library[name])
+        log(f"{name} causal b={LM_B} h={LM_HEADS} T={t} d={d}: kernel_ms={ms[name]:.3f} "
+            f"plain_ms={plain_ms[name]:.1f} bound_ms={bms:.4f} ({by}; {flops / 1e9:.0f} GFLOP, "
+            f"{nbytes / 1e6:.0f} MB) max_rel_err={errs[name]:.2e}")
+    log(f"yardstick scaled_dot_product_attention causal: forward {sdpa_fwd:.3f} ms, backward "
+        f"(dq, dk, dv) {sdpa_bwd:.3f} ms")
+    return results
+
+
+def check_flash_small():
+    """K5, K6 and K7 against their plain versions over the options the main
+    path does not take, at small shapes: f32 and bf16 operands, head dims
+    16 and 80 (80 is zero-padded to 128 in the kernels), causal or not,
+    Tq = Tk and Tq != Tk (dq_block/dkv_block only), with and without a key
+    mask (one batch x head padded whole) and dropout."""
+    from deeplearning4j_torch.ops import flash_attention as fa
+
+    dev = torch.device("cuda")
+    g = torch.Generator().manual_seed(21)
+    worst = {torch.bfloat16: 0.0, torch.float32: 0.0}
+    n = 0
+    for dtype in (torch.bfloat16, torch.float32):
+        for d in (16, 80):
+            for causal in (True, False):
+                for tq, tk in ((256, 256), (128, 256), (256, 128)):
+                    for masked in (False, True):
+                        for rate in (0.0, 0.2):
+                            bh = 3
+                            q, do = (torch.randn((bh, tq, d), generator=g).to(dev, dtype)
+                                     for _ in range(2))
+                            k, v = (torch.randn((bh, tk, d), generator=g).to(dev, dtype)
+                                    for _ in range(2))
+                            km = None
+                            if masked:
+                                km = torch.ones((bh, tk), device=dev)
+                                km[1] = 0.0
+                                km[0, 30:90] = 0.0
+                            sd = fa.seed3(-99, 2 ** 31 - 70, 5) if rate else None
+                            outs, refs = [], []
+                            if tq == tk:
+                                o, lse = fa.flash_fwd(q, k, v, km, causal, 0.3, rate, sd)
+                                torch.cuda.synchronize()
+                                o_p, lse_p = fa.flash_fwd_plain(q, k, v, km, causal, 0.3, rate, sd)
+                                outs, refs = [o, lse / 10], [o_p, lse_p / 10]
+                                delta = fa.rowwise_delta(do, o_p)
+                            else:
+                                lse_p = torch.randn((bh, tq), generator=g).to(dev) + 5.0
+                                delta = torch.randn((bh, tq), generator=g).to(dev)
+                            args = (q, k, v, km, do, delta, lse_p, causal, 0.3, sd, rate)
+                            outs += [fa.dq_block(*args), *fa.dkv_block(*args)]
+                            torch.cuda.synchronize()
+                            refs += [fa.flash_dq_plain(*args), *fa.flash_dkv_plain(*args)]
+                            e = max(((a.float() - b.float()).abs().max()
+                                     / b.float().abs().max().clamp(min=1e-30)).item()
+                                    for a, b in zip(outs, refs))
+                            if masked and tq == tk and any(torch.count_nonzero(x[1]).item()
+                                                           for x in outs[:1] + outs[2:]):
+                                raise AssertionError(f"small flash case d={d} {dtype}: a fully "
+                                                     f"padded batch x head is not exactly 0")
+                            lim = FLASH_RTOL if dtype == torch.bfloat16 else FLASH_F32_RTOL
+                            if not e <= lim:
+                                raise AssertionError(
+                                    f"small flash case {dtype} d={d} causal={causal} Tq={tq} "
+                                    f"Tk={tk} mask={masked} rate={rate}: rel err {e} > {lim}")
+                            worst[dtype] = max(worst[dtype], e)
+                            n += 1
+    log(f"K5/K6/K7 small shapes ({n} cases: f32 and bf16, d 16 and 80, causal or not, "
+        f"Tq != Tk, key masks, dropout): worst rel err bf16 {worst[torch.bfloat16]:.2e}, "
+        f"f32 {worst[torch.float32]:.2e}")
+
+
+def check_keep_bits(fa, seed):
+    """K5's dropout decisions bit for bit against ``dropout_keep_mask`` on
+    a 64 x 64 slice of every batch x head at the dropout case's offsets:
+    with q = k = 0 every probability is 1/64 and v the identity, so
+    o[i, j] is nonzero exactly where cell (i, j) is kept."""
+    bh, n = LM_B * LM_HEADS, 64
+    dev = torch.device("cuda")
+    z = torch.zeros((bh, n, n), device=dev, dtype=torch.bfloat16)
+    eye = torch.eye(n, device=dev, dtype=torch.bfloat16).expand(bh, n, n).contiguous()
+    s, q_off, k_off = seed
+    sl = fa.seed3(s, q_off + 4096, k_off + 1024)
+    o, _ = fa.flash_fwd(z, z, eye, None, False, 1.0, 0.1, sl)
+    want = fa.dropout_keep_mask(bh, n, n, s, 0.1, sl[1], sl[2], device=dev)
+    if not torch.equal(o != 0, want):
+        raise AssertionError("K5's dropout keep bits differ from dropout_keep_mask")
+    log(f"K5 dropout keep bits equal dropout_keep_mask on {bh} x {n} x {n} cells "
+        f"({100 * want.float().mean().item():.1f}% kept at rate 0.1)")
+
+
+def lm_conf(vocab=LM_VOCAB, embed=LM_E, heads=LM_HEADS, blocks=LM_BLOCKS):
+    """The TransformerLM of bench.py:1730 (or a cut of it), bf16 compute."""
+    from deeplearning4j_torch.models import TransformerLM
+
+    conf = TransformerLM(vocab_size=vocab, embed_dim=embed, num_heads=heads,
+                         num_blocks=blocks, seed=1).conf()
+    conf.global_conf.compute_dtype = "bfloat16"
+    return conf
+
+
+def periodic_tokens(rng, b, t, vocab, period=23):
+    """Next-token data cut from a fixed cycle of ``period`` tokens at random
+    offsets: float ids [b, t] (the JAX bench's layout) and one-hot labels."""
+    cycle = rng.integers(0, vocab, period)
+    ids = cycle[(rng.integers(0, period, b)[:, None] + np.arange(t + 1)[None, :]) % period]
+    labels = np.zeros((b, t, vocab), np.float32)
+    np.put_along_axis(labels, ids[:, 1:, None], 1.0, axis=2)
+    return ids[:, :-1].astype(np.float32), labels
+
+
+def transformer_lm():
+    """The TransformerLM main path at full width: ``output`` on one batch
+    (8 K5 launches), then ``fit`` steps (each 8 K5, 8 K6 and 8 K7
+    launches). Counts are reset just before and read just after each; each
+    step's own launches are checked too."""
+    from deeplearning4j_torch import DataSet
+    from deeplearning4j_torch.nn.graph import ComputationGraph
+
+    net = ComputationGraph(lm_conf()).init()            # device defaults to the card
+    n_params = sum(p.numel() for ps in net.params.values() for p in ps.values())
+    f, l = periodic_tokens(np.random.default_rng(8), LM_B, LM_T, LM_VOCAB)
+    ds = DataSet(f, l)
+    reset_counts()
+    probs = net.output(f)
+    torch.cuda.synchronize()
+    out_launches = read_counts()
+    want = {n: 0 for n in out_launches}
+    want["flash_fwd"] = LM_BLOCKS
+    if out_launches != want:
+        raise AssertionError(f"output launched {out_launches}, expected {want}")
+    # the softmax runs in bf16 and is cast to f32 after (the JAX package's
+    # policy), so a row sums to 1 within bf16's rounding (2^-8 relative)
+    sums = probs.sum(-1)
+    if tuple(probs.shape) != (LM_B, LM_T, LM_VOCAB) or not torch.isfinite(probs).all() \
+            or (sums - 1).abs().max().item() > 1e-2:
+        raise AssertionError(f"output: shape {tuple(probs.shape)}, or rows that are not "
+                             f"finite probabilities summing to 1")
+    del probs, sums
+    t0 = time.perf_counter()
+    net.output(f)
+    torch.cuda.synchronize()
+    output_ms = (time.perf_counter() - t0) * 1e3
+    log(f"TransformerLM ({n_params / 1e6:.1f}M parameters) output b={LM_B} T={LM_T}: "
+        f"launches {out_launches}; a second call {output_ms:.1f} ms (the batch's H2D copy "
+        f"included)")
+
+    per_step = {n: 0 for n in out_launches}
+    per_step.update(flash_fwd=LM_BLOCKS, flash_dq=LM_BLOCKS, flash_dkv=LM_BLOCKS)
+    losses = []
+    reset_counts()
+    for _ in range(LM_STEPS):
+        before = read_counts()
+        net.fit(ds)
+        losses.append(net.score())
+        got = {n: c - before[n] for n, c in read_counts().items()}
+        if got != per_step:
+            raise AssertionError(f"a training step launched {got}, expected {per_step}")
+    launches = read_counts()
+    log(f"TransformerLM training: {LM_STEPS} Adam steps of b={LM_B} T={LM_T}, launches "
+        f"{launches}; loss per step " + " ".join(f"{x:.1f}" for x in losses))
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"TransformerLM loss is not finite: {losses}")
+    drop = 1.0 - losses[-1] / losses[0]
+    log(f"TransformerLM loss fell {100 * drop:.2f}% from the first step to the last")
+    if not drop >= LM_LOSS_DROP:
+        raise AssertionError(f"the TransformerLM loss fell by {drop:.4f}, less than "
+                             f"{LM_LOSS_DROP}")
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(LM_TIMED_STEPS):
+        net.fit(ds)
+    net.score()                                       # the value: a sync
+    step_ms = (time.perf_counter() - t0) * 1e3 / LM_TIMED_STEPS
+    log(f"smoke number, not a benchmark: a TransformerLM step {step_ms:.1f} ms (mean of "
+        f"{LM_TIMED_STEPS}), {LM_B * LM_T / step_ms * 1e3:.0f} tokens/s; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.1f} GiB")
+    prof = profile_call("one TransformerLM step", lambda: net.fit(ds))
+    return {"launches": launches, "output_launches": out_launches, "output_ms": output_ms,
+            "losses": losses, "step_ms": step_ms, "profile": prof}
+
+
+def check_lm_reference():
+    """compute_gradient_and_score of a cut TransformerLM on the card against
+    the same network on the CPU, both on the flash route (T=4096): the card
+    through K5-K7, the CPU through their plain versions."""
+    from deeplearning4j_torch import DataSet
+    from deeplearning4j_torch.nn.graph import ComputationGraph
+
+    conf = lm_conf(vocab=256, embed=128, heads=2, blocks=2)
+    net = ComputationGraph(conf).init()
+    cpu = ComputationGraph(lm_conf(vocab=256, embed=128, heads=2, blocks=2)).init(
+        params={n: {k: t.cpu() for k, t in p.items()} for n, p in net.params.items()},
+        device="cpu")
+    f, l = periodic_tokens(np.random.default_rng(9), 1, 4096, 256)
+    ds = DataSet(f, l)
+    before = read_counts()
+    g_card, s_card = net.compute_gradient_and_score(ds)
+    got = {n: c - before[n] for n, c in read_counts().items()}
+    if (got["flash_fwd"], got["flash_dq"], got["flash_dkv"]) != (2, 2, 2):
+        raise AssertionError(f"the reference run did not take the flash kernels: {got}")
+    g_cpu, s_cpu = cpu.compute_gradient_and_score(ds)
+    s_err = abs(s_card - s_cpu) / abs(s_cpu)
+    g_err = {f"{n}/{k}": ((g_card[n][k].cpu() - g).abs().max() / g.abs().max()).item()
+             for n, gs in g_cpu.items() for k, g in gs.items()}
+    key = max(g_err, key=g_err.get)
+    p_err = (net.output(f).cpu() - cpu.output(f)).abs().max().item()
+    log(f"card vs CPU reference, TransformerLM E=128 2 blocks T=4096: score {s_card:.3f} vs "
+        f"{s_cpu:.3f} (rel {s_err:.2e}); worst gradient {key} rel {g_err[key]:.2e}; "
+        f"probabilities max_abs_err {p_err:.2e}")
+    if not s_err <= LM_REF_SCORE_RTOL:
+        raise AssertionError(f"card and CPU TransformerLM scores disagree: {s_err}")
+    if not g_err[key] <= LM_REF_GRAD_RTOL:
+        raise AssertionError(f"card and CPU TransformerLM gradients disagree: {key} "
+                             f"{g_err[key]}")
+    return {"score_rel": s_err, "grad_rel": g_err[key], "prob_abs": p_err}
+
+
 def build():
     """Compile every kernel of the port, one nvcc per source, all at once,
     and print what ptxas reports of registers, shared memory and spills."""
-    from deeplearning4j_torch.ops import cuda_build, lstm_cell, lstm_fused
+    from deeplearning4j_torch.ops import cuda_build, flash_attention, lstm_cell, lstm_fused
 
     t0 = time.perf_counter()
     logs = cuda_build.build_all([lstm_cell.SOURCE, lstm_cell.BWD_SOURCE, lstm_fused.SOURCE,
-                                 lstm_fused.BWD_SOURCE])
+                                 lstm_fused.BWD_SOURCE, flash_attention.FWD_SOURCE,
+                                 flash_attention.DQ_SOURCE, flash_attention.DKV_SOURCE])
     log(f"built kernels in {time.perf_counter() - t0:.1f} s")
     for src, text in logs.items():
+        flash = src.startswith("flash")
+        entry = ""
         for line in text.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  {src}: {line.strip()}")
+            # the flash sources instantiate nine head widths and types
+            # each: print the main path's (bf16, d=64) and any spill
+            if flash and "Compiling entry" in line:
+                entry = line.split("'")[1] if "'" in line else line
+            path = not flash or "13__nv_bfloat16Li64E" in entry
+            spill = "spill" in line and "0 bytes spill stores" not in line
+            if ("registers" in line or "spill" in line) and (path or spill):
+                log(f"  {src}: {'' if path else entry + ': '}{line.strip()}")
 
 
-def kernel_line(serving, training, served, streamed, trained):
-    """The {"kernels": [...]} entries: numbers at the training shape, the
-    launches of the training main path, and K1/K3's serving numbers."""
+def kernel_line(serving, training, served, streamed, trained, flash, lm):
+    """The {"kernels": [...]} entries: for K1-K4 numbers at the char-RNN's
+    training shape, the launches of its training main path, and K1/K3's
+    serving numbers; for K5-K7 numbers at the TransformerLM's shape and
+    the launches of its training main path (its ``output`` apart)."""
     shape = {"b": TRAIN_B, "T": TRAIN_T, "H": H, "w": "bf16", "peepholes": True}
     sshape = {"b": B, "T": T, "H": H, "w": "bf16", "peepholes": True}
 
@@ -649,7 +1016,24 @@ def kernel_line(serving, training, served, streamed, trained):
               [training["lstm2_fwd_train"]], serving_of("lstm2_fwd", ["lstm2_fwd"])),
         entry("lstm2_bwd", "lstm2_bwd", "lstm_fused_bwd.cu", "deeplearning4j_tpu/ops/lstm_fused.py:249",
               [training["lstm2_bwd"]]),
+        *(flash_entry(name, src, line, flash[name], lm) for name, src, line in (
+            ("flash_fwd", "flash_attn_fwd.cu", 202), ("flash_dq", "flash_attn_dq.cu", 311),
+            ("flash_dkv", "flash_attn_dkv.cu", 361))),
     ]
+
+
+def flash_entry(name, source, line, res, lm):
+    e = {"name": name, "route": "cuda", "source": f"deeplearning4j_torch/csrc/{source}",
+         "replaces": f"deeplearning4j_tpu/ops/flash_attention.py:{line}",
+         "launches": lm["launches"][name], "launches_per_step": lm["launches"][name] // LM_STEPS,
+         **res,
+         "shape": {"b": LM_B, "h": LM_HEADS, "T": LM_T, "d": LM_D, "dtype": "bf16",
+                   "causal": True},
+         "output_launches": lm["output_launches"][name]}
+    if name != "flash_fwd":
+        e["library_note"] = ("scaled_dot_product_attention backward: dq, dk and dv in one "
+                             "call, beside K6 + K7 together")
+    return e
 
 
 def main() -> int:
@@ -674,9 +1058,16 @@ def main() -> int:
     check_reference(conf, net)
     trained = train(conf)
     check_train_reference(conf)
+    del net
+    torch.cuda.empty_cache()
+    check_flash_small()
+    flash = check_flash_kernels()
+    torch.cuda.empty_cache()
+    lm = transformer_lm()
+    check_lm_reference()
 
     print(json.dumps({"kernels": kernel_line(serving, training, served, streamed,
-                                             trained["launches"])}))
+                                             trained["launches"], flash, lm)}))
     log(f"chip_smoke took {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["resolve_device", "NeuralNetConfiguration", "MultiLayerNetwork",
+__all__ = ["resolve_device", "NeuralNetConfiguration", "MultiLayerNetwork", "ComputationGraph",
            "InferenceServer", "ModelRegistry", "ServedModel", "DataSet",
            "DataSetIterator", "ListDataSetIterator", "LossFunction", "Sgd", "Adam",
            "AdaMax", "Nadam", "Nesterovs", "RmsProp", "AdaGrad", "AdaDelta", "NoOp",
@@ -44,4 +44,5 @@ from .nn.losses import LossFunction  # noqa: E402
 from .nn.updaters import (AdaDelta, AdaGrad, AdaMax, Adam, AMSGrad, Nadam,  # noqa: E402
                           Nesterovs, NoOp, RmsProp, Sgd)
 from .nn.multilayer import MultiLayerNetwork  # noqa: E402
+from .nn.graph import ComputationGraph  # noqa: E402
 from .serving import InferenceServer, ModelRegistry, ServedModel  # noqa: E402

@@ -1,0 +1,120 @@
+"""Model zoo: standard architectures as config builders.
+
+Counterpart of ``deeplearning4j_tpu/models/zoo.py``: the ``ZooModel`` base
+(``conf``, ``init``, ``_builder``) and ``TransformerLM``. The other zoo
+models, pretrained weights and the MoE variant of ``TransformerLM`` are not
+ported yet.
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+from ..nn.conf import MultiLayerConfiguration, NeuralNetConfiguration
+from ..nn.conf.graph import ElementWiseVertex
+from ..nn.conf.layers import (DenseLayer, EmbeddingSequenceLayer, LayerNormalization,
+                              RnnOutputLayer, SelfAttentionLayer)
+from ..nn.graph import ComputationGraph
+from ..nn.multilayer import MultiLayerNetwork
+from ..nn.updaters import Adam
+
+__all__ = ["ZooModel", "TransformerLM"]
+
+
+class ZooModel:
+    """Base: ``conf()`` builds the configuration, ``init()`` a fresh network
+    on ``device`` (the card unless ``device="cpu"``)."""
+
+    name: str = "zoo_model"
+
+    def __init__(self, num_classes: int = 1000, seed: int = 123,
+                 input_shape: Optional[Tuple[int, int, int]] = None):
+        self.num_classes = num_classes
+        self.seed = seed
+        if input_shape is not None:
+            self.input_shape = input_shape
+
+    def conf(self):
+        raise NotImplementedError
+
+    def init(self, device="cuda"):
+        conf = self.conf()
+        if isinstance(conf, MultiLayerConfiguration):
+            return MultiLayerNetwork(conf).init(device=device)
+        return ComputationGraph(conf).init(device=device)
+
+    def _builder(self, updater=None, activation="relu", weight_init="relu"):
+        return (NeuralNetConfiguration.builder()
+                .seed(self.seed)
+                .updater(updater or Adam(learning_rate=1e-3))
+                .activation(activation)
+                .weight_init(weight_init))
+
+
+class TransformerLM(ZooModel):
+    """Decoder-only transformer language model, built as a ComputationGraph
+    so that the residual adds are ``ElementWiseVertex`` edges:
+
+        ids [b, T] -> embed -> n_blocks x [ x + Attn(LN(x));
+                                            x + FFN(LN(x)) ] -> LN -> softmax
+
+    No position embedding: causal attention makes it order-aware, and every
+    layer stays shape-agnostic in T. Attention takes the flash kernels at T
+    >= 4096 (``ops/flash_attention.MIN_SEQ``), the dense body below."""
+
+    name = "transformerlm"
+
+    def __init__(self, vocab_size: Optional[int] = None,
+                 num_classes: Optional[int] = None, seed: int = 123,
+                 embed_dim: int = 256, num_heads: int = 4,
+                 num_blocks: int = 4, ffn_mult: int = 4,
+                 dropout_rate: float = 0.0, num_experts: int = 0,
+                 top_k: int = 2, capacity_factor: float = 1.25,
+                 aux_loss_weight: float = 1e-2, **kw):
+        n = vocab_size if vocab_size is not None \
+            else (num_classes if num_classes is not None else 256)
+        super().__init__(n, seed, **kw)
+        self.embed_dim = int(embed_dim)
+        self.num_heads = int(num_heads)
+        self.num_blocks = int(num_blocks)
+        self.ffn_mult = int(ffn_mult)
+        self.dropout_rate = float(dropout_rate)
+        self.num_experts = int(num_experts)
+        self.top_k = int(top_k)
+        self.capacity_factor = float(capacity_factor)
+        self.aux_loss_weight = float(aux_loss_weight)
+        if self.embed_dim % self.num_heads:
+            raise ValueError(f"num_heads {num_heads} must divide embed_dim {embed_dim}")
+
+    def conf(self):
+        if self.num_experts > 0:
+            raise NotImplementedError("TransformerLM with num_experts > 0 (MoE) is not "
+                                      "ported yet")
+        E, V = self.embed_dim, self.num_classes
+        F = E * self.ffn_mult
+        # explicit n_in everywhere and no input types: every layer is
+        # sequence-shaped [b, T, .] end to end
+        g = (self._builder(activation="identity", weight_init="xavier")
+             .graph_builder()
+             .add_inputs("ids")
+             .add_layer("embed", EmbeddingSequenceLayer(n_in=V, n_out=E), "ids"))
+        prev = "embed"
+        for i in range(self.num_blocks):
+            g = (g.add_layer(f"b{i}-ln-a", LayerNormalization(n_in=E, n_out=E), prev)
+                 .add_layer(f"b{i}-attn",
+                            SelfAttentionLayer(n_in=E, n_out=E, num_heads=self.num_heads,
+                                               causal=True, dropout_rate=self.dropout_rate),
+                            f"b{i}-ln-a")
+                 .add_vertex(f"b{i}-res-a", ElementWiseVertex(op="add"), prev, f"b{i}-attn")
+                 .add_layer(f"b{i}-ln-f", LayerNormalization(n_in=E, n_out=E), f"b{i}-res-a")
+                 .add_layer(f"b{i}-ffn", DenseLayer(n_in=E, n_out=F, activation="gelu"),
+                            f"b{i}-ln-f")
+                 .add_layer(f"b{i}-proj", DenseLayer(n_in=F, n_out=E, activation="identity"),
+                            f"b{i}-ffn")
+                 .add_vertex(f"b{i}-res-f", ElementWiseVertex(op="add"),
+                             f"b{i}-res-a", f"b{i}-proj"))
+            prev = f"b{i}-res-f"
+        g = (g.add_layer("ln-final", LayerNormalization(n_in=E, n_out=E), prev)
+             .add_layer("out", RnnOutputLayer(n_in=E, n_out=V, activation="softmax",
+                                              loss="mcxent"), "ln-final")
+             .set_outputs("out"))
+        return g.build()

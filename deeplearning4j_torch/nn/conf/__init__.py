@@ -18,11 +18,12 @@ from . import serde
 from .serde import register, to_json, from_json
 from .inputs import InputType
 from .layers import Layer
+from .graph import ComputationGraphConfiguration, GraphBuilder
 
 from ..updaters import SCHEDULES, UPDATERS, Sgd
 
-__all__ = ["GlobalConfig", "MultiLayerConfiguration", "ListBuilder",
-           "Builder", "NeuralNetConfiguration", "InputType",
+__all__ = ["GlobalConfig", "MultiLayerConfiguration", "ComputationGraphConfiguration",
+           "ListBuilder", "GraphBuilder", "Builder", "NeuralNetConfiguration", "InputType",
            "GradientNormalization", "BackpropType"]
 
 for _cls in (*UPDATERS.values(), *SCHEDULES.values()):
@@ -247,6 +248,11 @@ class Builder:
 
     def list(self) -> ListBuilder:
         return ListBuilder(self._with_default_updater())
+
+    def graph_builder(self) -> GraphBuilder:
+        return GraphBuilder(self._with_default_updater())
+
+    graphBuilder = graph_builder
 
     def build(self) -> GlobalConfig:
         return self._with_default_updater()

@@ -1,0 +1,405 @@
+"""ComputationGraph configuration: a DAG of layers and vertices.
+
+Counterpart of ``deeplearning4j_tpu/nn/conf/graph.py``: the vertex config
+classes, :class:`ComputationGraphConfiguration` (topological order, shape
+inference, JSON) and :class:`GraphBuilder`. A vertex is one serializable
+dataclass whose ``forward(inputs, ctx)`` is a torch function; autograd
+derives its backward.
+
+:class:`MergeVertex` and :class:`ElementWiseVertex` (all five ops) are
+ported. The other twelve vertex classes decode and re-encode with their
+fields (so a JAX-written configuration round-trips) and raise
+``NotImplementedError`` naming themselves when a graph uses them.
+"""
+from __future__ import annotations
+
+import copy
+import dataclasses
+from typing import Any, Dict, List, Optional
+
+import torch
+
+from .serde import register, to_json, from_json
+from .inputs import (InputTypeFeedForward, InputTypeRecurrent,
+                     InputTypeConvolutional, InputTypeConvolutionalFlat)
+from .layers import Layer
+
+__all__ = ["GraphVertexConf", "MergeVertex", "ElementWiseVertex", "SubsetVertex",
+           "StackVertex", "UnstackVertex", "ScaleVertex", "ShiftVertex",
+           "L2NormalizeVertex", "L2Vertex", "PreprocessorVertex",
+           "ReshapeVertex", "PoolHelperVertex", "LastTimeStepVertex",
+           "DuplicateToTimeSeriesVertex", "ComputationGraphConfiguration",
+           "GraphBuilder"]
+
+
+@dataclasses.dataclass
+class GraphVertexConf:
+    """Base non-layer vertex: a function of its input activations."""
+
+    def n_inputs(self):  # expected input arity; None = any
+        return None
+
+    def forward(self, inputs: List, ctx: Dict) -> Any:
+        raise NotImplementedError
+
+    def propagate_mask(self, in_masks: List):
+        """Feature mask of this vertex's output given its inputs' masks."""
+        return in_masks[0] if in_masks else None
+
+    def get_output_type(self, input_types: List):
+        return input_types[0]
+
+
+@register
+@dataclasses.dataclass
+class MergeVertex(GraphVertexConf):
+    """Concatenate along the feature (last) axis."""
+
+    def forward(self, inputs, ctx):
+        return torch.cat(inputs, dim=-1)
+
+    def propagate_mask(self, in_masks):
+        for m in in_masks:
+            if m is not None:
+                return m
+        return None
+
+    def get_output_type(self, input_types):
+        t0 = input_types[0]
+        if t0 is None:
+            return None
+        if isinstance(t0, InputTypeFeedForward):
+            return InputTypeFeedForward(sum(t.size for t in input_types))
+        if isinstance(t0, InputTypeRecurrent):
+            return InputTypeRecurrent(sum(t.size for t in input_types), t0.timeseries_length)
+        if isinstance(t0, InputTypeConvolutional):
+            return InputTypeConvolutional(t0.height, t0.width,
+                                          sum(t.channels for t in input_types))
+        if isinstance(t0, InputTypeConvolutionalFlat):
+            return InputTypeFeedForward(sum(t.arity() for t in input_types))
+        raise ValueError(f"MergeVertex: unsupported input type {type(t0).__name__}")
+
+
+@register
+@dataclasses.dataclass
+class ElementWiseVertex(GraphVertexConf):
+    """Elementwise add / subtract / product / average / max."""
+    op: str = "add"
+
+    def forward(self, inputs, ctx):
+        op = self.op.lower()
+        if op in ("add", "average"):
+            out = inputs[0]
+            for x in inputs[1:]:
+                out = out + x
+            return out / len(inputs) if op == "average" else out
+        if op == "subtract":
+            if len(inputs) != 2:
+                raise ValueError("subtract needs exactly 2 inputs")
+            return inputs[0] - inputs[1]
+        if op == "product":
+            out = inputs[0]
+            for x in inputs[1:]:
+                out = out * x
+            return out
+        if op == "max":
+            out = inputs[0]
+            for x in inputs[1:]:
+                out = torch.maximum(out, x)
+            return out
+        raise ValueError(f"Unknown ElementWiseVertex op '{self.op}'")
+
+
+@dataclasses.dataclass
+class _UnportedVertex(GraphVertexConf):
+    """A vertex the port decodes as data but cannot run yet."""
+
+    def _unported(self):
+        raise NotImplementedError(f"{type(self).__name__} is not ported to "
+                                  f"deeplearning4j_torch yet")
+
+    def forward(self, inputs, ctx):
+        self._unported()
+
+    def propagate_mask(self, in_masks):
+        self._unported()
+
+    def get_output_type(self, input_types):
+        self._unported()
+
+
+@register
+@dataclasses.dataclass
+class SubsetVertex(_UnportedVertex):
+    from_idx: int = 0
+    to_idx: int = 0
+
+
+@register
+@dataclasses.dataclass
+class StackVertex(_UnportedVertex):
+    pass
+
+
+@register
+@dataclasses.dataclass
+class UnstackVertex(_UnportedVertex):
+    from_idx: int = 0
+    stack_size: int = 1
+
+
+@register
+@dataclasses.dataclass
+class ScaleVertex(_UnportedVertex):
+    scale: float = 1.0
+
+
+@register
+@dataclasses.dataclass
+class ShiftVertex(_UnportedVertex):
+    shift: float = 0.0
+
+
+@register
+@dataclasses.dataclass
+class L2NormalizeVertex(_UnportedVertex):
+    eps: float = 1e-8
+
+
+@register
+@dataclasses.dataclass
+class L2Vertex(_UnportedVertex):
+    eps: float = 1e-8
+
+
+@register
+@dataclasses.dataclass
+class PreprocessorVertex(_UnportedVertex):
+    preprocessor: Any = None
+
+
+@register
+@dataclasses.dataclass
+class ReshapeVertex(_UnportedVertex):
+    shape: Any = None
+
+
+@register
+@dataclasses.dataclass
+class PoolHelperVertex(_UnportedVertex):
+    pass
+
+
+@register
+@dataclasses.dataclass
+class LastTimeStepVertex(_UnportedVertex):
+    mask_input: Optional[str] = None
+
+
+@register
+@dataclasses.dataclass
+class DuplicateToTimeSeriesVertex(_UnportedVertex):
+    reference_input: Optional[str] = None
+
+
+# ---------------------------------------------------------------------------
+
+
+@register
+@dataclasses.dataclass
+class ComputationGraphConfiguration:
+    """``vertices`` maps name -> Layer or GraphVertexConf; ``vertex_inputs``
+    maps name -> input names (network inputs or other vertices). The field
+    set and order are the JAX package's."""
+    global_conf: Any = None
+    network_inputs: List[str] = dataclasses.field(default_factory=list)
+    network_outputs: List[str] = dataclasses.field(default_factory=list)
+    vertices: Dict[str, Any] = dataclasses.field(default_factory=dict)
+    vertex_inputs: Dict[str, List[str]] = dataclasses.field(default_factory=dict)
+    input_preprocessors: Dict[str, Any] = dataclasses.field(default_factory=dict)
+    input_types: Optional[List[Any]] = None
+    backprop_type: str = "standard"
+    tbptt_fwd_length: int = 20
+    tbptt_back_length: int = 20
+
+    def topological_order(self) -> List[str]:
+        """Kahn topological sort of vertex names, ties broken by name."""
+        indeg = {}
+        children = {n: [] for n in self.vertices}
+        for name, ins in self.vertex_inputs.items():
+            indeg[name] = 0
+            for i in ins:
+                if i in self.vertices:
+                    indeg[name] += 1
+                    children[i].append(name)
+                elif i not in self.network_inputs:
+                    raise ValueError(f"Vertex '{name}' input '{i}' is neither a "
+                                     f"vertex nor a network input")
+        ready = sorted(n for n in self.vertices if indeg.get(n, 0) == 0)
+        order = []
+        while ready:
+            n = ready.pop(0)
+            order.append(n)
+            for ch in children[n]:
+                indeg[ch] -= 1
+                if indeg[ch] == 0:
+                    ready.append(ch)
+        if len(order) != len(self.vertices):
+            cyc = set(self.vertices) - set(order)
+            raise ValueError(f"Cycle in computation graph involving {sorted(cyc)}")
+        return order
+
+    def infer_shapes(self) -> Dict[str, Any]:
+        """Propagate input types over the DAG: check vertex arity, add the
+        layers' preprocessors (the port has none yet: a layer that needs
+        one raises), fill ``n_in``. Returns {vertex name -> InputType or
+        None}."""
+        types: Dict[str, Any] = {}
+        if self.input_types is not None:
+            if len(self.input_types) != len(self.network_inputs):
+                raise ValueError(f"{len(self.network_inputs)} inputs but "
+                                 f"{len(self.input_types)} input types")
+            types.update(zip(self.network_inputs, self.input_types))
+        for name in self.topological_order():
+            v = self.vertices[name]
+            in_types = [types.get(i) for i in self.vertex_inputs[name]]
+            if isinstance(v, Layer):
+                it = in_types[0] if in_types else None
+                if it is None:
+                    types[name] = None
+                    continue
+                if name not in self.input_preprocessors:
+                    p = v.preprocessor_for(it)
+                    if p is not None:
+                        self.input_preprocessors[name] = p
+                if name in self.input_preprocessors:
+                    it = self.input_preprocessors[name].get_output_type(it)
+                v.set_n_in(it, override=False)
+                types[name] = v.get_output_type(0, it)
+            else:
+                exp = v.n_inputs()
+                if exp is not None and len(self.vertex_inputs[name]) != exp:
+                    raise ValueError(f"Vertex '{name}' expects {exp} inputs, "
+                                     f"got {len(self.vertex_inputs[name])}")
+                types[name] = (None if any(t is None for t in in_types)
+                               else v.get_output_type(in_types))
+        return types
+
+    def to_json(self) -> str:
+        return to_json(self)
+
+    @staticmethod
+    def from_json(s: str) -> "ComputationGraphConfiguration":
+        obj = from_json(s)
+        if not isinstance(obj, ComputationGraphConfiguration):
+            raise ValueError("JSON does not describe a ComputationGraphConfiguration")
+        return obj
+
+    def clone(self):
+        return copy.deepcopy(self)
+
+
+class GraphBuilder:
+    """``add_inputs`` / ``add_layer`` / ``add_vertex`` / ``set_outputs`` /
+    ``set_input_types`` / ``build`` (and the reference camelCase names)."""
+
+    def __init__(self, global_conf):
+        self._global = global_conf
+        self._inputs: List[str] = []
+        self._outputs: List[str] = []
+        self._vertices: Dict[str, Any] = {}
+        self._vertex_inputs: Dict[str, List[str]] = {}
+        self._input_types = None
+        self._backprop_type = "standard"
+        self._tbptt_fwd = 20
+        self._tbptt_back = 20
+
+    def add_inputs(self, *names) -> "GraphBuilder":
+        for n in names:
+            if n in self._inputs or n in self._vertices:
+                raise ValueError(f"Duplicate input name '{n}'")
+            self._inputs.append(n)
+        return self
+
+    addInputs = add_inputs
+
+    def _check_name(self, name):
+        if name in self._vertices:
+            raise ValueError(f"Duplicate vertex name '{name}'")
+        if name in self._inputs:
+            raise ValueError(f"Vertex name '{name}' collides with a network input")
+
+    def add_layer(self, name, layer, *inputs) -> "GraphBuilder":
+        self._check_name(name)
+        ins = list(inputs)
+        if len(ins) > 1:
+            # a layer with several inputs gets a MergeVertex in front
+            merge_name = f"{name}-merge"
+            self._vertices[merge_name] = MergeVertex()
+            self._vertex_inputs[merge_name] = ins
+            ins = [merge_name]
+        self._vertices[name] = layer
+        self._vertex_inputs[name] = ins
+        return self
+
+    addLayer = add_layer
+
+    def add_vertex(self, name, vertex, *inputs) -> "GraphBuilder":
+        self._check_name(name)
+        self._vertices[name] = vertex
+        self._vertex_inputs[name] = list(inputs)
+        return self
+
+    addVertex = add_vertex
+
+    def set_outputs(self, *names) -> "GraphBuilder":
+        self._outputs = list(names)
+        return self
+
+    setOutputs = set_outputs
+
+    def set_input_types(self, *types) -> "GraphBuilder":
+        self._input_types = list(types)
+        return self
+
+    setInputTypes = set_input_types
+
+    def backprop_type(self, t) -> "GraphBuilder":
+        self._backprop_type = t
+        return self
+
+    backpropType = backprop_type
+
+    def t_bptt_forward_length(self, n) -> "GraphBuilder":
+        self._tbptt_fwd = int(n)
+        return self
+
+    tBPTTForwardLength = t_bptt_forward_length
+
+    def t_bptt_backward_length(self, n) -> "GraphBuilder":
+        self._tbptt_back = int(n)
+        return self
+
+    tBPTTBackwardLength = t_bptt_backward_length
+
+    def build(self) -> ComputationGraphConfiguration:
+        if not self._inputs:
+            raise ValueError("GraphBuilder: no network inputs (addInputs)")
+        if not self._outputs:
+            raise ValueError("GraphBuilder: no network outputs (setOutputs)")
+        for out in self._outputs:
+            if out not in self._vertices:
+                raise ValueError(f"Output '{out}' is not a vertex")
+        conf = ComputationGraphConfiguration(
+            global_conf=self._global,
+            network_inputs=list(self._inputs),
+            network_outputs=list(self._outputs),
+            vertices=dict(self._vertices),
+            vertex_inputs=dict(self._vertex_inputs),
+            input_types=self._input_types,
+            backprop_type=self._backprop_type,
+            tbptt_fwd_length=self._tbptt_fwd,
+            tbptt_back_length=self._tbptt_back,
+        )
+        conf.infer_shapes()
+        return conf

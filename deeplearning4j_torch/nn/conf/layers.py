@@ -1,9 +1,10 @@
 """Layer configuration classes.
 
 Counterpart of ``deeplearning4j_tpu/nn/conf/layers.py``, holding only the
-classes the serving slice runs. Field names are unchanged so JSON written
-by the JAX package decodes here; any other layer ``@class`` fails to
-decode with the "Unknown config class" error.
+classes the ported slices run (the char-RNN's and the TransformerLM's).
+Field names and order are unchanged so JSON written by the JAX package
+decodes here and re-encodes byte for byte; any other layer ``@class``
+fails to decode with the "Unknown config class" error.
 
 Note on dropout: following the reference's 0.9.x semantics, ``dropout`` is
 the **retain probability** (1.0 = keep everything / disabled).
@@ -16,8 +17,9 @@ from typing import Any, List, Optional
 from .serde import register
 from .inputs import InputTypeFeedForward, InputTypeRecurrent
 
-__all__ = ["Layer", "BaseLayer", "FeedForwardLayer", "DenseLayer", "LSTM",
-           "GravesLSTM", "OutputLayer", "RnnOutputLayer"]
+__all__ = ["Layer", "BaseLayer", "FeedForwardLayer", "DenseLayer", "LayerNormalization",
+           "EmbeddingSequenceLayer", "LSTM", "GravesLSTM", "SelfAttentionLayer", "OutputLayer",
+           "RnnOutputLayer"]
 
 
 @register
@@ -86,6 +88,42 @@ class DenseLayer(FeedForwardLayer):
 
 @register
 @dataclasses.dataclass
+class LayerNormalization(FeedForwardLayer):
+    """Per-token normalization over the feature dim with learned gain and
+    bias; works on [b, F] and [b, T, F]."""
+    eps: float = 1e-5
+
+    def get_output_type(self, index, input_type):
+        return input_type
+
+    def set_n_in(self, input_type, override=False):
+        if self.n_in is None or override:
+            self.n_in = input_type.arity()
+        self.n_out = self.n_in
+
+    def preprocessor_for(self, input_type):
+        return None
+
+
+@register
+@dataclasses.dataclass
+class EmbeddingSequenceLayer(FeedForwardLayer):
+    """Index sequence [b, T] -> vector sequence [b, T, nOut]."""
+    has_bias: bool = False
+
+    def get_output_type(self, index, input_type):
+        t = (input_type.timeseries_length
+             if isinstance(input_type, InputTypeRecurrent) else None)
+        return InputTypeRecurrent(self.n_out, t)
+
+    def preprocessor_for(self, input_type):
+        # consumes [b, T] token ids: a recurrent input type describes the
+        # sequence (vocab arity), never a tensor to flatten
+        return None
+
+
+@register
+@dataclasses.dataclass
 class BaseRecurrentLayer(FeedForwardLayer):
     def get_output_type(self, index, input_type):
         t = (input_type.timeseries_length
@@ -116,6 +154,20 @@ class LSTM(BaseRecurrentLayer):
 @dataclasses.dataclass
 class GravesLSTM(LSTM):
     """LSTM with peephole connections."""
+
+
+@register
+@dataclasses.dataclass
+class SelfAttentionLayer(BaseRecurrentLayer):
+    """Multi-head self-attention over a sequence [b, T, nIn] -> [b, T, nOut];
+    long sequences take the flash-attention kernels (``ops/flash_attention``).
+    ``stream_max_length`` is the KV-cache capacity of streaming inference,
+    which is not ported yet."""
+    num_heads: int = 4
+    head_dim: Optional[int] = None
+    causal: bool = True
+    dropout_rate: float = 0.0
+    stream_max_length: int = 512
 
 
 @register

@@ -1,6 +1,7 @@
 """Feed-forward layer implementations.
 
-Counterpart of ``deeplearning4j_tpu/nn/layers/feedforward.py`` (DenseLayer).
+Counterpart of ``deeplearning4j_tpu/nn/layers/feedforward.py`` (DenseLayer,
+EmbeddingSequenceLayer).
 """
 from __future__ import annotations
 
@@ -39,3 +40,32 @@ class DenseImpl(LayerImpl):
 
     def forward(self, x, mask=None, ctx=None):
         return self.activation(self.preout(x)).to(self.out_dtype)
+
+
+@implements("EmbeddingSequenceLayer")
+class EmbeddingSequenceImpl(LayerImpl):
+    """Index sequence [b, T] (or [b, T, 1]) -> [b, T, nOut] by a row gather
+    of ``W`` (autograd scatter-adds the rows' gradients). Float ids
+    truncate toward zero, as the JAX package's ``astype(int32)`` does."""
+
+    def param_shapes(self):
+        c = self.conf
+        shapes = {"W": (c.n_in, c.n_out)}
+        if c.has_bias:
+            shapes["b"] = (c.n_out,)
+        return shapes
+
+    def init_params(self, gen):
+        c = self.conf
+        params = {"W": self._init_w(gen, (c.n_in, c.n_out), c.n_in, c.n_out)}
+        if c.has_bias:
+            params["b"] = torch.full((c.n_out,), self.bias_init, dtype=self.dtype)
+        return params
+
+    def forward(self, x, mask=None, ctx=None):
+        if x.dim() == 3 and x.shape[-1] == 1:
+            x = x[..., 0]
+        z = self.W[x.long()]
+        if "b" in self._parameters:
+            z = z + self.b
+        return self.activation(z).to(self.out_dtype)

@@ -248,9 +248,9 @@ class MultiLayerNetwork(nn.Module):
             grads[i][k] = torch.zeros_like(p) if g is None else g
         return grads
 
-    def _step(self, f, l, fm, lm, iteration, rnn_state_in=None):
-        """One update. Returns (detached loss, detached rnn state out)."""
-        loss, rnn_out = self._loss_fn(f, l, fm, lm, True, rnn_state_in)
+    def _update(self, loss, iteration) -> None:
+        """Gradients of ``loss`` -> minimize flip -> normalization -> the
+        layers' updaters -> ``p - u`` in place."""
         grads = self._grads(loss)
         if not self.gc.minimize:
             grads = {i: {k: -g for k, g in gs.items()} for i, gs in grads.items()}
@@ -261,6 +261,11 @@ class MultiLayerNetwork(nn.Module):
             for i, ps in self._trainable().items():
                 for k, p in ps.items():
                     p.sub_(updates[i][k].to(p.dtype))
+
+    def _step(self, f, l, fm, lm, iteration, rnn_state_in=None):
+        """One update. Returns (detached loss, detached rnn state out)."""
+        loss, rnn_out = self._loss_fn(f, l, fm, lm, True, rnn_state_in)
+        self._update(loss, iteration)
         return loss.detach(), _detached(rnn_out)
 
     def _steps(self, f, l, fm, lm, rnn_state_in=None):

@@ -88,7 +88,8 @@ def build_all(sources: List[str]) -> Dict[str, str]:
 
 def library(source: str, entry: str, argtypes) -> ctypes.CDLL:
     """The loaded library of one source, built first if needed, with
-    ``entry``'s ``argtypes`` declared (``restype`` int: a cudaError_t)."""
+    ``entry``'s ``argtypes`` declared (``restype`` int: a cudaError_t). A
+    source may hold several entries; each is declared at its first call."""
     with _lock:
         lib = _loaded.get(source)
         if lib is None:
@@ -96,9 +97,11 @@ def library(source: str, entry: str, argtypes) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(_target(source)))
             lib.dl4j_error_string.argtypes = [ctypes.c_int]
             lib.dl4j_error_string.restype = ctypes.c_char_p
-            getattr(lib, entry).argtypes = argtypes
-            getattr(lib, entry).restype = ctypes.c_int
             _loaded[source] = lib
+        fn = getattr(lib, entry)
+        if fn.argtypes is None:
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
         return lib
 
 

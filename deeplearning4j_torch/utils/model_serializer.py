@@ -1,10 +1,13 @@
 """Read a model zip written by the JAX package into the port.
 
 Counterpart of the restore half of ``deeplearning4j_tpu/utils/
-model_serializer.py``. The zip holds ``configuration.json`` (``{"type",
-"config", "iteration_count", "epoch_count"}``, the config in the JSON of
-``nn/conf/serde.py``) and ``coefficients.bin``, an ``.npz`` keyed by
-parameter keypath (``"0/W"``, ``"1/RW"`` ...); a bfloat16 array is stored
+model_serializer.py``, for both containers. The zip holds
+``configuration.json`` (``{"type", "config", "iteration_count",
+"epoch_count"}``, the config in the JSON of ``nn/conf/serde.py``) and
+``coefficients.bin``, an ``.npz`` keyed by parameter keypath
+(``"<layer>/<param>"``: ``"0/W"``, ``"1/RW"`` ... for a
+MultiLayerNetwork, ``"<vertex name>/W"`` for a ComputationGraph); a
+bfloat16 array is stored
 as its uint16 bit pattern under ``"__bf16__" + keypath``
 (``model_serializer.py:46-82``). This is how weights carry across from
 the JAX package. ``updaterState.bin`` (same layout, keypaths
@@ -24,11 +27,14 @@ import numpy as np
 import torch
 
 from .. import resolve_device
-from ..nn.conf import MultiLayerConfiguration
+from ..nn.conf import ComputationGraphConfiguration, MultiLayerConfiguration
+from ..nn.conf.layers import Layer
 from ..nn.conf.serde import decode
+from ..nn.graph import ComputationGraph
 from ..nn.multilayer import MultiLayerNetwork
 
-__all__ = ["restore_multi_layer_network", "params_from_numpy", "updater_state_from_numpy"]
+__all__ = ["restore_multi_layer_network", "restore_computation_graph", "params_from_numpy",
+           "updater_state_from_numpy"]
 
 CONFIG_JSON = "configuration.json"
 COEFFICIENTS_BIN = "coefficients.bin"
@@ -51,26 +57,35 @@ def _decoded(arrays: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
     return out
 
 
-def params_from_numpy(conf: MultiLayerConfiguration,
-                      arrays: Mapping[str, np.ndarray]
+def _layer_keys(conf):
+    """The parameter-dict keys of a configuration's layers: "0", "1" ... of
+    a MultiLayerConfiguration, the layer vertices' names of a graph."""
+    if isinstance(conf, ComputationGraphConfiguration):
+        return [n for n, v in conf.vertices.items() if isinstance(v, Layer)]
+    return [str(i) for i in range(len(conf.layers))]
+
+
+def params_from_numpy(conf, arrays: Mapping[str, np.ndarray]
                       ) -> Dict[str, Dict[str, torch.Tensor]]:
-    """{keypath: ndarray} (the npz layout) -> {"0": {"W": tensor}, ...},
-    ready for ``MultiLayerNetwork(conf).init(params=...)``, which checks
-    every shape against ``conf``."""
-    out: Dict[str, Dict[str, torch.Tensor]] = {
-        str(i): {} for i in range(len(conf.layers))}
+    """{keypath: ndarray} (the npz layout) -> {layer key: {"W": tensor}, ...}
+    for a MultiLayerConfiguration or a ComputationGraphConfiguration, ready
+    for ``init(params=...)`` of its container, which checks every shape
+    against ``conf``. A keypath splits at its last "/"."""
+    keys = _layer_keys(conf)
+    out: Dict[str, Dict[str, torch.Tensor]] = {k: {} for k in keys}
     for path, t in _decoded(arrays).items():
-        layer, _, name = path.partition("/")
-        if layer not in out or not name or "/" in name:
+        layer, _, name = path.rpartition("/")
+        if layer not in out or not name:
             raise ValueError(f"parameter '{path}' does not name a parameter of "
-                             f"one of the {len(conf.layers)} layers")
+                             f"one of the {len(keys)} layers")
         out[layer][name] = t
     return out
 
 
-def updater_state_from_numpy(net: MultiLayerNetwork, arrays: Mapping[str, np.ndarray]):
+def updater_state_from_numpy(net, arrays: Mapping[str, np.ndarray]):
     """{keypath: ndarray} (an ``updaterState.bin``) -> updater state shaped
-    like ``net.updater_state`` (per parameter: a tensor, or a tuple of slot
+    like ``net.updater_state`` of either container (per parameter: a
+    tensor, or a tuple of slot
     tensors at ``"<layer>/<param>/<slot>"``), on the network's device.
     Every slot must be present with its parameter's shape; unknown keypaths
     are refused."""
@@ -105,27 +120,36 @@ def _npz(data: bytes) -> Dict[str, np.ndarray]:
         return {k: npz[k] for k in npz.files}
 
 
-def restore_multi_layer_network(path, device="cuda", load_updater=True) -> MultiLayerNetwork:
-    """The network saved at ``path``, on ``device`` (the card unless
-    ``device="cpu"``), with its updater state when the zip has one (and
-    ``load_updater``) and its iteration and epoch counts."""
+def _restore(path, device, load_updater, kind, conf_cls, net_cls):
     dev = resolve_device(device)
     with zipfile.ZipFile(path, "r") as z:
         conf_doc = json.loads(z.read(CONFIG_JSON).decode("utf-8"))
         coeff = z.read(COEFFICIENTS_BIN)
         upd = (z.read(UPDATER_BIN) if load_updater and UPDATER_BIN in z.namelist()
                else None)
-    if conf_doc.get("type") != "MultiLayerNetwork":
-        raise ValueError(f"Saved model is a {conf_doc.get('type')}; the port "
-                         f"restores MultiLayerNetwork only")
+    if conf_doc.get("type") != kind:
+        raise ValueError(f"Saved model is a {conf_doc.get('type')}, not a {kind}")
     conf = decode(conf_doc["config"])
-    if not isinstance(conf, MultiLayerConfiguration):
-        raise ValueError("configuration.json does not describe a "
-                         "MultiLayerConfiguration")
-    net = MultiLayerNetwork(conf).init(params=params_from_numpy(conf, _npz(coeff)),
-                                       device=dev)
+    if not isinstance(conf, conf_cls):
+        raise ValueError(f"configuration.json does not describe a {conf_cls.__name__}")
+    net = net_cls(conf).init(params=params_from_numpy(conf, _npz(coeff)), device=dev)
     if upd is not None:
         net.updater_state = updater_state_from_numpy(net, _npz(upd))
     net.iteration_count = int(conf_doc.get("iteration_count", 0))
     net.epoch_count = int(conf_doc.get("epoch_count", 0))
     return net
+
+
+def restore_multi_layer_network(path, device="cuda", load_updater=True) -> MultiLayerNetwork:
+    """The network saved at ``path``, on ``device`` (the card unless
+    ``device="cpu"``), with its updater state when the zip has one (and
+    ``load_updater``) and its iteration and epoch counts."""
+    return _restore(path, device, load_updater, "MultiLayerNetwork", MultiLayerConfiguration,
+                    MultiLayerNetwork)
+
+
+def restore_computation_graph(path, device="cuda", load_updater=True) -> ComputationGraph:
+    """The ComputationGraph saved at ``path``, restored as
+    :func:`restore_multi_layer_network` restores a MultiLayerNetwork."""
+    return _restore(path, device, load_updater, "ComputationGraph",
+                    ComputationGraphConfiguration, ComputationGraph)

@@ -66,6 +66,11 @@ srv = InferenceServer()
 srv.register("m", net, device="cpu")
 srv.registry.predict("m", x)
 srv.stop()
+from deeplearning4j_torch.models import TransformerLM
+lm = TransformerLM(vocab_size=5, embed_dim=8, num_heads=2, num_blocks=1).init(device="cpu")
+ids = np.arange(8, dtype=np.float32).reshape(2, 4) % 5
+lm.fit(ids, np.eye(5, dtype=np.float32)[ids.astype(int)])
+lm.output(ids)
 print(json.dumps(sorted(m for m in sys.modules
                         if m.split(".")[0] in ("jax", "jaxlib", "deeplearning4j_tpu"))))
 """
