@@ -29,13 +29,15 @@ and the CUDA toolkit; run from the root of the repository. It
    card's gradients against the CPU reference's (unmasked and masked);
 6. holds the flash-attention kernels K5 (forward), K6 (dq) and K7 (dk/dv)
    against their plain versions at small shapes over their options (f32
-   and bf16, head dims 16 and 80, Tq != Tk, masks, dropout) and at the
-   TransformerLM's shape (b=4, h=8,
-   T=8192, d=64, bf16): causal (timed, beside the card's bound and
-   ``scaled_dot_product_attention``), non-causal, with a key mask that pads
-   one example whole (its rows and gradients must be exactly 0), and with
-   dropout at a seed and nonzero offsets; and checks the kernel's dropout
-   keep bits against ``dropout_keep_mask``;
+   and bf16, head dims 16, 64, 80 and 128, so that both routes of the
+   backward's static choice are held, Tq != Tk, lengths that are odd
+   multiples of 64, masks, dropout) and at the TransformerLM's shape (b=4,
+   h=8, T=8192, d=64, bf16): causal (timed, beside the card's bound and
+   ``scaled_dot_product_attention``; K6 and K7 launched twice and required
+   bitwise equal), non-causal, with a key mask that pads one example whole
+   (its rows and gradients must be exactly 0), and with dropout at a seed
+   and nonzero offsets; and checks the kernel's dropout keep bits against
+   ``dropout_keep_mask``;
 7. builds the 8-block TransformerLM of bench.py:1730 (vocab 4096, embed
    512, 8 heads, FFN 4x, bf16 compute, Adam) on the card from a seed, runs
    ``output`` on one b=4, T=8192 batch (one K5 launch per block) and
@@ -709,6 +711,15 @@ def check_flash_kernels():
     o, lse = fa.flash_fwd(q, k, v, None, True, scale)
     delta = fa.rowwise_delta(do, o)
     args = (q, k, v, None, do, delta, lse, True, scale)
+    # no atomics: two launches give the same bits
+    first = (fa.dq_block(*args), *fa.dkv_block(*args))
+    again = (fa.dq_block(*args), *fa.dkv_block(*args))
+    torch.cuda.synchronize()
+    same = [torch.equal(a, b) for a, b in zip(first, again)]
+    log(f"K6/K7 causal full width launched twice: dq, dk, dv bitwise equal {same}")
+    if not all(same):
+        raise AssertionError(f"K6/K7 are not deterministic: dq, dk, dv equal {same}")
+    del first, again
     ms = {"flash_fwd": cuda_ms(lambda: fa.flash_fwd(q, k, v, None, True, scale), 10),
           "flash_dq": cuda_ms(lambda: fa.dq_block(*args), 10),
           "flash_dkv": cuda_ms(lambda: fa.dkv_block(*args), 10)}
@@ -735,33 +746,40 @@ def check_flash_kernels():
     results = {}
     for name, (nbytes, flops) in work.items():
         bms, by = bound(nbytes, flops, 0)
+        tflops = flops / ms[name] / 1e9
         results[name] = dict(max_abs_err=abs_errs[name], max_rel_err=errs[name], ms=ms[name],
                              plain_ms=plain_ms[name], bound_ms=bms, bound_by=by,
-                             library_ms=library[name])
+                             library_ms=library[name], tflops=tflops)
         log(f"{name} causal b={LM_B} h={LM_HEADS} T={t} d={d}: kernel_ms={ms[name]:.3f} "
-            f"plain_ms={plain_ms[name]:.1f} bound_ms={bms:.4f} ({by}; {flops / 1e9:.0f} GFLOP, "
-            f"{nbytes / 1e6:.0f} MB) max_rel_err={errs[name]:.2e}")
+            f"({tflops:.0f} TFLOP/s) plain_ms={plain_ms[name]:.1f} bound_ms={bms:.4f} ({by}; "
+            f"{flops / 1e9:.0f} GFLOP, {nbytes / 1e6:.0f} MB) library_ms={library[name]:.3f} "
+            f"max_rel_err={errs[name]:.2e}")
     log(f"yardstick scaled_dot_product_attention causal: forward {sdpa_fwd:.3f} ms, backward "
-        f"(dq, dk, dv) {sdpa_bwd:.3f} ms")
+        f"(dq, dk, dv) {sdpa_bwd:.3f} ms; K6 + K7 {ms['flash_dq'] + ms['flash_dkv']:.3f} ms")
     return results
 
 
 def check_flash_small():
     """K5, K6 and K7 against their plain versions over the options the main
     path does not take, at small shapes: f32 and bf16 operands, head dims
-    16 and 80 (80 is zero-padded to 128 in the kernels), causal or not,
-    Tq = Tk and Tq != Tk (dq_block/dkv_block only), with and without a key
-    mask (one batch x head padded whole) and dropout."""
+    16, 64, 80 and 128 (80 is zero-padded to 128 in the kernels; bf16 at 64,
+    80 and 128 takes the backward's wgmma route, 16 and f32 the mma.sync
+    bodies), causal or not, Tq = Tk and Tq != Tk (dq_block/dkv_block only),
+    lengths that are odd multiples of 64 (a 128-row block half past the
+    end), with and without a key mask (one batch x head padded whole: its
+    outputs exactly 0) and dropout at offsets near 2^31."""
     from deeplearning4j_torch.ops import flash_attention as fa
 
     dev = torch.device("cuda")
     g = torch.Generator().manual_seed(21)
     worst = {torch.bfloat16: 0.0, torch.float32: 0.0}
+    routes = {}
     n = 0
     for dtype in (torch.bfloat16, torch.float32):
-        for d in (16, 80):
+        for d in (16, 64, 80, 128):
+            route = backward_design(dtype, d)
             for causal in (True, False):
-                for tq, tk in ((256, 256), (128, 256), (256, 128)):
+                for tq, tk in ((256, 256), (128, 256), (256, 128), (192, 320), (320, 192)):
                     for masked in (False, True):
                         for rate in (0.0, 0.2):
                             bh = 3
@@ -792,20 +810,36 @@ def check_flash_small():
                             e = max(((a.float() - b.float()).abs().max()
                                      / b.float().abs().max().clamp(min=1e-30)).item()
                                     for a, b in zip(outs, refs))
-                            if masked and tq == tk and any(torch.count_nonzero(x[1]).item()
-                                                           for x in outs[:1] + outs[2:]):
-                                raise AssertionError(f"small flash case d={d} {dtype}: a fully "
-                                                     f"padded batch x head is not exactly 0")
+                            if masked and any(torch.count_nonzero(x[1]).item()
+                                              for x in outs if x.dim() == 3):
+                                raise AssertionError(f"small flash case d={d} {dtype} Tq={tq} "
+                                                     f"Tk={tk}: a fully padded batch x head is "
+                                                     f"not exactly 0")
                             lim = FLASH_RTOL if dtype == torch.bfloat16 else FLASH_F32_RTOL
                             if not e <= lim:
                                 raise AssertionError(
                                     f"small flash case {dtype} d={d} causal={causal} Tq={tq} "
-                                    f"Tk={tk} mask={masked} rate={rate}: rel err {e} > {lim}")
+                                    f"Tk={tk} mask={masked} rate={rate} ({route}): rel err {e} "
+                                    f"> {lim}")
                             worst[dtype] = max(worst[dtype], e)
+                            routes[route] = routes.get(route, 0) + 1
                             n += 1
-    log(f"K5/K6/K7 small shapes ({n} cases: f32 and bf16, d 16 and 80, causal or not, "
-        f"Tq != Tk, key masks, dropout): worst rel err bf16 {worst[torch.bfloat16]:.2e}, "
-        f"f32 {worst[torch.float32]:.2e}")
+    log(f"K5/K6/K7 small shapes ({n} cases: f32 and bf16, d 16/64/80/128, causal or not, "
+        f"Tq != Tk, odd multiples of 64, key masks, dropout; backward routes {routes}): worst "
+        f"rel err bf16 {worst[torch.bfloat16]:.2e}, f32 {worst[torch.float32]:.2e}")
+
+
+def backward_design(dtype, d, source="flash_attn_dq.cu"):
+    """The route the backward kernel of ``source`` takes for operands of
+    this type and head width: the static choice of its C entry."""
+    import ctypes
+
+    from deeplearning4j_torch.ops import cuda_build
+
+    lib = cuda_build.library(source, "dl4j_flash_bwd_wgmma", [ctypes.c_int, ctypes.c_int])
+    return ("wgmma + TMA, warp-specialised, 128-row blocks"
+            if lib.dl4j_flash_bwd_wgmma(int(dtype == torch.bfloat16), d)
+            else "mma.sync / CUDA-core, 64-row blocks")
 
 
 def check_keep_bits(fa, seed):
@@ -970,13 +1004,15 @@ def build():
         entry = ""
         for line in text.splitlines():
             # the flash sources instantiate nine head widths and types
-            # each: print the main path's (bf16, d=64) and any spill
+            # each (and the backward two wgmma kernels): print the main
+            # path's (bf16, d=64), every wgmma kernel's, any spill and any
+            # ptxas warning (an ignored setmaxnreg, serialised wgmma)
             if flash and "Compiling entry" in line:
                 entry = line.split("'")[1] if "'" in line else line
-            path = not flash or "13__nv_bfloat16Li64E" in entry
+            path = not flash or "13__nv_bfloat16Li64E" in entry or "wgmma" in entry
             spill = "spill" in line and "0 bytes spill stores" not in line
-            if ("registers" in line or "spill" in line) and (path or spill):
-                log(f"  {src}: {'' if path else entry + ': '}{line.strip()}")
+            if ("registers" in line or "spill" in line) and (path or spill) or "arning" in line:
+                log(f"  {src}: {entry[:72] + ': ' if flash else ''}{line.strip()}")
 
 
 def kernel_line(serving, training, served, streamed, trained, flash, lm):
@@ -1031,6 +1067,7 @@ def flash_entry(name, source, line, res, lm):
                    "causal": True},
          "output_launches": lm["output_launches"][name]}
     if name != "flash_fwd":
+        e["design"] = backward_design(torch.bfloat16, LM_D, source)
         e["library_note"] = ("scaled_dot_product_attention backward: dq, dk and dv in one "
                              "call, beside K6 + K7 together")
     return e

@@ -7,7 +7,10 @@
 // log-sum-exp, with delta = rowsum(do * o) formed outside (`rowwise_delta`):
 //   s = (q . k^T) * scale, causal and key-mask cells -> -1e30
 //   p = s > -0.5e30 ? exp(s - lse) : 0     (the s-guard: a row with no
-//                                           visible key gets exactly 0)
+//                                           visible key gets exactly 0;
+//                                           the wgmma route forms it as
+//                                           exp2(s log2e - lse log2e) and
+//                                           gives every masked cell 0)
 //   dp = (do . v^T) * keep / (1 - rate)    (dropout regenerated by the hash)
 //   ds = p * (dp - delta) * scale
 //   K6: dq = T(ds) . k                      (ds rounded to k's type)
@@ -21,14 +24,26 @@
 // TFLOP/s) and K7 four (s, dp, dv, dk: 550 GFLOP, 0.56 ms), against 170 and
 // 203 MB of operands and results (0.05 and 0.06 ms at 3.35 TB/s).
 //
-// Design (simple first, as K5): four warps own 64 rows (queries in K6,
-// keys in K7) and stream the other side in 64-row tiles through shared
-// memory, causal tiles that no row can see skipped. K7 computes the
-// transposed scores s^T = k . q^T, so that each warp's rows are its own
-// keys and dk/dv accumulate in registers over the query tiles without
-// atomics; K6 accumulates dq the same way over key tiles. The operands a
-// product needs transposed (k in K6; q and do in K7) are staged twice.
-#include "flash_common.cuh"
+// Design for bf16 operands with a head width that pads to 64 or 128 (the
+// main path; the shared pieces are in flash_hopper.cuh): a block owns 128
+// queries, 64 for each of two consumer warpgroups, whose q and do tiles
+// stay in shared memory, blocks with the most causal work first. The
+// producer warp streams the 64-key tiles of k and v (and the key mask) by
+// TMA through a ring of kStages stages, stopping at the last tile a causal
+// row can see. Per tile a consumer issues s = q . k^T and dp = do . v^T as
+// two wgmma groups (q, do the resident A, the k and v stages the K-major
+// B); while dp is formed it turns s into p in the accumulator registers,
+// then ds, rounded to bf16 as the register A fragments of dq += ds . k,
+// whose B is the same k stage read MN-major: nothing is staged transposed.
+// A tile's dq products finish before its stage is released (on an H100,
+// letting them run under the next tile's scores gained at most 3% at
+// d = 64 and lost about 30% at d = 128).
+//
+// f32 operands (wgmma would round them to TF32) and other bf16 widths keep
+// the body written first (CUDA-core / mma.sync below): four warps own 64
+// queries and stream 64-key tiles through shared memory, k staged twice
+// (the second time transposed) for dq = ds . k.
+#include "flash_hopper.cuh"
 
 namespace dl4j_flash {
 
@@ -135,12 +150,221 @@ int run_dq(const void* q, const void* k, const void* v, const void* km, const vo
   DL4J_FLASH_BY_DP(T, launch_dq, q, k, v, km, dout, delta, lse, dq, p, stream);
 }
 
+// ------------------------------------------------------- K6, wgmma route
+namespace hopper {
+
+// Shared memory of one block, in bytes from a 1024-byte aligned base.
+template <int DP>
+struct DqLayout {
+  static constexpr int TB = kRows * DP * 2;             // one 64-row tile
+  static constexpr int Q = 0;                           // [2][TB], resident
+  static constexpr int DO = Q + 2 * TB;                 // [2][TB], resident
+  static constexpr int K = DO + 2 * TB;                 // [kStages][TB]
+  static constexpr int V = K + kStages * TB;            // [kStages][TB]
+  static constexpr int KM = V + kStages * TB;           // [kStages][64] f32 key mask
+  static constexpr int BAR = KM + kStages * kRows * 4;  // full, empty [kStages]; res
+  static constexpr int BYTES = BAR + (2 * kStages + 1) * 8 + 1024;  // + alignment slack
+};
+
+template <typename T, int DP>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_dq_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+               const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
+               const float* __restrict__ km, const float* __restrict__ delta,
+               const float* __restrict__ lse, T* __restrict__ dq, Params p) {
+  static_assert(sizeof(T) == 2 && (DP == 64 || DP == 128), "bf16, d padded to 64 or 128");
+  using L = DqLayout<DP>;
+  constexpr int NC = DP / 64, KS = DP / 16;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  const unsigned char* sp = smem_raw + (base - raw);
+  const uint32_t full = base + L::BAR, empty = full + 8 * kStages, res = empty + 8 * kStages;
+  const int bh = blockIdx.y;
+  const int nb = (p.Tq + kBlockRows - 1) / kBlockRows;
+  const int q0 = (p.causal ? nb - 1 - (int)blockIdx.x : (int)blockIdx.x) * kBlockRows;
+  const int nk_all = p.Tk / kRows;
+  const int last_q = min(q0 + kBlockRows, p.Tq) - 1;
+  const int nk = p.causal ? min(nk_all, last_q / kRows + 1) : nk_all;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, kConsumerWarps);
+    }
+    mbar_init(res, 1);
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  const int wg = warpgroup();
+  if (wg == kConsumerThreads / 128) {
+    // ------------------------------------------------------------ producer
+    setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x == kConsumerThreads) {
+      mbar_expect_tx(res, 4 * NC * kChunkBytes);
+      for (int w = 0; w < 2; ++w)
+        for (int c = 0; c < NC; ++c) {
+          tma_load(base + L::Q + w * L::TB + c * kChunkBytes, &tq, res, 64 * c, q0 + kRows * w, bh);
+          tma_load(base + L::DO + w * L::TB + c * kChunkBytes, &tdo, res, 64 * c, q0 + kRows * w,
+                   bh);
+        }
+      for (int it = 0; it < nk; ++it) {
+        const int s = it % kStages, k0 = it * kRows;
+        const uint32_t bar = full + 8 * s;
+        mbar_wait(empty + 8 * s, ((it / kStages) & 1) ^ 1);
+        mbar_expect_tx(bar, 2 * NC * kChunkBytes + (km != nullptr ? kRows * 4 : 0));
+        for (int c = 0; c < NC; ++c) {
+          tma_load(base + L::K + s * L::TB + c * kChunkBytes, &tk, bar, 64 * c, k0, bh);
+          tma_load(base + L::V + s * L::TB + c * kChunkBytes, &tv, bar, 64 * c, k0, bh);
+        }
+        if (km != nullptr)
+          bulk_load(base + L::KM + s * kRows * 4, km + (size_t)bh * p.Tk + k0, kRows * 4, bar);
+      }
+    }
+  } else {
+    // ----------------------------------------------------------- consumers
+    setmaxnreg_inc<kConsumerRegs>();
+    const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+    const int g = lane >> 2, t = lane & 3;
+    const int qw0 = q0 + kRows * wg;       // the warpgroup's first query
+    const int row0 = qw0 + 16 * warp + g;  // the thread's queries: row0, row0 + 8
+    const bool valid = qw0 < p.Tq;
+    const uint32_t hbh = hash_bh(p.seed, bh);
+    const float scale_log2 = p.scale * kLog2e;
+    float lse_l2[2] = {0.f, 0.f}, del_r[2] = {0.f, 0.f};
+    if (valid) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        lse_l2[r] = lse[(size_t)bh * p.Tq + row0 + 8 * r] * kLog2e;
+        del_r[r] = delta[(size_t)bh * p.Tq + row0 + 8 * r];
+      }
+    }
+    float acc[NC][32], st[32], dpt[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      st[i] = dpt[i] = 0.f;
+#pragma unroll
+      for (int h = 0; h < NC; ++h) acc[h][i] = 0.f;
+    }
+    uint32_t da[4][4];
+    const uint32_t qt = base + L::Q + wg * L::TB, dot = base + L::DO + wg * L::TB;
+    mbar_wait(res, 0);
+    for (int it = 0; it < nk; ++it) {
+      const int s = it % kStages, k0 = it * kRows;
+      mbar_wait(full + 8 * s, (it / kStages) & 1);
+      if (!valid || (p.causal && k0 > qw0 + kRows - 1)) {  // no query sees this tile
+        release(empty + 8 * s);
+        continue;
+      }
+      const uint32_t kst = base + L::K + s * L::TB, vs = base + L::V + s * L::TB;
+      wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks) wgmma_ss(st, kmajor(qt, ks), kmajor(kst, ks), ks);
+      wgmma_commit();
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks) wgmma_ss(dpt, kmajor(dot, ks), kmajor(vs, ks), ks);
+      wgmma_commit();
+      wgmma_wait<1>();  // s is in
+      fence_regs(st);
+
+      const float* kms = km != nullptr ? reinterpret_cast<const float*>(sp + L::KM + s * kRows * 4)
+                                       : nullptr;
+      const bool diag = p.causal && k0 + kRows - 1 > qw0;  // a key past a query
+      // pass 1, while dp is formed: p into st
+      with_flags(kms != nullptr, diag, [&](auto masked, auto on_diag) {
+        constexpr bool kMasked = decltype(masked)::value, kDiag = decltype(on_diag)::value;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int c0 = 8 * j + 2 * t;
+          bool kok[2] = {true, true};
+          if constexpr (kMasked) {
+            const float2 m2 = *reinterpret_cast<const float2*>(kms + c0);
+            kok[0] = m2.x > 0.f;
+            kok[1] = m2.y > 0.f;
+          }
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int i = 4 * j + e, r = e >> 1, key = k0 + c0 + (e & 1), qry = row0 + 8 * r;
+            const bool vis = kok[e & 1] && !(kDiag && key > qry);
+            st[i] = vis ? exp2f(fmaf(st[i], scale_log2, -lse_l2[r])) : 0.f;
+          }
+        }
+      });
+      wgmma_wait<0>();  // dp is in
+      fence_regs(dpt);
+      // pass 2: ds into the A fragments da
+      const auto ds_pass = [&](auto drop) {
+        constexpr bool kDrop = decltype(drop)::value;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          float ds[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int i = 4 * j + e, r = e >> 1;
+            float dpv = dpt[i];
+            if constexpr (kDrop)
+              dpv = keep_cell(hbh, (uint32_t)p.q_off + row0 + 8 * r,
+                              (uint32_t)p.k_off + k0 + 8 * j + 2 * t + (e & 1), p.rate)
+                        ? dpv * p.inv_keep : 0.f;
+            ds[e] = st[i] * (dpv - del_r[r]) * p.scale;
+          }
+          da[j >> 1][2 * (j & 1)] = pack_bf16(ds[0], ds[1]);
+          da[j >> 1][2 * (j & 1) + 1] = pack_bf16(ds[2], ds[3]);
+        }
+      };
+      if (p.rate > 0.f) ds_pass(std::true_type{});
+      else ds_pass(std::false_type{});
+      wgmma_fence();
+#pragma unroll
+      for (int h = 0; h < NC; ++h)
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) wgmma_rs(acc[h], da[kk], mnmajor(kst, h, kk));
+      wgmma_commit();
+      wgmma_wait<0>();
+      release(empty + 8 * s);
+    }
+#pragma unroll
+    for (int h = 0; h < NC; ++h) fence_regs(acc[h]);
+    if (valid) store_acc<NC>(dq + (size_t)bh * p.Tq * p.d, acc, row0, p.Tq, p.d, t);
+  }
+}
+
+template <typename T, int DP>
+int launch_dq_wgmma(const void* q, const void* k, const void* v, const void* km, const void* dout,
+                    const void* delta, const void* lse, void* dq, const Params& p,
+                    cudaStream_t stream) {
+  CUtensorMap tq, tk, tv, tdo;
+  int err;
+  if ((err = make_map(&tq, q, p.bh, p.Tq, p.d)) || (err = make_map(&tk, k, p.bh, p.Tk, p.d))
+      || (err = make_map(&tv, v, p.bh, p.Tk, p.d)) || (err = make_map(&tdo, dout, p.bh, p.Tq, p.d)))
+    return err;
+  constexpr int smem = DqLayout<DP>::BYTES;
+  auto kernel = flash_dq_wgmma<T, DP>;
+  if ((err = set_smem(kernel, smem))) return err;
+  kernel<<<dim3((p.Tq + kBlockRows - 1) / kBlockRows, p.bh), kThreads, smem, stream>>>(
+      tq, tk, tv, tdo, static_cast<const float*>(km), static_cast<const float*>(delta),
+      static_cast<const float*>(lse), static_cast<T*>(dq), p);
+  return (int)cudaGetLastError();
+}
+
+inline int run_dq_wgmma(const void* q, const void* k, const void* v, const void* km,
+                        const void* dout, const void* delta, const void* lse, void* dq,
+                        const Params& p, cudaStream_t stream) {
+  if (p.d <= 64) return launch_dq_wgmma<bf16, 64>(q, k, v, km, dout, delta, lse, dq, p, stream);
+  return launch_dq_wgmma<bf16, 128>(q, k, v, km, dout, delta, lse, dq, p, stream);
+}
+
+}  // namespace hopper
+
 }  // namespace dl4j_flash
 
 // Plain C entries bound with ctypes: q, do [bh, Tq, d], k, v [bh, Tk, d]
 // and the gradients in one type (bf16 when is_bf16, else f32); delta, lse
 // [bh, Tq] f32; km [bh, Tk] f32 or null. Tq, Tk multiples of 64, d <= 256
-// (<= 128 for f32). Each returns a cudaError_t.
+// (<= 128 for f32). The route is static: bf16 with d in (32, 128] and a
+// multiple of 8 takes the wgmma kernel, everything else the body above.
+// Returns a cudaError_t.
 extern "C" int dl4j_flash_dq(const void* q, const void* k, const void* v, const void* km,
                              const void* dout, const void* delta, const void* lse, void* dq,
                              int bh, int Tq, int Tk, int d, int is_bf16, float scale, int causal,
@@ -150,6 +374,8 @@ extern "C" int dl4j_flash_dq(const void* q, const void* k, const void* v, const 
   const Params p{bh, Tq, Tk, d, scale, causal, rate, inv_keep, seed, q_off, k_off};
   if (!shape_ok(p)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (hopper::wgmma_route(is_bf16, d))
+    return hopper::run_dq_wgmma(q, k, v, km, dout, delta, lse, dq, p, s);
   if (is_bf16) return run_dq<bf16>(q, k, v, km, dout, delta, lse, dq, p, s);
   return run_dq<float>(q, k, v, km, dout, delta, lse, dq, p, s);
 }

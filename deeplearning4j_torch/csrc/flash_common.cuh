@@ -1,5 +1,8 @@
 // Shared pieces of the flash-attention kernels: the forward K5
-// (flash_attn_fwd.cu) and the backward K6/K7 (flash_attn_bwd.cu).
+// (flash_attn_fwd.cu) and the backward K6 (flash_attn_dq.cu) and K7
+// (flash_attn_dkv.cu). The products below are those of K5 and of the
+// backward's f32 and non-wgmma bf16 bodies; the backward's wgmma route has
+// its own in flash_hopper.cuh.
 //
 // Layout: q, k, v, o, do, dq, dk, dv are [bh, T, d] row-major in one type
 // (bf16 or f32); lse, delta are [bh, T] f32; the key mask is [bh, Tk] f32

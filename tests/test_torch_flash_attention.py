@@ -16,6 +16,10 @@ Tolerances, as max |port - jax| over max |jax| (lse absolute):
 - Rows with no visible key are exactly 0 (o, dq, dk, dv) on both sides,
   and the dropout keep mask is bit-equal.
 """
+import ctypes
+import re
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -255,6 +259,38 @@ def test_supported_contract(monkeypatch):
     monkeypatch.setattr(fa, "_FORCE_SHORT_SEQ", True)
     for T in (128, 256, 384, 4096):
         assert fa.supported(T, 64, 0.0, None) == jfa.supported(T, 64, 0.0, None)
+
+
+def _c_parameters(entry):
+    """The parameter list of ``extern "C" int <entry>(...)`` in the port's
+    CUDA sources, one declaration a string."""
+    csrc = Path(fa.__file__).resolve().parent.parent / "csrc"
+    found = [m.group(1) for src in sorted(csrc.glob("*.cu"))
+             for m in re.finditer(r'extern "C" int ' + entry + r"\(([^)]*)\)", src.read_text())]
+    assert len(found) == 1, f"{entry}: {len(found)} definitions in {csrc}"
+    return [" ".join(p.split()) for p in found[0].split(",")]
+
+
+def _c_kind(decl):
+    if "*" in decl:
+        return "pointer"
+    kind = decl.replace("const ", "").split()[0]
+    assert kind in ("int", "float"), f"unexpected C parameter {decl!r}"
+    return kind
+
+
+@pytest.mark.parametrize("entry,argtypes", [("dl4j_flash_fwd", "_FWD_ARGTYPES"),
+                                            ("dl4j_flash_dq", "_DQ_ARGTYPES"),
+                                            ("dl4j_flash_dkv", "_DKV_ARGTYPES")])
+def test_ctypes_argtypes_match_the_c_entries(entry, argtypes):
+    """Each wrapper's ctypes declaration against its C entry's parameter
+    list: the count, and for each parameter whether it is a pointer, an int
+    or a float. ctypes passes an int where the C side reads a pointer as 32
+    bits, which only a launch on the card would show."""
+    kinds = {ctypes.c_void_p: "pointer", ctypes.c_int: "int", ctypes.c_float: "float"}
+    declared = [kinds[t] for t in getattr(fa, argtypes)]
+    params = _c_parameters(entry)
+    assert declared == [_c_kind(p) for p in params], list(zip(params, declared))
 
 
 def test_cuda_wrappers_refuse_what_the_kernels_do_not_take(monkeypatch):
