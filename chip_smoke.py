@@ -29,15 +29,15 @@ and the CUDA toolkit; run from the root of the repository. It
    card's gradients against the CPU reference's (unmasked and masked);
 6. holds the flash-attention kernels K5 (forward), K6 (dq) and K7 (dk/dv)
    against their plain versions at small shapes over their options (f32
-   and bf16, head dims 16, 64, 80 and 128, so that both routes of the
-   backward's static choice are held, Tq != Tk, lengths that are odd
+   and bf16, head dims 16, 64, 80 and 128, so that both routes of each
+   kernel's static choice are held, Tq != Tk, lengths that are odd
    multiples of 64, masks, dropout) and at the TransformerLM's shape (b=4,
-   h=8, T=8192, d=64, bf16): causal (timed, beside the card's bound and
-   ``scaled_dot_product_attention``; K6 and K7 launched twice and required
-   bitwise equal), non-causal, with a key mask that pads one example whole
-   (its rows and gradients must be exactly 0), and with dropout at a seed
-   and nonzero offsets; and checks the kernel's dropout keep bits against
-   ``dropout_keep_mask``;
+   h=8, T=8192, d=64, bf16): causal (timed, beside the card's bound, K5
+   and ``scaled_dot_product_attention``'s forward in alternating turns;
+   K5, K6 and K7 launched twice and required bitwise equal), non-causal,
+   with a key mask that pads one example whole (its rows and gradients
+   must be exactly 0), and with dropout at a seed and nonzero offsets; and
+   checks the kernel's dropout keep bits against ``dropout_keep_mask``;
 7. builds the 8-block TransformerLM of bench.py:1730 (vocab 4096, embed
    512, 8 heads, FFN 4x, bf16 compute, Adam) on the card from a seed, runs
    ``output`` on one b=4, T=8192 batch (one K5 launch per block) and
@@ -133,6 +133,9 @@ LM_STEPS, LM_TIMED_STEPS = 6, 3
 # absolutely (measured 1.9e-6).
 FLASH_RTOL = 2e-2
 LSE_ATOL = 1e-4
+# Alternating turns in which K5 and scaled_dot_product_attention's forward
+# are timed at the TransformerLM's shape; the medians are compared.
+FWD_TURNS = 5
 # f32 operands: the kernels' CUDA-core products sum in another order than
 # the plain version's matmul (measured 3.7e-6 on an H100).
 FLASH_F32_RTOL = 3e-5
@@ -712,27 +715,34 @@ def check_flash_kernels():
     delta = fa.rowwise_delta(do, o)
     args = (q, k, v, None, do, delta, lse, True, scale)
     # no atomics: two launches give the same bits
-    first = (fa.dq_block(*args), *fa.dkv_block(*args))
-    again = (fa.dq_block(*args), *fa.dkv_block(*args))
+    first = (*fa.flash_fwd(q, k, v, None, True, scale), fa.dq_block(*args), *fa.dkv_block(*args))
+    again = (*fa.flash_fwd(q, k, v, None, True, scale), fa.dq_block(*args), *fa.dkv_block(*args))
     torch.cuda.synchronize()
     same = [torch.equal(a, b) for a, b in zip(first, again)]
-    log(f"K6/K7 causal full width launched twice: dq, dk, dv bitwise equal {same}")
+    log(f"K5/K6/K7 causal full width launched twice: o, lse, dq, dk, dv bitwise equal {same}")
     if not all(same):
-        raise AssertionError(f"K6/K7 are not deterministic: dq, dk, dv equal {same}")
+        raise AssertionError(f"K5/K6/K7 are not deterministic: o, lse, dq, dk, dv equal {same}")
     del first, again
-    ms = {"flash_fwd": cuda_ms(lambda: fa.flash_fwd(q, k, v, None, True, scale), 10),
+    # yardstick only, never on the port's path: PyTorch's fused attention
+    # on the same [b, h, T, d] operands; its backward gives dq, dk, dv in
+    # one call, so it stands beside K6 + K7 together. Its forward has read
+    # 0.65 and 1.18 ms in two calls with K5 unchanged, so K5 and it are
+    # timed in alternating turns and compared by their medians.
+    qs, ks, vs, dos = (x.view(LM_B, LM_HEADS, t, d).detach().requires_grad_(x is not do)
+                       for x in (q, k, v, do))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    turns = [(cuda_ms(lambda: fa.flash_fwd(q, k, v, None, True, scale), 10),
+              cuda_ms(lambda: sdpa(qs, ks, vs, is_causal=True), 10)) for _ in range(FWD_TURNS)]
+    k5_turns, sdpa_turns = zip(*turns)
+    log("K5 / SDPA forward in alternating turns (ms): "
+        + ", ".join(f"{a:.3f} / {b:.3f}" for a, b in turns))
+    sdpa_fwd = float(np.median(sdpa_turns))
+    ms = {"flash_fwd": float(np.median(k5_turns)),
           "flash_dq": cuda_ms(lambda: fa.dq_block(*args), 10),
           "flash_dkv": cuda_ms(lambda: fa.dkv_block(*args), 10)}
     plain_ms = {"flash_fwd": cuda_ms(lambda: fa.flash_fwd_plain(q, k, v, None, True, scale), 1),
                 "flash_dq": cuda_ms(lambda: fa.flash_dq_plain(*args), 1),
                 "flash_dkv": cuda_ms(lambda: fa.flash_dkv_plain(*args), 1)}
-    # yardstick only, never on the port's path: PyTorch's fused attention
-    # on the same [b, h, T, d] operands; its backward gives dq, dk, dv in
-    # one call, so it stands beside K6 + K7 together
-    qs, ks, vs, dos = (x.view(LM_B, LM_HEADS, t, d).detach().requires_grad_(x is not do)
-                       for x in (q, k, v, do))
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    sdpa_fwd = cuda_ms(lambda: sdpa(qs, ks, vs, is_causal=True), 10)
     out = sdpa(qs, ks, vs, is_causal=True)
     sdpa_bwd = cuda_ms(lambda: torch.autograd.grad(out, (qs, ks, vs), dos, retain_graph=True), 10)
     library = {"flash_fwd": sdpa_fwd, "flash_dq": sdpa_bwd, "flash_dkv": sdpa_bwd}
@@ -754,7 +764,8 @@ def check_flash_kernels():
             f"({tflops:.0f} TFLOP/s) plain_ms={plain_ms[name]:.1f} bound_ms={bms:.4f} ({by}; "
             f"{flops / 1e9:.0f} GFLOP, {nbytes / 1e6:.0f} MB) library_ms={library[name]:.3f} "
             f"max_rel_err={errs[name]:.2e}")
-    log(f"yardstick scaled_dot_product_attention causal: forward {sdpa_fwd:.3f} ms, backward "
+    log(f"yardstick scaled_dot_product_attention causal: forward {sdpa_fwd:.3f} ms (median of "
+        f"{FWD_TURNS} turns; K5 {ms['flash_fwd']:.3f}, {ms['flash_fwd'] / sdpa_fwd:.2f}x), backward "
         f"(dq, dk, dv) {sdpa_bwd:.3f} ms; K6 + K7 {ms['flash_dq'] + ms['flash_dkv']:.3f} ms")
     return results
 
@@ -763,11 +774,13 @@ def check_flash_small():
     """K5, K6 and K7 against their plain versions over the options the main
     path does not take, at small shapes: f32 and bf16 operands, head dims
     16, 64, 80 and 128 (80 is zero-padded to 128 in the kernels; bf16 at 64,
-    80 and 128 takes the backward's wgmma route, 16 and f32 the mma.sync
-    bodies), causal or not, Tq = Tk and Tq != Tk (dq_block/dkv_block only),
-    lengths that are odd multiples of 64 (a 128-row block half past the
-    end), with and without a key mask (one batch x head padded whole: its
-    outputs exactly 0) and dropout at offsets near 2^31."""
+    80 and 128 takes each kernel's wgmma route, 16 and f32 the mma.sync
+    bodies), causal or not, Tq = Tk (K5 too) and Tq != Tk (dq_block/
+    dkv_block only), lengths that are odd multiples of 64 (a 128-row block
+    half past the end), with and without a key mask (one batch x head
+    padded whole: its outputs exactly 0) and dropout at offsets near
+    2^31; K5 in bf16 also with a negative scale. The routes are logged for
+    each type and head dim."""
     from deeplearning4j_torch.ops import flash_attention as fa
 
     dev = torch.device("cuda")
@@ -777,9 +790,12 @@ def check_flash_small():
     n = 0
     for dtype in (torch.bfloat16, torch.float32):
         for d in (16, 64, 80, 128):
-            route = backward_design(dtype, d)
+            route = design(dtype, d, "flash_attn_dq.cu")
+            fwd_route = design(dtype, d, "flash_attn_fwd.cu")
+            n_d, worst_d = n, 0.0
             for causal in (True, False):
-                for tq, tk in ((256, 256), (128, 256), (256, 128), (192, 320), (320, 192)):
+                for tq, tk in ((256, 256), (192, 192), (320, 320), (128, 256), (256, 128),
+                               (192, 320), (320, 192)):
                     for masked in (False, True):
                         for rate in (0.0, 0.2):
                             bh = 3
@@ -819,26 +835,49 @@ def check_flash_small():
                             if not e <= lim:
                                 raise AssertionError(
                                     f"small flash case {dtype} d={d} causal={causal} Tq={tq} "
-                                    f"Tk={tk} mask={masked} rate={rate} ({route}): rel err {e} "
-                                    f"> {lim}")
+                                    f"Tk={tk} mask={masked} rate={rate} (K5: {fwd_route}; "
+                                    f"K6/K7: {route}): rel err {e} > {lim}")
                             worst[dtype] = max(worst[dtype], e)
-                            routes[route] = routes.get(route, 0) + 1
+                            worst_d = max(worst_d, e)
                             n += 1
+                            if tq == tk:
+                                routes[f"K5 {fwd_route}"] = routes.get(f"K5 {fwd_route}", 0) + 1
+                            routes[f"K6/K7 {route}"] = routes.get(f"K6/K7 {route}", 0) + 1
+            if dtype == torch.bfloat16:  # K5 with a negative scale (q . k^T negated)
+                for causal in (True, False):
+                    q, k, v = (torch.randn((3, 192, d), generator=g).to(dev, dtype)
+                               for _ in range(3))
+                    o, lse = fa.flash_fwd(q, k, v, None, causal, -0.3)
+                    torch.cuda.synchronize()
+                    o_p, lse_p = fa.flash_fwd_plain(q, k, v, None, causal, -0.3)
+                    e = max(((a.float() - b.float()).abs().max() / b.float().abs().max()).item()
+                            for a, b in ((o, o_p), (lse / 10, lse_p / 10)))
+                    if not e <= FLASH_RTOL:
+                        raise AssertionError(f"K5 with scale -0.3, d={d} causal={causal} "
+                                             f"({fwd_route}): rel err {e} > {FLASH_RTOL}")
+                    worst[dtype] = max(worst[dtype], e)
+                    worst_d = max(worst_d, e)
+                    n += 1
+                    routes[f"K5 {fwd_route}"] = routes.get(f"K5 {fwd_route}", 0) + 1
+            log(f"  small flash cases {str(dtype)[6:]} d={d}: K5 route {fwd_route}, K6/K7 route "
+                f"{route}; {n - n_d} cases, worst rel err {worst_d:.2e}")
     log(f"K5/K6/K7 small shapes ({n} cases: f32 and bf16, d 16/64/80/128, causal or not, "
-        f"Tq != Tk, odd multiples of 64, key masks, dropout; backward routes {routes}): worst "
+        f"Tq != Tk, odd multiples of 64, key masks, dropout; cases per route {routes}): worst "
         f"rel err bf16 {worst[torch.bfloat16]:.2e}, f32 {worst[torch.float32]:.2e}")
 
 
-def backward_design(dtype, d, source="flash_attn_dq.cu"):
-    """The route the backward kernel of ``source`` takes for operands of
-    this type and head width: the static choice of its C entry."""
-    import ctypes
-
+def design(dtype, d, source):
+    """The route the flash kernel of ``source`` takes for operands of this
+    type and head width: the static choice of its C entry, named by its
+    export ``dl4j_flash_fwd_wgmma`` (K5) or ``dl4j_flash_bwd_wgmma`` (K6,
+    K7)."""
     from deeplearning4j_torch.ops import cuda_build
+    from deeplearning4j_torch.ops import flash_attention as fa
 
-    lib = cuda_build.library(source, "dl4j_flash_bwd_wgmma", [ctypes.c_int, ctypes.c_int])
+    entry = "dl4j_flash_fwd_wgmma" if source == fa.FWD_SOURCE else "dl4j_flash_bwd_wgmma"
+    lib = cuda_build.library(source, entry, fa._ROUTE_ARGTYPES)
     return ("wgmma + TMA, warp-specialised, 128-row blocks"
-            if lib.dl4j_flash_bwd_wgmma(int(dtype == torch.bfloat16), d)
+            if getattr(lib, entry)(int(dtype == torch.bfloat16), d)
             else "mma.sync / CUDA-core, 64-row blocks")
 
 
@@ -1066,8 +1105,11 @@ def flash_entry(name, source, line, res, lm):
          "shape": {"b": LM_B, "h": LM_HEADS, "T": LM_T, "d": LM_D, "dtype": "bf16",
                    "causal": True},
          "output_launches": lm["output_launches"][name]}
-    if name != "flash_fwd":
-        e["design"] = backward_design(torch.bfloat16, LM_D, source)
+    e["design"] = design(torch.bfloat16, LM_D, source)
+    if name == "flash_fwd":
+        e["library_note"] = (f"scaled_dot_product_attention forward; ms and library_ms are "
+                             f"medians of {FWD_TURNS} alternating turns")
+    else:
         e["library_note"] = ("scaled_dot_product_attention backward: dq, dk and dv in one "
                              "call, beside K6 + K7 together")
     return e

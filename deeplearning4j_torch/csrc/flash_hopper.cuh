@@ -1,9 +1,10 @@
-// Hopper pieces of the flash-attention backward kernels K6 (flash_attn_dq.cu)
-// and K7 (flash_attn_dkv.cu): TMA tile loads into an mbarrier-guarded ring,
-// `wgmma` products, and the warp-specialised block they share.
+// Hopper pieces of the flash-attention kernels K5 (flash_attn_fwd.cu), K6
+// (flash_attn_dq.cu) and K7 (flash_attn_dkv.cu) on their wgmma route: TMA
+// tile loads into an mbarrier-guarded ring, `wgmma` products, and the
+// warp-specialised block they share.
 //
 // Block: three warpgroups. Warpgroups 0 and 1 are consumers, each owning 64
-// rows (queries in K6, keys in K7); warpgroup 2 is the producer, one thread
+// rows (queries in K5 and K6, keys in K7); warpgroup 2 is the producer, one thread
 // of which issues every TMA copy. `setmaxnreg` moves registers from the
 // producer (24 a thread) to the consumers (240). ptxas (CUDA 12.9) reports
 // 168 registers a thread for these kernels and spills the same with or
@@ -53,8 +54,8 @@ constexpr int kConsumerRegs = 240;
 constexpr int kChunkBytes = kRows * 64 * 2;  // one [64][64] bf16 chunk
 constexpr float kLog2e = 1.4426950408889634f;
 
-// The wgmma route takes bf16 operands whose head width pads to 64 or 128
-// and whose rows are whole 16-byte units (TMA's row stride).
+// The wgmma route (K5, K6, K7) takes bf16 operands whose head width pads
+// to 64 or 128 and whose rows are whole 16-byte units (TMA's row stride).
 inline bool wgmma_route(int is_bf16, int d) {
   return is_bf16 && d > 32 && d <= 128 && d % 8 == 0;
 }
@@ -177,12 +178,27 @@ __device__ __forceinline__ void wgmma_wait() {
 }
 
 // Keeps the compiler from moving reads or writes of accumulator registers
-// across the asynchronous products (FA3's warpgroup_fence_operand).
+// across the asynchronous products (FA3's warpgroup_fence_operand). On a
+// register A fragment it also keeps the registers holding it until the
+// fence: a product still in flight reads them.
 template <int N>
 __device__ __forceinline__ void fence_regs(float (&d)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
+// 2^x on the special-function unit (one MUFU.EX2; 2^-huge is 0).
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
 
 // Matrix descriptor, 128-byte swizzle: start address, leading and stride
 // byte offsets in 16-byte units.
@@ -202,20 +218,48 @@ __device__ __forceinline__ uint64_t mnmajor(uint32_t tile, int h, int kk) {
   return sw128_desc(tile + h * kChunkBytes + kk * 2048, kChunkBytes, 1024);
 }
 
-// d[64 x 64] (+)= A . B, A and B from shared memory, both K-major.
+// d[64 x 64] (+)= A . B, A and B from shared memory, both K-major; SA = -1
+// negates A (K5 forms -s that way for a negative scale).
+template <int SA = 1>
 __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a, uint64_t b, int accumulate) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
       "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      "%32, %33, p, %35, 1, 0, 0;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
         "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
         "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
         "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(a), "l"(b), "r"(accumulate));
+      : "l"(a), "l"(b), "r"(accumulate), "n"(SA));
+}
+
+// d[64 x 128] (+)= A . B, A and B from shared memory, both K-major (B 128
+// rows of 128 bytes, 8-row groups SBO apart): K5's 128-key score tiles.
+template <int SA = 1>
+__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t a, uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
+      "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, "
+      "%53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, %67, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
+        "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
+        "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(accumulate), "n"(SA));
 }
 
 // d[64 x 64] += A . B, A the register fragment a[4] (64 x 16, bf16 pairs),

@@ -50,6 +50,9 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _FWD_ARGTYPES = [_P] * 6 + [_I] * 4 + [_F, _I, _F, _F] + [_I] * 3 + [_P]
 _DQ_ARGTYPES = [_P] * 8 + [_I] * 5 + [_F, _I, _F, _F] + [_I] * 3 + [_P]
 _DKV_ARGTYPES = [_P] * 9 + [_I] * 5 + [_F, _I, _F, _F] + [_I] * 3 + [_P]
+#: ``dl4j_flash_fwd_wgmma``/``dl4j_flash_bwd_wgmma(is_bf16, d)``: the route
+#: the kernels' C entries take (1: wgmma/TMA, 0: mma.sync / CUDA cores).
+_ROUTE_ARGTYPES = [_I, _I]
 
 _NEG = -1e30
 MIN_BLOCK = 128

@@ -281,7 +281,8 @@ def _c_kind(decl):
 
 @pytest.mark.parametrize("entry,argtypes", [("dl4j_flash_fwd", "_FWD_ARGTYPES"),
                                             ("dl4j_flash_dq", "_DQ_ARGTYPES"),
-                                            ("dl4j_flash_dkv", "_DKV_ARGTYPES")])
+                                            ("dl4j_flash_dkv", "_DKV_ARGTYPES"),
+                                            ("dl4j_flash_fwd_wgmma", "_ROUTE_ARGTYPES")])
 def test_ctypes_argtypes_match_the_c_entries(entry, argtypes):
     """Each wrapper's ctypes declaration against its C entry's parameter
     list: the count, and for each parameter whether it is a pointer, an int
