@@ -13,7 +13,11 @@ and the CUDA toolkit; run from the root of the repository. It
    and K3 at serving shapes (b=32, T=200, H=512, bf16 recurrent weights,
    peepholes; K1 with a fractional mask and without), and at the training
    shape (b=64, T=50) K1 and K3 writing the BPTT reserve, K2 and K4 (each
-   backward fed the same dy, reserve and state as its plain version);
+   backward fed the same dy, reserve and state as its plain version; K4
+   launched twice and required bitwise equal, its body logged: tensor
+   cores for bf16 weights, named by the export ``dl4j_lstm2_bwd_tc``); then
+   K4 over 96 small cases on both of its bodies (bf16 and f32 weights, b
+   1/8/17/64, H 64/512, T 1/2/50, peepholes on and off);
 4. builds the full-width char-RNN of bench.py:230 (vocab 80, 2 x
    GravesLSTM(512), RnnOutputLayer softmax, Adam, bf16 compute, TBPTT 50)
    on the card from a seed, serves it over HTTP twice — ``charrnn`` with
@@ -25,8 +29,9 @@ and the CUDA toolkit; run from the root of the repository. It
    unmasked fits (each TBPTT segment one K3-with-reserve and one K4
    launch) and masked fits with variable lengths (each segment two K1-
    with-reserve and two K2 launches), checks that the loss is finite and
-   falls, prints a fit's time and a profile of one fit, and holds the
-   card's gradients against the CPU reference's (unmasked and masked);
+   falls, prints a fit's time and a profile of one fit (with K4's share of
+   its device time), and holds the card's gradients against the CPU
+   reference's (unmasked and masked);
 6. holds the flash-attention kernels K5 (forward), K6 (dq) and K7 (dk/dv)
    against their plain versions at small shapes over their options (f32
    and bf16, head dims 16, 64, 80 and 128, so that both routes of each
@@ -349,16 +354,92 @@ def check_training_kernels():
     plain_ms = cuda_ms(lambda: lstm_fused.lstm2_bwd_plain(*bargs), 3)
     bms, by = bound(seq + 2 * seq4 + 2 * seq + 3 * w_bytes + 6 * H * 4 + 10 * st
                     + 2 * seq4 + 6 * H * 4, 3 * t * mm, 2 * t * b * H * CELL_BWD_OPS)
+    again = lstm_fused.lstm2_bwd(*bargs)
+    torch.cuda.synchronize()
+    bitwise = all(torch.equal(a, r) for a, r in zip(got, again) if a is not None)
+    route = k4_design(rw1.dtype, b, H)
     results["lstm2_bwd"] = dict(max_abs_err=e_b, ms=ms, plain_ms=plain_ms,
-                                bound_ms=bms, bound_by=by)
+                                bound_ms=bms, bound_by=by, design=route)
     log(f"K4 lstm2_bwd b={b} T={t}: max_abs_err={e_b:.3e} kernel_ms={ms:.4f} "
-        f"plain_ms={plain_ms:.3f} bound_ms={bms:.5f} ({by})")
+        f"plain_ms={plain_ms:.3f} bound_ms={bms:.5f} ({by}; chain of {t + 1} phases, "
+        f"{1e3 * ms / (t + 1):.2f} us a phase); two launches bitwise equal: {bitwise}; "
+        f"route: {route}")
+    if not bitwise:
+        raise AssertionError("K4 gave different results in two launches on the same inputs")
     if not e_f <= KERNEL_ATOL:
         raise AssertionError(f"K3 with reserve disagrees with its plain version: "
                              f"{e_f} > {KERNEL_ATOL}")
     if not e_b <= BWD_ATOL:
         raise AssertionError(f"K4 disagrees with its plain version: {e_b} > {BWD_ATOL}")
     return results
+
+
+def k4_design(w_dtype, b, h):
+    """The body K4 takes for weights of this type at this shape, and its
+    grid: the C entry's static choice, named by its exports
+    ``dl4j_lstm2_bwd_tc`` and ``dl4j_lstm2_bwd_units``."""
+    from deeplearning4j_torch.ops import lstm_fused
+
+    tc, units = lstm_fused.bwd_route(w_dtype, b, h)
+    grid = f"{units} units a block, {h // units} blocks" if units else "no grid fits"
+    return (f"tensor cores: {grid} in clusters of 2 that share 8 units and split k (half "
+            f"the dz exchange an SM), mma.sync m16n8k16, dz rows by cp.async (3 chunks in "
+            f"flight a warp), partial sums through distributed shared memory, the reserve "
+            f"prefetched before the barrier" if tc
+            else f"CUDA cores: {grid}, row_dot over the dz rows through L2")
+
+
+def check_lstm2_bwd_small():
+    """K4 against lstm2_bwd_plain over small cases on both of its bodies:
+    bf16 and f32 weights, b 1/8/17/64 (b not a multiple of 16 pads the
+    m-tiles), H 64/512, T 1/2/50, peepholes on and off. Each case gets the
+    plain forward's reserve and the same dy and state; any case over
+    BWD_ATOL fails the run."""
+    from deeplearning4j_torch.ops import lstm_fused
+
+    dev = torch.device("cuda")
+    g = torch.Generator().manual_seed(12)
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(shape, generator=g) * scale).to(dev)
+
+    n, worst, per_route, bad = 0, 0.0, {}, []
+    for wd in (torch.bfloat16, torch.float32):
+        for h in (64, 512):
+            for b in (1, 8, 17, 64):
+                tc, units = lstm_fused.bwd_route(wd, b, h)
+                route = "tensor cores" if tc else "CUDA cores"
+                worst_c = 0.0
+                for t in (1, 2, 50):
+                    for with_peep in (True, False):
+                        xp = rnd(t, b, 4 * h)
+                        rw1, w2, rw2 = (rnd(h, 4 * h, scale=h ** -0.5).to(wd) for _ in range(3))
+                        b2 = rnd(4 * h, scale=0.1)
+                        peep = rnd(6, h, scale=0.1) if with_peep else None
+                        h0 = rnd(4, b, h, scale=0.5)
+                        _, _, _, g1, c1, g2, c2 = lstm_fused.lstm2_fwd_plain(
+                            xp, rw1, w2, rw2, b2, peep, h0, save_reserve=True)
+                        bargs = (rnd(t, b, h, scale=0.1), g1, c1, g2, c2, rw1, w2, rw2, peep,
+                                 torch.stack([h0[1], h0[3]]), rnd(4, b, h, scale=0.1))
+                        got = lstm_fused.lstm2_bwd(*bargs)
+                        torch.cuda.synchronize()
+                        want = lstm_fused.lstm2_bwd_plain(*bargs)
+                        e = max((a - r).abs().max().item() for a, r in zip(got, want)
+                                if a is not None)
+                        n += 1
+                        per_route[route] = per_route.get(route, 0) + 1
+                        worst_c = max(worst_c, e)
+                        if not e <= BWD_ATOL:
+                            bad.append((str(wd)[6:], h, b, t, with_peep, e))
+                worst = max(worst, worst_c)
+                log(f"  K4 small cases {str(wd)[6:]} H={h} b={b}: route {route} ({units} units "
+                    f"a block); T 1/2/50, peepholes on/off; worst max_abs_err {worst_c:.3e}")
+    log(f"K4 small shapes ({n} cases, per route {per_route}): worst max_abs_err {worst:.3e} "
+        f"(limit {BWD_ATOL})")
+    if bad:
+        raise AssertionError(f"K4 disagrees with its plain version in {len(bad)} small cases "
+                             f"(dtype, H, b, T, peepholes, err): {bad}")
+    return worst
 
 
 def char_rnn_conf():
@@ -615,8 +696,12 @@ def train(conf):
         times[label] = (time.perf_counter() - t0) * 1e3 / TIMED_FITS
         log(f"smoke number, not a benchmark: a {label} fit {times[label]:.3f} ms (mean of "
             f"{TIMED_FITS}), {TRAIN_B * TRAIN_SEQ / times[label] * 1e3:.0f} characters/s")
-    return {"launches": launches, "losses": losses, "fit_ms": times,
-            "profile": profile_call("one unmasked fit", lambda: net.fit(ds))}
+    prof = profile_call("one unmasked fit", lambda: net.fit(ds))
+    if prof is not None:
+        k4 = sum(ms for name, ms in prof["top_ms"].items() if "lstm2_bwd" in name)
+        log(f"K4 in one unmasked fit: {k4:.3f} ms of device time, {100 * k4 / prof['busy_ms']:.1f}% "
+            f"of the fit's {prof['busy_ms']:.3f} ms device busy")
+    return {"launches": launches, "losses": losses, "fit_ms": times, "profile": prof}
 
 
 def check_train_reference(conf):
@@ -1040,18 +1125,19 @@ def build():
     log(f"built kernels in {time.perf_counter() - t0:.1f} s")
     for src, text in logs.items():
         flash = src.startswith("flash")
+        named = flash or src == lstm_fused.BWD_SOURCE   # K4 has two bodies
         entry = ""
         for line in text.splitlines():
             # the flash sources instantiate nine head widths and types
             # each (and the backward two wgmma kernels): print the main
             # path's (bf16, d=64), every wgmma kernel's, any spill and any
             # ptxas warning (an ignored setmaxnreg, serialised wgmma)
-            if flash and "Compiling entry" in line:
+            if named and "Compiling entry" in line:
                 entry = line.split("'")[1] if "'" in line else line
             path = not flash or "13__nv_bfloat16Li64E" in entry or "wgmma" in entry
             spill = "spill" in line and "0 bytes spill stores" not in line
             if ("registers" in line or "spill" in line) and (path or spill) or "arning" in line:
-                log(f"  {src}: {entry[:72] + ': ' if flash else ''}{line.strip()}")
+                log(f"  {src}: {entry[:72] + ': ' if named else ''}{line.strip()}")
 
 
 def kernel_line(serving, training, served, streamed, trained, flash, lm):
@@ -1090,7 +1176,7 @@ def kernel_line(serving, training, served, streamed, trained, flash, lm):
         entry("lstm2_fwd", "lstm2_fwd_train", "lstm_fused.cu", "deeplearning4j_tpu/ops/lstm_fused.py:111",
               [training["lstm2_fwd_train"]], serving_of("lstm2_fwd", ["lstm2_fwd"])),
         entry("lstm2_bwd", "lstm2_bwd", "lstm_fused_bwd.cu", "deeplearning4j_tpu/ops/lstm_fused.py:249",
-              [training["lstm2_bwd"]]),
+              [training["lstm2_bwd"]], {"design": training["lstm2_bwd"]["design"]}),
         *(flash_entry(name, src, line, flash[name], lm) for name, src, line in (
             ("flash_fwd", "flash_attn_fwd.cu", 202), ("flash_dq", "flash_attn_dq.cu", 311),
             ("flash_dkv", "flash_attn_dkv.cu", 361))),
@@ -1131,6 +1217,7 @@ def main() -> int:
     build()
     serving = check_kernels()
     training = check_training_kernels()
+    check_lstm2_bwd_small()
     conf = char_rnn_conf()
     net = build_net(conf)
     served, streamed = serve(net)

@@ -4,7 +4,9 @@ Counterpart of ``deeplearning4j_tpu/ops/lstm_fused.py``: the inference
 primal ``_lstm2`` -> ``_fwd2(save_reserve=False)``, the training forward
 ``_lstm2_fwd`` -> ``_fwd2`` with the reserve, and ``_lstm2_bwd`` ->
 ``_bwd2_call``. The CUDA kernels are ``csrc/lstm_fused.cu`` (K3) and
-``csrc/lstm_fused_bwd.cu`` (K4); their source notes give the design.
+``csrc/lstm_fused_bwd.cu`` (K4); their source notes give the design. K4
+has two bodies, chosen statically by its C entry: tensor cores for bf16
+weights at the shapes :func:`bwd_route` names, CUDA cores else.
 Beside each is a plain PyTorch time loop (CPU tensors, the tests, and
 ``chip_smoke.py``'s oracle on the card).
 
@@ -29,7 +31,7 @@ from .lstm_cell import (_check_cuda, _same_device, cell, cell_bwd, pack_peephole
                         recording, weight_grad)
 
 __all__ = ["lstm_scan2", "lstm2_fwd", "lstm2_fwd_plain", "lstm2_bwd", "lstm2_bwd_plain",
-           "LSTM2Function", "COUNTER", "TRAIN_COUNTER", "BWD_COUNTER"]
+           "LSTM2Function", "bwd_route", "COUNTER", "TRAIN_COUNTER", "BWD_COUNTER"]
 
 SOURCE = "lstm_fused.cu"
 BWD_SOURCE = "lstm_fused_bwd.cu"
@@ -39,6 +41,7 @@ BWD_COUNTER = cuda_build.Counter("lstm2_bwd")          # K4
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = [_P] * 4 + [_I] + [_P] * 11 + [_I] * 3 + [_P]
 _BWD_ARGTYPES = [_P] * 8 + [_I] + [_P] * 8 + [_I] * 3 + [_P]
+_ROUTE_ARGTYPES = [_I] * 3
 
 
 def lstm2_fwd_plain(xp, rw1, w2, rw2, b2, peep, h0, save_reserve=False):
@@ -188,6 +191,19 @@ def _lstm2_bwd_cuda(dy, g1, c1, g2, c2, rw1, w2, rw2, peep, c0, dhcT):
     cuda_build.check(lib, code, "lstm2_bwd kernel launch")
     BWD_COUNTER.add()
     return dz1, dz2, dhc0, dpeep
+
+
+def bwd_route(w_dtype, b, H) -> Tuple[bool, int]:
+    """K4's static choice for weights of ``w_dtype`` at batch ``b`` and
+    width ``H`` on the current card: whether it takes the tensor-core body
+    (else the CUDA-core body), and the hidden units a block of that body
+    takes (the grid has H / units blocks). Named by the C exports
+    ``dl4j_lstm2_bwd_tc`` and ``dl4j_lstm2_bwd_units``; builds the kernel at
+    first use, so it needs the card."""
+    w_bf16 = int(w_dtype == torch.bfloat16)
+    lib = cuda_build.library(BWD_SOURCE, "dl4j_lstm2_bwd_tc", _ROUTE_ARGTYPES)
+    cuda_build.library(BWD_SOURCE, "dl4j_lstm2_bwd_units", _ROUTE_ARGTYPES)
+    return bool(lib.dl4j_lstm2_bwd_tc(w_bf16, b, H)), lib.dl4j_lstm2_bwd_units(w_bf16, b, H)
 
 
 def lstm2_bwd(dy, g1, c1, g2, c2, rw1, w2, rw2, peep, c0, dhcT):

@@ -18,6 +18,10 @@ gradients (measured <= 2.1e-3 over four seeds) and 1e-2, about two and a
 half bf16 units at the largest entry, for the weight gradients, which are
 themselves rounded to bf16 (measured <= 5.2e-3).
 """
+import ctypes
+import re
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -27,7 +31,7 @@ import jax.numpy as jnp
 
 import deeplearning4j_tpu.ops.flash_attention as fa
 import deeplearning4j_tpu.ops.lstm_fused as jlf
-from deeplearning4j_torch.ops import lstm_fused
+from deeplearning4j_torch.ops import lstm_cell, lstm_fused
 
 B, T, H = 8, 6, 128
 TOL = 1e-5
@@ -201,3 +205,39 @@ def test_backward_wrapper_refuses_other_devices():
     x = torch.empty((T, B, H), device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         lstm_fused.lstm2_bwd(x, x, x, x, x, x, x, x, None, x, x)
+
+
+def _c_parameters(entry):
+    """The parameter list of ``extern "C" int <entry>(...)`` in the port's
+    CUDA sources, one declaration a string."""
+    csrc = Path(lstm_fused.__file__).resolve().parent.parent / "csrc"
+    found = [m.group(1) for src in sorted(csrc.glob("*.cu"))
+             for m in re.finditer(r'extern "C" int ' + entry + r"\(([^)]*)\)", src.read_text())]
+    assert len(found) == 1, f"{entry}: {len(found)} definitions in {csrc}"
+    return [" ".join(p.split()) for p in found[0].split(",")]
+
+
+def _c_kind(decl):
+    if "*" in decl:
+        return "pointer"
+    kind = decl.replace("const ", "").split()[0]
+    assert kind in ("int", "float"), f"unexpected C parameter {decl!r}"
+    return kind
+
+
+@pytest.mark.parametrize("entry,module,argtypes", [
+    ("dl4j_lstm_fwd", lstm_cell, "_ARGTYPES"),
+    ("dl4j_lstm_bwd", lstm_cell, "_BWD_ARGTYPES"),
+    ("dl4j_lstm2_fwd", lstm_fused, "_ARGTYPES"),
+    ("dl4j_lstm2_bwd", lstm_fused, "_BWD_ARGTYPES"),
+    ("dl4j_lstm2_bwd_tc", lstm_fused, "_ROUTE_ARGTYPES"),
+    ("dl4j_lstm2_bwd_units", lstm_fused, "_ROUTE_ARGTYPES")])
+def test_ctypes_argtypes_match_the_c_entries(entry, module, argtypes):
+    """Each LSTM wrapper's ctypes declaration against its C entry's
+    parameter list: the count, and for each parameter whether it is a
+    pointer, an int or a float. ctypes passes an int where the C side reads
+    a pointer as 32 bits, which only a launch on the card would show."""
+    kinds = {ctypes.c_void_p: "pointer", ctypes.c_int: "int", ctypes.c_float: "float"}
+    declared = [kinds[t] for t in getattr(module, argtypes)]
+    params = _c_parameters(entry)
+    assert declared == [_c_kind(p) for p in params], list(zip(params, declared))
