@@ -13,11 +13,15 @@ and the CUDA toolkit; run from the root of the repository. It
    and K3 at serving shapes (b=32, T=200, H=512, bf16 recurrent weights,
    peepholes; K1 with a fractional mask and without), and at the training
    shape (b=64, T=50) K1 and K3 writing the BPTT reserve, K2 and K4 (each
-   backward fed the same dy, reserve and state as its plain version; K4
-   launched twice and required bitwise equal, its body logged: tensor
-   cores for bf16 weights, named by the export ``dl4j_lstm2_bwd_tc``); then
-   K4 over 96 small cases on both of its bodies (bf16 and f32 weights, b
-   1/8/17/64, H 64/512, T 1/2/50, peepholes on and off);
+   backward fed the same dy, reserve and state as its plain version; K1,
+   K2 and K4 launched twice and required bitwise equal, their bodies
+   logged: tensor cores for bf16 weights, named by the exports
+   ``dl4j_lstm_fwd_tc``, ``dl4j_lstm_bwd_tc`` and ``dl4j_lstm2_bwd_tc``);
+   then K4 over 96 small cases on both of its bodies (bf16 and f32
+   weights, b 1/8/17/64, H 64/512, T 1/2/50, peepholes on and off), and
+   K1 (both instantiations) and K2 over 264 small cases on both of their
+   bodies (bf16 and f32 weights, b 1/8/17/32/64 and 65 in bf16, H 64/512,
+   T 1/2/50, peepholes on and off, no mask and a fractional one);
 4. builds the full-width char-RNN of bench.py:230 (vocab 80, 2 x
    GravesLSTM(512), RnnOutputLayer softmax, Adam, bf16 compute, TBPTT 50)
    on the card from a seed, serves it over HTTP twice — ``charrnn`` with
@@ -29,9 +33,10 @@ and the CUDA toolkit; run from the root of the repository. It
    unmasked fits (each TBPTT segment one K3-with-reserve and one K4
    launch) and masked fits with variable lengths (each segment two K1-
    with-reserve and two K2 launches), checks that the loss is finite and
-   falls, prints a fit's time and a profile of one fit (with K4's share of
-   its device time), and holds the card's gradients against the CPU
-   reference's (unmasked and masked);
+   falls, prints a fit's time and a profile of one unmasked fit (with
+   K4's share of its device time) and of one masked fit (with K1's and
+   K2's), and holds the card's gradients against the CPU reference's
+   (unmasked and masked);
 6. holds the flash-attention kernels K5 (forward), K6 (dq) and K7 (dk/dv)
    against their plain versions at small shapes over their options (f32
    and bf16, head dims 16, 64, 80 and 128, so that both routes of each
@@ -216,15 +221,20 @@ def check_kernels():
         torch.cuda.synchronize()
         ref = lstm_cell.lstm_fwd_plain(*args)
         err = max((a - r).abs().max().item() for a, r in zip((ys, hT, cT), ref))
+        bitwise = same_bits((ys, hT, cT), lstm_cell.lstm_fwd(*args))
         ms = cuda_ms(lambda: lstm_cell.lstm_fwd(*args), 20)
         plain_ms = cuda_ms(lambda: lstm_cell.lstm_fwd_plain(*args), 3)
         nbytes = k1_bytes + (T * B * 4 if m is not None else 0)
         bms, by = bound(nbytes, T * mm, T * B * H * (CELL_OPS + (6 if m is not None else 0)))
+        route = lstm_design("K1", rw1.dtype, B, H)
         results[f"lstm_fwd/{label}"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                                            bound_ms=bms, bound_by=by)
+                                            bound_ms=bms, bound_by=by, design=route)
         log(f"K1 lstm_fwd {label}: max_abs_err={err:.3e} kernel_ms={ms:.4f} "
             f"plain_ms={plain_ms:.3f} bound_ms={bms:.5f} ({by}; chain of {T} "
-            f"dependent steps)")
+            f"dependent steps, {1e3 * ms / T:.2f} us a step); two launches bitwise equal: "
+            f"{bitwise}; route: {route}")
+        if not bitwise:
+            raise AssertionError(f"K1 ({label}) gave different results in two launches")
         if not err <= KERNEL_ATOL:
             raise AssertionError(f"K1 {label} disagrees with its plain version: "
                                  f"{err} > {KERNEL_ATOL}")
@@ -300,29 +310,38 @@ def check_training_kernels():
         torch.cuda.synchronize()
         ref = lstm_cell.lstm_fwd_plain(*fargs, save_reserve=True)
         e_f = err(got, ref)
+        bitwise_f = same_bits(got, lstm_cell.lstm_fwd(*fargs, save_reserve=True))
         ms = cuda_ms(lambda: lstm_cell.lstm_fwd(*fargs, save_reserve=True), 20)
         plain_ms = cuda_ms(lambda: lstm_cell.lstm_fwd_plain(*fargs, save_reserve=True), 3)
         mbytes = t * b * 4 if m is not None else 0
         bms, by = bound(seq4 + w_bytes + 3 * H * 4 + 4 * st + seq + mbytes + seq4 + seq,
                         t * mm, t * b * H * (CELL_OPS + (6 if m is not None else 0)))
+        route = lstm_design("K1", rw1.dtype, b, H, reserve=True)
         results[f"lstm_fwd_train/{label}"] = dict(max_abs_err=e_f, ms=ms, plain_ms=plain_ms,
-                                                  bound_ms=bms, bound_by=by)
+                                                  bound_ms=bms, bound_by=by, design=route)
         log(f"K1 lstm_fwd train {label} b={b} T={t}: max_abs_err={e_f:.3e} kernel_ms={ms:.4f} "
-            f"plain_ms={plain_ms:.3f} bound_ms={bms:.5f} ({by})")
+            f"plain_ms={plain_ms:.3f} bound_ms={bms:.5f} ({by}; {1e3 * ms / t:.2f} us a step); "
+            f"two launches bitwise equal: {bitwise_f}; route: {route}")
 
         _, _, _, gates, cseq = ref
         bargs = (dy, gates, cseq, rw1, peep3, m, c0, dhT, dcT)
         got = lstm_cell.lstm_bwd(*bargs)
         torch.cuda.synchronize()
         e_b = err(got, lstm_cell.lstm_bwd_plain(*bargs))
+        bitwise_b = same_bits(got, lstm_cell.lstm_bwd(*bargs))
         ms = cuda_ms(lambda: lstm_cell.lstm_bwd(*bargs), 20)
         plain_ms = cuda_ms(lambda: lstm_cell.lstm_bwd_plain(*bargs), 3)
         bms, by = bound(seq + seq4 + seq + mbytes + w_bytes + 3 * H * 4 + 5 * st + seq4
                         + 3 * H * 4, t * mm, t * b * H * (CELL_BWD_OPS + 4))
+        route = lstm_design("K2", rw1.dtype, b, H)
         results[f"lstm_bwd/{label}"] = dict(max_abs_err=e_b, ms=ms, plain_ms=plain_ms,
-                                            bound_ms=bms, bound_by=by)
+                                            bound_ms=bms, bound_by=by, design=route)
         log(f"K2 lstm_bwd {label} b={b} T={t}: max_abs_err={e_b:.3e} kernel_ms={ms:.4f} "
-            f"plain_ms={plain_ms:.3f} bound_ms={bms:.5f} ({by})")
+            f"plain_ms={plain_ms:.3f} bound_ms={bms:.5f} ({by}; {1e3 * ms / t:.2f} us a step); "
+            f"two launches bitwise equal: {bitwise_b}; route: {route}")
+        if not (bitwise_f and bitwise_b):
+            raise AssertionError(f"K1 with reserve or K2 ({label}) gave different results in "
+                                 f"two launches: {bitwise_f}, {bitwise_b}")
         if not e_f <= KERNEL_ATOL:
             raise AssertionError(f"K1 with reserve ({label}) disagrees with its plain "
                                  f"version: {e_f} > {KERNEL_ATOL}")
@@ -354,9 +373,7 @@ def check_training_kernels():
     plain_ms = cuda_ms(lambda: lstm_fused.lstm2_bwd_plain(*bargs), 3)
     bms, by = bound(seq + 2 * seq4 + 2 * seq + 3 * w_bytes + 6 * H * 4 + 10 * st
                     + 2 * seq4 + 6 * H * 4, 3 * t * mm, 2 * t * b * H * CELL_BWD_OPS)
-    again = lstm_fused.lstm2_bwd(*bargs)
-    torch.cuda.synchronize()
-    bitwise = all(torch.equal(a, r) for a, r in zip(got, again) if a is not None)
+    bitwise = same_bits(got, lstm_fused.lstm2_bwd(*bargs))
     route = k4_design(rw1.dtype, b, H)
     results["lstm2_bwd"] = dict(max_abs_err=e_b, ms=ms, plain_ms=plain_ms,
                                 bound_ms=bms, bound_by=by, design=route)
@@ -372,6 +389,35 @@ def check_training_kernels():
     if not e_b <= BWD_ATOL:
         raise AssertionError(f"K4 disagrees with its plain version: {e_b} > {BWD_ATOL}")
     return results
+
+
+def same_bits(first, again):
+    """Whether two launches' outputs (tuples, None where absent) are equal
+    bit for bit."""
+    torch.cuda.synchronize()
+    return all(torch.equal(a, r) for a, r in zip(first, again) if a is not None)
+
+
+def lstm_design(kernel, w_dtype, b, h, reserve=False):
+    """The body K1 (``reserve``: its training instantiation) or K2 takes for
+    weights of this type at this shape, and its grid: the C entry's static
+    choice, named by the exports ``dl4j_lstm_{fwd,bwd}_tc`` and
+    ``dl4j_lstm_{fwd,bwd}_units``."""
+    from deeplearning4j_torch.ops import lstm_cell
+
+    tc, units = (lstm_cell.fwd_route(w_dtype, b, h, reserve) if kernel == "K1"
+                 else lstm_cell.bwd_route(w_dtype, b, h))
+    grid = f"{units} units a block, {h // units} blocks" if units else "no grid fits"
+    if not tc:
+        return (f"CUDA cores: {grid}, " + ("h read back from ys and converted in every block, "
+                                          "dot_col" if kernel == "K1"
+                                          else "row_dot over the dz rows through L2"))
+    if kernel == "K1":
+        return (f"tensor cores: {grid}, bf16 h exchanged once (two slots), mma.sync m16n8k16, "
+                f"h rows by cp.async (3 chunks in flight a warp), xp prefetched before the "
+                f"barrier")
+    return (f"tensor cores: {grid}, each reading all of dz, mma.sync m16n8k16, dz rows by "
+            f"cp.async (3 chunks in flight a warp), the reserve prefetched before the barrier")
 
 
 def k4_design(w_dtype, b, h):
@@ -439,6 +485,84 @@ def check_lstm2_bwd_small():
     if bad:
         raise AssertionError(f"K4 disagrees with its plain version in {len(bad)} small cases "
                              f"(dtype, H, b, T, peepholes, err): {bad}")
+    return worst
+
+
+def check_lstm_small():
+    """K1 (serving and training instantiations) and K2 against their plain
+    versions over small cases on both bodies: bf16 and f32 weights, b
+    1/8/17/32/64 (b not a multiple of 16 pads the m-tiles) and 65 in bf16
+    (past the tensor-core route), H 64/512, T 1/2/50, peepholes on and off,
+    no mask and a fractional one (some rows padded whole). K2 gets the
+    plain forward's reserve and the same dy and state. Each (type, H, b)'s
+    bodies are logged; any case over KERNEL_ATOL (K1) or BWD_ATOL (K2)
+    fails the run."""
+    from deeplearning4j_torch.ops import lstm_cell
+
+    dev = torch.device("cuda")
+    g = torch.Generator().manual_seed(13)
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(shape, generator=g) * scale).to(dev)
+
+    def err(got, want):
+        return max((a - r).abs().max().item() for a, r in zip(got, want) if a is not None)
+
+    n, per_route, bad = 0, {}, []
+    worst = {"K1": 0.0, "K2": 0.0}
+    for wd in (torch.bfloat16, torch.float32):
+        for h in (64, 512):
+            for b in (1, 8, 17, 32, 64) + ((65,) if wd == torch.bfloat16 else ()):
+                routes = {kernel: ("tensor cores" if tc else "CUDA cores", units)
+                          for kernel, (tc, units) in (
+                              ("K1", lstm_cell.fwd_route(wd, b, h)),
+                              ("K1 with reserve", lstm_cell.fwd_route(wd, b, h, True)),
+                              ("K2", lstm_cell.bwd_route(wd, b, h)))}
+                worst_c = {"K1": 0.0, "K2": 0.0}
+                for t in (1, 2, 50):
+                    for with_peep in (True, False):
+                        for masked in (False, True):
+                            xp = rnd(t, b, 4 * h)
+                            rw = rnd(h, 4 * h, scale=h ** -0.5).to(wd)
+                            peep = rnd(3, h, scale=0.1) if with_peep else None
+                            h0, c0 = rnd(b, h, scale=0.5), rnd(b, h, scale=0.5)
+                            m = None
+                            if masked:   # real steps 1, a ramp at each row's end, padding 0
+                                lengths = torch.randint(0, t + 2, (b,), generator=g)
+                                steps = torch.arange(t)[:, None].float()
+                                m = torch.clamp((lengths[None, :].float() - steps) / 2.0,
+                                                0.0, 1.0).to(dev)
+                            fargs = (xp, rw, peep, m, h0, c0)
+                            got_s = lstm_cell.lstm_fwd(*fargs)
+                            got_r = lstm_cell.lstm_fwd(*fargs, save_reserve=True)
+                            torch.cuda.synchronize()
+                            ref = lstm_cell.lstm_fwd_plain(*fargs, save_reserve=True)
+                            e_f = max(err(got_s, ref[:3]), err(got_r, ref))
+                            bargs = (rnd(t, b, h, scale=0.1), ref[3], ref[4], rw, peep, m, c0,
+                                     rnd(b, h, scale=0.1), rnd(b, h, scale=0.1))
+                            got_b = lstm_cell.lstm_bwd(*bargs)
+                            torch.cuda.synchronize()
+                            e_b = err(got_b, lstm_cell.lstm_bwd_plain(*bargs))
+                            n += 1
+                            for kernel, (body, _) in routes.items():
+                                key = f"{kernel} {body}"
+                                per_route[key] = per_route.get(key, 0) + 1
+                            worst_c["K1"] = max(worst_c["K1"], e_f)
+                            worst_c["K2"] = max(worst_c["K2"], e_b)
+                            if not (e_f <= KERNEL_ATOL and e_b <= BWD_ATOL):
+                                bad.append((str(wd)[6:], h, b, t, with_peep, masked, e_f, e_b))
+                for k in worst:
+                    worst[k] = max(worst[k], worst_c[k])
+                log(f"  K1/K2 small cases {str(wd)[6:]} H={h} b={b}: bodies "
+                    + ", ".join(f"{k} {body} ({units} units a block)"
+                                for k, (body, units) in routes.items())
+                    + f"; T 1/2/50, peepholes on/off, mask none/fractional; worst max_abs_err "
+                    f"K1 {worst_c['K1']:.3e}, K2 {worst_c['K2']:.3e}")
+    log(f"K1/K2 small shapes ({n} cases, cases per body {per_route}): worst max_abs_err "
+        f"K1 {worst['K1']:.3e} (limit {KERNEL_ATOL}), K2 {worst['K2']:.3e} (limit {BWD_ATOL})")
+    if bad:
+        raise AssertionError(f"K1 or K2 disagrees with its plain version in {len(bad)} small "
+                             f"cases (dtype, H, b, T, peepholes, mask, K1 err, K2 err): {bad}")
     return worst
 
 
@@ -701,7 +825,15 @@ def train(conf):
         k4 = sum(ms for name, ms in prof["top_ms"].items() if "lstm2_bwd" in name)
         log(f"K4 in one unmasked fit: {k4:.3f} ms of device time, {100 * k4 / prof['busy_ms']:.1f}% "
             f"of the fit's {prof['busy_ms']:.3f} ms device busy")
-    return {"launches": launches, "losses": losses, "fit_ms": times, "profile": prof}
+    prof_m = profile_call("one masked fit", lambda: net.fit(mds))
+    if prof_m is not None:
+        for kernel, key in (("K1 with reserve", "lstm_fwd"), ("K2", "lstm_bwd")):
+            k = sum(ms for name, ms in prof_m["top_ms"].items() if key in name)
+            log(f"{kernel} in one masked fit: {k:.3f} ms of device time, "
+                f"{100 * k / prof_m['busy_ms']:.1f}% of the fit's {prof_m['busy_ms']:.3f} ms "
+                f"device busy")
+    return {"launches": launches, "losses": losses, "fit_ms": times, "profile": prof,
+            "profile_masked": prof_m}
 
 
 def check_train_reference(conf):
@@ -1125,7 +1257,8 @@ def build():
     log(f"built kernels in {time.perf_counter() - t0:.1f} s")
     for src, text in logs.items():
         flash = src.startswith("flash")
-        named = flash or src == lstm_fused.BWD_SOURCE   # K4 has two bodies
+        # K1, K2 and K4 have two bodies each
+        named = flash or src in (lstm_cell.SOURCE, lstm_cell.BWD_SOURCE, lstm_fused.BWD_SOURCE)
         entry = ""
         for line in text.splitlines():
             # the flash sources instantiate nine head widths and types
@@ -1161,18 +1294,25 @@ def kernel_line(serving, training, served, streamed, trained, flash, lm):
 
     def serving_of(name, keys):
         r = [serving[k] for k in keys]
-        return {"serving": {"launches": served[name], "stream_launches": streamed[name],
-                            "max_abs_err": max(x["max_abs_err"] for x in r), "ms": r[0]["ms"],
-                            "plain_ms": r[0]["plain_ms"], "bound_ms": r[0]["bound_ms"],
-                            "bound_by": r[0]["bound_by"],
-                            "cudnn_yardstick_ms": serving[name + "/cudnn"], "shape": sshape}}
+        s = {"launches": served[name], "stream_launches": streamed[name],
+             "max_abs_err": max(x["max_abs_err"] for x in r), "ms": r[0]["ms"],
+             "plain_ms": r[0]["plain_ms"], "bound_ms": r[0]["bound_ms"],
+             "bound_by": r[0]["bound_by"], "cudnn_yardstick_ms": serving[name + "/cudnn"],
+             "shape": sshape}
+        if len(r) > 1:
+            s.update(ms_unmasked=r[1]["ms"], plain_ms_unmasked=r[1]["plain_ms"])
+        if "design" in r[0]:
+            s["design"] = r[0]["design"]
+        return {"serving": s}
 
     return [
         entry("lstm_fwd", "lstm_fwd_train", "lstm_cell.cu", "deeplearning4j_tpu/ops/lstm_cell.py:99",
               [training["lstm_fwd_train/masked"], training["lstm_fwd_train/unmasked"]],
-              serving_of("lstm_fwd", ["lstm_fwd/masked", "lstm_fwd/unmasked"])),
+              {**serving_of("lstm_fwd", ["lstm_fwd/masked", "lstm_fwd/unmasked"]),
+               "design": training["lstm_fwd_train/masked"]["design"]}),
         entry("lstm_bwd", "lstm_bwd", "lstm_cell_bwd.cu", "deeplearning4j_tpu/ops/lstm_cell.py:235",
-              [training["lstm_bwd/masked"], training["lstm_bwd/unmasked"]]),
+              [training["lstm_bwd/masked"], training["lstm_bwd/unmasked"]],
+              {"design": training["lstm_bwd/masked"]["design"]}),
         entry("lstm2_fwd", "lstm2_fwd_train", "lstm_fused.cu", "deeplearning4j_tpu/ops/lstm_fused.py:111",
               [training["lstm2_fwd_train"]], serving_of("lstm2_fwd", ["lstm2_fwd"])),
         entry("lstm2_bwd", "lstm2_bwd", "lstm_fused_bwd.cu", "deeplearning4j_tpu/ops/lstm_fused.py:249",
@@ -1218,6 +1358,7 @@ def main() -> int:
     serving = check_kernels()
     training = check_training_kernels()
     check_lstm2_bwd_small()
+    check_lstm_small()
     conf = char_rnn_conf()
     net = build_net(conf)
     served, streamed = serve(net)

@@ -19,17 +19,38 @@
 // t-1 needs dz_t of every unit. The weights (2 MB at H=512 bf16) stay
 // resident; the bytes that must move are the dy/reserve/dz streams.
 //
-// Design: the cooperative grid of lstm_cell.cu (lstm_common.cuh). Block k
-// owns units [k*HB, (k+1)*HB): their dc and dh carries live in shared
-// memory, and it computes dz for all four gate columns of them locally.
-// The exchanged operand is dz_t [B, 4H], four times the forward's h (256 KB
-// at b=64 in bf16, more than a block's shared memory), so it is published
-// in RW's type (exact: the reference casts dz to the weight dtype before
-// the product) to a two-slot global buffer, and after grid.sync() each
-// block reads it through L2 in 8-wide chunks (row_dot) against the block's
-// rows of RW, held in shared memory as [HB][4H]. One grid.sync() per step.
-// The peephole sums stay with the owning block: no atomics.
+// Both bodies use the cooperative grid of lstm_cell.cu (lstm_common.cuh).
+// Block k owns some hidden units: their dc and dh carries, and dz for all
+// four gate columns of them, computed locally. The exchanged operand is
+// dz_t [B, 4H], four times the forward's h (256 KB at b=64 in bf16, more
+// than a block's shared memory), so it is published in RW's type (exact:
+// the reference casts dz to the weight dtype before the product) to a
+// two-slot global buffer, read back after one grid.sync() a step. The
+// peephole sums stay with the owning block and are added over the batch
+// in a fixed order: no atomics, two launches are bitwise equal. Two
+// bodies, chosen statically by the C entry (dl4j_lstm_bwd_tc names the
+// choice):
+//
+// * Tensor cores (bf16 weights, B <= 64, H % 8 == 0, the grid resident):
+//   K4's tensor-core body (lstm_fused_bwd.cu) with one weight and one cell
+//   layer. 8 units a block (64 blocks at H=512), 512 threads, the block's 8
+//   rows of RW resident (one n-tile). Every block reads all of dz_t: with
+//   half K4's exchange, that was faster than clusters of two splitting k
+//   (PERF.md). The products run on `mma.sync` m16n8k16
+//   (rows_product, lstm_hopper.cuh): A = 16 dz rows through a cp.async.cg
+//   ring, B = the 8 weight rows. Warp w takes m-tile w % MT and every
+//   KG-th 32-wide chunk of k (MT = ceil(B/16), KG = 16/MT) and leaves a
+//   [16 x 8] partial tile; the cell threads (one element (row, unit) each,
+//   dh, dc and the peephole sums in registers) add the tiles in warp
+//   order. Each thread's reserve for the next step (4 gates, cseq[t] or the
+//   mask, c_{t-1}, dy) is copied into shared memory by cp.async before the
+//   barrier, off the chain.
+// * CUDA cores (f32 weights, and any shape the first does not take): HB
+//   units a block; after grid.sync() each block reads dz through L2 in
+//   8-wide chunks (row_dot) against its rows of RW, held in shared memory
+//   as [HB][4H]; the reserve is read after the barrier.
 #include "lstm_common.cuh"
+#include "lstm_hopper.cuh"
 
 namespace dl4j {
 
@@ -144,6 +165,17 @@ lstm_bwd_kernel(const float* __restrict__ dy,     // [T, B, H]
   }
 }
 
+// Hidden units a block of the CUDA-core body (0 when no grid fits), and its
+// dynamic shared memory.
+template <typename W>
+int bwd_units(int B, int H, size_t* smem) {
+  auto smem_for = [&](int hb) {
+    if (hb > kMaxHB) return (size_t)-1;  // row_dot keeps kMaxHB sums per thread
+    return (size_t)hb * 4 * H * sizeof(W) + (size_t)B * hb * 6 * sizeof(float);
+  };
+  return pick_units_per_block(lstm_bwd_kernel<W>, H, smem_for, smem);
+}
+
 template <typename W>
 int launch_bwd(const void* dy, const void* gates, const void* cseq, const void* rw,
                const void* peep, const void* mask, const void* c0, const void* dhT,
@@ -151,12 +183,8 @@ int launch_bwd(const void* dy, const void* gates, const void* cseq, const void* 
                int B, int H, cudaStream_t stream) {
   if (H % 8) return (int)cudaErrorInvalidValue;
   auto kernel = lstm_bwd_kernel<W>;
-  auto smem_for = [&](int hb) {
-    if (hb > kMaxHB) return (size_t)-1;  // row_dot keeps kMaxHB sums per thread
-    return (size_t)hb * 4 * H * sizeof(W) + (size_t)B * hb * 6 * sizeof(float);
-  };
   size_t smem = 0;
-  int HB = pick_units_per_block(kernel, H, smem_for, &smem);
+  int HB = bwd_units<W>(B, H, &smem);
   if (HB == 0) return (int)cudaErrorCooperativeLaunchTooLarge;
   const float* dy_ = static_cast<const float*>(dy);
   const float* gates_ = static_cast<const float*>(gates);
@@ -180,20 +208,243 @@ int launch_bwd(const void* dy, const void* gates, const void* cseq, const void* 
   return (int)cudaGetLastError();
 }
 
+// ---- Tensor-core body (bf16 weights) ----
+
+constexpr int kBwdUnits = 8;                // hidden units a block owns: one n-tile
+constexpr int kBwdStages = 3;               // 32-wide k chunks in flight a warp
+constexpr int kBwdWarps = kThreads / 32;    // 16
+constexpr int kBwdMaxB = 64;                // 4 m-tiles; B * kBwdUnits <= kThreads
+constexpr int kBwdReserve = 8;              // reserve floats a thread: i, f, o, g, c, c_prev, dy, m
+constexpr int kBwdRingBytes = kBwdStages * kRowsStageBytes;
+static_assert(kBwdMaxB * kBwdUnits <= kThreads, "a thread for each cell");
+
+// Shared memory: the block's 8 rows of RW (padded row stride), each warp's
+// ring (its partial tile and, at the end, the peephole sums reuse it), each
+// thread's reserve.
+__host__ __device__ __forceinline__ size_t bwd_tc_smem(int H) {
+  return (size_t)kBwdUnits * padded_row(4 * H) * sizeof(__nv_bfloat16) +
+         (size_t)kBwdWarps * kBwdRingBytes + (size_t)kBwdReserve * kThreads * sizeof(float);
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+lstm_bwd_tc_kernel(const float* __restrict__ dy, const float* __restrict__ gates,
+                   const float* __restrict__ cseq, const __nv_bfloat16* __restrict__ rw,
+                   const float* __restrict__ peep, const float* __restrict__ mask,
+                   const float* __restrict__ c0, const float* __restrict__ dhT,
+                   const float* __restrict__ dcT, __nv_bfloat16* dzx, float* __restrict__ dz,
+                   float* __restrict__ dh0, float* __restrict__ dc0, float* __restrict__ dpeep,
+                   int T, int B, int H) {
+  cg::grid_group grid = cg::this_grid();
+  extern __shared__ __align__(16) unsigned char smem[];
+  constexpr int HB = kBwdUnits;
+  const int K = 4 * H, WP = padded_row(K);
+  const size_t BH = (size_t)B * H, BK = (size_t)B * K;
+  __nv_bfloat16* w_s = reinterpret_cast<__nv_bfloat16*>(smem);  // [HB][WP]
+  unsigned char* rings = smem + (size_t)HB * WP * sizeof(__nv_bfloat16);
+  float* res_s = reinterpret_cast<float*>(rings + (size_t)kBwdWarps * kBwdRingBytes);
+  const int u0 = blockIdx.x * HB, tid = threadIdx.x, warp = tid / 32;
+
+  // the block's units' rows of RW
+  for (int i = tid; i < HB * K / 8; i += blockDim.x) {
+    const int row = i / (K / 8), k = 8 * (i % (K / 8));
+    *reinterpret_cast<uint4*>(w_s + (size_t)row * WP + k) =
+        __ldg(reinterpret_cast<const uint4*>(rw + (size_t)(u0 + row) * K + k));
+  }
+
+  // product role: m-tile m, k chunks kg, kg + KG, ...
+  const int MT = (B + 15) / 16, KG = kBwdWarps / MT;
+  const int m = warp % MT, kg = warp / MT;
+  const bool mma_warp = warp < MT * KG;
+  unsigned char* ring = rings + (size_t)warp * kBwdRingBytes;
+
+  // cell role: element (row r, unit u)
+  const bool cell_on = tid < B * HB;
+  const int r = tid / HB, u = tid % HB, hu = u0 + u;
+  const size_t at = (size_t)r * H + hu;
+  const bool peeps = peep != nullptr, masked = mask != nullptr;
+  float pv[3] = {0.0f, 0.0f, 0.0f}, dp[3] = {0.0f, 0.0f, 0.0f};
+  float dh = 0.0f, dc = 0.0f, resid = 0.0f;  // resid: (1-m)*dh_tot of the step after
+  if (cell_on) {
+    if (peeps)
+      for (int k = 0; k < 3; ++k) pv[k] = peep[(size_t)k * H + hu];
+    dh = dhT[at];
+    dc = dcT[at];
+  }
+
+  // Copy this thread's reserve for step t into res_s (one group, possibly empty).
+  auto prefetch = [&](int t) {
+    if (cell_on && t >= 0) {
+      const float* grow = gates + ((size_t)t * B + r) * K + hu;
+      for (int j = 0; j < 4; ++j) cp_async4_ca(res_s + j * kThreads + tid, grow + (size_t)j * H);
+      if (!masked) cp_async4_ca(res_s + 4 * kThreads + tid, cseq + (size_t)t * BH + at);
+      cp_async4_ca(res_s + 5 * kThreads + tid, t > 0 ? cseq + (size_t)(t - 1) * BH + at : c0 + at);
+      cp_async4_ca(res_s + 6 * kThreads + tid, dy + (size_t)t * BH + at);
+      if (masked) cp_async4_ca(res_s + 7 * kThreads + tid, mask + (size_t)t * B + r);
+    }
+    cp_async_commit();
+  };
+  // bf16(dz) . RW^T at (r, u) from the exchange slot: the KG partial tiles
+  // added in warp order (the same order in every launch)
+  auto product = [&](int slot) {
+    if (mma_warp)
+      rows_product<1, kBwdStages>(dzx + (size_t)slot * BK, B, K, w_s, WP, kg, KG, m, ring);
+    __syncthreads();  // the partial tiles are written
+    float s = 0.0f;
+    if (cell_on) {
+#pragma unroll 4
+      for (int k = 0; k < KG; ++k)
+        s += reinterpret_cast<const float*>(rings + (size_t)(k * MT + r / 16) *
+                                                        kBwdRingBytes)[(r % 16) * HB + u];
+    }
+    return s;
+  };
+
+  prefetch(T - 1);
+  __syncthreads();  // the weight rows are resident
+  for (int t = T - 1; t >= 0; --t) {
+    if (t < T - 1) {
+      grid.sync();  // dz_{t+1} is published; also a block barrier (the tiles are free)
+      dh = product((t + 1) & 1) + resid;
+    }
+    cp_async_wait<0>();  // this thread's reserve for step t
+    if (cell_on) {
+      float rv[kBwdReserve];
+      for (int j = 0; j < kBwdReserve; ++j) rv[j] = res_s[j * kThreads + tid];
+      const float c_prev = rv[5], dh_tot = rv[6] + dh, dc_tot = dc;
+      float mv = 1.0f, c_cand = rv[4], dh_c = dh_tot, dc_c = dc_tot;
+      if (masked) {
+        mv = rv[7];
+        dh_c = mv * dh_tot;
+        dc_c = mv * dc_tot;
+        c_cand = rv[1] * c_prev + rv[0] * rv[3];
+      }
+      const CellGrad d = cell_bwd(rv[0], rv[1], rv[2], rv[3], c_cand, c_prev, dh_c, dc_c,
+                                  peeps ? &pv[0] : nullptr, peeps ? &pv[1] : nullptr,
+                                  peeps ? &pv[2] : nullptr, 0);
+      float* zr = dz + ((size_t)t * B + r) * K + hu;
+      zr[0] = d.dzi;
+      zr[H] = d.dzf;
+      zr[2 * H] = d.dzo;
+      zr[3 * H] = d.dzg;
+      __nv_bfloat16* xr = dzx + (size_t)(t & 1) * BK + (size_t)r * K + hu;
+      store_w(xr, d.dzi);
+      store_w(xr + H, d.dzf);
+      store_w(xr + 2 * H, d.dzo);
+      store_w(xr + 3 * H, d.dzg);
+      if (peeps) {
+        dp[0] += d.dzi * c_prev;
+        dp[1] += d.dzf * c_prev;
+        dp[2] += d.dzo * c_cand;
+      }
+      resid = (1.0f - mv) * dh_tot;
+      dc = d.dc_prev + (1.0f - mv) * dc_tot;
+    }
+    prefetch(t - 1);  // lands during the barrier and the products
+  }
+  // dh before step 0 = bf16(dz_0) . RW^T + the residual (dz_0 is in slot 0)
+  grid.sync();
+  dh = product(0) + resid;
+  cp_async_wait<0>();
+  if (cell_on) {
+    dh0[at] = dh;
+    dc0[at] = dc;
+  }
+  if (peeps) {
+    __syncthreads();  // every cell thread has read the tiles
+    float* dp_s = reinterpret_cast<float*>(rings);  // [B * HB][3]
+    if (cell_on)
+      for (int k = 0; k < 3; ++k) dp_s[tid * 3 + k] = dp[k];
+    __syncthreads();
+    for (int qi = tid; qi < 3 * HB; qi += blockDim.x) {
+      const int k = qi / HB, uu = qi % HB;
+      float sum = 0.0f;
+      for (int rr = 0; rr < B; ++rr) sum += dp_s[(rr * HB + uu) * 3 + k];
+      dpeep[(size_t)k * H + u0 + uu] = sum;
+    }
+  }
+}
+
+// Whether the tensor-core body takes this shape on the current device (and
+// the kernel's shared-memory limit set for it): every block of the grid
+// must be resident at once for the grid barrier.
+bool bwd_tc_fits(int B, int H) {
+  if (H % kBwdUnits || B < 1 || B > kBwdMaxB) return false;
+  int dev = 0, max_smem = 0, sms = 0, per_sm = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess) return false;
+  cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const size_t smem = bwd_tc_smem(H);
+  if (smem > (size_t)max_smem) return false;
+  if (cudaFuncSetAttribute(lstm_bwd_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)smem) != cudaSuccess)
+    return false;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, lstm_bwd_tc_kernel, kThreads,
+                                                    smem) != cudaSuccess)
+    return false;
+  return (long)per_sm * sms >= H / kBwdUnits;
+}
+
+int launch_bwd_tc(const void* dy, const void* gates, const void* cseq, const void* rw,
+                  const void* peep, const void* mask, const void* c0, const void* dhT,
+                  const void* dcT, void* dzx, void* dz, void* dh0, void* dc0, void* dpeep, int T,
+                  int B, int H, cudaStream_t stream) {
+  const float* dy_ = static_cast<const float*>(dy);
+  const float* gates_ = static_cast<const float*>(gates);
+  const float* cseq_ = static_cast<const float*>(cseq);
+  const __nv_bfloat16* rw_ = static_cast<const __nv_bfloat16*>(rw);
+  const float* peep_ = static_cast<const float*>(peep);
+  const float* mask_ = static_cast<const float*>(mask);
+  const float* c0_ = static_cast<const float*>(c0);
+  const float* dhT_ = static_cast<const float*>(dhT);
+  const float* dcT_ = static_cast<const float*>(dcT);
+  __nv_bfloat16* dzx_ = static_cast<__nv_bfloat16*>(dzx);
+  float* dz_ = static_cast<float*>(dz);
+  float* dh0_ = static_cast<float*>(dh0);
+  float* dc0_ = static_cast<float*>(dc0);
+  float* dpeep_ = static_cast<float*>(dpeep);
+  void* args[] = {&dy_, &gates_, &cseq_, &rw_, &peep_, &mask_, &c0_, &dhT_, &dcT_,
+                  &dzx_, &dz_, &dh0_, &dc0_, &dpeep_, &T, &B, &H};
+  cudaError_t err = cudaLaunchCooperativeKernel((const void*)lstm_bwd_tc_kernel,
+                                                dim3(H / kBwdUnits), dim3(kThreads), args,
+                                                bwd_tc_smem(H), stream);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
 }  // namespace dl4j
 
 // Plain C entry bound with ctypes. rw_bf16 selects the type of rw and of
 // the dz exchange buffer dzx [2, B, 4H] (bf16 or f32); every other tensor
 // is f32 and contiguous; peep/dpeep are both set or both null, mask may be
-// null. Returns a cudaError_t (0 on success).
+// null. bf16 weights at a shape the tensor-core body takes launch it
+// (dl4j_lstm_bwd_tc), everything else the CUDA-core body. Returns a
+// cudaError_t (0 on success).
 extern "C" int dl4j_lstm_bwd(const void* dy, const void* gates, const void* cseq, const void* rw,
                              int rw_bf16, const void* peep, const void* mask, const void* c0,
                              const void* dhT, const void* dcT, void* dzx, void* dz, void* dh0,
                              void* dc0, void* dpeep, int T, int B, int H, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (rw_bf16 && dl4j::bwd_tc_fits(B, H))
+    return dl4j::launch_bwd_tc(dy, gates, cseq, rw, peep, mask, c0, dhT, dcT, dzx, dz, dh0, dc0,
+                               dpeep, T, B, H, s);
   if (rw_bf16)
     return dl4j::launch_bwd<__nv_bfloat16>(dy, gates, cseq, rw, peep, mask, c0, dhT, dcT, dzx,
                                            dz, dh0, dc0, dpeep, T, B, H, s);
   return dl4j::launch_bwd<float>(dy, gates, cseq, rw, peep, mask, c0, dhT, dcT, dzx, dz, dh0,
                                  dc0, dpeep, T, B, H, s);
+}
+
+// 1 when dl4j_lstm_bwd takes the tensor-core body for these weights and
+// this shape on the current device, 0 when the CUDA-core body.
+extern "C" int dl4j_lstm_bwd_tc(int w_bf16, int B, int H) {
+  return w_bf16 && dl4j::bwd_tc_fits(B, H) ? 1 : 0;
+}
+
+// Hidden units a block of the body dl4j_lstm_bwd launches for these
+// weights and this shape on the current device (the grid has H / units
+// blocks; 0 when no grid fits).
+extern "C" int dl4j_lstm_bwd_units(int w_bf16, int B, int H) {
+  size_t smem = 0;
+  if (w_bf16 && dl4j::bwd_tc_fits(B, H)) return dl4j::kBwdUnits;
+  return w_bf16 ? dl4j::bwd_units<__nv_bfloat16>(B, H, &smem) : dl4j::bwd_units<float>(B, H, &smem);
 }

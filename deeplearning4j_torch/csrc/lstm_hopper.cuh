@@ -1,7 +1,8 @@
 // Hopper pieces of the persistent-LSTM kernels: tensor-core products of
 // the exchanged recurrent rows, fed by cp.async copies issued several
-// chunks ahead. Used by K4's bf16 route (lstm_fused_bwd.cu); lstm_common.cuh
-// keeps the CUDA-core pieces of the other bodies.
+// chunks ahead. Used by the bf16 routes of K4 (lstm_fused_bwd.cu), K1
+// (lstm_cell.cu) and K2 (lstm_cell_bwd.cu); lstm_common.cuh keeps the
+// CUDA-core pieces of the other bodies.
 //
 // The product. A block owns a few hidden units; each phase it contracts the
 // exchanged rows X [B, K] (bf16, written by every block before the grid
@@ -78,5 +79,73 @@ __device__ __forceinline__ void mma_chunk32(float (&d)[4], const uint4& lo, cons
 // that consecutive rows start 64 bytes apart modulo 128, which makes each
 // quarter-warp's 16-byte loads (rows g, g+1 at the same k) conflict-free.
 __host__ __device__ __forceinline__ int padded_row(int K) { return K % 64 == 0 ? K + 32 : K; }
+
+// ---- One m-tile's product, for the one-layer bodies (K1, K2) ----
+
+// Bytes of one ring stage of rows_product: rows g and g + 8 of one 32-wide
+// chunk of X, 16 bytes a lane.
+constexpr int kRowsStageBytes = 2 * 32 * 16;
+
+// One warp's share of out[r, n] = sum_k X[r, k] * Wr[n, k] for the 16 rows
+// r = 16m .. 16m+15 of X [B, K] (bf16 in global memory, written by other
+// blocks before a grid barrier) and 8 * NT weight rows Wr resident in
+// shared memory (bf16, row stride WP; n-tile nt is rows 8nt .. 8nt+7). The
+// warp takes the 32-wide k chunks kg, kg + KG, ... < ceil(K / 32). X's
+// 16-byte pieces at k >= K read as zeros (Wr holds zeros there), so K need
+// only be a multiple of 8. Each lane copies its pieces of rows g and g + 8
+// with cp.async.cg into a ring of STAGES chunks (all of them in flight
+// before the first wait) and reads back only its own, and the warp leaves
+// its [16 x 8NT] f32 partial tile at the start of the ring, row-major.
+// Rows past B read row B - 1: their sums are never to be used.
+template <int NT, int STAGES>
+__device__ __forceinline__ void rows_product(const __nv_bfloat16* x, int B, int K,
+                                             const __nv_bfloat16* w_s, int WP, int kg, int KG,
+                                             int m, unsigned char* ring) {
+  static_assert(NT * 16 * 8 * sizeof(float) <= STAGES * kRowsStageBytes, "the tile fits the ring");
+  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  const __nv_bfloat16* xa = x + (size_t)min(16 * m + g, B - 1) * K + 8 * t;
+  const __nv_bfloat16* xb = x + (size_t)min(16 * m + g + 8, B - 1) * K + 8 * t;
+  const __nv_bfloat16* w0 = w_s + (size_t)g * WP + 8 * t;
+  const int n = ((K + 31) / 32 - kg + KG - 1) / KG;
+  unsigned char* mine = ring + lane * 16;
+  auto issue = [&](int i) {
+    if (i < n) {
+      const int k0 = 32 * (kg + i * KG);
+      unsigned char* d = mine + (i % STAGES) * kRowsStageBytes;
+      if (k0 + 8 * t < K) {
+        cp_async16_cg(d, xa + k0);
+        cp_async16_cg(d + 512, xb + k0);
+      } else {
+        *reinterpret_cast<uint4*>(d) = make_uint4(0u, 0u, 0u, 0u);
+        *reinterpret_cast<uint4*>(d + 512) = make_uint4(0u, 0u, 0u, 0u);
+      }
+    }
+    cp_async_commit();
+  };
+  float acc[NT][4] = {};
+#pragma unroll
+  for (int i = 0; i < STAGES; ++i) issue(i);
+  for (int i = 0; i < n; ++i) {
+    cp_async_wait<STAGES - 1>();  // chunk i has landed (this lane's own copies)
+    const unsigned char* d = mine + (i % STAGES) * kRowsStageBytes;
+    const uint4 lo = *reinterpret_cast<const uint4*>(d);
+    const uint4 hi = *reinterpret_cast<const uint4*>(d + 512);
+    const __nv_bfloat16* w = w0 + 32 * (kg + i * KG);
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+      mma_chunk32(acc[nt], lo, hi, *reinterpret_cast<const uint4*>(w + (size_t)8 * nt * WP));
+    issue(i + STAGES);  // refills the slot just read
+  }
+  cp_async_wait<0>();
+  __syncwarp();  // every lane's copies have landed before the tile overwrites the ring
+  float* part = reinterpret_cast<float*>(ring);
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+    *reinterpret_cast<float2*>(part + g * 8 * NT + 8 * nt + 2 * t) =
+        make_float2(acc[nt][0], acc[nt][1]);
+    *reinterpret_cast<float2*>(part + (g + 8) * 8 * NT + 8 * nt + 2 * t) =
+        make_float2(acc[nt][2], acc[nt][3]);
+  }
+}
 
 }  // namespace dl4j

@@ -4,7 +4,10 @@ Counterpart of ``deeplearning4j_tpu/ops/lstm_cell.py``: the inference
 primal ``_lstm`` -> ``_fwd(save_reserve=False)``, the training forward
 ``_lstm_fwd`` -> ``_fwd`` with the BPTT reserve, and ``_lstm_bwd`` ->
 ``_bwd_call``. The CUDA kernels are ``csrc/lstm_cell.cu`` (K1) and
-``csrc/lstm_cell_bwd.cu`` (K2); their source notes give the design. Beside
+``csrc/lstm_cell_bwd.cu`` (K2); their source notes give the design. Each
+has two bodies, chosen statically by its C entry: tensor cores for bf16
+weights at b <= 64 (``csrc/lstm_hopper.cuh``), CUDA cores otherwise;
+:func:`fwd_route` and :func:`bwd_route` name the choice. Beside
 each is a plain PyTorch time loop (:func:`lstm_fwd_plain`,
 :func:`lstm_bwd_plain`): a wrapper takes it for CPU tensors only, the
 tests compare it with the JAX kernels, and ``chip_smoke.py`` holds the
@@ -32,7 +35,8 @@ import torch
 from . import cuda_build
 
 __all__ = ["lstm_scan", "lstm_fwd", "lstm_fwd_plain", "lstm_bwd", "lstm_bwd_plain",
-           "LSTMFunction", "COUNTER", "TRAIN_COUNTER", "BWD_COUNTER"]
+           "fwd_route", "bwd_route", "LSTMFunction", "COUNTER", "TRAIN_COUNTER",
+           "BWD_COUNTER"]
 
 SOURCE = "lstm_cell.cu"
 BWD_SOURCE = "lstm_cell_bwd.cu"
@@ -40,8 +44,10 @@ COUNTER = cuda_build.Counter("lstm_fwd")              # K1, inference
 TRAIN_COUNTER = cuda_build.Counter("lstm_fwd_train")  # K1 writing the reserve
 BWD_COUNTER = cuda_build.Counter("lstm_bwd")          # K2
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_ARGTYPES = [_P] * 2 + [_I] + [_P] * 9 + [_I] * 3 + [_P]
+_ARGTYPES = [_P] * 2 + [_I] + [_P] * 10 + [_I] * 3 + [_P]
 _BWD_ARGTYPES = [_P] * 4 + [_I] + [_P] * 10 + [_I] * 3 + [_P]
+_FWD_ROUTE_ARGTYPES = [_I] * 4   # (w_bf16, b, H, reserve)
+_ROUTE_ARGTYPES = [_I] * 3       # (w_bf16, b, H)
 
 
 def cell(z, c, H, peep):
@@ -185,20 +191,47 @@ def _lstm_fwd_cuda(xp, rw, peep, mask, h0, c0, save_reserve):
     cT = torch.empty((b, H), **f32)
     gates = torch.empty((T, b, H4), **f32) if save_reserve else None
     cseq = torch.empty((T, b, H), **f32) if save_reserve else None
+    w_bf16 = rw.dtype == torch.bfloat16
+    # the tensor-core body's bf16 h exchange (two slots)
+    hx = torch.empty((2, b, H), device=xp.device, dtype=torch.bfloat16) if w_bf16 else None
     if T == 0:
         hT.copy_(h0)
         cT.copy_(c0)
     else:
         lib = cuda_build.library(SOURCE, "dl4j_lstm_fwd", _ARGTYPES)
         P = cuda_build.ptr
-        code = lib.dl4j_lstm_fwd(P(xp), P(rw), int(rw.dtype == torch.bfloat16), P(peep),
-                                 P(mask), P(h0), P(c0), P(ys), P(gates), P(cseq), P(hT), P(cT),
-                                 T, b, H, cuda_build.stream_of(xp))
+        code = lib.dl4j_lstm_fwd(P(xp), P(rw), int(w_bf16), P(peep), P(mask), P(h0), P(c0),
+                                 P(hx), P(ys), P(gates), P(cseq), P(hT), P(cT), T, b, H,
+                                 cuda_build.stream_of(xp))
         cuda_build.check(lib, code, "lstm_fwd kernel launch")
         (TRAIN_COUNTER if save_reserve else COUNTER).add()
     if save_reserve:
         return ys, hT, cT, gates, cseq
     return ys, hT, cT
+
+
+def fwd_route(w_dtype, b, H, reserve=False) -> Tuple[bool, int]:
+    """K1's static choice for weights of ``w_dtype`` at batch ``b`` and
+    width ``H`` on the current card, for the serving instantiation or, with
+    ``reserve``, the training one: whether it takes the tensor-core body
+    (else the CUDA-core body), and the hidden units a block of that body
+    takes (the grid has H / units blocks). Named by the C exports
+    ``dl4j_lstm_fwd_tc`` and ``dl4j_lstm_fwd_units``; builds the kernel at
+    first use, so it needs the card."""
+    args = (int(w_dtype == torch.bfloat16), b, H, int(reserve))
+    lib = cuda_build.library(SOURCE, "dl4j_lstm_fwd_tc", _FWD_ROUTE_ARGTYPES)
+    cuda_build.library(SOURCE, "dl4j_lstm_fwd_units", _FWD_ROUTE_ARGTYPES)
+    return bool(lib.dl4j_lstm_fwd_tc(*args)), lib.dl4j_lstm_fwd_units(*args)
+
+
+def bwd_route(w_dtype, b, H) -> Tuple[bool, int]:
+    """K2's static choice for weights of ``w_dtype`` at batch ``b`` and
+    width ``H`` on the current card, as :func:`fwd_route`; named by the C
+    exports ``dl4j_lstm_bwd_tc`` and ``dl4j_lstm_bwd_units``."""
+    w_bf16 = int(w_dtype == torch.bfloat16)
+    lib = cuda_build.library(BWD_SOURCE, "dl4j_lstm_bwd_tc", _ROUTE_ARGTYPES)
+    cuda_build.library(BWD_SOURCE, "dl4j_lstm_bwd_units", _ROUTE_ARGTYPES)
+    return bool(lib.dl4j_lstm_bwd_tc(w_bf16, b, H)), lib.dl4j_lstm_bwd_units(w_bf16, b, H)
 
 
 def lstm_fwd(xp, rw, peep, mask, h0, c0, save_reserve=False):

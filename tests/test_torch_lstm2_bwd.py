@@ -231,7 +231,11 @@ def _c_kind(decl):
     ("dl4j_lstm2_fwd", lstm_fused, "_ARGTYPES"),
     ("dl4j_lstm2_bwd", lstm_fused, "_BWD_ARGTYPES"),
     ("dl4j_lstm2_bwd_tc", lstm_fused, "_ROUTE_ARGTYPES"),
-    ("dl4j_lstm2_bwd_units", lstm_fused, "_ROUTE_ARGTYPES")])
+    ("dl4j_lstm2_bwd_units", lstm_fused, "_ROUTE_ARGTYPES"),
+    ("dl4j_lstm_fwd_tc", lstm_cell, "_FWD_ROUTE_ARGTYPES"),
+    ("dl4j_lstm_fwd_units", lstm_cell, "_FWD_ROUTE_ARGTYPES"),
+    ("dl4j_lstm_bwd_tc", lstm_cell, "_ROUTE_ARGTYPES"),
+    ("dl4j_lstm_bwd_units", lstm_cell, "_ROUTE_ARGTYPES")])
 def test_ctypes_argtypes_match_the_c_entries(entry, module, argtypes):
     """Each LSTM wrapper's ctypes declaration against its C entry's
     parameter list: the count, and for each parameter whether it is a
