@@ -13,12 +13,16 @@ and the CUDA toolkit; run from the root of the repository. It
    and K3 at serving shapes (b=32, T=200, H=512, bf16 recurrent weights,
    peepholes; K1 with a fractional mask and without), and at the training
    shape (b=64, T=50) K1 and K3 writing the BPTT reserve, K2 and K4 (each
-   backward fed the same dy, reserve and state as its plain version; K1,
-   K2 and K4 launched twice and required bitwise equal, their bodies
-   logged: tensor cores for bf16 weights, named by the exports
-   ``dl4j_lstm_fwd_tc``, ``dl4j_lstm_bwd_tc`` and ``dl4j_lstm2_bwd_tc``);
-   then K4 over 96 small cases on both of its bodies (bf16 and f32
-   weights, b 1/8/17/64, H 64/512, T 1/2/50, peepholes on and off), and
+   backward fed the same dy, reserve and state as its plain version; K1
+   to K4 launched twice and required bitwise equal, their bodies logged:
+   tensor cores for bf16 weights, named by the exports
+   ``dl4j_lstm_fwd_tc``, ``dl4j_lstm2_fwd_tc``, ``dl4j_lstm_bwd_tc`` and
+   ``dl4j_lstm2_bwd_tc``); then K3 (both instantiations) over 132 small
+   cases on both of its bodies (bf16 weights at b 1/8/17/32/64/65, f32 at
+   b 1/8/17/32/64, H 64/512, T 1/2/50, peepholes on and off; the f32
+   shapes with no grid must raise; the reserve's gradients through the
+   plain backward), K4 over 96 small cases on both of its bodies (bf16 and
+   f32 weights, b 1/8/17/64, H 64/512, T 1/2/50, peepholes on and off), and
    K1 (both instantiations) and K2 over 264 small cases on both of their
    bodies (bf16 and f32 weights, b 1/8/17/32/64 and 65 in bf16, H 64/512,
    T 1/2/50, peepholes on and off, no mask and a fractional one);
@@ -34,7 +38,7 @@ and the CUDA toolkit; run from the root of the repository. It
    launch) and masked fits with variable lengths (each segment two K1-
    with-reserve and two K2 launches), checks that the loss is finite and
    falls, prints a fit's time and a profile of one unmasked fit (with
-   K4's share of its device time) and of one masked fit (with K1's and
+   K3's and K4's shares of its device time) and of one masked fit (with K1's and
    K2's), and holds the card's gradients against the CPU reference's
    (unmasked and masked);
 6. holds the flash-attention kernels K5 (forward), K6 (dq) and K7 (dk/dv)
@@ -240,19 +244,25 @@ def check_kernels():
                                  f"{err} > {KERNEL_ATOL}")
 
     args = (xp, rw1, w2, rw2, b2, peep6, h0pack)
-    ys2, hc = lstm_fused.lstm2_fwd(*args)
+    got = lstm_fused.lstm2_fwd(*args)
     torch.cuda.synchronize()
     ref = lstm_fused.lstm2_fwd_plain(*args)
-    err = max((ys2 - ref[0]).abs().max().item(), (hc - ref[1]).abs().max().item())
+    err = max((a - r).abs().max().item() for a, r in zip(got, ref))
+    bitwise = same_bits(got, lstm_fused.lstm2_fwd(*args))
     ms = cuda_ms(lambda: lstm_fused.lstm2_fwd(*args), 20)
     plain_ms = cuda_ms(lambda: lstm_fused.lstm2_fwd_plain(*args), 3)
     nbytes = (T * B * 4 * H * 4 + 3 * H * 4 * H * 2 + 4 * H * 4 + 6 * H * 4
               + 8 * B * H * 4 + T * B * H * 4)
     bms, by = bound(nbytes, 3 * T * mm, 2 * T * B * H * CELL_OPS)
+    route = k3_design(rw1.dtype, B, H)
     results["lstm2_fwd"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                                bound_ms=bms, bound_by=by)
+                                bound_ms=bms, bound_by=by, design=route)
     log(f"K3 lstm2_fwd: max_abs_err={err:.3e} kernel_ms={ms:.4f} plain_ms={plain_ms:.3f} "
-        f"bound_ms={bms:.5f} ({by}; chain of {T + 1} dependent phases)")
+        f"bound_ms={bms:.5f} ({by}; chain of {T + 1} dependent phases, "
+        f"{1e3 * ms / (T + 1):.2f} us a phase); two launches bitwise equal: {bitwise}; "
+        f"route: {route}")
+    if not bitwise:
+        raise AssertionError("K3 gave different results in two launches on the same inputs")
     if not err <= KERNEL_ATOL:
         raise AssertionError(f"K3 disagrees with its plain version: {err} > {KERNEL_ATOL}")
 
@@ -354,14 +364,21 @@ def check_training_kernels():
     torch.cuda.synchronize()
     ref = lstm_fused.lstm2_fwd_plain(*fargs, save_reserve=True)
     e_f = err(got, ref)
+    bitwise_f = same_bits(got, lstm_fused.lstm2_fwd(*fargs, save_reserve=True))
     ms = cuda_ms(lambda: lstm_fused.lstm2_fwd(*fargs, save_reserve=True), 20)
     plain_ms = cuda_ms(lambda: lstm_fused.lstm2_fwd_plain(*fargs, save_reserve=True), 3)
     bms, by = bound(seq4 + 3 * w_bytes + 4 * H * 4 + 6 * H * 4 + 8 * st + seq
                     + 3 * seq + 2 * seq4, 3 * t * mm, 2 * t * b * H * CELL_OPS)
+    route = k3_design(rw1.dtype, b, H, reserve=True)
     results["lstm2_fwd_train"] = dict(max_abs_err=e_f, ms=ms, plain_ms=plain_ms,
-                                      bound_ms=bms, bound_by=by)
+                                      bound_ms=bms, bound_by=by, design=route)
     log(f"K3 lstm2_fwd train b={b} T={t}: max_abs_err={e_f:.3e} kernel_ms={ms:.4f} "
-        f"plain_ms={plain_ms:.3f} bound_ms={bms:.5f} ({by})")
+        f"plain_ms={plain_ms:.3f} bound_ms={bms:.5f} ({by}; chain of {t + 1} phases, "
+        f"{1e3 * ms / (t + 1):.2f} us a phase); two launches bitwise equal: {bitwise_f}; "
+        f"route: {route}")
+    if not bitwise_f:
+        raise AssertionError("K3 with reserve gave different results in two launches on the "
+                             "same inputs")
 
     _, _, _, g1, c1, g2, c2 = ref
     c0pack = torch.stack([h0pack[1], h0pack[3]])
@@ -433,6 +450,111 @@ def k4_design(w_dtype, b, h):
             f"flight a warp), partial sums through distributed shared memory, the reserve "
             f"prefetched before the barrier" if tc
             else f"CUDA cores: {grid}, row_dot over the dz rows through L2")
+
+
+def k3_design(w_dtype, b, h, reserve=False):
+    """The body K3 (``reserve``: its training instantiation) takes for
+    weights of this type at this shape, and its grid: the C entry's static
+    choice, named by its exports ``dl4j_lstm2_fwd_tc`` and
+    ``dl4j_lstm2_fwd_units``."""
+    from deeplearning4j_torch.ops import lstm_fused
+
+    tc, units = lstm_fused.fwd_route(w_dtype, b, h, reserve)
+    if tc:
+        return (f"tensor cores: {units} units a block, {h // units} blocks a layer "
+                f"({2 * h // units} in all), bf16 h1 and h2 exchanged once (two slots each), "
+                f"mma.sync m16n8k16 (layer 1 h1 rows by RW1; layer 2 h1 rows by W2 and h2 "
+                f"rows by RW2), rows by cp.async (3 chunks in flight a warp), xp prefetched "
+                f"before the barrier")
+    grid = f"{units} units a block, {h // units} blocks" if units else "no grid fits"
+    return (f"CUDA cores: {grid}, each block both layers, h1 and h2 read back through L2 "
+            f"and converted in every block, dot_col")
+
+
+def check_lstm2_fwd_small():
+    """K3 (serving and training instantiations) against lstm2_fwd_plain over
+    small cases on both of its bodies: bf16 weights at b 1/8/17/32/64 (b not
+    a multiple of 16 pads the m-tiles) and 65 (past the tensor-core route),
+    f32 weights at b 1/8/17/32/64; H 64/512, T 1/2/50, peepholes on and off.
+    Where the CUDA-core body has no grid (f32 at the larger batches and
+    H=512), that instantiation's launch must raise. The training
+    instantiation's reserve must also give the plain backward's gradients
+    of the plain forward's reserve. Each (type, H, b)'s bodies are logged;
+    any case over KERNEL_ATOL (forward) or BWD_ATOL (gradients) fails the
+    run."""
+    from deeplearning4j_torch.ops import lstm_fused
+
+    dev = torch.device("cuda")
+    g = torch.Generator().manual_seed(14)
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(shape, generator=g) * scale).to(dev)
+
+    def err(got, want):
+        return max((a - r).abs().max().item() for a, r in zip(got, want) if a is not None)
+
+    n, per_route, bad, raised = 0, {}, [], 0
+    worst = {"forward": 0.0, "gradients": 0.0}
+    for wd in (torch.bfloat16, torch.float32):
+        for h in (64, 512):
+            for b in (1, 8, 17, 32, 64) + ((65,) if wd == torch.bfloat16 else ()):
+                routes = {}
+                for label, reserve in (("serving", False), ("with reserve", True)):
+                    tc, units = lstm_fused.fwd_route(wd, b, h, reserve)
+                    routes[label] = ("tensor cores" if tc else "CUDA cores", units)
+                worst_c = {"forward": 0.0, "gradients": 0.0}
+                for t in (1, 2, 50):
+                    for with_peep in (True, False):
+                        xp = rnd(t, b, 4 * h)
+                        rw1, w2, rw2 = (rnd(h, 4 * h, scale=h ** -0.5).to(wd) for _ in range(3))
+                        b2 = rnd(4 * h, scale=0.1)
+                        peep = rnd(6, h, scale=0.1) if with_peep else None
+                        h0 = rnd(4, b, h, scale=0.5)
+                        fargs = (xp, rw1, w2, rw2, b2, peep, h0)
+                        ref = lstm_fused.lstm2_fwd_plain(*fargs, save_reserve=True)
+                        e_f = e_g = 0.0
+                        for label, reserve in (("serving", False), ("with reserve", True)):
+                            if routes[label][1] == 0:   # no grid: the launch must raise
+                                try:
+                                    lstm_fused.lstm2_fwd(*fargs, save_reserve=reserve)
+                                except RuntimeError:
+                                    raised += 1
+                                    continue
+                                raise AssertionError(
+                                    f"K3 {label} launched with no grid: {wd} H={h} b={b}")
+                            got = lstm_fused.lstm2_fwd(*fargs, save_reserve=reserve)
+                            torch.cuda.synchronize()
+                            e_f = max(e_f, err(got, ref if reserve else ref[:2]))
+                            if reserve:
+                                c0 = torch.stack([h0[1], h0[3]])
+                                dy, dhcT = rnd(t, b, h, scale=0.1), rnd(4, b, h, scale=0.1)
+                                grads = [lstm_fused.lstm2_bwd_plain(dy, *res[3:7], rw1, w2, rw2,
+                                                                    peep, c0, dhcT)
+                                         for res in (got, ref)]
+                                e_g = err(*grads)
+                            key = f"{label} {routes[label][0]}"
+                            per_route[key] = per_route.get(key, 0) + 1
+                        n += 1
+                        worst_c["forward"] = max(worst_c["forward"], e_f)
+                        worst_c["gradients"] = max(worst_c["gradients"], e_g)
+                        if not (e_f <= KERNEL_ATOL and e_g <= BWD_ATOL):
+                            bad.append((str(wd)[6:], h, b, t, with_peep, e_f, e_g))
+                for k in worst:
+                    worst[k] = max(worst[k], worst_c[k])
+                log(f"  K3 small cases {str(wd)[6:]} H={h} b={b}: bodies "
+                    + ", ".join(f"{k} {body} ({units} units a block)" if units
+                                else f"{k} {body} (no grid: the launch raised)"
+                                for k, (body, units) in routes.items())
+                    + f"; T 1/2/50, peepholes on/off; worst max_abs_err "
+                    f"{worst_c['forward']:.3e}, gradients of its reserve "
+                    f"{worst_c['gradients']:.3e}")
+    log(f"K3 small shapes ({n} cases, launches per body {per_route}, {raised} launches with "
+        f"no grid raised): worst max_abs_err {worst['forward']:.3e} (limit {KERNEL_ATOL}), "
+        f"gradients of its reserve {worst['gradients']:.3e} (limit {BWD_ATOL})")
+    if bad:
+        raise AssertionError(f"K3 disagrees with its plain version in {len(bad)} small cases "
+                             f"(dtype, H, b, T, peepholes, err, gradients err): {bad}")
+    return worst
 
 
 def check_lstm2_bwd_small():
@@ -822,9 +944,11 @@ def train(conf):
             f"{TIMED_FITS}), {TRAIN_B * TRAIN_SEQ / times[label] * 1e3:.0f} characters/s")
     prof = profile_call("one unmasked fit", lambda: net.fit(ds))
     if prof is not None:
-        k4 = sum(ms for name, ms in prof["top_ms"].items() if "lstm2_bwd" in name)
-        log(f"K4 in one unmasked fit: {k4:.3f} ms of device time, {100 * k4 / prof['busy_ms']:.1f}% "
-            f"of the fit's {prof['busy_ms']:.3f} ms device busy")
+        for kernel, key in (("K3 with reserve", "lstm2_fwd"), ("K4", "lstm2_bwd")):
+            k = sum(ms for name, ms in prof["top_ms"].items() if key in name)
+            log(f"{kernel} in one unmasked fit: {k:.3f} ms of device time, "
+                f"{100 * k / prof['busy_ms']:.1f}% of the fit's {prof['busy_ms']:.3f} ms "
+                f"device busy")
     prof_m = profile_call("one masked fit", lambda: net.fit(mds))
     if prof_m is not None:
         for kernel, key in (("K1 with reserve", "lstm_fwd"), ("K2", "lstm_bwd")):
@@ -1257,8 +1381,9 @@ def build():
     log(f"built kernels in {time.perf_counter() - t0:.1f} s")
     for src, text in logs.items():
         flash = src.startswith("flash")
-        # K1, K2 and K4 have two bodies each
-        named = flash or src in (lstm_cell.SOURCE, lstm_cell.BWD_SOURCE, lstm_fused.BWD_SOURCE)
+        # K1-K4 have two bodies each
+        named = flash or src in (lstm_cell.SOURCE, lstm_cell.BWD_SOURCE, lstm_fused.SOURCE,
+                                 lstm_fused.BWD_SOURCE)
         entry = ""
         for line in text.splitlines():
             # the flash sources instantiate nine head widths and types
@@ -1314,7 +1439,9 @@ def kernel_line(serving, training, served, streamed, trained, flash, lm):
               [training["lstm_bwd/masked"], training["lstm_bwd/unmasked"]],
               {"design": training["lstm_bwd/masked"]["design"]}),
         entry("lstm2_fwd", "lstm2_fwd_train", "lstm_fused.cu", "deeplearning4j_tpu/ops/lstm_fused.py:111",
-              [training["lstm2_fwd_train"]], serving_of("lstm2_fwd", ["lstm2_fwd"])),
+              [training["lstm2_fwd_train"]],
+              {**serving_of("lstm2_fwd", ["lstm2_fwd"]),
+               "design": training["lstm2_fwd_train"]["design"]}),
         entry("lstm2_bwd", "lstm2_bwd", "lstm_fused_bwd.cu", "deeplearning4j_tpu/ops/lstm_fused.py:249",
               [training["lstm2_bwd"]], {"design": training["lstm2_bwd"]["design"]}),
         *(flash_entry(name, src, line, flash[name], lm) for name, src, line in (
@@ -1357,6 +1484,7 @@ def main() -> int:
     build()
     serving = check_kernels()
     training = check_training_kernels()
+    check_lstm2_fwd_small()
     check_lstm2_bwd_small()
     check_lstm_small()
     conf = char_rnn_conf()

@@ -4,9 +4,10 @@ Counterpart of ``deeplearning4j_tpu/ops/lstm_fused.py``: the inference
 primal ``_lstm2`` -> ``_fwd2(save_reserve=False)``, the training forward
 ``_lstm2_fwd`` -> ``_fwd2`` with the reserve, and ``_lstm2_bwd`` ->
 ``_bwd2_call``. The CUDA kernels are ``csrc/lstm_fused.cu`` (K3) and
-``csrc/lstm_fused_bwd.cu`` (K4); their source notes give the design. K4
+``csrc/lstm_fused_bwd.cu`` (K4); their source notes give the design. Each
 has two bodies, chosen statically by its C entry: tensor cores for bf16
-weights at the shapes :func:`bwd_route` names, CUDA cores else.
+weights at the shapes :func:`fwd_route` and :func:`bwd_route` name, CUDA
+cores else.
 Beside each is a plain PyTorch time loop (CPU tensors, the tests, and
 ``chip_smoke.py``'s oracle on the card).
 
@@ -31,7 +32,8 @@ from .lstm_cell import (_check_cuda, _same_device, cell, cell_bwd, pack_peephole
                         recording, weight_grad)
 
 __all__ = ["lstm_scan2", "lstm2_fwd", "lstm2_fwd_plain", "lstm2_bwd", "lstm2_bwd_plain",
-           "LSTM2Function", "bwd_route", "COUNTER", "TRAIN_COUNTER", "BWD_COUNTER"]
+           "LSTM2Function", "fwd_route", "bwd_route", "COUNTER", "TRAIN_COUNTER",
+           "BWD_COUNTER"]
 
 SOURCE = "lstm_fused.cu"
 BWD_SOURCE = "lstm_fused_bwd.cu"
@@ -39,9 +41,10 @@ COUNTER = cuda_build.Counter("lstm2_fwd")              # K3, inference
 TRAIN_COUNTER = cuda_build.Counter("lstm2_fwd_train")  # K3 writing the reserve
 BWD_COUNTER = cuda_build.Counter("lstm2_bwd")          # K4
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_ARGTYPES = [_P] * 4 + [_I] + [_P] * 11 + [_I] * 3 + [_P]
+_ARGTYPES = [_P] * 4 + [_I] + [_P] * 12 + [_I] * 3 + [_P]
 _BWD_ARGTYPES = [_P] * 8 + [_I] + [_P] * 8 + [_I] * 3 + [_P]
-_ROUTE_ARGTYPES = [_I] * 3
+_FWD_ROUTE_ARGTYPES = [_I] * 4   # (w_bf16, b, H, reserve)
+_ROUTE_ARGTYPES = [_I] * 3       # (w_bf16, b, H)
 
 
 def lstm2_fwd_plain(xp, rw1, w2, rw2, b2, peep, h0, save_reserve=False):
@@ -133,20 +136,38 @@ def _lstm2_fwd_cuda(xp, rw1, w2, rw2, b2, peep, h0, save_reserve):
         hc = h0.clone()
     else:
         hc = torch.empty((4, b, H), **f32)
-        # h1 crosses blocks through ys1 when the reserve is written, else
-        # through a two-slot scratch buffer
+        w_bf16 = rw1.dtype == torch.bfloat16
+        # the CUDA-core body's h1 exchange (ys1 when the reserve is written)
         hx = None if save_reserve else torch.empty((2, b, H), **f32)
+        # the tensor-core body's bf16 exchange of h1 and h2 (two slots each)
+        hxb = torch.empty((2, 2, b, H), device=xp.device, dtype=torch.bfloat16) \
+            if w_bf16 else None
         lib = cuda_build.library(SOURCE, "dl4j_lstm2_fwd", _ARGTYPES)
         P = cuda_build.ptr
-        code = lib.dl4j_lstm2_fwd(P(xp), P(rw1), P(w2), P(rw2),
-                                  int(rw1.dtype == torch.bfloat16), P(b2), P(peep), P(h0),
-                                  P(hx), P(ys2), *(P(r) for r in res), P(hc), T, b, H,
-                                  cuda_build.stream_of(xp))
+        code = lib.dl4j_lstm2_fwd(P(xp), P(rw1), P(w2), P(rw2), int(w_bf16), P(b2), P(peep),
+                                  P(h0), P(hx), P(hxb), P(ys2), *(P(r) for r in res), P(hc),
+                                  T, b, H, cuda_build.stream_of(xp))
         cuda_build.check(lib, code, "lstm2_fwd kernel launch")
         (TRAIN_COUNTER if save_reserve else COUNTER).add()
     if save_reserve:
         return (ys2, hc, *res)
     return ys2, hc
+
+
+def fwd_route(w_dtype, b, H, reserve=False) -> Tuple[bool, int]:
+    """K3's static choice for weights of ``w_dtype`` at batch ``b`` and
+    width ``H`` on the current card, for the serving instantiation or, with
+    ``reserve``, the training one: whether it takes the tensor-core body
+    (else the CUDA-core body), and the hidden units a block of that body
+    takes (0 when no grid fits and the launch raises). The CUDA-core grid
+    has H / units blocks, each running both layers; the tensor-core grid
+    2 H / units, half running layer 1 and half layer 2. Named by the C
+    exports ``dl4j_lstm2_fwd_tc`` and ``dl4j_lstm2_fwd_units``; builds the
+    kernel at first use, so it needs the card."""
+    args = (int(w_dtype == torch.bfloat16), b, H, int(reserve))
+    lib = cuda_build.library(SOURCE, "dl4j_lstm2_fwd_tc", _FWD_ROUTE_ARGTYPES)
+    cuda_build.library(SOURCE, "dl4j_lstm2_fwd_units", _FWD_ROUTE_ARGTYPES)
+    return bool(lib.dl4j_lstm2_fwd_tc(*args)), lib.dl4j_lstm2_fwd_units(*args)
 
 
 def lstm2_fwd(xp, rw1, w2, rw2, b2, peep, h0, save_reserve=False):

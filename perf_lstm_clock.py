@@ -1,20 +1,27 @@
-"""Where a step of K1 and K2 goes on the card: clock64() stamps.
+"""Where a step of K1, K2 and K3 goes on the card: clock64() stamps.
 
     python3 perf_lstm_clock.py [CHECKOUT ...]
 
 For this checkout, or each one named, copies its ``deeplearning4j_torch``
 package into ``build/clock/<n>/`` and inserts ``clock64()`` stamps into
-that copy of ``csrc/lstm_cell.cu`` (K1) and ``csrc/lstm_cell_bwd.cu`` (K2)
-at fixed points of the body that bf16 weights take at the main path's
-shapes (the tensor-core body where the source has one, else the CUDA-core
-body), read by block 0's thread 0, plus an export that copies the stamps
-out. In a fresh process from each copy it runs K1 serving (b=32, T=200,
-masked), K1 with the reserve and K2 (b=64, T=50, masked), H=512, bf16
-weights, and prints for each kernel its time (CUDA events, mean of 10
-launches), the stamps' cycles per microsecond, and the mean cycles of each
-stretch between two consecutive stamps, with its count. The stamps cost a
-little time themselves; compare stretches, not the kernel's time, with an
-unstamped run. Needs one CUDA card.
+that copy of ``csrc/lstm_cell.cu`` (K1), ``csrc/lstm_cell_bwd.cu`` (K2)
+and ``csrc/lstm_fused.cu`` (K3) at fixed points of the body that bf16
+weights take at the main path's shapes (the tensor-core body where the
+source has one, else the CUDA-core body), read by thread 0 of one block
+(block 0 unless an export sets another), plus an export that copies the
+stamps out. In a fresh process from each copy it runs K1 serving (b=32,
+T=200, masked), K1 with the reserve and K2 (b=64, T=50, masked), K3
+serving (b=32, T=200) and K3 with the reserve (b=64, T=50), H=512, bf16
+weights, peepholes, and prints for each kernel its time (CUDA events,
+mean of 10 launches), the stamps' cycles per microsecond, and the mean
+cycles of each stretch between two consecutive stamps (a step, or a
+phase of K3's wavefront), with its count. Thread 0 runs a product warp's
+lane and a cell. Where K3's tensor-core body runs layer 2 on blocks of
+their own, the first of them is stamped in a second run (``block N`` in
+the label). A block's barrier wait includes the wait for the slowest
+other block. The stamps cost a little time themselves; compare
+stretches, not the kernel's time, with an unstamped run. Needs one CUDA
+card.
 """
 from __future__ import annotations
 
@@ -30,8 +37,10 @@ STAMPS = 1024  # per stamp id
 
 HEADER = f"""
 __device__ long long dl4j_clk[8][{STAMPS}];
+__device__ int dl4j_clk_block = 0;
 #define DL4J_CLK(id) \\
-  if (blockIdx.x == 0 && threadIdx.x == 0 && clk_n[id] < {STAMPS}) dl4j_clk[id][clk_n[id]++] = clock64()
+  if (blockIdx.x == dl4j_clk_block && threadIdx.x == 0 && clk_n[id] < {STAMPS}) \\
+    dl4j_clk[id][clk_n[id]++] = clock64()
 """
 EXPORT = """
 // copies the stamps out and clears them
@@ -40,6 +49,11 @@ extern "C" int dl4j_clock_read(void* dst) {
   cudaError_t err = cudaMemcpyFromSymbol(dst, dl4j::dl4j_clk, sizeof(dl4j::dl4j_clk));
   if (err != cudaSuccess) return (int)err;
   return (int)cudaMemcpyToSymbol(dl4j::dl4j_clk, zeros, sizeof(zeros));
+}
+
+// the block whose thread 0 stamps
+extern "C" int dl4j_clock_block(int block) {
+  return (int)cudaMemcpyToSymbol(dl4j::dl4j_clk_block, &block, sizeof(int));
 }
 """ % STAMPS
 START = "  cg::grid_group grid = cg::this_grid();\n"
@@ -77,11 +91,28 @@ BODIES = {
          "    DL4J_CLK(0);\n"),
         ("    grid.sync();  // dz_t of every unit is in xs", "    DL4J_CLK(1);\n", ""),
         ("    // dh_{t-1} = bf16(dz_t) . RW^T for the block's units", "    DL4J_CLK(2);\n", "")]),
+    "K3 tensor cores": ("lstm_fused.cu", "lstm2_fwd_tc_kernel", {
+        0: "phase end", 1: "barrier passed", 2: "tiles written", 3: "cells done"}, [
+        ("    // h1_{p-1} is in slot (p+1)&1 of x1", "    DL4J_CLK(0);\n", ""),
+        ("    const bool on = layer == 1 ? p < T : p >= 1;", "    DL4J_CLK(1);\n", ""),
+        ("    __syncthreads();     // the partial tiles are written\n", "",
+         "    DL4J_CLK(2);\n"),
+        ("    prefetch(p + 1);  // lands during", "    DL4J_CLK(3);\n", "")]),
+    "K3 CUDA cores": ("lstm_fused.cu", "lstm2_fwd_kernel", {
+        0: "barrier passed", 1: "h loaded", 2: "products done", 3: "phase end"}, [
+        ("    const bool l1 = p < T, l2 = p >= 1;", "    DL4J_CLK(0);\n", ""),
+        ("    if (l2) load_h(h2_s, h2prev, (int)BH);\n    __syncthreads();\n", "",
+         "    DL4J_CLK(1);\n"),
+        ("    for (int e = threadIdx.x; e < B * HB; e += blockDim.x) {\n"
+         "      const int r = e / HB, u = e % HB, hu = u0 + u;\n", "    DL4J_CLK(2);\n", ""),
+        ("    grid.sync();  // h1_p and h2_{p-1} are published", "    DL4J_CLK(3);\n", "")]),
 }
+SOURCES = {"K1": "lstm_cell.cu", "K2": "lstm_cell_bwd.cu", "K3": "lstm_fused.cu"}
+TC_KERNELS = {"K1": "lstm_fwd_tc_kernel", "K2": "lstm_bwd_tc_kernel", "K3": "lstm2_fwd_tc_kernel"}
 
 PROBE = r"""
 import ctypes, json, numpy as np, torch
-from deeplearning4j_torch.ops import cuda_build, lstm_cell
+from deeplearning4j_torch.ops import cuda_build, lstm_cell, lstm_fused
 torch.backends.cuda.matmul.allow_tf32 = False
 dev = torch.device("cuda")
 g = torch.Generator().manual_seed(0)
@@ -95,8 +126,10 @@ def mask_of(t, b):
 rw = rnd(H, 4 * H, scale=H ** -0.5).to(torch.bfloat16)
 peep = rnd(3, H, scale=0.1)
 out = {}
-def stamps(source, fn):
+def stamps(source, fn, block=0):
     lib = cuda_build.library(source, "dl4j_clock_read", [ctypes.c_void_p])
+    cuda_build.library(source, "dl4j_clock_block", [ctypes.c_int])
+    assert lib.dl4j_clock_block(block) == 0
     buf = np.zeros((8, %(stamps)d), np.int64)
     for _ in range(2):  # the first read clears an earlier launch's stamps
         fn(); torch.cuda.synchronize()
@@ -120,6 +153,19 @@ bargs = (rnd(t, b, H, scale=0.1), gates, cseq, rw, peep, fargs[3], fargs[5],
          rnd(b, H, scale=0.1), rnd(b, H, scale=0.1))
 buf, ms = stamps(lstm_cell.BWD_SOURCE, lambda: lstm_cell.lstm_bwd(*bargs))
 out["K2 b=64 T=50 masked"] = (buf.tolist(), ms)
+w2, rw2 = (rnd(H, 4 * H, scale=H ** -0.5).to(torch.bfloat16) for _ in range(2))
+b2, peep6 = rnd(4 * H, scale=0.1), rnd(6, H, scale=0.1)
+for label, b, t, reserve in (("K3 serving b=32 T=200", 32, 200, False),
+                             ("K3 with reserve b=64 T=50", 64, 50, True)):
+    args = (rnd(t, b, 4 * H), rw, w2, rw2, b2, peep6, rnd(4, b, H, scale=0.5))
+    # the tensor-core body runs layer 2 on blocks [H / units, 2 H / units):
+    # stamp its first block too
+    tc, units = (lstm_fused.fwd_route(rw.dtype, b, H, reserve)
+                 if hasattr(lstm_fused, "fwd_route") else (False, 0))
+    for block in (0, H // units) if tc else (0,):
+        buf, ms = stamps(lstm_fused.SOURCE,
+                         lambda: lstm_fused.lstm2_fwd(*args, save_reserve=reserve), block)
+        out[f"{label}, block {block}"] = (buf.tolist(), ms)
 print("RESULT " + json.dumps(out))
 """ % {"stamps": STAMPS}
 
@@ -136,16 +182,15 @@ def instrument(src: str, kernel: str, anchors) -> str:
     return head + "namespace dl4j {\n" + HEADER + body + EXPORT
 
 
-def body_of(source: str, text: str) -> str:
-    """The name in BODIES of the body that bf16 weights take in this source."""
-    tc = "lstm_fwd_tc_kernel" if source == "lstm_cell.cu" else "lstm_bwd_tc_kernel"
-    kind = "tensor cores" if tc in text else "CUDA cores"
-    return ("K1 " if source == "lstm_cell.cu" else "K2 ") + kind
+def body_of(kernel: str, text: str) -> str:
+    """The name in BODIES of the body that bf16 weights take in kernel K1,
+    K2 or K3, whose source is ``text``."""
+    return kernel + (" tensor cores" if TC_KERNELS[kernel] in text else " CUDA cores")
 
 
 def report(name: str, kernels: dict, labels: dict) -> None:
     for label, (buf, ms) in kernels.items():
-        body = labels["K1" if label.startswith("K1") else "K2"]
+        body = labels[label.split()[0]]
         names = BODIES[body][2]
         marks = sorted((v, i) for i, row in enumerate(buf) for v in row if v)
         stretch = {}
@@ -172,12 +217,11 @@ def main(argv) -> int:
         shutil.copytree(root / "deeplearning4j_torch", work / "deeplearning4j_torch",
                         ignore=shutil.ignore_patterns("__pycache__"))
         labels = {}
-        for source in ("lstm_cell.cu", "lstm_cell_bwd.cu"):
+        for name, source in SOURCES.items():
             path = work / "deeplearning4j_torch" / "csrc" / source
             text = path.read_text()
-            body = body_of(source, text)
-            labels[body[:2]] = body
-            _, kernel, _, anchors = BODIES[body]
+            labels[name] = body_of(name, text)
+            _, kernel, _, anchors = BODIES[labels[name]]
             path.write_text(instrument(text, kernel, anchors))
         out = subprocess.run([sys.executable, "-c", PROBE], cwd=work,
                              env=dict(os.environ, PYTHONPATH=str(work)), capture_output=True,

@@ -232,6 +232,8 @@ def _c_kind(decl):
     ("dl4j_lstm2_bwd", lstm_fused, "_BWD_ARGTYPES"),
     ("dl4j_lstm2_bwd_tc", lstm_fused, "_ROUTE_ARGTYPES"),
     ("dl4j_lstm2_bwd_units", lstm_fused, "_ROUTE_ARGTYPES"),
+    ("dl4j_lstm2_fwd_tc", lstm_fused, "_FWD_ROUTE_ARGTYPES"),
+    ("dl4j_lstm2_fwd_units", lstm_fused, "_FWD_ROUTE_ARGTYPES"),
     ("dl4j_lstm_fwd_tc", lstm_cell, "_FWD_ROUTE_ARGTYPES"),
     ("dl4j_lstm_fwd_units", lstm_cell, "_FWD_ROUTE_ARGTYPES"),
     ("dl4j_lstm_bwd_tc", lstm_cell, "_ROUTE_ARGTYPES"),
