@@ -37,7 +37,10 @@ and the CUDA toolkit; run from the root of the repository. It
    unmasked fits (each TBPTT segment one K3-with-reserve and one K4
    launch) and masked fits with variable lengths (each segment two K1-
    with-reserve and two K2 launches), checks that the loss is finite and
-   falls, prints a fit's time and a profile of one unmasked fit (with
+   falls, prints a fit's time through the input pipeline and
+   synchronously (alternating turns), what a single-DataSet fit's
+   pipeline costs outside its steps, the host copy into pinned memory by
+   torch and by numpy, and a profile of one unmasked fit (with
    K3's and K4's shares of its device time) and of one masked fit (with K1's and
    K2's), and holds the card's gradients against the CPU reference's
    (unmasked and masked);
@@ -57,22 +60,41 @@ and the CUDA toolkit; run from the root of the repository. It
    ``output`` on one b=4, T=8192 batch (one K5 launch per block) and
    trains it with ``fit`` on period-23 token text (per step one K5, one K6
    and one K7 launch per block), checks that the loss is finite and falls,
-   prints a step's time and a profile of one step, and holds the card's
+   prints a step's time through the pipeline and synchronously
+   (alternating turns) and a profile of one step, and holds the card's
    score and gradients against the CPU reference's at reduced width and
    depth on the flash route (T=4096);
-8. prints a ``{"kernels": [...]}`` line and, last, the ``{"ok": true,
+8. runs the TransformerLM's fit through the input pipeline
+   (``datasets/prefetch.py``) three ways, each one ``fit`` of 3 distinct
+   batches cycled to 6 steps: synchronously (``DL4J_TPU_PREFETCH_WORKERS=0``),
+   with put-ahead (pinned staging, a side CUDA stream) and with
+   ``CacheMode.DEVICE``; fresh nets from one seed must give the same
+   losses; times the three in alternating turns; and traces a cached step
+   (no H2D copy of a batch) and a put-ahead fit (each batch's copy pinned,
+   off the compute stream, and how much of it kernels overlap). The
+   char-RNN fits of step 5 run through the pipeline too, timed beside the
+   synchronous path in alternating turns;
+9. runs an f32-weight 2 x GravesLSTM(512) net at b=32, where K3 has no
+   grid, per layer through ``output``, ``rnn_time_step`` and ``fit``
+   against the CPU, and an f32 d=256 attention at T=4096, past what the
+   flash kernels take in f32, through ``mha``'s dense body against the
+   flash plain versions;
+10. prints a ``{"kernels": [...]}`` line and, last, the ``{"ok": true,
    "device": ...}`` line.
 
 Any failure raises, and the script exits nonzero without the last line.
 """
 from __future__ import annotations
 
+import contextlib
 import json
+import os
 import subprocess
 import sys
 import time
 import urllib.request
 from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -95,6 +117,9 @@ TIME_BUCKETS = (64, 128, 200)
 # Training shape: bench.py:230's minibatch and one TBPTT segment of it.
 TRAIN_B, TRAIN_T, TRAIN_SEQ = 64, 50, 200
 TRAIN_FITS, MASKED_FITS, TIMED_FITS = 10, 3, 3
+# Alternating turns in which the char-RNN fits are timed through the
+# input pipeline and synchronously; the medians are compared.
+FIT_TURNS = 6
 # The kernel and its plain version take the same f32 sums in another
 # order; h is rounded to bf16 before each product, so a last-bit f32
 # difference can move one bf16 operand by one unit (2^-8 relative) and
@@ -164,6 +189,26 @@ LM_LOSS_DROP = 0.30
 # the limits are about ten and four times that.
 LM_REF_SCORE_RTOL = 1e-3
 LM_REF_GRAD_RTOL = 2e-2
+# The TransformerLM through the input pipeline: LM_PIPE_BATCHES distinct
+# batches cycled to LM_PIPE_STEPS steps in one fit, timed in LM_PIPE_TURNS
+# alternating turns synchronously, with put-ahead and with
+# CacheMode.DEVICE. The pipeline moves the same bits to the card, so the
+# losses of fresh nets from one seed agree within rounding at most (the
+# check allows 1e-6 relative and reports whether they are bit-equal).
+LM_PIPE_BATCHES, LM_PIPE_STEPS, LM_PIPE_TURNS = 3, 6, 3
+PIPE_LOSS_RTOL = 1e-6
+# An H2D copy in a profile that counts as a batch's (the labels are 537 MB,
+# the ids 128 KB; the step's own scalar copies are bytes).
+BATCH_COPY_BYTES = 1 << 20
+# The f32 char-RNN pair at b=32 (no K3 grid) per layer on the card against
+# the CPU (plain loops): the same f32 arithmetic in another order, with
+# TF32 off; f32 rounds at 2^-24 and the errors grow over 50 steps and
+# 512-term sums. Limits set before the first measurement: probabilities
+# 1e-4 absolute (about 1% of the smallest, ~1/80), score 1e-5 relative,
+# gradients 1e-4 of their largest entry.
+F32_PAIR_ATOL = 1e-4
+F32_PAIR_SCORE_RTOL = 1e-5
+F32_PAIR_GRAD_RTOL = 1e-4
 
 
 def log(msg):
@@ -932,16 +977,40 @@ def train(conf):
     if not drop >= LOSS_DROP:
         raise AssertionError(f"the loss fell by {drop:.3f}, less than {LOSS_DROP}")
 
-    times = {}
-    for label, data in (("unmasked", ds), ("masked", mds)):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(TIMED_FITS):
-            net.fit(data)
-        net.score()                                   # the value: a sync
-        times[label] = (time.perf_counter() - t0) * 1e3 / TIMED_FITS
-        log(f"smoke number, not a benchmark: a {label} fit {times[label]:.3f} ms (mean of "
-            f"{TIMED_FITS}), {TRAIN_B * TRAIN_SEQ / times[label] * 1e3:.0f} characters/s")
+    times, pipe = {}, {}
+    for label, data, fits, per_fit in routes:
+        # the fit through the pipeline (2 workers, put-ahead: the default)
+        # beside the synchronous path (DL4J_TPU_PREFETCH_WORKERS=0, the
+        # parent's behaviour) in alternating turns; each turn is
+        # TIMED_FITS fits of one DataSet, so each fit starts its own pool
+        turns = {"pipeline": [], "sync": []}
+        for turn in range(FIT_TURNS):
+            for mode in (("pipeline", "sync") if turn % 2 == 0 else ("sync", "pipeline")):
+                with prefetch_workers(2 if mode == "pipeline" else 0):
+                    before = read_counts()
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    for _ in range(TIMED_FITS):
+                        net.fit(data)
+                    net.score()                       # the value: a sync
+                    turns[mode].append((time.perf_counter() - t0) * 1e3 / TIMED_FITS)
+                    got = {n: c - before[n] for n, c in read_counts().items()}
+                    want = {n: TIMED_FITS * per_fit.get(n, 0) for n in got}
+                    if got != want:
+                        raise AssertionError(f"{TIMED_FITS} {label} fits ({mode}) launched "
+                                             f"{got}, expected {want}")
+        med = {m: float(np.median(v)) for m, v in turns.items()}
+        times[label] = med["pipeline"]
+        pipe[label] = {"turns_ms": turns, "median_ms": med}
+        log(f"smoke number, not a benchmark: a {label} fit {med['pipeline']:.3f} ms through "
+            f"the pipeline, {med['sync']:.3f} ms synchronous (medians of {FIT_TURNS} "
+            f"alternating turns of {TIMED_FITS} fits; pipeline "
+            f"{' '.join(f'{x:.3f}' for x in turns['pipeline'])}, sync "
+            f"{' '.join(f'{x:.3f}' for x in turns['sync'])}); the per-fit worker pool "
+            f"costs {med['pipeline'] - med['sync']:+.3f} ms a fit; "
+            f"{TRAIN_B * TRAIN_SEQ / med['pipeline'] * 1e3:.0f} characters/s")
+    pipe["breakdown_ms"] = pipeline_breakdown(net, mds)
+    pipe["host_copy_ms"] = host_copy_rates()
     prof = profile_call("one unmasked fit", lambda: net.fit(ds))
     if prof is not None:
         for kernel, key in (("K3 with reserve", "lstm2_fwd"), ("K4", "lstm2_bwd")):
@@ -956,8 +1025,77 @@ def train(conf):
             log(f"{kernel} in one masked fit: {k:.3f} ms of device time, "
                 f"{100 * k / prof_m['busy_ms']:.1f}% of the fit's {prof_m['busy_ms']:.3f} ms "
                 f"device busy")
-    return {"launches": launches, "losses": losses, "fit_ms": times, "profile": prof,
-            "profile_masked": prof_m}
+    return {"launches": launches, "losses": losses, "fit_ms": times, "pipeline": pipe,
+            "profile": prof, "profile_masked": prof_m}
+
+
+def pipeline_breakdown(net, ds, reps=20):
+    """Where a single-DataSet fit's pipeline spends its time, outside any
+    step: making the pipeline and receiving the first batch on the card
+    (threads started, host arrays copied into pinned buffers, the copy on
+    the side stream, the consumer's wait), and shutting it down; beside the
+    synchronous path's copy of the same batch. Means of ``reps``."""
+    from deeplearning4j_torch import ListDataSetIterator
+    from deeplearning4j_torch.datasets.prefetch import wrap_for_training
+
+    first, close, sync = [], [], []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        it, _ = wrap_for_training(ListDataSetIterator([ds]), net.device)
+        next(iter(it))
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        it.shutdown()
+        t2 = time.perf_counter()
+        net._tensors(ds)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        first.append((t1 - t0) * 1e3)
+        close.append((t2 - t1) * 1e3)
+        sync.append((t3 - t2) * 1e3)
+    out = {"start_and_first_batch": float(np.mean(first)), "shutdown": float(np.mean(close)),
+           "sync_copy": float(np.mean(sync))}
+    log(f"pipeline of one masked DataSet (b={TRAIN_B} T={TRAIN_SEQ}, 4 arrays): start and "
+        f"first batch on the card {out['start_and_first_batch']:.3f} ms, shutdown "
+        f"{out['shutdown']:.3f} ms; the synchronous copy {out['sync_copy']:.3f} ms (means of "
+        f"{reps})")
+    return out
+
+
+def host_copy_rates(reps=5):
+    """The put-ahead's host copy into a pinned staging buffer, on a fresh
+    thread as a pipeline's worker runs it, by torch's ``copy_`` (intra-op
+    threads) and by numpy's ``copyto`` (one thread), at the char-RNN's
+    labels (4 MB) and the TransformerLM's (537 MB): the measurement behind
+    ``datasets/prefetch.py``'s ``_PARALLEL_COPY_BYTES``. Medians of
+    ``reps``."""
+    import threading
+
+    out = {}
+    for n_bytes in (TRAIN_B * TRAIN_SEQ * VOCAB * 4, LM_B * LM_T * LM_VOCAB * 4):
+        a = np.random.default_rng(13).random(n_bytes // 4, dtype=np.float32)
+        buf = torch.empty(a.shape, dtype=torch.float32, pin_memory=True)
+        for how in ("torch", "numpy"):
+            times = []
+
+            def copy():
+                t0 = time.perf_counter()
+                if how == "torch":
+                    buf.copy_(torch.from_numpy(a))
+                else:
+                    np.copyto(buf.numpy(), a)
+                times.append((time.perf_counter() - t0) * 1e3)
+
+            for _ in range(reps):
+                t = threading.Thread(target=copy)
+                t.start()
+                t.join(timeout=60)
+            out[f"{n_bytes / 1e6:.1f} MB {how}"] = float(np.median(times))
+        del buf
+    log("host copy into pinned memory on a fresh thread (medians of "
+        f"{reps}): " + ", ".join(f"{k} {v:.3f} ms" for k, v in out.items()))
+    return out
 
 
 def check_train_reference(conf):
@@ -1319,15 +1457,25 @@ def transformer_lm():
         raise AssertionError(f"the TransformerLM loss fell by {drop:.4f}, less than "
                              f"{LM_LOSS_DROP}")
 
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(LM_TIMED_STEPS):
-        net.fit(ds)
-    net.score()                                       # the value: a sync
-    step_ms = (time.perf_counter() - t0) * 1e3 / LM_TIMED_STEPS
-    log(f"smoke number, not a benchmark: a TransformerLM step {step_ms:.1f} ms (mean of "
-        f"{LM_TIMED_STEPS}), {LM_B * LM_T / step_ms * 1e3:.0f} tokens/s; peak memory "
-        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.1f} GiB")
+    # one fit(ds) a step, through the pipeline (the default) and
+    # synchronously, in alternating turns: a single batch has no earlier
+    # step to hide its copy behind
+    turns = {"pipeline": [], "sync": []}
+    for turn in range(LM_TIMED_STEPS):
+        for mode in (("pipeline", "sync") if turn % 2 == 0 else ("sync", "pipeline")):
+            with prefetch_workers(2 if mode == "pipeline" else 0):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                net.fit(ds)
+                net.score()                           # the value: a sync
+                turns[mode].append((time.perf_counter() - t0) * 1e3)
+    step_ms = float(np.median(turns["pipeline"]))
+    log(f"smoke number, not a benchmark: a TransformerLM step {step_ms:.1f} ms through the "
+        f"pipeline, {float(np.median(turns['sync'])):.1f} ms synchronous (medians of "
+        f"{LM_TIMED_STEPS} alternating turns of one fit(DataSet): "
+        f"{' '.join(f'{x:.1f}' for x in turns['pipeline'])} and "
+        f"{' '.join(f'{x:.1f}' for x in turns['sync'])}), {LM_B * LM_T / step_ms * 1e3:.0f} "
+        f"tokens/s; peak memory {torch.cuda.max_memory_allocated() / 2 ** 30:.1f} GiB")
     prof = profile_call("one TransformerLM step", lambda: net.fit(ds))
     return {"launches": launches, "output_launches": out_launches, "output_ms": output_ms,
             "losses": losses, "step_ms": step_ms, "profile": prof}
@@ -1367,6 +1515,309 @@ def check_lm_reference():
         raise AssertionError(f"card and CPU TransformerLM gradients disagree: {key} "
                              f"{g_err[key]}")
     return {"score_rel": s_err, "grad_rel": g_err[key], "prob_abs": p_err}
+
+
+@contextlib.contextmanager
+def prefetch_workers(n):
+    """``DL4J_TPU_PREFETCH_WORKERS`` set to ``n`` (0: the synchronous fit
+    path), restored after."""
+    old = os.environ.get("DL4J_TPU_PREFETCH_WORKERS")
+    os.environ["DL4J_TPU_PREFETCH_WORKERS"] = str(n)
+    try:
+        yield
+    finally:
+        if old is None:
+            os.environ.pop("DL4J_TPU_PREFETCH_WORKERS", None)
+        else:
+            os.environ["DL4J_TPU_PREFETCH_WORKERS"] = old
+
+
+def record_losses(net):
+    """A list that collects each training step's loss of ``net`` (as
+    tensors, so recording adds no sync)."""
+    losses, fit_batch = [], net._fit_batch
+
+    def recorded(ds):
+        fit_batch(ds)
+        losses.append(net.score_)
+
+    net._fit_batch = recorded
+    return losses
+
+
+def trace_call(label, fn):
+    """One call of ``fn`` under torch.profiler, its Chrome trace written to
+    ``build/traces/`` and read back: the device events with their streams,
+    the compute stream (the one with the most kernel time), each H2D copy
+    (stream, bytes, pinned or pageable) and the share of its duration that
+    kernels on other streams overlap. None when the profiler recorded no
+    device events."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    out = Path("build") / "traces"
+    out.mkdir(parents=True, exist_ok=True)
+    path = out / (label.replace(" ", "_") + ".json")
+    prof.export_chrome_trace(str(path))
+    return trace_summary(label, json.loads(path.read_text())["traceEvents"], wall_ms)
+
+
+def trace_summary(label, events, wall_ms):
+    """The device side of a Chrome trace (see :func:`trace_call`)."""
+    dev = [e for e in events if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")
+           and "dur" in e]
+    if not dev:
+        log(f"trace of {label}: the profiler recorded no device events")
+        return None
+    kernel_us = {}
+    for e in dev:
+        if e["cat"] == "kernel":
+            st = e.get("args", {}).get("stream")
+            kernel_us[st] = kernel_us.get(st, 0.0) + e["dur"]
+    compute = max(kernel_us, key=kernel_us.get)
+    first_kernel = min(e["ts"] for e in dev
+                       if e["cat"] == "kernel" and e.get("args", {}).get("stream") == compute)
+    copies = []
+    for e in dev:
+        if e["cat"] != "gpu_memcpy" or "HtoD" not in e["name"]:
+            continue
+        st = e.get("args", {}).get("stream")
+        lo, hi = e["ts"], e["ts"] + e["dur"]
+        spans = sorted((max(lo, k["ts"]), min(hi, k["ts"] + k["dur"])) for k in dev
+                       if k["cat"] == "kernel" and k.get("args", {}).get("stream") != st
+                       and k["ts"] < hi and k["ts"] + k["dur"] > lo)
+        covered, end = 0.0, lo
+        for a, b in spans:
+            a = max(a, end)
+            if b > a:
+                covered, end = covered + b - a, b
+        copies.append({"name": e["name"], "stream": st, "bytes": e.get("args", {}).get("bytes"),
+                       "ms": e["dur"] / 1e3, "overlap": covered / e["dur"] if e["dur"] else 0.0,
+                       "after_first_kernel": lo > first_kernel})
+    big = [c for c in copies if (c["bytes"] or 0) >= BATCH_COPY_BYTES
+           or (c["bytes"] is None and c["ms"] >= 1.0)]
+    busy_ms = sum(kernel_us.values()) / 1e3
+    calls = sum(1 for e in events if e.get("cat") == "cuda_runtime"
+                and e.get("name", "").startswith("cudaMemcpy"))
+    by_name = {}
+    for e in dev:
+        n, us = by_name.get(e["name"], (0, 0.0))
+        by_name[e["name"]] = (n + 1, us + e["dur"])
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]
+    log(f"trace of {label}: wall {wall_ms:.1f} ms, kernel time {busy_ms:.1f} ms, compute "
+        f"stream {compute}, {len(copies)} H2D copies ({len(big)} of a batch's size) beside "
+        f"{calls} cudaMemcpy* runtime calls; device time by name (launches):")
+    for name, (n, us) in top:
+        log(f"  {us / 1e3:9.3f} ms ({n:4d})  {name[:100]}")
+    for c in copies:
+        log(f"  {c['ms']:8.3f} ms  {c['name']} stream {c['stream']} bytes {c['bytes']} "
+            f"overlapped {100 * c['overlap']:.1f}% by kernels on other streams")
+    return {"wall_ms": wall_ms, "kernel_ms": busy_ms, "compute_stream": compute,
+            "copies": copies, "batch_copies": big, "memcpy_calls": calls,
+            "top_ms": {name[:100]: us / 1e3 for name, (_, us) in top}}
+
+
+def lm_pipeline():
+    """The TransformerLM's fit through the input pipeline, three ways: the
+    synchronous path (``DL4J_TPU_PREFETCH_WORKERS=0``), prefetch with
+    put-ahead (the default), and ``CacheMode.DEVICE``, each as one ``fit``
+    of an iterator of LM_PIPE_BATCHES distinct batches cycled to
+    LM_PIPE_STEPS steps, so that batch k+1's copy can run under step k.
+    Fresh nets from one seed: their losses must agree. Then the three are
+    timed in alternating turns, and two calls traced: a cached step (no
+    H2D copy of a batch) and a put-ahead fit of the distinct batches (each
+    copy pinned, on a stream other than the compute stream)."""
+    from deeplearning4j_torch import CacheMode, DataSet, ListDataSetIterator
+    from deeplearning4j_torch.nn.graph import ComputationGraph
+
+    rng = np.random.default_rng(10)
+    batches = [DataSet(*periodic_tokens(rng, LM_B, LM_T, LM_VOCAB))
+               for _ in range(LM_PIPE_BATCHES)]
+    cycle = [batches[i % LM_PIPE_BATCHES] for i in range(LM_PIPE_STEPS)]
+    modes = {"sync": (0, CacheMode.NONE), "put_ahead": (2, CacheMode.NONE),
+             "cached": (2, CacheMode.DEVICE)}
+    per_fit = {n: 0 for n in counters()}
+    per_fit.update(flash_fwd=LM_BLOCKS * LM_PIPE_STEPS, flash_dq=LM_BLOCKS * LM_PIPE_STEPS,
+                   flash_dkv=LM_BLOCKS * LM_PIPE_STEPS)
+    nets, losses = {}, {}
+    for mode, (workers, cache) in modes.items():
+        conf = lm_conf()
+        conf.global_conf.cache_mode = cache
+        net = ComputationGraph(conf).init()
+        rec = record_losses(net)
+        with prefetch_workers(workers):
+            before = read_counts()
+            net.fit(ListDataSetIterator(cycle))
+            got = {n: c - before[n] for n, c in read_counts().items()}
+        del net._fit_batch                         # stop recording
+        if got != per_fit:
+            raise AssertionError(f"a {mode} fit of {LM_PIPE_STEPS} steps launched {got}, "
+                                 f"expected {per_fit}")
+        losses[mode] = [float(x) for x in rec]
+        nets[mode] = net
+    log("TransformerLM through the pipeline, losses of fresh nets from one seed over "
+        f"{LM_PIPE_STEPS} steps: " + "; ".join(
+            f"{m} " + " ".join(f"{x:.3f}" for x in ls) for m, ls in losses.items()))
+    bit_equal = {}
+    for mode in ("put_ahead", "cached"):
+        rel = max(abs(a - b) / abs(b) for a, b in zip(losses[mode], losses["sync"]))
+        bit_equal[mode] = losses[mode] == losses["sync"]
+        log(f"  {mode} vs sync: max relative difference {rel:.3e}, bit-equal "
+            f"{bit_equal[mode]}")
+        if not np.isfinite(losses[mode]).all() or not rel <= PIPE_LOSS_RTOL:
+            raise AssertionError(f"the {mode} losses disagree with the synchronous path's: "
+                                 f"{rel}")
+
+    times = {m: [] for m in modes}
+    order = list(modes)
+    for turn in range(LM_PIPE_TURNS):
+        for mode in (order if turn % 2 == 0 else order[::-1]):
+            with prefetch_workers(modes[mode][0]):
+                before = read_counts()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                nets[mode].fit(ListDataSetIterator(cycle))
+                nets[mode].score()                       # the value: a sync
+                times[mode].append((time.perf_counter() - t0) * 1e3 / LM_PIPE_STEPS)
+                got = {n: c - before[n] for n, c in read_counts().items()}
+            if got != per_fit:
+                raise AssertionError(f"a timed {mode} fit launched {got}, expected {per_fit}")
+    med = {m: float(np.median(v)) for m, v in times.items()}
+    for m in modes:
+        log(f"smoke number, not a benchmark: a TransformerLM step {m} {med[m]:.1f} ms (median "
+            f"of {LM_PIPE_TURNS} alternating turns of one {LM_PIPE_STEPS}-step fit: "
+            f"{' '.join(f'{x:.1f}' for x in times[m])}), {LM_B * LM_T / med[m] * 1e3:.0f} "
+            f"tokens/s")
+
+    cached = trace_call("one cached TransformerLM step", lambda: nets["cached"].fit(batches[0]))
+    if cached is not None and cached["batch_copies"]:
+        raise AssertionError(f"a cached step copied a batch to the card: "
+                             f"{cached['batch_copies']}")
+    with prefetch_workers(2):
+        ahead = trace_call("a put-ahead TransformerLM fit of 3 batches",
+                           lambda: nets["put_ahead"].fit(ListDataSetIterator(batches)))
+    if ahead is not None:
+        # the profiler records only some of the worker threads' copies (in
+        # one run 3 of the 6 cudaMemcpyAsync calls it logged on the two
+        # workers had a device record, the first two missing): every one
+        # it records must be pinned and off the compute stream, and those
+        # made once the steps had begun mostly overlapped by their kernels
+        got = ahead["batch_copies"]
+        bad = [c for c in got if c["stream"] == ahead["compute_stream"]
+               or "Pinned" not in c["name"]
+               or (c["after_first_kernel"] and c["overlap"] < 0.5)]
+        if not got or bad:
+            raise AssertionError(f"the put-ahead copies are not pinned, off the compute "
+                                 f"stream {ahead['compute_stream']} and overlapped: {got}")
+        log(f"  the profiler recorded {len(got)} of the {LM_PIPE_BATCHES} labels copies, "
+            f"{sum(c['after_first_kernel'] for c in got)} of them made under the steps")
+    return {"losses": losses, "bit_equal": bit_equal, "times_ms": times, "median_ms": med,
+            "cached_trace": cached, "put_ahead_trace": ahead}
+
+
+def check_lstm_pair_f32():
+    """The f32-weight char-RNN pair at b=32, where K3 has no grid: the
+    route runs it per layer (K1, and K1 with the reserve and K2 in
+    training) through ``output``, ``rnn_time_step`` and ``fit``, against
+    the same network on the CPU (plain loops)."""
+    from deeplearning4j_torch import DataSet, MultiLayerNetwork, NeuralNetConfiguration, Adam
+    from deeplearning4j_torch.nn.conf.layers import GravesLSTM, RnnOutputLayer
+
+    conf = (NeuralNetConfiguration.builder().seed(1).updater(Adam(learning_rate=1e-3))
+            .activation("tanh").list()
+            .layer(GravesLSTM(n_in=VOCAB, n_out=H)).layer(GravesLSTM(n_in=H, n_out=H))
+            .layer(RnnOutputLayer(n_in=H, n_out=VOCAB, activation="softmax", loss="mcxent"))
+            .build())
+    net = build_net(conf, seed=5)
+    cpu = MultiLayerNetwork(conf).init(
+        params={k: {n: t.cpu() for n, t in p.items()} for k, p in net.params.items()},
+        device="cpu")
+    f, l = periodic_text(np.random.default_rng(11), B, 50)
+    x = net._to_device(f)
+    if net._lstm_pair_fusable(0, x, None, False) or net._lstm_pair_fusable(0, x, None, True):
+        raise AssertionError("the f32 pair at b=32 was admitted to K3/K4")
+
+    def counted(fn, want):
+        reset_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        got = {n: c for n, c in read_counts().items() if c}
+        if got != want:
+            raise AssertionError(f"the f32 pair launched {got}, expected {want}")
+        return out
+
+    ref = cpu.output(f)
+    out = counted(lambda: net.output(f), {"lstm_fwd": 2}).cpu()
+    net.rnn_clear_previous_state()
+    steps = counted(lambda: [net.rnn_time_step(f[:, a:b]) for a, b in ((0, 20), (20, 50))],
+                    {"lstm_fwd": 4})
+    step_err = (torch.cat([s.cpu() for s in steps], 1) - ref).abs().max().item()
+    out_err = (out - ref).abs().max().item()
+    ds = DataSet(f, l)
+    g_card, s_card = counted(lambda: net.compute_gradient_and_score(ds),
+                             {"lstm_fwd_train": 2, "lstm_bwd": 2})
+    g_cpu, s_cpu = cpu.compute_gradient_and_score(ds)
+    g_err = max(((g_card[i][k].cpu() - g).abs().max() / g.abs().max()).item()
+                for i, gs in g_cpu.items() for k, g in gs.items())
+    counted(lambda: net.fit(ds), {"lstm_fwd_train": 2, "lstm_bwd": 2})
+    cpu.fit(ds)
+    fit_err = abs(net.score() - cpu.score()) / abs(cpu.score())
+    s_err = abs(s_card - s_cpu) / abs(s_cpu)
+    log(f"f32 2 x GravesLSTM({H}) at b={B} T=50, per layer on the card vs the CPU: output "
+        f"max_abs_err {out_err:.2e}, rnn_time_step {step_err:.2e}, score rel {s_err:.2e}, "
+        f"gradients rel {g_err:.2e}, fit score rel {fit_err:.2e}")
+    if not max(out_err, step_err) <= F32_PAIR_ATOL:
+        raise AssertionError(f"the f32 pair disagrees with the CPU: {out_err}, {step_err}")
+    if not max(s_err, fit_err) <= F32_PAIR_SCORE_RTOL or not g_err <= F32_PAIR_GRAD_RTOL:
+        raise AssertionError(f"the f32 pair's training disagrees with the CPU: score "
+                             f"{s_err}, fit {fit_err}, gradients {g_err}")
+    return {"output_abs": out_err, "step_abs": step_err, "score_rel": s_err,
+            "grad_rel": g_err, "fit_score_rel": fit_err}
+
+
+def check_flash_f32_wide(device="cuda"):
+    """f32 attention with d=256 at T=4096, past what K5-K7 take in f32:
+    ``mha`` runs the dense body (no flash launch), forward and backward,
+    held against the flash kernels' plain versions on the card."""
+    from deeplearning4j_torch.nn.layers import attention
+    from deeplearning4j_torch.ops import flash_attention as fa
+
+    b, t, h, d = 1, 4096, 2, 256
+    g = torch.Generator(device=device).manual_seed(12)
+    q, k, v = (torch.randn((b, t, h, d), generator=g, device=device, requires_grad=True)
+               for _ in range(3))
+    do = torch.randn((b, t, h, d), generator=g, device=device)
+    reset_counts()
+    o = attention.mha(q, k, v, True, torch.float32)
+    dq, dk, dv = torch.autograd.grad(o, (q, k, v), do)
+    torch.cuda.synchronize()
+    launched = {n: c for n, c in read_counts().items() if c}
+    if launched:
+        raise AssertionError(f"f32 d=256 attention launched a kernel: {launched}")
+
+    def bh(x):
+        return x.detach().permute(0, 2, 1, 3).reshape(b * h, t, d).contiguous()
+
+    scale = 1.0 / d ** 0.5
+    with torch.no_grad():
+        o_ref, lse = fa.flash_fwd_plain(bh(q), bh(k), bh(v), None, True, scale)
+        delta = fa.rowwise_delta(bh(do), o_ref)
+        dq_ref = fa.flash_dq_plain(bh(q), bh(k), bh(v), None, bh(do), delta, lse, True, scale)
+        dk_ref, dv_ref = fa.flash_dkv_plain(bh(q), bh(k), bh(v), None, bh(do), delta, lse,
+                                            True, scale)
+    errs = {n: ((bh(a) - r).abs().max() / r.abs().max()).item()
+            for n, a, r in (("o", o, o_ref), ("dq", dq, dq_ref), ("dk", dk, dk_ref),
+                            ("dv", dv, dv_ref))}
+    log(f"f32 attention b={b} h={h} T={t} d={d} causal on the dense route (no flash launch) "
+        f"vs the flash plain versions: " + ", ".join(f"{n} {e:.2e}" for n, e in errs.items()))
+    if not max(errs.values()) <= FLASH_F32_RTOL:
+        raise AssertionError(f"f32 d=256 attention disagrees with the plain version: {errs}")
+    return errs
 
 
 def build():
@@ -1500,6 +1951,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     lm = transformer_lm()
     check_lm_reference()
+    lm_pipeline()
+    torch.cuda.empty_cache()
+    check_lstm_pair_f32()
+    check_flash_f32_wide()
 
     print(json.dumps({"kernels": kernel_line(serving, training, served, streamed,
                                              trained["launches"], flash, lm)}))

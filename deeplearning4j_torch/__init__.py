@@ -14,11 +14,12 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["resolve_device", "NeuralNetConfiguration", "MultiLayerNetwork", "ComputationGraph",
-           "InferenceServer", "ModelRegistry", "ServedModel", "DataSet",
-           "DataSetIterator", "ListDataSetIterator", "LossFunction", "Sgd", "Adam",
-           "AdaMax", "Nadam", "Nesterovs", "RmsProp", "AdaGrad", "AdaDelta", "NoOp",
-           "AMSGrad"]
+__all__ = ["resolve_device", "NeuralNetConfiguration", "CacheMode", "MultiLayerNetwork",
+           "ComputationGraph", "InferenceServer", "ModelRegistry", "ServedModel", "DataSet",
+           "MultiDataSet", "DataSetIterator", "ListDataSetIterator", "PrefetchDataSetIterator",
+           "ShapeBucketingDataSetIterator", "NormalizerStandardize", "NormalizerMinMaxScaler",
+           "ImagePreProcessingScaler", "LossFunction", "Sgd", "Adam", "AdaMax", "Nadam",
+           "Nesterovs", "RmsProp", "AdaGrad", "AdaDelta", "NoOp", "AMSGrad"]
 
 
 def resolve_device(device="cuda") -> torch.device:
@@ -38,8 +39,13 @@ def resolve_device(device="cuda") -> torch.device:
     return dev
 
 
-from .datasets.dataset import DataSet, DataSetIterator, ListDataSetIterator  # noqa: E402
-from .nn.conf import NeuralNetConfiguration  # noqa: E402
+from .datasets.dataset import (DataSet, DataSetIterator, ListDataSetIterator,  # noqa: E402
+                               MultiDataSet)
+from .datasets.prefetch import PrefetchDataSetIterator  # noqa: E402
+from .datasets.bucketing import ShapeBucketingDataSetIterator  # noqa: E402
+from .datasets.normalizers import (ImagePreProcessingScaler,  # noqa: E402
+                                   NormalizerMinMaxScaler, NormalizerStandardize)
+from .nn.conf import CacheMode, NeuralNetConfiguration  # noqa: E402
 from .nn.losses import LossFunction  # noqa: E402
 from .nn.updaters import (AdaDelta, AdaGrad, AdaMax, Adam, AMSGrad, Nadam,  # noqa: E402
                           Nesterovs, NoOp, RmsProp, Sgd)

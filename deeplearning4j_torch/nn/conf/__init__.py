@@ -24,7 +24,7 @@ from ..updaters import SCHEDULES, UPDATERS, Sgd
 
 __all__ = ["GlobalConfig", "MultiLayerConfiguration", "ComputationGraphConfiguration",
            "ListBuilder", "GraphBuilder", "Builder", "NeuralNetConfiguration", "InputType",
-           "GradientNormalization", "BackpropType"]
+           "GradientNormalization", "BackpropType", "CacheMode"]
 
 for _cls in (*UPDATERS.values(), *SCHEDULES.values()):
     register(_cls)
@@ -48,6 +48,14 @@ class GradientNormalization:
 class BackpropType:
     Standard = "standard"
     TruncatedBPTT = "tbptt"
+
+
+class CacheMode:
+    """Reference ``nn/conf/CacheMode.java``: ``DEVICE`` keeps each fitted
+    DataSet's arrays on the device (``DataSet.device_arrays``)."""
+    NONE = "none"
+    DEVICE = "device"
+    HOST = "host"
 
 
 @register
@@ -78,7 +86,7 @@ class GlobalConfig:
     iterations: int = 1
     training_workspace_mode: str = "enabled"
     inference_workspace_mode: str = "enabled"
-    cache_mode: str = "none"
+    cache_mode: str = CacheMode.NONE
 
 
 @register
@@ -240,6 +248,11 @@ class Builder:
 
     def compute_dtype(self, d):
         return self._set("compute_dtype", str(d))
+
+    def cache_mode(self, m):
+        return self._set("cache_mode", m)
+
+    cacheMode = cache_mode
 
     def _with_default_updater(self) -> GlobalConfig:
         if self._conf.updater is None:

@@ -16,7 +16,6 @@ from __future__ import annotations
 
 from typing import Dict, Optional
 
-import numpy as np
 import torch
 from torch import nn
 
@@ -25,10 +24,10 @@ from .conf import BackpropType
 from .conf.graph import ComputationGraphConfiguration
 from .conf.layers import Layer
 from .layers import impl_for
-from .multilayer import _n_iterations
+from .multilayer import _fit_epochs, _n_iterations
 from .multilayer import MultiLayerNetwork
 from .updaters import Sgd
-from ..datasets.dataset import DataSet, ListDataSetIterator
+from ..datasets.dataset import DataSet, MultiDataSet
 from ..optimize.updater import NetworkUpdater
 
 __all__ = ["ComputationGraph", "fused_softmax_skip_set"]
@@ -57,6 +56,7 @@ class ComputationGraph(nn.Module):
         self.iteration_count = 0
         self.epoch_count = 0
         self.score_ = float("nan")
+        self.last_etl_ms = 0.0       # wait for the last minibatch in fit
         self._gen = None             # draws attention-dropout seeds in training
 
     # ------------------------------------------------------------------ init
@@ -108,6 +108,7 @@ class ComputationGraph(nn.Module):
     _to_device = MultiLayerNetwork._to_device
     _grads = MultiLayerNetwork._grads
     _update = MultiLayerNetwork._update
+    _batch_tensors = MultiLayerNetwork._batch_tensors
 
     # -------------------------------------------------------------- forward
     def _apply_graph(self, inputs, input_masks, train, rng=None, skip=()):
@@ -182,22 +183,16 @@ class ComputationGraph(nn.Module):
 
     def fit(self, data, labels=None, epochs=1):
         """Train. Accepts a DataSet, a DataSetIterator (or any iterable of
-        DataSets), or (features, labels) arrays."""
-        if labels is not None:
-            data = DataSet(np.asarray(data), np.asarray(labels))
-        if isinstance(data, DataSet):
-            data = ListDataSetIterator([data])
-        for _ in range(epochs):
-            for ds in data:
-                self._fit_batch(ds)
-            self.epoch_count += 1
-        return self
+        DataSets), or (features, labels) arrays; iterators go through the
+        prefetch pipeline, as in ``MultiLayerNetwork.fit``. Under
+        ``CacheMode.DEVICE`` the cache sits on the caller's DataSet."""
+        return _fit_epochs(self, data, labels, epochs)
 
     def _fit_batch(self, ds: DataSet):
-        if len(self.conf.network_inputs) != 1:
+        if len(self.conf.network_inputs) != 1 or isinstance(ds, MultiDataSet):
             raise NotImplementedError("graphs with several inputs need MultiDataSets, "
-                                      "which are not ported yet")
-        f, l, fm, lm = self._tensors(ds)
+                                      "whose fit is not ported yet")
+        f, l, fm, lm = self._batch_tensors(ds)
         if (self.conf.backprop_type == BackpropType.TruncatedBPTT and f.dim() == 3
                 and f.shape[1] > self.conf.tbptt_fwd_length):
             raise NotImplementedError("truncated BPTT over a ComputationGraph is not ported yet")

@@ -34,10 +34,12 @@ def mha(q, k, v, causal, compute_dtype, dropout_rate=0.0, gen=None, train=False,
     with an f32 softmax; ``key_mask`` [b, S] (1 = a real key) excludes
     padded keys. Takes the flash kernels when ``q.shape == k.shape`` and
     :func:`ops.flash_attention.supported` holds (T >= ``MIN_SEQ``, T % 128
-    == 0, d <= 256), else the dense body."""
-    T, d = q.shape[1], q.shape[-1]
+    == 0, d <= 256 in bf16 and <= 128 in f32, b x h <= 65535), else the
+    dense body."""
+    b, T, h, d = q.shape
     rate = dropout_rate if (train and gen is not None) else 0.0
-    if q.shape == k.shape and fa.supported(T, d, rate, key_mask):
+    if q.shape == k.shape and fa.supported(T, d, rate, key_mask, dtype=compute_dtype,
+                                           bh=b * h):
         seed = _draw_seed(gen) if rate > 0.0 else None
         return fa.flash_attention(q.to(compute_dtype), k.to(compute_dtype),
                                   v.to(compute_dtype), causal=causal, key_mask=key_mask,

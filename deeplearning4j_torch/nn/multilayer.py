@@ -20,6 +20,7 @@ PyTorch takes the place of the JAX package's jitted step and its
 from __future__ import annotations
 
 import logging
+import time
 from typing import Dict, Optional
 
 import numpy as np
@@ -27,12 +28,13 @@ import torch
 from torch import nn
 
 from .. import resolve_device
-from .conf import BackpropType, MultiLayerConfiguration
+from .conf import BackpropType, CacheMode, MultiLayerConfiguration
 from .conf.layers import FeedForwardLayer
 from .layers import impl_for
 from .layers.recurrent import _BaseLSTMImpl
 from .updaters import Sgd
-from ..datasets.dataset import DataSet, ListDataSetIterator
+from ..datasets.dataset import DataSet, ListDataSetIterator, MultiDataSet, to_tensor
+from ..datasets.prefetch import wrap_for_training
 from ..ops import lstm_fused
 from ..optimize.updater import NetworkUpdater, normalize_gradients
 
@@ -64,6 +66,7 @@ class MultiLayerNetwork(nn.Module):
         self.iteration_count = 0
         self.epoch_count = 0
         self.score_ = float("nan")
+        self.last_etl_ms = 0.0      # wait for the last minibatch in fit
         self._rnn_state = None      # streaming state for rnn_time_step
         self._warned_tbptt = False
 
@@ -121,12 +124,10 @@ class MultiLayerNetwork(nn.Module):
 
     # -------------------------------------------------------------- forward
     def _to_device(self, a):
-        if a is None:
-            return None
-        t = torch.as_tensor(np.asarray(a) if not isinstance(a, torch.Tensor) else a)
-        if t.is_floating_point():
-            t = t.float()
-        return t.to(self.device)
+        """An input array as a tensor on the network's device (floating
+        data as float32); an identity on a tensor the prefetch pipeline
+        already put there."""
+        return to_tensor(a, self.device)
 
     def _apply_layers(self, x, fmask, rnn_state_in=None, train=False, upto=None):
         """Run layers [0, upto). Returns (x, ctx); ``ctx["rnn_state_out"]``
@@ -150,7 +151,12 @@ class MultiLayerNetwork(nn.Module):
         training): no step mask, both plain LSTM layers with the kernels'
         activations, matching peepholes and compute dtype, ``n_out == n_in
         == n_out`` through the pair, and, in training, no weight noise on
-        either layer and no dropout on the second."""
+        either layer and no dropout on the second. The kernels must take
+        the shape too (the role of the JAX package's ``supported2``): H %
+        8 == 0, and a grid for K3 (with the reserve in training) and, in
+        training, for K4 on x's device (``fwd_route``/``bwd_route``; the
+        CPU's plain loops take every shape). A pair they cannot take runs
+        as two per-layer calls, decided before any launch."""
         if fmask is not None or x.dim() != 3:
             return False
         a, b = self.impls[i], self.impls[i + 1]
@@ -164,7 +170,13 @@ class MultiLayerNetwork(nn.Module):
             return False
         if a.compute_dtype != b.compute_dtype:
             return False
-        return a.conf.n_out == b.conf.n_in == b.conf.n_out
+        H = a.conf.n_out
+        if not (H == b.conf.n_in == b.conf.n_out) or H % 8:
+            return False
+        bsz, wd = int(x.shape[0]), a.compute_dtype
+        if lstm_fused.fwd_route(wd, bsz, H, reserve=train, device=x.device)[1] == 0:
+            return False
+        return not train or lstm_fused.bwd_route(wd, bsz, H, device=x.device)[1] > 0
 
     def _fused_lstm_forward(self, x, ctx, i):
         """Layers (i, i+1) through the fused kernel, with the hoisted
@@ -283,19 +295,21 @@ class MultiLayerNetwork(nn.Module):
     def fit(self, data, labels=None, epochs=1):
         """Train (reference ``fit(DataSetIterator)``). Accepts a DataSet, a
         DataSetIterator (or any iterable of DataSets), or (features, labels)
-        arrays."""
-        if labels is not None:
-            data = DataSet(np.asarray(data), np.asarray(labels))
-        if isinstance(data, DataSet):
-            data = ListDataSetIterator([data])
-        for _ in range(epochs):
-            for ds in data:
-                self._fit_batch(ds)
-            self.epoch_count += 1
-        return self
+        arrays. A DataSetIterator goes through the prefetch pipeline
+        (``datasets/prefetch.py::wrap_for_training``: workers, put-ahead to
+        the device, ``CacheMode.DEVICE``), shut down when fit ends."""
+        return _fit_epochs(self, data, labels, epochs)
+
+    def _batch_tensors(self, ds: DataSet):
+        """A minibatch's (f, l, fm, lm) on the device: the DataSet's cached
+        copies under ``CacheMode.DEVICE``, else the put-ahead view's
+        tensors (or a synchronous copy)."""
+        if self.gc.cache_mode == CacheMode.DEVICE and isinstance(ds, DataSet):
+            return ds.device_arrays(self.device)
+        return self._tensors(ds)
 
     def _fit_batch(self, ds: DataSet):
-        f, l, fm, lm = self._tensors(ds)
+        f, l, fm, lm = self._batch_tensors(ds)
         if (self.conf.backprop_type == BackpropType.TruncatedBPTT and f.dim() == 3
                 and f.shape[1] > self.conf.tbptt_fwd_length):
             self._fit_tbptt(f, l, fm, lm)
@@ -343,3 +357,29 @@ class MultiLayerNetwork(nn.Module):
         grads = self._grads(loss)
         self.score_ = loss.detach()
         return grads, float(self.score_)
+
+
+def _fit_epochs(net, data, labels, epochs):
+    """The fit loop both containers share (``fit`` of the JAX package's
+    ``MultiLayerNetwork`` and ``ComputationGraph``): wrap the iterator for
+    training, time each wait for a minibatch (``last_etl_ms``), run
+    ``net._fit_batch`` on each, and shut an owned pipeline down however
+    the loop ends."""
+    if labels is not None:
+        data = DataSet(np.asarray(data), np.asarray(labels))
+    if isinstance(data, (DataSet, MultiDataSet)):
+        data = ListDataSetIterator([data])
+    it, own_pipeline = wrap_for_training(
+        data, net.device, cache_device=net.gc.cache_mode == CacheMode.DEVICE)
+    try:
+        for _ in range(epochs):
+            t_etl = time.perf_counter()
+            for ds in it:
+                net.last_etl_ms = (time.perf_counter() - t_etl) * 1e3
+                net._fit_batch(ds)
+                t_etl = time.perf_counter()
+            net.epoch_count += 1
+    finally:
+        if own_pipeline:
+            it.shutdown()   # no prefetch worker outlives its fit
+    return net

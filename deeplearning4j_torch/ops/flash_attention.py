@@ -82,14 +82,22 @@ def pick_block(T: int, d: int) -> int:
     return MIN_BLOCK
 
 
-def supported(T: int, d: int, dropout_rate: float, key_mask) -> bool:
+def supported(T: int, d: int, dropout_rate: float, key_mask, dtype=torch.bfloat16,
+              bh: int = 1) -> bool:
     """Whether the flash path applies: a block-divisible sequence of at
-    least ``MIN_SEQ``, head dim <= 256, a [b, T] key mask if any, and a
-    dropout rate in [0, 1)."""
+    least ``MIN_SEQ``, a [b, T] key mask if any, a dropout rate in [0, 1),
+    and what K5-K7 take: operands of ``dtype`` bf16 with head dim <= 256
+    or f32 with head dim <= 128, and at most 65535 batch x heads (``bh``).
+
+    The JAX package's ``supported`` admits f32 heads up to 256 and any bh.
+    Here f32 heads past 128 and bh past 65535 go to ``mha``'s dense body
+    instead: the same attention through another body, decided before any
+    launch."""
     min_seq = 2 * MIN_BLOCK if _FORCE_SHORT_SEQ else MIN_SEQ
     if key_mask is not None and getattr(key_mask, "ndim", None) != 2:
         return False
-    return (T % MIN_BLOCK == 0 and T >= min_seq and d <= 256
+    max_d = {torch.bfloat16: 256, torch.float32: 128}.get(dtype, 0)
+    return (T % MIN_BLOCK == 0 and T >= min_seq and d <= max_d and bh <= 65535
             and 0.0 <= dropout_rate < 1.0)
 
 

@@ -154,16 +154,19 @@ def _lstm2_fwd_cuda(xp, rw1, w2, rw2, b2, peep, h0, save_reserve):
     return ys2, hc
 
 
-def fwd_route(w_dtype, b, H, reserve=False) -> Tuple[bool, int]:
+def fwd_route(w_dtype, b, H, reserve=False, device=None) -> Tuple[bool, int]:
     """K3's static choice for weights of ``w_dtype`` at batch ``b`` and
-    width ``H`` on the current card, for the serving instantiation or, with
-    ``reserve``, the training one: whether it takes the tensor-core body
-    (else the CUDA-core body), and the hidden units a block of that body
-    takes (0 when no grid fits and the launch raises). The CUDA-core grid
-    has H / units blocks, each running both layers; the tensor-core grid
-    2 H / units, half running layer 1 and half layer 2. Named by the C
-    exports ``dl4j_lstm2_fwd_tc`` and ``dl4j_lstm2_fwd_units``; builds the
-    kernel at first use, so it needs the card."""
+    width ``H`` on ``device`` (the current card when None), for the serving
+    instantiation or, with ``reserve``, the training one: whether it takes
+    the tensor-core body (else the CUDA-core body), and the hidden units a
+    block of that body takes (0 when no grid fits and the launch raises).
+    The CUDA-core grid has H / units blocks, each running both layers; the
+    tensor-core grid 2 H / units, half running layer 1 and half layer 2.
+    Named by the C exports ``dl4j_lstm2_fwd_tc`` and
+    ``dl4j_lstm2_fwd_units``; builds the kernel at first use, so it needs
+    the card. On a CPU device the plain loop takes every shape: (False, H)."""
+    if device is not None and torch.device(device).type == "cpu":
+        return False, H
     args = (int(w_dtype == torch.bfloat16), b, H, int(reserve))
     lib = cuda_build.library(SOURCE, "dl4j_lstm2_fwd_tc", _FWD_ROUTE_ARGTYPES)
     cuda_build.library(SOURCE, "dl4j_lstm2_fwd_units", _FWD_ROUTE_ARGTYPES)
@@ -214,13 +217,16 @@ def _lstm2_bwd_cuda(dy, g1, c1, g2, c2, rw1, w2, rw2, peep, c0, dhcT):
     return dz1, dz2, dhc0, dpeep
 
 
-def bwd_route(w_dtype, b, H) -> Tuple[bool, int]:
+def bwd_route(w_dtype, b, H, device=None) -> Tuple[bool, int]:
     """K4's static choice for weights of ``w_dtype`` at batch ``b`` and
-    width ``H`` on the current card: whether it takes the tensor-core body
-    (else the CUDA-core body), and the hidden units a block of that body
-    takes (the grid has H / units blocks). Named by the C exports
-    ``dl4j_lstm2_bwd_tc`` and ``dl4j_lstm2_bwd_units``; builds the kernel at
-    first use, so it needs the card."""
+    width ``H`` on ``device`` (the current card when None): whether it
+    takes the tensor-core body (else the CUDA-core body), and the hidden
+    units a block of that body takes (the grid has H / units blocks; 0 when
+    no grid fits). Named by the C exports ``dl4j_lstm2_bwd_tc`` and
+    ``dl4j_lstm2_bwd_units``; builds the kernel at first use, so it needs
+    the card. On a CPU device the plain loop takes every shape: (False, H)."""
+    if device is not None and torch.device(device).type == "cpu":
+        return False, H
     w_bf16 = int(w_dtype == torch.bfloat16)
     lib = cuda_build.library(BWD_SOURCE, "dl4j_lstm2_bwd_tc", _ROUTE_ARGTYPES)
     cuda_build.library(BWD_SOURCE, "dl4j_lstm2_bwd_units", _ROUTE_ARGTYPES)
