@@ -79,8 +79,22 @@ and the CUDA toolkit; run from the root of the repository. It
    against the CPU, and an f32 d=256 attention at T=4096, past what the
    flash kernels take in f32, through ``mha``'s dense body against the
    flash plain versions;
-10. prints a ``{"kernels": [...]}`` line and, last, the ``{"ok": true,
-   "device": ...}`` line.
+10. trains ResNet50 at bench.py:187's shape (b=256, 3x224x224, 1000
+   classes, bf16, Adam) through ``ComputationGraph.fit`` under
+   ``CacheMode.DEVICE``: 3 warm-up and 25 timed steps, ms a step, images/s
+   and peak memory; finite losses, every BN layer's running mean and var
+   moved; ``output`` on the batch (finite rows summing to 1); one profiled
+   step (device busy share; device time and launches of cuDNN
+   convolutions, BN, other elementwise work, pooling and the updater; no
+   NCHW/NHWC transposition kernel);
+11. trains LeNet at bench.py:202's shape (b=1024, bf16, iterations(10),
+   ``CacheMode.DEVICE``) through ``MultiLayerNetwork.fit``: ms a step and
+   images/s over ten fits, a falling loss, ``output``;
+12. holds ResNet50 at 3x64x64, b=8 on the card in f64, f32 with TF32 off,
+   and bf16 against the CPU in f64 (output, score, gradients), the CPU
+   replaying the card's ReLU signs and max-pool picks, at fixed limits;
+13. prints a ``{"cnn": ...}`` line with those numbers, a ``{"kernels":
+   [...]}`` line and, last, the ``{"ok": true, "device": ...}`` line.
 
 Any failure raises, and the script exits nonzero without the last line.
 """
@@ -209,6 +223,48 @@ BATCH_COPY_BYTES = 1 << 20
 F32_PAIR_ATOL = 1e-4
 F32_PAIR_SCORE_RTOL = 1e-5
 F32_PAIR_GRAD_RTOL = 1e-4
+
+# ResNet50 of bench.py:187 (bench_resnet50 through _cnn_throughput): b=256,
+# 3x224x224, 1000 classes, bf16 compute, Adam 1e-3, N(0, 1) NCHW features
+# and one-hot labels from default_rng(0); the bench's 3 warm-up and 25
+# timed steps, here through ComputationGraph.fit under CacheMode.DEVICE.
+R50_B, R50_IMG, R50_CLASSES = 256, (3, 224, 224), 1000
+R50_WARM, R50_STEPS = 3, 25
+# LeNet of bench.py:202 (bench_lenet): b=1024, 1x28x28, 10 classes, bf16,
+# iterations(10) a fit and CacheMode.DEVICE; one warm-up fit, ten timed.
+LENET_B, LENET_ITERS, LENET_FITS = 1024, 10, 10
+# A bf16 softmax row sums to 1 within bf16's rounding of its terms, at
+# most 2^-8 of their sum. Once a net has fitted its batch one term is near
+# 1 and rounds by up to 2^-9 alone: ResNet50 after its 28 steps on one
+# batch read 2.29e-3 on an H100 (a limit of 1e-3, set before, failed), and
+# LeNet 2.0e-3 on the CPU.
+PROB_SUM_ATOL = 2.0 ** -8
+# Card vs CPU for ResNet50 at 3x64x64, 10 classes, b=8: the card in f64,
+# f32 (TF32 off) and bf16 against the CPU in f64, from the card's weights,
+# each with running statistics of its own from 64 other images. Output is
+# inference (running statistics); score and gradients are training (batch
+# statistics). The net is put in a well-conditioned state: the last BN of
+# every residual branch has gamma R50_REF_BRANCH_GAMMA (the shrunk or
+# zero-initialised residual of common ResNet recipes); at gamma 1 the
+# random net's backward explodes and rounding alone moves its gradients by
+# percents. The CPU replays the card's ReLU signs and max-pool picks
+# (deeplearning4j_torch/utils/kink_pins.py): a unit that rounding moves
+# across 0 would otherwise move the gradient far beyond the limits in a
+# correct run. Limits (output max abs, score relative, gradients: the
+# worst parameter's max abs error over its largest entry, and the whole
+# gradient's norm-wise error) were set before the first measurement for
+# f64 and f32; bf16's are about four times the first card reading (an
+# H100 80GB HBM3 at 700 W: 8.57e-3, 2.33e-3, 9.42e-2, 3.35e-2).
+# tests/test_torch_cnn_reference.py holds the port's CPU runs to these
+# limits and breaks them with deliberately wrong layers: a mirrored SAME
+# pad, a flipped kernel or a BN gradient that skips the statistics in f32
+# and bf16; an unbiased variance in the normalisation or in the running
+# statistics, or an eps of 1e-3, in f32 (in bf16 they are below its
+# rounding).
+R50_REF_B, R50_REF_IMG, R50_REF_CLASSES, R50_REF_STATS_B = 8, (3, 64, 64), 10, 64
+R50_REF_BRANCH_GAMMA = 0.2
+R50_REF_LIMITS = {"float64": (1e-5, 1e-5, 1e-4, 1e-4), "float32": (1e-5, 1e-5, 1e-4, 1e-4),
+                  "bfloat16": (3.5e-2, 1e-2, 0.4, 0.14)}
 
 
 def log(msg):
@@ -895,27 +951,50 @@ def periodic_text(rng, b, t, period=23):
     return eye[ids[:, :-1]], eye[ids[:, 1:]]
 
 
-def profile_call(label, fn):
-    """One call of ``fn`` under torch.profiler: device time by kernel, and
-    the card's busy share of the call's wall time (profiler on, so slightly
-    slower than an unprofiled call)."""
+def profile_call(label, fn, updater=None, forbid=()):
+    """One call of ``fn`` under torch.profiler: device time and launches by
+    kernel, and the card's busy share of the call's wall time (profiler
+    on, so slightly slower than an unprofiled call). With ``updater``, its
+    ``apply`` is marked by a range, and device time and launches are also
+    summed by ``kernel_group``. Raises if a kernel's name holds a word of
+    ``forbid`` (any case). None when the profiler recorded no device
+    events, unless ``forbid`` is given: then that raises, since nothing
+    was checked."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
+    if updater is not None:
+        real = updater.apply
+
+        def tagged(*a, **k):
+            with record_function("dl4j::updater"):
+                return real(*a, **k)
+        updater.apply = tagged
+    try:
         torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+    finally:
+        if updater is not None:
+            del updater.apply
+    events = prof.events()
     spans, by_name = [], {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
+    for e in events:
+        if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False):
             spans.append((e.time_range.start, e.time_range.end))
-            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+            n, us = by_name.get(e.name, (0, 0.0))
+            by_name[e.name] = (n + 1, us + e.time_range.elapsed_us())
     if not spans:
+        if forbid:
+            raise AssertionError(f"profile of {label}: the profiler recorded no device events")
         log(f"profile of {label}: the profiler recorded no device events")
         return None
+    bad = [n for n in by_name if any(w in n.lower() for w in forbid)]
+    if bad:
+        raise AssertionError(f"{label} launched kernels it must not: {bad}")
     spans.sort()
     busy, (lo, hi) = 0.0, spans[0]
     for a, b in spans[1:]:
@@ -924,13 +1003,35 @@ def profile_call(label, fn):
         else:
             hi = max(hi, b)
     busy += hi - lo
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]
     log(f"profile of {label}: wall {wall_us / 1e3:.3f} ms, device busy "
-        f"{busy / 1e3:.3f} ms ({100 * busy / wall_us:.1f}%), device time by kernel:")
-    for name, us in top:
-        log(f"  {us / 1e3:9.3f} ms  {name[:100]}")
-    return {"wall_ms": wall_us / 1e3, "busy_ms": busy / 1e3,
-            "top_ms": {name[:100]: us / 1e3 for name, us in top}}
+        f"{busy / 1e3:.3f} ms ({100 * busy / wall_us:.1f}%)"
+        + (f", no kernel named {' or '.join(forbid)}" if forbid else "")
+        + "; device time by kernel (launches):")
+    for name, (n, us) in top:
+        log(f"  {us / 1e3:9.3f} ms ({n:5d})  {name[:100]}")
+    res = {"wall_ms": wall_us / 1e3, "busy_ms": busy / 1e3,
+           "top_ms": {name[:100]: us / 1e3 for name, (_, us) in top},
+           "top_launches": {name[:100]: n for name, (n, _) in top}}
+    if updater is None:
+        return res
+
+    def chain(e):
+        while e is not None:
+            yield e.name
+            e = e.cpu_parent
+
+    groups = {}
+    for e in events:
+        if e.device_type == DeviceType.CPU and e.kernels:
+            g = kernel_group(chain(e))
+            n, ms = groups.get(g, (0, 0.0))
+            groups[g] = (n + len(e.kernels), ms + sum(k.duration for k in e.kernels) / 1e3)
+    log("  device time by group (launches):")
+    for g, (n, ms) in sorted(groups.items(), key=lambda kv: -kv[1][1]):
+        log(f"  {ms:9.3f} ms ({n:5d})  {g}")
+    res["groups"] = {g: {"launches": n, "ms": ms} for g, (n, ms) in groups.items()}
+    return res
 
 
 def train(conf):
@@ -1820,6 +1921,224 @@ def check_flash_f32_wide(device="cuda"):
     return errs
 
 
+def zoo_data(rng, b, img, classes):
+    """N(0, 1) NCHW features and one-hot labels, as bench.py's
+    _cnn_throughput makes them."""
+    return (rng.normal(size=(b,) + tuple(img)).astype(np.float32),
+            np.eye(classes, dtype=np.float32)[rng.integers(0, classes, b)])
+
+
+def check_probabilities(label, probs, shape, atol):
+    sums = probs.float().sum(-1)
+    err = (sums - 1).abs().max().item()
+    if tuple(probs.shape) != shape or not torch.isfinite(probs).all() or err > atol:
+        raise AssertionError(f"{label} output: shape {tuple(probs.shape)}, or rows that are "
+                             f"not finite probabilities summing to 1 (worst {err:.2e})")
+    return err
+
+
+def kernel_group(chain):
+    """The group of a kernel, from the names of the op that launched it and
+    of that op's callers (a forward op, or the autograd node of a backward
+    one)."""
+    names = " ".join(chain).lower()
+    for key, group in (("dl4j::updater", "updater"), ("convolution", "cuDNN conv"),
+                       ("pool", "pooling"), ("batch_norm", "BN"), ("batchnorm", "BN")):
+        if key in names:
+            return group
+    return "other elementwise"
+
+
+def resnet50():
+    """ResNet50's main path at bench.py:187's shape: ComputationGraph.fit
+    under CacheMode.DEVICE, 3 warm-up then 25 timed steps (each an
+    iterator of DataSet copies, so one pipeline a fit and one H2D copy of
+    the batch in all), every BN layer's running mean and var moved, finite
+    losses; then ``output`` on the batch in inference and one profiled
+    step. No kernel of K1-K7 lies on the path: the counts must stay 0."""
+    from deeplearning4j_torch import DataSet, ListDataSetIterator
+    from deeplearning4j_torch.models import ResNet50
+    from deeplearning4j_torch.nn.conf import CacheMode
+    from deeplearning4j_torch.nn.graph import ComputationGraph
+
+    conf = ResNet50(num_classes=R50_CLASSES, input_shape=R50_IMG).conf()
+    conf.global_conf.compute_dtype = "bfloat16"
+    conf.global_conf.cache_mode = CacheMode.DEVICE
+    net = ComputationGraph(conf).init()                 # device defaults to the card
+    f, l = zoo_data(np.random.default_rng(0), R50_B, R50_IMG, R50_CLASSES)
+    ds = DataSet(f, l)
+    before = {n: {k: v.clone() for k, v in s.items()} for n, s in net.states.items() if s}
+    losses = record_losses(net)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    net.fit(ListDataSetIterator([ds] * R50_WARM))
+    net.score()
+    warm_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    net.fit(ListDataSetIterator([ds] * R50_STEPS))
+    net.score()                                           # the value: a sync
+    step_ms = (time.perf_counter() - t0) * 1e3 / R50_STEPS
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    del net._fit_batch                                    # stop recording
+    losses = [float(x) for x in losses]
+    if any(launches.values()):
+        raise AssertionError(f"the ResNet50 path launched LSTM or flash kernels: {launches}")
+    if len(losses) != R50_WARM + R50_STEPS or not np.isfinite(losses).all():
+        raise AssertionError(f"ResNet50 losses: {losses}")
+    still = [f"{n}/{k}" for n, s in net.states.items() if s for k, v in s.items()
+             if torch.equal(v, before[n][k])]
+    if len(before) != 53 or still:
+        raise AssertionError(f"{len(before)} BN layers; running statistics that did not move: "
+                             f"{still}")
+    ips = R50_B / step_ms * 1e3
+    log(f"ResNet50 ({net.num_params() / 1e6:.2f}M parameters, 53 BN layers) training b={R50_B} "
+        f"{R50_IMG[0]}x{R50_IMG[1]}x{R50_IMG[2]} bf16 Adam: {R50_WARM} warm-up steps "
+        f"{warm_s:.1f} s, then smoke number, not a benchmark: {step_ms:.2f} ms a step, "
+        f"{ips:.1f} images/s over {R50_STEPS} steps in one fit; peak memory "
+        f"{peak / 2 ** 30:.2f} GiB; loss per step " + " ".join(f"{x:.3f}" for x in losses))
+    probs = net.output(f)
+    sum_err = check_probabilities("ResNet50", probs, (R50_B, R50_CLASSES), PROB_SUM_ATOL)
+    del probs
+    log(f"ResNet50 output b={R50_B} in inference: finite, rows sum to 1 within {sum_err:.2e}")
+    prof = profile_call("one ResNet50 step", lambda: net.fit(ds), net.updater,
+                        forbid=("nchwtonhwc", "nhwctonchw"))
+    return {"step_ms": step_ms, "images_per_s": ips, "peak_gib": peak / 2 ** 30,
+            "warmup_s": warm_s, "losses": losses, "prob_sum_err": sum_err, "profile": prof}
+
+
+def lenet():
+    """LeNet's main path at bench.py:202's shape: MultiLayerNetwork.fit of
+    one b=1024 DataSet under CacheMode.DEVICE with iterations(10), one
+    warm-up fit and ten timed; finite losses that fall, and ``output``."""
+    from deeplearning4j_torch import DataSet
+    from deeplearning4j_torch.models import LeNet
+    from deeplearning4j_torch.nn.conf import CacheMode
+    from deeplearning4j_torch.nn.multilayer import MultiLayerNetwork
+
+    conf = LeNet(num_classes=10).conf()
+    gc = conf.global_conf
+    gc.compute_dtype, gc.cache_mode, gc.iterations = "bfloat16", CacheMode.DEVICE, LENET_ITERS
+    net = MultiLayerNetwork(conf).init()
+    f, l = zoo_data(np.random.default_rng(0), LENET_B, (1, 28, 28), 10)
+    ds = DataSet(f, l)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    net.fit(ds)
+    first = net.score()
+    t0 = time.perf_counter()
+    for _ in range(LENET_FITS):
+        net.fit(ds)
+    last = net.score()                                    # the value: a sync
+    dt = time.perf_counter() - t0
+    launches = read_counts()
+    if any(launches.values()):
+        raise AssertionError(f"the LeNet path launched LSTM or flash kernels: {launches}")
+    if not (np.isfinite([first, last]).all() and last < first):
+        raise AssertionError(f"LeNet loss {first} -> {last}: not finite or not falling")
+    steps = LENET_FITS * LENET_ITERS
+    step_ms, ips = dt * 1e3 / steps, LENET_B * steps / dt
+    sum_err = check_probabilities("LeNet", net.output(f), (LENET_B, 10), PROB_SUM_ATOL)
+    log(f"LeNet ({net.num_params()} parameters) training b={LENET_B} bf16, {LENET_FITS} fits "
+        f"of {LENET_ITERS} iterations: smoke number, not a benchmark: {step_ms:.3f} ms a step "
+        f"(a fit's pipeline start included), {ips:.0f} images/s; loss {first:.3f} -> "
+        f"{last:.3f}; peak memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; "
+        f"output rows sum to 1 within {sum_err:.2e}")
+    return {"step_ms": step_ms, "images_per_s": ips, "loss": [first, last]}
+
+
+def set_running_statistics(net, f):
+    """Every BN layer's running statistics set to its batch statistics on
+    ``f``: a training forward with ``decay`` 0, its new state committed."""
+    bns = [impl.conf for impl in net.impls.values() if hasattr(impl.conf, "decay")]
+    decays = [c.decay for c in bns]
+    for c in bns:
+        c.decay = 0.0
+    new = {}
+    with torch.no_grad():
+        net._apply_graph([net._to_device(f)], None, True, new_states=new)
+    net._commit_states(new)
+    for c, d in zip(bns, decays):
+        c.decay = d
+
+
+def r50_reference_errors(dtype, device="cuda", mutate=contextlib.nullcontext):
+    """The port's ResNet50 at R50_REF_* in ``dtype`` on ``device``,
+    recording its kinks, against the port in f64 on the CPU replaying them,
+    from the same weights, each with running statistics of its own from
+    the same R50_REF_STATS_B images: {"output": max abs,
+    "score": relative, "grads": the worst parameter's max abs error over
+    its largest entry, "grads_norm": the whole gradient's norm-wise
+    error}. ``mutate()`` is entered around the ``device`` net's calls
+    only (a test's deliberately broken layer)."""
+    from deeplearning4j_torch import DataSet
+    from deeplearning4j_torch.models import ResNet50
+    from deeplearning4j_torch.nn.graph import ComputationGraph
+    from deeplearning4j_torch.utils.kink_pins import KinkPins
+
+    rng = np.random.default_rng(11)
+    f, l = zoo_data(rng, R50_REF_B, R50_REF_IMG, R50_REF_CLASSES)
+    f_stats = zoo_data(rng, R50_REF_STATS_B, R50_REF_IMG, R50_REF_CLASSES)[0]
+
+    def conf(dt):
+        c = ResNet50(num_classes=R50_REF_CLASSES, input_shape=R50_REF_IMG).conf()
+        c.global_conf.compute_dtype = dt
+        if dt == "float64":
+            c.global_conf.dtype = "float64"
+        return c
+
+    net = ComputationGraph(conf(dtype)).init(device=device)
+    with torch.no_grad():
+        for n, p in net.params.items():
+            if n.endswith("-c-bn"):
+                p["gamma"].mul_(R50_REF_BRANCH_GAMMA)
+    with mutate():
+        set_running_statistics(net, f_stats)
+    ref = ComputationGraph(conf("float64")).init(
+        params={n: {k: t.cpu().double() for k, t in p.items()} for n, p in net.params.items()},
+        device="cpu")
+    set_running_statistics(ref, f_stats)
+    pins = KinkPins()
+    pins.attach(net), pins.attach(ref)
+    got, want = [], []
+    for call in (lambda m: [m.output(f).cpu().double()],
+                 lambda m: list(m.compute_gradient_and_score(DataSet(f, l)))[::-1]):
+        pins.record = True
+        with mutate():
+            got += call(net)
+        pins.record = False
+        want += call(ref)
+    grads = [{(n, k): g.cpu().double() for n, gs in gr.items() for k, g in gs.items()}
+             for gr in (got[2], want[2])]
+    d2 = sum(((grads[0][k] - g) ** 2).sum() for k, g in grads[1].items())
+    return {"output": (got[0] - want[0]).abs().max().item(),
+            "score": abs(got[1] - want[1]) / abs(want[1]),
+            "grads": max(((grads[0][k] - g).abs().max() / g.abs().max()).item()
+                         for k, g in grads[1].items()),
+            "grads_norm": (d2 / sum((g ** 2).sum() for g in grads[1].values())).sqrt().item()}
+
+
+def check_cnn_reference():
+    """ResNet50 at 3x64x64, 10 classes, b=8: the port on the card in f64,
+    f32 (TF32 off) and bf16 against the port on the CPU in f64, on the
+    card's kinks, at R50_REF_LIMITS."""
+    if torch.backends.cudnn.allow_tf32 or torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("the f32 card-vs-CPU check needs TF32 off")
+    out = {}
+    for dtype, lims in R50_REF_LIMITS.items():
+        errs = r50_reference_errors(dtype)
+        limits = dict(zip(("output", "score", "grads", "grads_norm"), lims))
+        log(f"card vs CPU f64, ResNet50 {R50_REF_IMG} b={R50_REF_B} {dtype} on the card's "
+            f"kinks: " + ", ".join(f"{q} {errs[q]:.2e} (limit {limits[q]:.0e})" for q in errs))
+        bad = [q for q in errs if not errs[q] <= limits[q]]
+        if bad:
+            raise AssertionError(f"card {dtype} and CPU f64 ResNet50 disagree in {bad}")
+        out[dtype] = {"errors": errs, "limits": limits}
+    return out
+
+
 def build():
     """Compile every kernel of the port, one nvcc per source, all at once,
     and print what ptxas reports of registers, shared memory and spills."""
@@ -1955,6 +2274,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     check_lstm_pair_f32()
     check_flash_f32_wide()
+    torch.cuda.empty_cache()
+    cnn = {"resnet50": resnet50()}
+    torch.cuda.empty_cache()
+    cnn["lenet"] = lenet()
+    cnn["reference"] = check_cnn_reference()
+    print(json.dumps({"cnn": cnn}))
 
     print(json.dumps({"kernels": kernel_line(serving, training, served, streamed,
                                              trained["launches"], flash, lm)}))

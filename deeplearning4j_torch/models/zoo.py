@@ -1,23 +1,26 @@
 """Model zoo: standard architectures as config builders.
 
 Counterpart of ``deeplearning4j_tpu/models/zoo.py``: the ``ZooModel`` base
-(``conf``, ``init``, ``_builder``) and ``TransformerLM``. The other zoo
-models, pretrained weights and the MoE variant of ``TransformerLM`` are not
-ported yet.
+(``conf``, ``init``, ``_builder``), ``LeNet``, ``ResNet50`` and
+``TransformerLM``, with the JAX package's layer and vertex names, so that
+the keypaths of its zips match. The other zoo models, pretrained weights
+and the MoE variant of ``TransformerLM`` are not ported yet.
 """
 from __future__ import annotations
 
 from typing import Optional, Tuple
 
-from ..nn.conf import MultiLayerConfiguration, NeuralNetConfiguration
+from ..nn.conf import InputType, MultiLayerConfiguration, NeuralNetConfiguration
 from ..nn.conf.graph import ElementWiseVertex
-from ..nn.conf.layers import (DenseLayer, EmbeddingSequenceLayer, LayerNormalization,
-                              RnnOutputLayer, SelfAttentionLayer)
+from ..nn.conf.layers import (ActivationLayer, BatchNormalization, ConvolutionLayer,
+                              ConvolutionMode, DenseLayer, EmbeddingSequenceLayer,
+                              GlobalPoolingLayer, LayerNormalization, OutputLayer, PoolingType,
+                              RnnOutputLayer, SelfAttentionLayer, SubsamplingLayer)
 from ..nn.graph import ComputationGraph
 from ..nn.multilayer import MultiLayerNetwork
 from ..nn.updaters import Adam
 
-__all__ = ["ZooModel", "TransformerLM"]
+__all__ = ["ZooModel", "LeNet", "ResNet50", "TransformerLM"]
 
 
 class ZooModel:
@@ -48,6 +51,93 @@ class ZooModel:
                 .updater(updater or Adam(learning_rate=1e-3))
                 .activation(activation)
                 .weight_init(weight_init))
+
+
+class LeNet(ZooModel):
+    """Reference ``zoo/model/LeNet.java``: 28x28xc -> conv20-5 -> max2 ->
+    conv50-5 -> max2 -> dense500 -> softmax (a MultiLayerNetwork)."""
+
+    name = "lenet"
+    input_shape = (1, 28, 28)
+
+    def __init__(self, num_classes: int = 10, seed: int = 123, **kw):
+        super().__init__(num_classes, seed, **kw)
+
+    def conf(self):
+        c, h, w = self.input_shape
+        return (self._builder()
+                .list()
+                .layer(ConvolutionLayer(n_out=20, kernel_size=(5, 5), stride=(1, 1),
+                                        activation="identity"))
+                .layer(SubsamplingLayer(pooling_type=PoolingType.MAX, kernel_size=(2, 2),
+                                        stride=(2, 2)))
+                .layer(ConvolutionLayer(n_out=50, kernel_size=(5, 5), stride=(1, 1),
+                                        activation="identity"))
+                .layer(SubsamplingLayer(pooling_type=PoolingType.MAX, kernel_size=(2, 2),
+                                        stride=(2, 2)))
+                .layer(DenseLayer(n_out=500, activation="relu"))
+                .layer(OutputLayer(n_out=self.num_classes, activation="softmax",
+                                   loss="mcxent"))
+                .set_input_type(InputType.convolutional(h, w, c))
+                .build())
+
+
+class ResNet50(ZooModel):
+    """Reference ``zoo/model/ResNet50.java`` (conv/identity blocks): stem
+    conv7/2 -> max pool 3/2 -> [3, 4, 6, 3] bottleneck stages -> global
+    average pool -> softmax (a ComputationGraph). Every convolution is SAME
+    without bias, followed by BatchNormalization."""
+
+    name = "resnet50"
+    input_shape = (3, 224, 224)
+    STAGES = ((3, 64), (4, 128), (6, 256), (3, 512))
+
+    def _conv_bn(self, g, name, inp, n_out, k, stride=(1, 1), activation="relu"):
+        g.add_layer(f"{name}-conv", ConvolutionLayer(
+            n_out=n_out, kernel_size=k, stride=stride, convolution_mode=ConvolutionMode.Same,
+            activation="identity", has_bias=False), inp)
+        g.add_layer(f"{name}-bn", BatchNormalization(), f"{name}-conv")
+        if activation == "identity":
+            return f"{name}-bn"
+        g.add_layer(f"{name}-act", ActivationLayer(activation=activation), f"{name}-bn")
+        return f"{name}-act"
+
+    def _bottleneck(self, g, name, inp, width, stride, project):
+        """conv block (with a projection shortcut) or identity block."""
+        a = self._conv_bn(g, f"{name}-a", inp, width, (1, 1), stride)
+        b = self._conv_bn(g, f"{name}-b", a, width, (3, 3))
+        c = self._conv_bn(g, f"{name}-c", b, 4 * width, (1, 1), activation="identity")
+        shortcut = (self._conv_bn(g, f"{name}-sc", inp, 4 * width, (1, 1), stride,
+                                  activation="identity") if project else inp)
+        g.add_vertex(f"{name}-add", ElementWiseVertex(op="add"), c, shortcut)
+        g.add_layer(f"{name}", ActivationLayer(activation="relu"), f"{name}-add")
+        return name
+
+    def conf(self):
+        c, h, w = self.input_shape
+        same = ConvolutionMode.Same
+        g = (self._builder().graph_builder()
+             .add_inputs("input")
+             .add_layer("stem-conv", ConvolutionLayer(
+                 n_out=64, kernel_size=(7, 7), stride=(2, 2), convolution_mode=same,
+                 activation="identity", has_bias=False), "input")
+             .add_layer("stem-bn", BatchNormalization(), "stem-conv")
+             .add_layer("stem-act", ActivationLayer(activation="relu"), "stem-bn")
+             .add_layer("stem-pool", SubsamplingLayer(
+                 pooling_type=PoolingType.MAX, kernel_size=(3, 3), stride=(2, 2),
+                 convolution_mode=same), "stem-act"))
+        prev = "stem-pool"
+        for si, (blocks, width) in enumerate(self.STAGES):
+            for bi in range(blocks):
+                stride = (2, 2) if (bi == 0 and si > 0) else (1, 1)
+                prev = self._bottleneck(g, f"s{si}b{bi}", prev, width, stride,
+                                        project=(bi == 0))
+        g.add_layer("gap", GlobalPoolingLayer(pooling_type=PoolingType.AVG), prev)
+        g.add_layer("output", OutputLayer(n_out=self.num_classes, activation="softmax",
+                                          loss="mcxent"), "gap")
+        g.set_outputs("output")
+        g.set_input_types(InputType.convolutional(h, w, c))
+        return g.build()
 
 
 class TransformerLM(ZooModel):

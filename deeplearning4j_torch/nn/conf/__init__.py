@@ -18,6 +18,7 @@ from . import serde
 from .serde import register, to_json, from_json
 from .inputs import InputType
 from .layers import Layer
+from .preprocessors import InputPreProcessor
 from .graph import ComputationGraphConfiguration, GraphBuilder
 
 from ..updaters import SCHEDULES, UPDATERS, Sgd
@@ -102,6 +103,10 @@ class MultiLayerConfiguration:
     tbptt_fwd_length: int = 20
     tbptt_back_length: int = 20
 
+    def preprocessor(self, idx) -> Optional[InputPreProcessor]:
+        """The input preprocessor of layer ``idx``, or None."""
+        return self.input_preprocessors.get(str(idx))
+
     def to_json(self) -> str:
         return to_json(self)
 
@@ -115,7 +120,9 @@ class MultiLayerConfiguration:
 
 class ListBuilder:
     """Collects layers; ``set_input_type`` runs shape inference (n_in
-    filling) and ``build`` emits a :class:`MultiLayerConfiguration`."""
+    filling, and each layer's input preprocessor, kept by layer index in
+    ``input_preprocessors``) and ``build`` emits a
+    :class:`MultiLayerConfiguration`."""
 
     def __init__(self, global_conf: GlobalConfig):
         self._global = global_conf
@@ -163,13 +170,18 @@ class ListBuilder:
         layers = list(self._layers)
         if any(l is None for l in layers):
             raise ValueError("Gaps in layer list (indexed .layer(i, ...) left holes)")
+        preprocs = {}
         if self._input_type is not None:
             it = self._input_type
             for i, layer in enumerate(layers):
-                layer.preprocessor_for(it)
+                p = layer.preprocessor_for(it)
+                if p is not None:
+                    preprocs[str(i)] = p
+                    it = p.get_output_type(it)
                 layer.set_n_in(it, override=False)
                 it = layer.get_output_type(i, it)
         return MultiLayerConfiguration(global_conf=self._global, layers=layers,
+                                       input_preprocessors=preprocs,
                                        input_type=self._input_type,
                                        backprop_type=self._backprop_type,
                                        tbptt_fwd_length=self._tbptt_fwd,

@@ -250,10 +250,9 @@ class ComputationGraphConfiguration:
         return order
 
     def infer_shapes(self) -> Dict[str, Any]:
-        """Propagate input types over the DAG: check vertex arity, add the
-        layers' preprocessors (the port has none yet: a layer that needs
-        one raises), fill ``n_in``. Returns {vertex name -> InputType or
-        None}."""
+        """Propagate input types over the DAG: check vertex arity, record
+        each layer's preprocessor in ``input_preprocessors`` (by vertex
+        name), fill ``n_in``. Returns {vertex name -> InputType or None}."""
         types: Dict[str, Any] = {}
         if self.input_types is not None:
             if len(self.input_types) != len(self.network_inputs):

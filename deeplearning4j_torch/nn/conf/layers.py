@@ -1,10 +1,10 @@
 """Layer configuration classes.
 
 Counterpart of ``deeplearning4j_tpu/nn/conf/layers.py``, holding only the
-classes the ported slices run (the char-RNN's and the TransformerLM's).
-Field names and order are unchanged so JSON written by the JAX package
-decodes here and re-encodes byte for byte; any other layer ``@class``
-fails to decode with the "Unknown config class" error.
+classes the ported slices run (the char-RNN's, the TransformerLM's, LeNet's
+and ResNet50's). Field names and order are unchanged so JSON written by the
+JAX package decodes here and re-encodes byte for byte; any other layer
+``@class`` fails to decode with the "Unknown config class" error.
 
 Note on dropout: following the reference's 0.9.x semantics, ``dropout`` is
 the **retain probability** (1.0 = keep everything / disabled).
@@ -12,14 +12,57 @@ the **retain probability** (1.0 = keep everything / disabled).
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, List, Optional
+import math
+from typing import Any, List, Optional, Tuple
 
 from .serde import register
-from .inputs import InputTypeFeedForward, InputTypeRecurrent
+from .inputs import (InputTypeConvolutional, InputTypeConvolutionalFlat,
+                     InputTypeFeedForward, InputTypeRecurrent)
+from .preprocessors import CnnToFeedForwardPreProcessor, FeedForwardToCnnPreProcessor
 
-__all__ = ["Layer", "BaseLayer", "FeedForwardLayer", "DenseLayer", "LayerNormalization",
-           "EmbeddingSequenceLayer", "LSTM", "GravesLSTM", "SelfAttentionLayer", "OutputLayer",
-           "RnnOutputLayer"]
+__all__ = ["Layer", "BaseLayer", "FeedForwardLayer", "DenseLayer", "ConvolutionLayer",
+           "SubsamplingLayer", "PoolingType", "BatchNormalization", "LayerNormalization",
+           "ActivationLayer", "EmbeddingSequenceLayer", "LSTM", "GravesLSTM",
+           "SelfAttentionLayer", "OutputLayer", "RnnOutputLayer", "GlobalPoolingLayer",
+           "ConvolutionMode"]
+
+
+class ConvolutionMode:
+    """Reference ``nn/conf/ConvolutionMode.java``: Strict/Truncate/Same."""
+    Strict = "strict"
+    Truncate = "truncate"
+    Same = "same"
+
+
+class PoolingType:
+    MAX = "max"
+    AVG = "avg"
+    SUM = "sum"
+    PNORM = "pnorm"
+
+
+def _pair(v) -> Tuple[int, int]:
+    if isinstance(v, (list, tuple)):
+        if len(v) == 1:
+            return (int(v[0]), int(v[0]))
+        return (int(v[0]), int(v[1]))
+    return (int(v), int(v))
+
+
+def conv_out_size(in_size, k, s, p, d, mode):
+    """Output spatial size (reference ``util/ConvolutionUtils.getOutputSize``)."""
+    eff_k = (k - 1) * d + 1
+    if mode == ConvolutionMode.Same:
+        return int(math.ceil(in_size / s))
+    return (in_size - eff_k + 2 * p) // s + 1
+
+
+def _conv_output_type(layer, input_type, channels):
+    k, s, p, d = (_pair(layer.kernel_size), _pair(layer.stride), _pair(layer.padding),
+                  _pair(layer.dilation))
+    h = conv_out_size(input_type.height, k[0], s[0], p[0], d[0], layer.convolution_mode)
+    w = conv_out_size(input_type.width, k[1], s[1], p[1], d[1], layer.convolution_mode)
+    return InputTypeConvolutional(h, w, channels)
 
 
 @register
@@ -72,10 +115,13 @@ class FeedForwardLayer(BaseLayer):
             self.n_in = input_type.arity()
 
     def preprocessor_for(self, input_type):
-        if not isinstance(input_type, InputTypeFeedForward):
+        if isinstance(input_type, (InputTypeConvolutional, InputTypeConvolutionalFlat)):
+            return CnnToFeedForwardPreProcessor(input_type.height, input_type.width,
+                                                input_type.channels)
+        if isinstance(input_type, InputTypeRecurrent):
             raise ValueError(
-                f"{type(self).__name__} after {type(input_type).__name__} "
-                f"needs an input preprocessor, and the port has none yet")
+                f"{type(self).__name__} after {type(input_type).__name__} needs "
+                f"RnnToFeedForwardPreProcessor, which the port does not have yet")
         return None
 
 
@@ -84,6 +130,82 @@ class FeedForwardLayer(BaseLayer):
 class DenseLayer(FeedForwardLayer):
     """Fully connected layer."""
     has_bias: bool = True
+
+
+@register
+@dataclasses.dataclass
+class ConvolutionLayer(FeedForwardLayer):
+    """2-D convolution over NHWC activations. ``n_in`` = input channels,
+    ``n_out`` = output channels; the kernel ``W`` is HWIO [kh, kw, cin,
+    cout], as in the JAX package."""
+    kernel_size: Tuple[int, int] = (5, 5)
+    stride: Tuple[int, int] = (1, 1)
+    padding: Tuple[int, int] = (0, 0)
+    dilation: Tuple[int, int] = (1, 1)
+    convolution_mode: str = ConvolutionMode.Truncate
+    has_bias: bool = True
+
+    def get_output_type(self, index, input_type):
+        if not isinstance(input_type, InputTypeConvolutional):
+            raise ValueError(f"ConvolutionLayer '{self.name}' needs convolutional "
+                             f"input, got {input_type}")
+        return _conv_output_type(self, input_type, self.n_out)
+
+    def set_n_in(self, input_type, override=False):
+        if self.n_in is None or override:
+            self.n_in = input_type.channels
+
+    def preprocessor_for(self, input_type):
+        if isinstance(input_type, InputTypeConvolutionalFlat):
+            return FeedForwardToCnnPreProcessor(input_type.height, input_type.width,
+                                                input_type.channels)
+        return None
+
+
+@register
+@dataclasses.dataclass
+class SubsamplingLayer(Layer):
+    """Spatial pooling (reference ``nn/conf/layers/SubsamplingLayer.java``).
+    ``dilation`` enters the output size only: the pooling itself ignores
+    it, as the JAX package's does."""
+    pooling_type: str = PoolingType.MAX
+    kernel_size: Tuple[int, int] = (2, 2)
+    stride: Tuple[int, int] = (2, 2)
+    padding: Tuple[int, int] = (0, 0)
+    dilation: Tuple[int, int] = (1, 1)
+    convolution_mode: str = ConvolutionMode.Truncate
+    pnorm: Optional[int] = None
+    eps: float = 1e-8
+
+    def get_output_type(self, index, input_type):
+        if not isinstance(input_type, InputTypeConvolutional):
+            raise ValueError("SubsamplingLayer needs convolutional input")
+        return _conv_output_type(self, input_type, input_type.channels)
+
+
+@register
+@dataclasses.dataclass
+class BatchNormalization(FeedForwardLayer):
+    """Reference ``nn/conf/layers/BatchNormalization.java``. ``decay`` is the
+    running statistics' momentum; gamma/beta are trainable unless
+    ``lock_gamma_beta``."""
+    decay: float = 0.9
+    eps: float = 1e-5
+    gamma: float = 1.0
+    beta: float = 0.0
+    lock_gamma_beta: bool = False
+
+    def get_output_type(self, index, input_type):
+        return input_type
+
+    def set_n_in(self, input_type, override=False):
+        if self.n_in is None or override:
+            self.n_in = (input_type.channels if isinstance(input_type, InputTypeConvolutional)
+                         else input_type.arity())
+        self.n_out = self.n_in
+
+    def preprocessor_for(self, input_type):
+        return None
 
 
 @register
@@ -103,6 +225,12 @@ class LayerNormalization(FeedForwardLayer):
 
     def preprocessor_for(self, input_type):
         return None
+
+
+@register
+@dataclasses.dataclass
+class ActivationLayer(BaseLayer):
+    """An activation function as a layer of its own."""
 
 
 @register
@@ -137,8 +265,9 @@ class BaseRecurrentLayer(FeedForwardLayer):
     def preprocessor_for(self, input_type):
         if not isinstance(input_type, InputTypeRecurrent):
             raise ValueError(
-                f"{type(self).__name__} after {type(input_type).__name__} "
-                f"needs an input preprocessor, and the port has none yet")
+                f"{type(self).__name__} after {type(input_type).__name__} needs a "
+                f"FeedForwardToRnn or CnnToRnn preprocessor, which the port does not "
+                f"have yet")
         return None
 
 
@@ -194,3 +323,21 @@ class RnnOutputLayer(OutputLayer):
 
     def preprocessor_for(self, input_type):
         return BaseRecurrentLayer.preprocessor_for(self, input_type)
+
+
+@register
+@dataclasses.dataclass
+class GlobalPoolingLayer(Layer):
+    """Pool over space ([b, h, w, c] -> [b, c]) or time ([b, T, s] -> [b, s],
+    mask-aware) (reference ``nn/conf/layers/GlobalPoolingLayer.java``)."""
+    pooling_type: str = PoolingType.MAX
+    pooling_dimensions: Optional[Tuple[int, ...]] = None
+    collapse_dimensions: bool = True
+    pnorm: int = 2
+
+    def get_output_type(self, index, input_type):
+        if isinstance(input_type, InputTypeConvolutional):
+            return InputTypeFeedForward(input_type.channels)
+        if isinstance(input_type, InputTypeRecurrent):
+            return InputTypeFeedForward(input_type.size)
+        return input_type

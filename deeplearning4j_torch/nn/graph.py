@@ -9,8 +9,11 @@ skips the forward of output layers that nothing consumes and evaluates
 their loss on the preoutput (``fused_softmax_skip_set``). An update is the
 JAX step core: loss -> autograd gradients -> minimize flip ->
 ``normalize_gradients`` -> each layer vertex's updater -> ``p - u`` in
-place. Not ported yet: TBPTT over the graph, ``rnn_time_step``,
-MultiDataSets, listeners, ``fit_external_errors`` and input preprocessors.
+place, then the layers' new state (BatchNormalization's running
+statistics) is committed. Each layer vertex's input preprocessor runs just
+before it, and convolutional inputs arrive NCHW and flow NHWC
+(``nchw_to_nhwc``). Not ported yet: TBPTT over the graph,
+``rnn_time_step``, MultiDataSets, listeners and ``fit_external_errors``.
 """
 from __future__ import annotations
 
@@ -24,7 +27,7 @@ from .conf import BackpropType
 from .conf.graph import ComputationGraphConfiguration
 from .conf.layers import Layer
 from .layers import impl_for
-from .multilayer import _fit_epochs, _n_iterations
+from .multilayer import _fit_epochs, _n_iterations, nchw_to_nhwc
 from .multilayer import MultiLayerNetwork
 from .updaters import Sgd
 from ..datasets.dataset import DataSet, MultiDataSet
@@ -60,18 +63,18 @@ class ComputationGraph(nn.Module):
         self._gen = None             # draws attention-dropout seeds in training
 
     # ------------------------------------------------------------------ init
-    def init(self, params: Optional[Dict[str, Dict]] = None, device="cuda"):
+    def init(self, params: Optional[Dict[str, Dict]] = None, device="cuda",
+             states: Optional[Dict[str, Dict]] = None):
         """Build the layer vertices on ``device`` (the card unless
         ``device="cpu"``). ``params`` ({vertex name: {"W": ...}}) installs
         copies of given weights, shape-checked against the config; without
         it, weights are drawn from a ``torch.Generator`` seeded with the
-        config's seed, in topological order. Updater state starts at zero."""
+        config's seed, in topological order. ``states`` (same keys)
+        installs the layers' state, else each starts from its initial
+        state. Updater state starts at zero."""
         dev = resolve_device(device)
         conf = self.conf
         conf.infer_shapes()
-        if conf.input_preprocessors:
-            raise NotImplementedError("input preprocessors are not ported yet: "
-                                      f"{sorted(conf.input_preprocessors)}")
         layer_names = [n for n in self.topo if isinstance(conf.vertices[n], Layer)]
         if params is not None:
             extra = set(params) - set(layer_names)
@@ -84,6 +87,8 @@ class ComputationGraph(nn.Module):
             impl.index = name
             p = params.get(name, {}) if params is not None else impl.init_params(gen)
             impl.set_params(p, dev)
+            impl.set_state(states.get(name, {}) if states is not None else impl.init_state(),
+                           dev)
             impls[name] = impl
         self.impls = nn.ModuleDict(impls)
         self.device = dev
@@ -103,23 +108,37 @@ class ComputationGraph(nn.Module):
     def _trainable(self) -> Dict[str, Dict[str, nn.Parameter]]:
         return {n: impl.param_dict() for n, impl in self.impls.items()}
 
+    @property
+    def states(self) -> Dict[str, Dict[str, torch.Tensor]]:
+        """{vertex name: {"mean": tensor, ...}} for every layer vertex ({}
+        for a stateless one): live buffers that fit steps update in place."""
+        return {n: impl.layer_state() for n, impl in self.impls.items()}
+
     # Shared with MultiLayerNetwork: they read only device, gc, updater,
-    # updater_state and _trainable().
+    # updater_state, impls and _trainable().
     _to_device = MultiLayerNetwork._to_device
     _grads = MultiLayerNetwork._grads
     _update = MultiLayerNetwork._update
     _batch_tensors = MultiLayerNetwork._batch_tensors
+    _commit_states = MultiLayerNetwork._commit_states
+    num_params = MultiLayerNetwork.num_params
+    numParams = num_params
 
     # -------------------------------------------------------------- forward
-    def _apply_graph(self, inputs, input_masks, train, rng=None, skip=()):
-        """Forward over the topological order. Returns (activations, masks).
-        ``rng`` (a ``torch.Generator``, training only) draws attention
+    def _apply_graph(self, inputs, input_masks, train, rng=None, skip=(), new_states=None):
+        """Forward over the topological order. Returns (activations, masks,
+        ctx). ``rng`` (a ``torch.Generator``, training only) draws attention
         dropout; ``skip`` names vertices not to run (the loss pass skips
-        output-layer forwards)."""
+        output-layer forwards); in training, layers with state leave their
+        new state in ``new_states`` when it is given."""
         conf = self.conf
-        acts = dict(zip(conf.network_inputs, inputs))
+        its = conf.input_types or [None] * len(inputs)
+        acts = dict(zip(conf.network_inputs,
+                        [nchw_to_nhwc(x, it) for x, it in zip(inputs, its)]))
         masks = dict(zip(conf.network_inputs, input_masks or [None] * len(conf.network_inputs)))
         ctx = {"inputs": acts, "input_masks": masks, "train": train, "rng": rng}
+        if new_states is not None:
+            ctx["new_states"] = new_states
         for name in self.topo:
             if name in skip:
                 continue
@@ -127,13 +146,17 @@ class ComputationGraph(nn.Module):
             in_names = conf.vertex_inputs[name]
             xs = [acts[i] for i in in_names]
             if isinstance(v, Layer):
+                x = xs[0]
+                pre = conf.input_preprocessors.get(name)
+                if pre is not None:
+                    x = pre(x, ctx)
                 m = masks.get(in_names[0])
-                acts[name] = self.impls[name](xs[0], mask=m, ctx=ctx)
+                acts[name] = self.impls[name](x, mask=m, ctx=ctx)
                 masks[name] = m
             else:
                 acts[name] = v.forward(xs, ctx)
                 masks[name] = v.propagate_mask([masks.get(i) for i in in_names])
-        return acts, masks
+        return acts, masks, ctx
 
     def output(self, *inputs, masks=None):
         """Activations of the output vertices; one tensor (on the network's
@@ -141,20 +164,23 @@ class ComputationGraph(nn.Module):
         with torch.inference_mode():
             xs = [self._to_device(x) for x in inputs]
             ms = None if masks is None else [self._to_device(m) for m in masks]
-            acts, _ = self._apply_graph(xs, ms, False)
+            acts, _, _ = self._apply_graph(xs, ms, False)
             outs = [acts[n] for n in self.conf.network_outputs]
         return outs[0] if len(outs) == 1 else outs
 
     # -------------------------------------------------------------- training
-    def _loss_fn(self, inputs, labels, input_masks, label_masks, train, rng=None):
+    def _loss_fn(self, inputs, labels, input_masks, label_masks, train, rng=None,
+                 new_states=None):
         """Sum of the output layers' losses + L1/L2 (``_loss_fn`` of the JAX
-        package, without the MoE auxiliary loss)."""
+        package, without the MoE auxiliary loss); a training forward's new
+        layer state goes into ``new_states`` when it is given."""
         conf = self.conf
         if train:
             for impl in self.impls.values():
                 impl.check_trainable()
         out_set = fused_softmax_skip_set(conf, self.impls)
-        acts, masks = self._apply_graph(inputs, input_masks, train, rng, skip=out_set)
+        acts, masks, ctx = self._apply_graph(inputs, input_masks, train, rng, skip=out_set,
+                                             new_states=new_states)
         total = 0.0
         for out_name, lbl, lm in zip(conf.network_outputs, labels,
                                      label_masks or [None] * len(labels)):
@@ -164,6 +190,9 @@ class ComputationGraph(nn.Module):
                                  f"layer: cannot compute the training loss")
             in_name = conf.vertex_inputs[out_name][0]
             x = acts[in_name]
+            pre = conf.input_preprocessors.get(out_name)
+            if pre is not None:
+                x = pre(x, ctx)
             mask = lm if lm is not None else (masks.get(in_name) if x.dim() == 3 else None)
             total = total + impl.loss_on(x, lbl, mask=mask)
         reg = 0.0
@@ -172,9 +201,11 @@ class ComputationGraph(nn.Module):
         return total + reg
 
     def _step(self, f, l, fm, lm, iteration):
+        new_states = {}
         loss = self._loss_fn([f], [l], None if fm is None else [fm],
-                             None if lm is None else [lm], True, self._gen)
+                             None if lm is None else [lm], True, self._gen, new_states)
         self._update(loss, iteration)
+        self._commit_states(new_states)
         return loss.detach()
 
     def _tensors(self, ds: DataSet):

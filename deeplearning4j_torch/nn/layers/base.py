@@ -5,10 +5,23 @@ implementation is an ``nn.Module`` built from its layer config; its
 trainable parameters carry the reference names (``W``, ``RW``, ``b``,
 ``pi`` ...), ``forward(x, mask=None, ctx=None)`` runs the layer (autograd
 records it when the caller trains), and ``regularization()`` gives the
-L1/L2 penalty. Dropout and weight noise draw from the JAX package's random
-streams and are not ported: a training forward of a layer that configures
-either raises (:meth:`LayerImpl.check_trainable`); inference ignores them,
-as the reference does.
+L1/L2 penalty.
+
+Layer state (the JAX package's ``state`` pytree: BatchNormalization's
+running mean and var) lives in buffers, never in parameters, so neither
+the updater nor autograd sees it: ``init_state``/``set_state`` make and
+install it, ``layer_state()`` reads it as ``{name: tensor}``. A training
+forward (``ctx["train"]``) computes the new state and, when the container
+passes a ``ctx["new_states"]`` dict, leaves it there under the layer's
+index; the container commits it (``commit_state``) only after a fit
+step's update, so ``score(training=True)`` and
+``compute_gradient_and_score`` use batch statistics but change nothing,
+as in the JAX package.
+
+Dropout and weight noise draw from the JAX package's random streams and
+are not ported: a training forward of a layer that configures either
+raises (:meth:`LayerImpl.check_trainable`); inference ignores them, as the
+reference does.
 
 Dtype policy (``base.py:78-86``, ``:211-226`` of the JAX package):
 parameters live in ``dtype`` (f32 masters); matmul operands are cast to
@@ -143,6 +156,33 @@ class LayerImpl(nn.Module):
 
     def param_dict(self) -> Dict[str, torch.Tensor]:
         return {k: v for k, v in self.named_parameters(recurse=False)}
+
+    # ---------------------------------------------------------------- state
+    def init_state(self) -> Dict[str, torch.Tensor]:
+        """The layer's initial state, {} for a stateless layer."""
+        return {}
+
+    def set_state(self, state: Dict[str, torch.Tensor], device) -> None:
+        """Install copies of ``state`` (the names and shapes of
+        :meth:`init_state`, cast to its dtypes) on ``device`` as buffers."""
+        want = self.init_state()
+        if set(state) != set(want):
+            raise ValueError(f"layer {self.index} ({type(self.conf).__name__}): state "
+                             f"{sorted(state)} does not match {sorted(want)}")
+        for name, like in want.items():
+            t = torch.as_tensor(state[name])
+            if tuple(t.shape) != tuple(like.shape):
+                raise ValueError(f"layer {self.index} state '{name}': shape "
+                                 f"{tuple(t.shape)}, config needs {tuple(like.shape)}")
+            self.register_buffer(name, t.detach().to(device=device, dtype=like.dtype).clone())
+
+    def layer_state(self) -> Dict[str, torch.Tensor]:
+        return dict(self.named_buffers(recurse=False))
+
+    def commit_state(self, new_state: Dict[str, torch.Tensor]) -> None:
+        with torch.no_grad():
+            for name, t in new_state.items():
+                getattr(self, name).copy_(t)
 
     def regularization(self):
         """L1/L2 penalty (reference ``BaseLayer.calcL1/calcL2``), weights and

@@ -1,7 +1,7 @@
 """Feed-forward layer implementations.
 
 Counterpart of ``deeplearning4j_tpu/nn/layers/feedforward.py`` (DenseLayer,
-EmbeddingSequenceLayer).
+ActivationLayer, EmbeddingSequenceLayer).
 """
 from __future__ import annotations
 
@@ -40,6 +40,14 @@ class DenseImpl(LayerImpl):
 
     def forward(self, x, mask=None, ctx=None):
         return self.activation(self.preout(x)).to(self.out_dtype)
+
+
+@implements("ActivationLayer")
+class ActivationImpl(LayerImpl):
+    """The activation alone; the output keeps the input's dtype."""
+
+    def forward(self, x, mask=None, ctx=None):
+        return self.activation(x)
 
 
 @implements("EmbeddingSequenceLayer")

@@ -7,7 +7,12 @@ minibatch or, with truncated BPTT, per segment (``_fit_batch``,
 ``_fit_tbptt``), ``score`` and ``compute_gradient_and_score``. The update
 is the JAX step core (``_raw_update_core``/``_raw_step``): loss ->
 autograd gradients -> minimize flip -> ``normalize_gradients`` -> the
-layer's updater -> ``p - u``, applied in place.
+layer's updater -> ``p - u``, applied in place; then the layers' new state
+(BatchNormalization's running statistics) is committed.
+
+Each layer's input preprocessor (``conf.input_preprocessors``) runs just
+before it, and convolutional inputs arrive NCHW at the user boundary and
+flow NHWC inside (``nchw_to_nhwc``).
 
 Two consecutive plain LSTM layers run as one fused kernel
 (``ops/lstm_fused.py``: K3, and K4 backward in training) when
@@ -29,6 +34,7 @@ from torch import nn
 
 from .. import resolve_device
 from .conf import BackpropType, CacheMode, MultiLayerConfiguration
+from .conf.inputs import InputTypeConvolutional
 from .conf.layers import FeedForwardLayer
 from .layers import impl_for
 from .layers.recurrent import _BaseLSTMImpl
@@ -47,6 +53,17 @@ def _n_iterations(gc) -> int:
     """Optimizer iterations per minibatch or TBPTT segment (0.9.x
     ``iterations``)."""
     return int(getattr(gc, "iterations", 1) or 1)
+
+
+def nchw_to_nhwc(x, input_type):
+    """Convolutional input arrives NCHW (the reference's convention) and
+    flows NHWC: a permuted view at the boundary (the JAX package's
+    ``_adapt_input``/``_adapt_inputs``). Other input, and input already
+    NHWC, passes unchanged."""
+    if (isinstance(input_type, InputTypeConvolutional) and x.dim() == 4
+            and x.shape[1] == input_type.channels and x.shape[2] == input_type.height):
+        return x.permute(0, 2, 3, 1)
+    return x
 
 
 def _detached(state):
@@ -71,17 +88,23 @@ class MultiLayerNetwork(nn.Module):
         self._warned_tbptt = False
 
     # ------------------------------------------------------------------ init
-    def init(self, params: Optional[Dict[str, Dict]] = None, device="cuda"):
+    def init(self, params: Optional[Dict[str, Dict]] = None, device="cuda",
+             states: Optional[Dict[str, Dict]] = None):
         """Build the layer implementations on ``device`` (the card unless
         ``device="cpu"``). ``params`` ({"0": {"W": ...}, ...}, tensors or
         arrays) installs copies of given weights, shape-checked against the
         config; without it, weights are drawn from a ``torch.Generator``
-        seeded with the config's seed. Updater state starts at zero."""
+        seeded with the config's seed. ``states`` (same keys) installs the
+        layers' state, else each layer starts from its initial state.
+        Updater state starts at zero."""
         dev = resolve_device(device)
         layers = self.conf.layers
         it = self.conf.input_type
         if it is not None:
             for i, lc in enumerate(layers):
+                pre = self.conf.preprocessor(i)
+                if pre is not None:
+                    it = pre.get_output_type(it)
                 lc.set_n_in(it, override=False)
                 it = lc.get_output_type(i, it)
         for i, lc in enumerate(layers):
@@ -101,6 +124,8 @@ class MultiLayerNetwork(nn.Module):
             p = (params.get(str(i), {}) if params is not None
                  else impl.init_params(gen))
             impl.set_params(p, dev)
+            impl.set_state(states.get(str(i), {}) if states is not None
+                           else impl.init_state(), dev)
             impls.append(impl)
         self.impls = nn.ModuleList(impls)
         self.device = dev
@@ -122,6 +147,24 @@ class MultiLayerNetwork(nn.Module):
     def _trainable(self) -> Dict[str, Dict[str, nn.Parameter]]:
         return {str(i): impl.param_dict() for i, impl in enumerate(self.impls)}
 
+    @property
+    def states(self) -> Dict[str, Dict[str, torch.Tensor]]:
+        """{"0": {}, "1": {"mean": tensor, "var": tensor}, ...}: each layer's
+        state (the JAX package's ``states``), live buffers that fit steps
+        update in place."""
+        return {str(i): impl.layer_state() for i, impl in enumerate(self.impls)}
+
+    def num_params(self) -> int:
+        return sum(p.numel() for ps in self._trainable().values() for p in ps.values())
+
+    numParams = num_params
+
+    def _commit_states(self, new_states) -> None:
+        """Install the new layer state a training forward left in
+        ``new_states`` (keyed by layer index or vertex name)."""
+        for key, state in new_states.items():
+            self.impls[key].commit_state(state)
+
     # -------------------------------------------------------------- forward
     def _to_device(self, a):
         """An input array as a tensor on the network's device (floating
@@ -129,16 +172,26 @@ class MultiLayerNetwork(nn.Module):
         already put there."""
         return to_tensor(a, self.device)
 
-    def _apply_layers(self, x, fmask, rnn_state_in=None, train=False, upto=None):
-        """Run layers [0, upto). Returns (x, ctx); ``ctx["rnn_state_out"]``
-        holds each recurrent layer's final (h, c)."""
-        ctx = {}
+    def _apply_layers(self, x, fmask, rnn_state_in=None, train=False, upto=None,
+                      new_states=None):
+        """Run layers [0, upto), each after its input preprocessor. Returns
+        (x, ctx); ``ctx["rnn_state_out"]`` holds each recurrent layer's
+        final (h, c). In training, layers with state leave their new state
+        in ``new_states`` when it is given."""
+        ctx = {"train": train}
         if rnn_state_in is not None:
             ctx["rnn_state_in"] = rnn_state_in
+        if new_states is not None:
+            ctx["new_states"] = new_states
+        x = nchw_to_nhwc(x, self.conf.input_type)
         n = len(self.impls) if upto is None else upto
         i = 0
         while i < n:
-            if i + 1 < n and self._lstm_pair_fusable(i, x, fmask, train):
+            pre = self.conf.preprocessor(i)
+            if pre is not None:
+                x = pre(x, ctx)
+            if (i + 1 < n and self.conf.preprocessor(i + 1) is None
+                    and self._lstm_pair_fusable(i, x, fmask, train)):
                 x = self._fused_lstm_forward(x, ctx, i)
                 i += 2
                 continue
@@ -233,14 +286,19 @@ class MultiLayerNetwork(nn.Module):
     rnnClearPreviousState = rnn_clear_previous_state
 
     # -------------------------------------------------------------- training
-    def _loss_fn(self, f, l, fm, lm, train, rnn_state_in=None):
+    def _loss_fn(self, f, l, fm, lm, train, rnn_state_in=None, new_states=None):
         """Loss + L1/L2 penalty (``_loss_fn`` of the JAX package). Returns
-        (loss, rnn_state_out)."""
+        (loss, rnn_state_out); a training forward's new layer state goes
+        into ``new_states`` when it is given."""
         if train:
             for impl in self.impls:
                 impl.check_trainable()
         n = len(self.impls)
-        x, ctx = self._apply_layers(f, fm, rnn_state_in, train, upto=n - 1)
+        x, ctx = self._apply_layers(f, fm, rnn_state_in, train, upto=n - 1,
+                                    new_states=new_states)
+        pre = self.conf.preprocessor(n - 1)
+        if pre is not None:
+            x = pre(x, ctx)
         out = self.impls[-1]
         if not hasattr(out, "loss_on"):
             raise ValueError(f"Last layer {type(out).__name__} is not an output layer")
@@ -275,9 +333,12 @@ class MultiLayerNetwork(nn.Module):
                     p.sub_(updates[i][k].to(p.dtype))
 
     def _step(self, f, l, fm, lm, iteration, rnn_state_in=None):
-        """One update. Returns (detached loss, detached rnn state out)."""
-        loss, rnn_out = self._loss_fn(f, l, fm, lm, True, rnn_state_in)
+        """One update, then the layers' new state. Returns (detached loss,
+        detached rnn state out)."""
+        new_states = {}
+        loss, rnn_out = self._loss_fn(f, l, fm, lm, True, rnn_state_in, new_states)
         self._update(loss, iteration)
+        self._commit_states(new_states)
         return loss.detach(), _detached(rnn_out)
 
     def _steps(self, f, l, fm, lm, rnn_state_in=None):

@@ -14,7 +14,9 @@ the JAX package. ``updaterState.bin`` (same layout, keypaths
 ``"<layer>/<param>/<slot>"``, e.g. Adam's m at ``0/W/0`` and v at ``0/W/1``)
 and ``iteration_count`` are read too, so a JAX checkpoint resumes training
 in the port with the same updater moments and bias correction. Layer state
-(``states.bin``) is not read: no layer of the port has any.
+(``states.bin``, same layout: ``"<layer>/mean"``, ``"<layer>/var"`` of a
+BatchNormalization) is read when the zip has it, so a CNN restores with its
+running statistics. Writing zips is not ported yet.
 """
 from __future__ import annotations
 
@@ -34,11 +36,12 @@ from ..nn.graph import ComputationGraph
 from ..nn.multilayer import MultiLayerNetwork
 
 __all__ = ["restore_multi_layer_network", "restore_computation_graph", "params_from_numpy",
-           "updater_state_from_numpy"]
+           "states_from_numpy", "updater_state_from_numpy"]
 
 CONFIG_JSON = "configuration.json"
 COEFFICIENTS_BIN = "coefficients.bin"
 UPDATER_BIN = "updaterState.bin"
+STATES_BIN = "states.bin"
 _BF16 = "__bf16__"
 
 
@@ -65,21 +68,36 @@ def _layer_keys(conf):
     return [str(i) for i in range(len(conf.layers))]
 
 
-def params_from_numpy(conf, arrays: Mapping[str, np.ndarray]
-                      ) -> Dict[str, Dict[str, torch.Tensor]]:
-    """{keypath: ndarray} (the npz layout) -> {layer key: {"W": tensor}, ...}
-    for a MultiLayerConfiguration or a ComputationGraphConfiguration, ready
-    for ``init(params=...)`` of its container, which checks every shape
-    against ``conf``. A keypath splits at its last "/"."""
+def _by_layer(conf, arrays: Mapping[str, np.ndarray], what: str
+              ) -> Dict[str, Dict[str, torch.Tensor]]:
+    """{keypath: ndarray} -> {layer key: {name: tensor}}; a keypath splits
+    at its last "/"."""
     keys = _layer_keys(conf)
     out: Dict[str, Dict[str, torch.Tensor]] = {k: {} for k in keys}
     for path, t in _decoded(arrays).items():
         layer, _, name = path.rpartition("/")
         if layer not in out or not name:
-            raise ValueError(f"parameter '{path}' does not name a parameter of "
+            raise ValueError(f"{what} '{path}' does not name a {what} of "
                              f"one of the {len(keys)} layers")
         out[layer][name] = t
     return out
+
+
+def params_from_numpy(conf, arrays: Mapping[str, np.ndarray]
+                      ) -> Dict[str, Dict[str, torch.Tensor]]:
+    """{keypath: ndarray} (the npz layout) -> {layer key: {"W": tensor}, ...}
+    for a MultiLayerConfiguration or a ComputationGraphConfiguration, ready
+    for ``init(params=...)`` of its container, which checks every shape
+    against ``conf``."""
+    return _by_layer(conf, arrays, "parameter")
+
+
+def states_from_numpy(conf, arrays: Mapping[str, np.ndarray]
+                      ) -> Dict[str, Dict[str, torch.Tensor]]:
+    """{keypath: ndarray} (a ``states.bin``) -> {layer key: {"mean": tensor,
+    ...}}, ready for ``init(states=...)``, which checks each layer's names
+    and shapes (every stateful layer's state must be there)."""
+    return _by_layer(conf, arrays, "state")
 
 
 def updater_state_from_numpy(net, arrays: Mapping[str, np.ndarray]):
@@ -125,6 +143,7 @@ def _restore(path, device, load_updater, kind, conf_cls, net_cls):
     with zipfile.ZipFile(path, "r") as z:
         conf_doc = json.loads(z.read(CONFIG_JSON).decode("utf-8"))
         coeff = z.read(COEFFICIENTS_BIN)
+        states = z.read(STATES_BIN) if STATES_BIN in z.namelist() else None
         upd = (z.read(UPDATER_BIN) if load_updater and UPDATER_BIN in z.namelist()
                else None)
     if conf_doc.get("type") != kind:
@@ -132,7 +151,9 @@ def _restore(path, device, load_updater, kind, conf_cls, net_cls):
     conf = decode(conf_doc["config"])
     if not isinstance(conf, conf_cls):
         raise ValueError(f"configuration.json does not describe a {conf_cls.__name__}")
-    net = net_cls(conf).init(params=params_from_numpy(conf, _npz(coeff)), device=dev)
+    net = net_cls(conf).init(params=params_from_numpy(conf, _npz(coeff)), device=dev,
+                             states=None if states is None
+                             else states_from_numpy(conf, _npz(states)))
     if upd is not None:
         net.updater_state = updater_state_from_numpy(net, _npz(upd))
     net.iteration_count = int(conf_doc.get("iteration_count", 0))
@@ -142,8 +163,9 @@ def _restore(path, device, load_updater, kind, conf_cls, net_cls):
 
 def restore_multi_layer_network(path, device="cuda", load_updater=True) -> MultiLayerNetwork:
     """The network saved at ``path``, on ``device`` (the card unless
-    ``device="cpu"``), with its updater state when the zip has one (and
-    ``load_updater``) and its iteration and epoch counts."""
+    ``device="cpu"``), with its layer state when the zip has one, its
+    updater state when the zip has one (and ``load_updater``) and its
+    iteration and epoch counts."""
     return _restore(path, device, load_updater, "MultiLayerNetwork", MultiLayerConfiguration,
                     MultiLayerNetwork)
 

@@ -102,6 +102,11 @@ def test_entry_points_default_to_the_card(tmp_path, monkeypatch):
         ServedModel("m", cpu_net)
     with pytest.raises(RuntimeError, match="CUDA"):
         restore_multi_layer_network(tmp_path / "missing.zip")   # before any read
+    from deeplearning4j_torch.models import LeNet, ResNet50
+    for model in (LeNet(), ResNet50()):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            model.init()
+    assert LeNet().init(device="cpu").device.type == "cpu"
 
 
 def test_dense_network_matches_jax_package():
