@@ -44,7 +44,18 @@ and the CUDA toolkit; run from the root of the repository. It
    K3's and K4's shares of its device time) and of one masked fit (with K1's and
    K2's), and holds the card's gradients against the CPU reference's
    (unmasked and masked);
-6. holds the flash-attention kernels K5 (forward), K6 (dq) and K7 (dk/dv)
+6. saves the trained char-RNN and a TextGenerationLSTM at the reference's
+   widths (47 characters, 2 x GravesLSTM(256), f32; from ``ModelSelector``)
+   with ``write_model``, loads each back with ``ModelGuesser`` on the card
+   (parameters, Adam state and ``output`` bit-equal) and samples 200
+   characters at b=4 from a 100-character prompt with ``generate_tokens``:
+   exactly one K3 launch a call (two K1 where K3 has no grid), the prompt's
+   launch and the first one-step launches held against the plain version,
+   the same seed the same characters; times K3 and K1 at T=1, b=4 beside
+   their plain versions and bounds; and serves an un-built
+   TextGenerationLSTM (a ``ZooModel``) over HTTP, answers checked against
+   its ``output``;
+7. holds the flash-attention kernels K5 (forward), K6 (dq) and K7 (dk/dv)
    against their plain versions at small shapes over their options (f32
    and bf16, head dims 16, 64, 80 and 128, so that both routes of each
    kernel's static choice are held, Tq != Tk, lengths that are odd
@@ -55,7 +66,7 @@ and the CUDA toolkit; run from the root of the repository. It
    with a key mask that pads one example whole (its rows and gradients
    must be exactly 0), and with dropout at a seed and nonzero offsets; and
    checks the kernel's dropout keep bits against ``dropout_keep_mask``;
-7. builds the 8-block TransformerLM of bench.py:1730 (vocab 4096, embed
+8. builds the 8-block TransformerLM of bench.py:1730 (vocab 4096, embed
    512, 8 heads, FFN 4x, bf16 compute, Adam) on the card from a seed, runs
    ``output`` on one b=4, T=8192 batch (one K5 launch per block) and
    trains it with ``fit`` on period-23 token text (per step one K5, one K6
@@ -64,7 +75,7 @@ and the CUDA toolkit; run from the root of the repository. It
    (alternating turns) and a profile of one step, and holds the card's
    score and gradients against the CPU reference's at reduced width and
    depth on the flash route (T=4096);
-8. runs the TransformerLM's fit through the input pipeline
+9. runs the TransformerLM's fit through the input pipeline
    (``datasets/prefetch.py``) three ways, each one ``fit`` of 3 distinct
    batches cycled to 6 steps: synchronously (``DL4J_TPU_PREFETCH_WORKERS=0``),
    with put-ahead (pinned staging, a side CUDA stream) and with
@@ -74,12 +85,21 @@ and the CUDA toolkit; run from the root of the repository. It
    off the compute stream, and how much of it kernels overlap). The
    char-RNN fits of step 5 run through the pipeline too, timed beside the
    synchronous path in alternating turns;
-9. runs an f32-weight 2 x GravesLSTM(512) net at b=32, where K3 has no
+10. saves the TransformerLM trained in step 8 with its Adam state, loads it
+   back with ``ModelGuesser`` on the card (``output`` at b=4, T=8192 and
+   the moments bit-equal) and samples 256 tokens at b=4 from a 384-token
+   prompt through the layers' 512-slot KV cache, so the window rolls at
+   the 129th token (no kernel of the repo launches: the cached attention
+   is the dense body); each sampled distribution sums to 1 within 2^-8;
+   the same seed the same tokens; prefill ms, ms a token, tokens/s, peak
+   memory and a profiled decode step; then streams 512 tokens one at a
+   time against ``output`` on them, in bf16 and in an f32 twin;
+11. runs an f32-weight 2 x GravesLSTM(512) net at b=32, where K3 has no
    grid, per layer through ``output``, ``rnn_time_step`` and ``fit``
    against the CPU, and an f32 d=256 attention at T=4096, past what the
    flash kernels take in f32, through ``mha``'s dense body against the
    flash plain versions;
-10. trains ResNet50 at bench.py:187's shape (b=256, 3x224x224, 1000
+12. trains ResNet50 at bench.py:187's shape (b=256, 3x224x224, 1000
    classes, bf16, Adam) through ``ComputationGraph.fit`` under
    ``CacheMode.DEVICE``: 3 warm-up and 25 timed steps, ms a step, images/s
    and peak memory; finite losses, every BN layer's running mean and var
@@ -87,20 +107,23 @@ and the CUDA toolkit; run from the root of the repository. It
    step (device busy share; device time and launches of cuDNN
    convolutions, BN, other elementwise work, pooling and the updater; no
    NCHW/NHWC transposition kernel);
-11. trains LeNet at bench.py:202's shape (b=1024, bf16, iterations(10),
+13. trains LeNet at bench.py:202's shape (b=1024, bf16, iterations(10),
    ``CacheMode.DEVICE``) through ``MultiLayerNetwork.fit``: ms a step and
    images/s over ten fits, a falling loss, ``output``;
-12. holds ResNet50 at 3x64x64, b=8 on the card in f64, f32 with TF32 off,
+14. holds ResNet50 at 3x64x64, b=8 on the card in f64, f32 with TF32 off,
    and bf16 against the CPU in f64 (output, score, gradients), the CPU
    replaying the card's ReLU signs and max-pool picks, at fixed limits;
-13. prints a ``{"cnn": ...}`` line with those numbers, a ``{"kernels":
-   [...]}`` line and, last, the ``{"ok": true, "device": ...}`` line.
+15. prints a ``{"cnn": ...}`` line with those numbers, a ``{"generate":
+   ...}`` line with steps 6 and 10's, a ``{"kernels": [...]}`` line (K1's
+   and K3's entries with their decode rows) and, last, the ``{"ok": true,
+   "device": ...}`` line.
 
 Any failure raises, and the script exits nonzero without the last line.
 """
 from __future__ import annotations
 
 import contextlib
+import copy
 import json
 import os
 import subprocess
@@ -223,6 +246,40 @@ BATCH_COPY_BYTES = 1 << 20
 F32_PAIR_ATOL = 1e-4
 F32_PAIR_SCORE_RTOL = 1e-5
 F32_PAIR_GRAD_RTOL = 1e-4
+
+# Generation. The TransformerLM the smoke trained, saved and restored,
+# samples GEN_TOKENS tokens for GEN_B prompts of GEN_PROMPT tokens through
+# its layers' 512-slot KV cache, so the window rolls past 512 at the 129th
+# sampled token; then it streams GEN_STREAM_T tokens one at a time against
+# its output on the same tokens. The stream and output round k, v and the
+# logits to bf16 at other places (a one-token product vs the sequence's,
+# the dense body over a cache vs over the sequence), so the limit is the
+# CPU tests' bf16 one (tests/test_torch_generation.py): 2e-2 of the
+# largest probability. On an H100 (700 W) the net after the smoke's 13
+# steps reads 1.366e-2, the same in two calls (the net and the data come
+# from seeds); a near-uniform net reads more (2.07e-2 after 2 steps: three
+# bf16 units of a largest probability of 0.009). Against an f32 twin of the net (the same weights)
+# the bf16 stream and the bf16 output each read 1.0e-2 to 1.7e-2: the
+# error is bf16's rounding of the net, not the cache's. The twin holds the
+# contract itself, stream against output, at the CPU tests' f32 limits.
+GEN_B, GEN_PROMPT, GEN_TOKENS, GEN_STREAM_T = 4, 384, 256, 512
+GEN_STREAM_RTOL = 2e-2
+GEN_SEED = 5
+# The char-RNNs (the trained bf16 2 x GravesLSTM(512) and a
+# TextGenerationLSTM at the reference's widths: 47 characters, 256 units,
+# f32) sample CHAR_TOKENS characters for GEN_B prompts of CHAR_PROMPT: one
+# K3 launch for the prompt and one a character (2 K1 a call where K3 has
+# no grid). The first DECODE_CHECKS one-step launches of each are also
+# computed by the kernel's plain version on the same inputs, at KERNEL_ATOL
+# over the larger of 1 and the output's largest entry (kernel_err): a
+# trained net's cell state c grows far past 1 (90 after three fits). The
+# prompt's 100-step launch is compared too and its error reported, not
+# held: over 100 steps of the trained bf16 net a bf16 unit that h rounds
+# to differently grows to 9.2e-3 in h (an H100's reading; 2.4e-7 on the
+# single steps after it), which says how the recurrence amplifies
+# rounding, not whether the kernel computes the step.
+CHAR_PROMPT, CHAR_TOKENS, DECODE_CHECKS = 100, 200, 4
+TEXTGEN_VOCAB, TEXTGEN_H = 47, 256
 
 # ResNet50 of bench.py:187 (bench_resnet50 through _cnn_throughput): b=256,
 # 3x224x224, 1000 classes, bf16 compute, Adam 1e-3, N(0, 1) NCHW features
@@ -819,7 +876,11 @@ def build_net(conf, seed=2):
 
 
 def one_hot(rng, b, t):
-    return np.eye(VOCAB, dtype=np.float32)[rng.integers(0, VOCAB, (b, t))]
+    return one_hot_ids(rng.integers(0, VOCAB, (b, t)), VOCAB)
+
+
+def one_hot_ids(ids, vocab):
+    return np.eye(vocab, dtype=np.float32)[ids]
 
 
 def post(port, name, x):
@@ -1005,12 +1066,14 @@ def profile_call(label, fn, updater=None, forbid=()):
     busy += hi - lo
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]
     log(f"profile of {label}: wall {wall_us / 1e3:.3f} ms, device busy "
-        f"{busy / 1e3:.3f} ms ({100 * busy / wall_us:.1f}%)"
+        f"{busy / 1e3:.3f} ms ({100 * busy / wall_us:.1f}%), "
+        f"{sum(n for n, _ in by_name.values())} device events"
         + (f", no kernel named {' or '.join(forbid)}" if forbid else "")
         + "; device time by kernel (launches):")
     for name, (n, us) in top:
         log(f"  {us / 1e3:9.3f} ms ({n:5d})  {name[:100]}")
     res = {"wall_ms": wall_us / 1e3, "busy_ms": busy / 1e3,
+           "launches": sum(n for n, _ in by_name.values()),
            "top_ms": {name[:100]: us / 1e3 for name, (_, us) in top},
            "top_launches": {name[:100]: n for name, (n, _) in top}}
     if updater is None:
@@ -1127,7 +1190,7 @@ def train(conf):
                 f"{100 * k / prof_m['busy_ms']:.1f}% of the fit's {prof_m['busy_ms']:.3f} ms "
                 f"device busy")
     return {"launches": launches, "losses": losses, "fit_ms": times, "pipeline": pipe,
-            "profile": prof, "profile_masked": prof_m}
+            "profile": prof, "profile_masked": prof_m, "net": net}
 
 
 def pipeline_breakdown(net, ds, reps=20):
@@ -1579,7 +1642,7 @@ def transformer_lm():
         f"tokens/s; peak memory {torch.cuda.max_memory_allocated() / 2 ** 30:.1f} GiB")
     prof = profile_call("one TransformerLM step", lambda: net.fit(ds))
     return {"launches": launches, "output_launches": out_launches, "output_ms": output_ms,
-            "losses": losses, "step_ms": step_ms, "profile": prof}
+            "losses": losses, "step_ms": step_ms, "profile": prof, "net": net}
 
 
 def check_lm_reference():
@@ -2139,6 +2202,396 @@ def check_cnn_reference():
     return out
 
 
+def same_tensors(a, b):
+    """Whether two nested trees hold the same keypaths and the same bits."""
+    from deeplearning4j_torch.utils.model_serializer import leaves
+
+    fa, fb = dict(leaves(a)), dict(leaves(b))
+    return fa.keys() == fb.keys() and all(
+        fa[k].dtype == fb[k].dtype and torch.equal(fa[k], fb[k]) for k in fa)
+
+
+def save_and_guess(net, name):
+    """``write_model`` (with the updater) into build/generate/, then
+    ``ModelGuesser.load_model_guess`` on the card. Returns (the restored
+    net, write s, load s, zip bytes)."""
+    from deeplearning4j_torch.utils.model_guesser import ModelGuesser
+    from deeplearning4j_torch.utils.model_serializer import ModelSerializer
+
+    out = Path("build") / "generate"
+    out.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    path = ModelSerializer.write_model(net, out / f"{name}.zip")
+    t1 = time.perf_counter()
+    restored = ModelGuesser.load_model_guess(path)          # device defaults to the card
+    t2 = time.perf_counter()
+    if type(restored) is not type(net) or restored.device != net.device:
+        raise AssertionError(f"{name}: load_model_guess gave a {type(restored).__name__} on "
+                             f"{restored.device}")
+    if not (same_tensors(net.params, restored.params)
+            and same_tensors(net.updater_state, restored.updater_state)
+            and restored.iteration_count == net.iteration_count):
+        raise AssertionError(f"{name}: the restored parameters, updater state or iteration "
+                             f"count differ from the saved net's")
+    return restored, t1 - t0, t2 - t1, path.stat().st_size
+
+
+def kernel_err(out, ref):
+    """The worst output's max |kernel - plain| over the larger of 1 and its
+    largest |plain| entry (h lies in (-1, 1); c does not)."""
+    return max(((a - r).abs().max() / r.abs().max().clamp(min=1.0)).item()
+               for a, r in zip(out, ref))
+
+
+@contextlib.contextmanager
+def held_against_plain(n_checked=DECODE_CHECKS):
+    """While active, the path's first launch of K1 and of K3 and their
+    first ``n_checked`` one-step (T=1) launches are also computed by the
+    kernel's plain version on the same inputs (the plain loops count no
+    launch), and the last one-step call's arguments of each are kept for
+    timing. Yields {"lstm_fwd": {"first", "errors", "step_args"},
+    "lstm2_fwd": {...}}: the first launch's error, the one-step launches'
+    errors."""
+    from deeplearning4j_torch.ops import lstm_cell, lstm_fused
+
+    mods = {"lstm_fwd": (lstm_cell, lstm_cell.lstm_fwd_plain),
+            "lstm2_fwd": (lstm_fused, lstm_fused.lstm2_fwd_plain)}
+    seen = {n: {"first": None, "errors": [], "step_args": None} for n in mods}
+    real = {n: getattr(m, n) for n, (m, _) in mods.items()}
+
+    def tap(name):
+        def launched(*args, **kw):
+            out = real[name](*args, **kw)
+            s = seen[name]
+            step = args[0].shape[0] == 1              # xp [T, b, 4H]: one step
+            if step:
+                s["step_args"] = args
+            if s["first"] is None or (step and len(s["errors"]) < n_checked):
+                ref = mods[name][1](*args, **kw)
+                err = kernel_err(out, ref)
+                if s["first"] is None:
+                    s["first"] = err
+                else:
+                    s["errors"].append(err)
+                log(f"  {name} T={args[0].shape[0]} b={args[0].shape[1]} vs plain, each "
+                    f"output's max_abs_err / max |plain|: " + ", ".join(
+                        f"{(a - r).abs().max().item():.2e}/{r.abs().max().item():.2f}"
+                        for a, r in zip(out, ref)))
+            return out
+        return launched
+
+    for n, (m, _) in mods.items():
+        setattr(m, n, tap(n))
+    try:
+        yield seen
+    finally:
+        for n, (m, _) in mods.items():
+            setattr(m, n, real[n])
+
+
+def decode_rows(seen, launches, model, w_dtype, b, H):
+    """K3's and K1's decode-shape rows (T=1, batch b) for the kernel table:
+    each kernel held against and timed by CUDA events beside its plain
+    version on the arguments of one of the path's steps (K1 on layer 1 of
+    a K3 step when the path fused the pair), its bound from the bytes and
+    operations of one step, and the path's launches. ``max_abs_err`` is
+    the worst of the timed step and the path's checked launches."""
+    from deeplearning4j_torch.ops import lstm_cell, lstm_fused
+
+    wb = 2 if w_dtype == torch.bfloat16 else 4
+    on_tc = w_dtype == torch.bfloat16
+    k3 = seen["lstm2_fwd"]["step_args"]
+    k1 = seen["lstm_fwd"]["step_args"]
+    if k1 is None and k3 is not None:
+        xp, rw1, _, _, _, peep6, h0 = k3
+        k1 = (xp, rw1, None if peep6 is None else peep6[0:3].contiguous(), None,
+              h0[0].contiguous(), h0[1].contiguous())
+    mm = 2 * b * H * 4 * H
+    rows = {}
+    for name, args, fn, plain, n_mm, layers in (
+            ("lstm2_fwd", k3, lstm_fused.lstm2_fwd, lstm_fused.lstm2_fwd_plain, 3, 2),
+            ("lstm_fwd", k1, lstm_cell.lstm_fwd, lstm_cell.lstm_fwd_plain, 1, 1)):
+        if args is None:
+            continue
+        with torch.inference_mode():        # the arguments are the path's inference tensors
+            err = kernel_err(fn(*args), plain(*args))
+            ms = cuda_ms(lambda: fn(*args), 50)
+            plain_ms = cuda_ms(lambda: plain(*args), 20)
+            # back to back, a launch at T=1 costs the wrapper's host time
+            # more than the kernel's: the profiler's device time beside it
+            prof = profile_call(f"10 launches of {name} at T=1 b={b} ({model})",
+                                lambda: [fn(*args) for _ in range(10)])
+        device_ms = (None if prof is None else
+                     sum(t for k, t in prof["top_ms"].items() if name in k) / 10)
+        if not err <= KERNEL_ATOL:
+            raise AssertionError(f"decode {name} ({model}) disagrees with its plain version: "
+                                 f"{err}")
+        # one step: xp in, the weights, biases and peepholes, each layer's
+        # (h, c) in and out, the top layer's h out
+        nbytes = (b * 4 * H * 4 + n_mm * H * 4 * H * wb + (layers - 1) * 4 * H * 4
+                  + layers * 3 * H * 4 + layers * 4 * b * H * 4 + b * H * 4)
+        bms, by = bound(nbytes, n_mm * mm if on_tc else 0,
+                        (0 if on_tc else n_mm * mm) + layers * b * H * CELL_OPS)
+        errs = seen[name]["errors"]
+        rows[name] = {"model": model, "launches": launches[name],
+                      "max_abs_err": max([err, *errs]), "ms": ms, "device_ms": device_ms,
+                      "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+                      "library_ms": None,
+                      "shape": {"b": b, "T": 1, "H": H, "w": "bf16" if on_tc else "f32",
+                                "peepholes": True}}
+        dev = "not measured" if device_ms is None else f"{device_ms * 1e3:.2f} us"
+        log(f"decode {name} ({model}) T=1 b={b}: kernel {ms * 1e3:.2f} us (events over 50 "
+            f"launches), device {dev} (profiler), plain "
+            f"{plain_ms * 1e3:.1f} us, bound {bms * 1e3:.3f} us ({by}; the weights are "
+            f"{n_mm * H * 4 * H * wb / 1e6:.2f} MB), {launches[name]} launches on the path; "
+            f"max_abs_err {err:.2e} on the timed step, the path's checked launches "
+            + (" ".join(f"{e:.2e}" for e in errs) if errs else "none"))
+    return rows
+
+
+def generate_char_rnn(net, model, vocab, H, w_dtype):
+    """A char-RNN saved, guessed back and sampling through the card:
+    ``generate_tokens`` at b=GEN_B from a CHAR_PROMPT-character prompt for
+    CHAR_TOKENS characters, counted (one K3 launch a call, or two K1 where
+    ``lstm_fused.fwd_route`` has no grid), its first launches held against
+    the plain versions; then the same seed again, timed, for the same
+    characters."""
+    from deeplearning4j_torch.models import generate_tokens
+    from deeplearning4j_torch.ops import lstm_fused
+
+    restored, write_s, load_s, nbytes = save_and_guess(net, model)
+    rng = np.random.default_rng(11)
+    x = one_hot_ids(rng.integers(0, vocab, (2, 30)), vocab)
+    if not torch.equal(net.output(x), restored.output(x)):
+        raise AssertionError(f"{model}: the restored net's output differs from the saved one's")
+    prompt = rng.integers(0, vocab, (GEN_B, CHAR_PROMPT))
+    calls = 1 + CHAR_TOKENS
+    fused = lstm_fused.fwd_route(w_dtype, GEN_B, H, device=restored.device)[1] > 0
+    want = {n: 0 for n in counters()}
+    want.update({"lstm2_fwd": calls} if fused else {"lstm_fwd": 2 * calls})
+    reset_counts()
+    with held_against_plain() as seen:
+        tokens = generate_tokens(restored, prompt, CHAR_TOKENS, seed=GEN_SEED)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    if launches != want:
+        raise AssertionError(f"{model}: generate_tokens launched {launches}, expected {want}")
+    errs = [e for s in seen.values() for e in s["errors"]]
+    if len(errs) < DECODE_CHECKS or not max(errs) <= KERNEL_ATOL:
+        raise AssertionError(f"{model}: a one-step launch disagrees with its plain version: "
+                             f"{errs} (limit {KERNEL_ATOL})")
+    prompt_err = max(s["first"] for s in seen.values() if s["first"] is not None)
+    if tokens.shape != (GEN_B, CHAR_TOKENS) or tokens.min() < 0 or tokens.max() >= vocab:
+        raise AssertionError(f"{model}: bad tokens {tokens.shape} {tokens.min()} {tokens.max()}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    again = generate_tokens(restored, prompt, CHAR_TOKENS, seed=GEN_SEED)
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    if not np.array_equal(tokens, again):
+        raise AssertionError(f"{model}: the same seed sampled other characters")
+    log(f"{model}: zip {nbytes / 1e6:.1f} MB written in {write_s:.3f} s, guessed back in "
+        f"{load_s:.3f} s; generate_tokens b={GEN_B} prompt {CHAR_PROMPT} + {CHAR_TOKENS} "
+        f"characters: launches {launches}; {wall_ms:.1f} ms "
+        f"({wall_ms / calls:.3f} ms a call, {GEN_B * CHAR_TOKENS / wall_ms * 1e3:.0f} "
+        f"characters/s), the same seed the same characters; the prompt's launch vs plain "
+        f"{prompt_err:.2e}, the first {len(errs)} one-step launches {max(errs):.2e} "
+        f"(limit {KERNEL_ATOL})")
+    rows = decode_rows(seen, launches, model, w_dtype, GEN_B, H)
+    return {"launches": launches, "write_s": write_s, "load_s": load_s, "zip_bytes": nbytes,
+            "generate_ms": wall_ms, "ms_per_call": wall_ms / calls,
+            "chars_per_s": GEN_B * CHAR_TOKENS / wall_ms * 1e3, "fused": fused,
+            "prompt_launch_err": prompt_err, "step_launch_err": max(errs)}, rows
+
+
+def serve_zoo_model():
+    """An un-built TextGenerationLSTM (ModelSelector) registered with the
+    InferenceServer, which builds it on the card; a few concurrent HTTP
+    requests, each checked against the served net's ``output``."""
+    from deeplearning4j_torch import InferenceServer
+    from deeplearning4j_torch.models import ModelSelector
+
+    rng = np.random.default_rng(12)
+    xs = [one_hot_ids(rng.integers(0, TEXTGEN_VOCAB, (n, t)), TEXTGEN_VOCAB)
+          for n, t in ((1, 40), (3, 40), (4, 40), (2, 40))]
+    srv = InferenceServer()
+    srv.register("textgen", ModelSelector.select("textgenlstm"), linger_ms=5.0)
+    port = srv.start(port=0)
+    try:
+        model = srv.registry.get("textgen").model
+        with ThreadPoolExecutor(max_workers=4) as pool:
+            answers = [f.result() for f in [pool.submit(post, port, "textgen", x) for x in xs]]
+    finally:
+        srv.stop()
+    if model.device.type != "cuda":
+        raise AssertionError(f"the ZooModel was built on {model.device}")
+    err = max(float(np.abs(y - model.output(x).cpu().numpy()).max())
+              for x, y in zip(xs, answers))
+    log(f"ZooModel TextGenerationLSTM over HTTP: {len(answers)} requests, answers vs output "
+        f"max_abs_err={err:.3e}")
+    if not err <= SERVE_ATOL:
+        raise AssertionError(f"the served ZooModel disagrees with its output: {err}")
+    return {"requests": len(answers), "max_abs_err": err}
+
+
+def generate_char_rnns(trained):
+    """The char-RNN generation step: the trained bf16 char-RNN and a
+    TextGenerationLSTM at the reference's widths, then the ZooModel over
+    HTTP. Returns (the {"generate": ...} numbers, the decode rows by
+    kernel)."""
+    from deeplearning4j_torch.models import ModelSelector
+
+    out, decode = {}, {"lstm2_fwd": [], "lstm_fwd": []}
+    textgen = ModelSelector.select("textgenlstm").init()     # the card
+    for model, net, vocab, h, wd in (
+            ("char-RNN bf16 H=512", trained, VOCAB, H, torch.bfloat16),
+            ("TextGenerationLSTM f32 H=256", textgen, TEXTGEN_VOCAB, TEXTGEN_H,
+             torch.float32)):
+        out[model], rows = generate_char_rnn(net, model, vocab, h, wd)
+        for name, row in rows.items():
+            decode[name].append(row)
+    out["zoo_http"] = serve_zoo_model()
+    return out, decode
+
+
+def generate_lm(net):
+    """The TransformerLM generation phase on the net the smoke trained:
+    ``write_model`` with its updater, ``load_model_guess`` on the card
+    (``output`` on one batch and the Adam moments bit-equal), then
+    ``generate_tokens`` at b=GEN_B from GEN_PROMPT tokens for GEN_TOKENS
+    tokens through the 512-slot KV cache (counted: no kernel of the repo
+    launches, the cached attention is the dense body), each step's
+    probability rows summing to 1; the same seed again, timed per call;
+    and the streaming contract: GEN_STREAM_T tokens one at a time against
+    ``output`` of the same tokens."""
+    from deeplearning4j_torch.models import generate_tokens
+
+    restored, write_s, load_s, nbytes = save_and_guess(net, "transformer_lm")
+    f = np.random.default_rng(13).integers(0, LM_VOCAB, (LM_B, LM_T)).astype(np.float32)
+    if not torch.equal(net.output(f), restored.output(f)):
+        raise AssertionError("the restored TransformerLM's output differs from the trained "
+                             "net's")
+    log(f"TransformerLM: zip {nbytes / 1e6:.1f} MB written in {write_s:.2f} s, guessed back "
+        f"in {load_s:.2f} s; output on b={LM_B} T={LM_T}, parameters and Adam moments "
+        f"bit-equal")
+    prompt = np.random.default_rng(14).integers(0, LM_VOCAB, (GEN_B, GEN_PROMPT))
+    step = restored.rnn_time_step
+    record = {"sum_err": [], "ms": []}
+
+    def recorded(*a):
+        t0 = time.perf_counter()
+        y = step(*a)
+        torch.cuda.synchronize()
+        record["ms"].append((time.perf_counter() - t0) * 1e3)
+        p = y[:, -1] if y.dim() == 3 else y
+        record["sum_err"].append((p.float().sum(-1) - 1).abs().max())
+        return y
+
+    restored.rnn_time_step = recorded
+    try:
+        reset_counts()
+        tokens = generate_tokens(restored, prompt, GEN_TOKENS, seed=GEN_SEED)
+        torch.cuda.synchronize()
+        launches = read_counts()
+        sum_err = max(e.item() for e in record["sum_err"])
+        n_seen = restored._rnn_state["b0-attn"][3]          # the cache's token counter
+    finally:
+        del restored.rnn_time_step
+    # timed without the recording wrapper: prefill alone, then the whole loop
+    restored.rnn_clear_previous_state()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    restored.rnn_time_step(prompt[:, :, None].astype(np.float32))
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.reset_peak_memory_stats()
+    base_gib = torch.cuda.memory_allocated() / 2 ** 30
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    again = generate_tokens(restored, prompt, GEN_TOKENS, seed=GEN_SEED)
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    if any(launches.values()):
+        raise AssertionError(f"generation launched a kernel of the repo: {launches} (the "
+                             f"cached attention is the dense body)")
+    if tokens.shape != (GEN_B, GEN_TOKENS) or tokens.min() < 0 or tokens.max() >= LM_VOCAB:
+        raise AssertionError(f"bad tokens {tokens.shape}")
+    if not np.array_equal(tokens, again):
+        raise AssertionError("the same seed sampled other tokens")
+    window = restored.conf.vertices["b0-attn"].stream_max_length
+    if n_seen != GEN_PROMPT + GEN_TOKENS or not n_seen > window:
+        raise AssertionError(f"the cache saw {n_seen} tokens, its window is {window}")
+    if not sum_err <= PROB_SUM_ATOL:
+        raise AssertionError(f"a sampled distribution sums to 1 only within {sum_err}")
+    step_ms = (wall_ms - prefill_ms) / GEN_TOKENS
+    rec_steps = record["ms"][1:]
+    log(f"TransformerLM generate_tokens b={GEN_B}, prompt {GEN_PROMPT} + {GEN_TOKENS} tokens "
+        f"(the {window}-slot window rolled at sampled token {window - GEN_PROMPT + 1}; the "
+        f"cache saw {n_seen}): launches {launches}; rows sum to 1 within {sum_err:.2e}; the "
+        f"same seed the same tokens. Timed unwrapped: prefill {prefill_ms:.2f} ms, "
+        f"{wall_ms:.1f} ms in all, {step_ms:.3f} ms a sampled token (sampling included), "
+        f"{GEN_B * GEN_TOKENS / wall_ms * 1e3:.0f} tokens/s; peak memory {peak_gib:.3f} GiB "
+        f"({base_gib:.3f} GiB before). The checked run's rnn_time_step calls (a sync and a "
+        f"row sum each): median {float(np.median(rec_steps)):.3f} ms, p90 "
+        f"{float(np.percentile(rec_steps, 90)):.3f} ms")
+
+    step_ids = np.asarray(tokens[:, -1:], np.float32)
+    prof = profile_call("one TransformerLM decode step (b=4, a 512-slot cache)",
+                        lambda: restored.rnn_time_step(step_ids))
+
+    ids = np.random.default_rng(15).integers(0, LM_VOCAB, (GEN_B, GEN_STREAM_T))
+    ids = ids.astype(np.float32)
+    steps16, full16 = stream_and_output(restored, ids)
+    # the same weights computing in f32 (TF32 off): the contract without
+    # bf16's rounding at the f32 limits of tests/test_torch_generation.py,
+    # and a reference for the bf16 stream's and output's own errors
+    conf32 = copy.deepcopy(restored.conf)
+    conf32.global_conf.compute_dtype = "float32"
+    twin = type(restored)(conf32).init(params=restored.params)
+    steps32, full32 = stream_and_output(twin, ids)
+    del twin
+
+    def rel(got, want):                                     # per sequence
+        return ((got - want).abs().amax(dim=(1, 2)) / want.abs().amax(dim=(1, 2))).tolist()
+
+    stream_rel = ((steps16 - full16).abs().max() / full16.abs().max()).item()
+    stream_rows = rel(steps16, full16)
+    vs32_stream, vs32_output = rel(steps16, full32), rel(full16, full32)
+    stream_f32 = ((steps32 - full32).abs() - 2e-4 * full32.abs()).max().item()
+    log(f"TransformerLM streaming contract, {GEN_STREAM_T} tokens one at a time vs output on "
+        f"the same tokens, max_abs_err over the largest probability: bf16 {stream_rel:.3e} "
+        f"(limit {GEN_STREAM_RTOL}; per sequence {', '.join(f'{e:.3e}' for e in stream_rows)}, "
+        f"over each one's largest); against the "
+        f"f32 twin's output the bf16 stream reads {', '.join(f'{e:.3e}' for e in vs32_stream)} "
+        f"and the bf16 output {', '.join(f'{e:.3e}' for e in vs32_output)}; in f32 max "
+        f"|stream - output| - 2e-4 |output| = {stream_f32:.3e} (limit 2e-5)")
+    if not stream_rel <= GEN_STREAM_RTOL:
+        raise AssertionError(f"the bf16 rnn_time_step disagrees with output: {stream_rel}")
+    if not stream_f32 <= 2e-5:
+        raise AssertionError(f"rnn_time_step disagrees with output in f32: {stream_f32}")
+    return {"launches": launches, "write_s": write_s, "load_s": load_s, "zip_bytes": nbytes,
+            "prefill_ms": prefill_ms, "ms_per_token": step_ms,
+            "recorded_step_ms_p50": float(np.median(rec_steps)),
+            "recorded_step_ms_p90": float(np.percentile(rec_steps, 90)),
+            "generate_ms": wall_ms,
+            "tokens_per_s": GEN_B * GEN_TOKENS / wall_ms * 1e3, "peak_gib": peak_gib,
+            "prob_sum_err": sum_err, "stream_rel_err": stream_rel,
+            "stream_rel_err_rows": stream_rows, "stream_vs_f32_rel_err_rows": vs32_stream,
+            "output_vs_f32_rel_err_rows": vs32_output,
+            "stream_f32_excess": stream_f32, "cache_tokens": n_seen,
+            "decode_step_profile": prof}
+
+
+def stream_and_output(net, ids):
+    """``ids`` [b, T] streamed one token at a time through ``net``'s KV
+    cache, and ``net``'s ``output`` on the same tokens, both [b, T, V]
+    in f32."""
+    net.rnn_clear_previous_state()
+    steps = torch.stack([net.rnn_time_step(ids[:, t:t + 1]) for t in range(ids.shape[1])],
+                        1).float()
+    net.rnn_clear_previous_state()
+    return steps, net.output(ids).float()
+
+
 def build():
     """Compile every kernel of the port, one nvcc per source, all at once,
     and print what ptxas reports of registers, shared memory and spills."""
@@ -2168,11 +2621,12 @@ def build():
                 log(f"  {src}: {entry[:72] + ': ' if named else ''}{line.strip()}")
 
 
-def kernel_line(serving, training, served, streamed, trained, flash, lm):
+def kernel_line(serving, training, served, streamed, trained, flash, lm, decode):
     """The {"kernels": [...]} entries: for K1-K4 numbers at the char-RNN's
     training shape, the launches of its training main path, and K1/K3's
-    serving numbers; for K5-K7 numbers at the TransformerLM's shape and
-    the launches of its training main path (its ``output`` apart)."""
+    serving numbers and their decode rows (T=1, b=GEN_B, one a
+    generating char-RNN); for K5-K7 numbers at the TransformerLM's shape
+    and the launches of its training main path (its ``output`` apart)."""
     shape = {"b": TRAIN_B, "T": TRAIN_T, "H": H, "w": "bf16", "peepholes": True}
     sshape = {"b": B, "T": T, "H": H, "w": "bf16", "peepholes": True}
 
@@ -2204,13 +2658,14 @@ def kernel_line(serving, training, served, streamed, trained, flash, lm):
         entry("lstm_fwd", "lstm_fwd_train", "lstm_cell.cu", "deeplearning4j_tpu/ops/lstm_cell.py:99",
               [training["lstm_fwd_train/masked"], training["lstm_fwd_train/unmasked"]],
               {**serving_of("lstm_fwd", ["lstm_fwd/masked", "lstm_fwd/unmasked"]),
+               "decode": decode["lstm_fwd"],
                "design": training["lstm_fwd_train/masked"]["design"]}),
         entry("lstm_bwd", "lstm_bwd", "lstm_cell_bwd.cu", "deeplearning4j_tpu/ops/lstm_cell.py:235",
               [training["lstm_bwd/masked"], training["lstm_bwd/unmasked"]],
               {"design": training["lstm_bwd/masked"]["design"]}),
         entry("lstm2_fwd", "lstm2_fwd_train", "lstm_fused.cu", "deeplearning4j_tpu/ops/lstm_fused.py:111",
               [training["lstm2_fwd_train"]],
-              {**serving_of("lstm2_fwd", ["lstm2_fwd"]),
+              {**serving_of("lstm2_fwd", ["lstm2_fwd"]), "decode": decode["lstm2_fwd"],
                "design": training["lstm2_fwd_train"]["design"]}),
         entry("lstm2_bwd", "lstm2_bwd", "lstm_fused_bwd.cu", "deeplearning4j_tpu/ops/lstm_fused.py:249",
               [training["lstm2_bwd"]], {"design": training["lstm2_bwd"]["design"]}),
@@ -2263,6 +2718,7 @@ def main() -> int:
     check_reference(conf, net)
     trained = train(conf)
     check_train_reference(conf)
+    generated, decode = generate_char_rnns(trained.pop("net"))
     del net
     torch.cuda.empty_cache()
     check_flash_small()
@@ -2271,6 +2727,8 @@ def main() -> int:
     lm = transformer_lm()
     check_lm_reference()
     lm_pipeline()
+    torch.cuda.empty_cache()
+    generated["transformer_lm"] = generate_lm(lm.pop("net"))
     torch.cuda.empty_cache()
     check_lstm_pair_f32()
     check_flash_f32_wide()
@@ -2281,8 +2739,9 @@ def main() -> int:
     cnn["reference"] = check_cnn_reference()
     print(json.dumps({"cnn": cnn}))
 
+    print(json.dumps({"generate": generated}))
     print(json.dumps({"kernels": kernel_line(serving, training, served, streamed,
-                                             trained["launches"], flash, lm)}))
+                                             trained["launches"], flash, lm, decode)}))
     log(f"chip_smoke took {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -1,4 +1,6 @@
 """Model zoo: standard architectures as config builders."""
-from .zoo import LeNet, ResNet50, TransformerLM, ZooModel  # noqa: F401
+from .zoo import (ZOO, LeNet, ModelSelector, ResNet50, TextGenerationLSTM,  # noqa: F401
+                  TransformerLM, ZooModel, generate_tokens)
 
-__all__ = ["ZooModel", "LeNet", "ResNet50", "TransformerLM"]
+__all__ = ["ZooModel", "LeNet", "ResNet50", "TextGenerationLSTM", "TransformerLM",
+           "generate_tokens", "ZOO", "ModelSelector"]

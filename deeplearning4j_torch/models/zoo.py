@@ -1,26 +1,33 @@
 """Model zoo: standard architectures as config builders.
 
 Counterpart of ``deeplearning4j_tpu/models/zoo.py``: the ``ZooModel`` base
-(``conf``, ``init``, ``_builder``), ``LeNet``, ``ResNet50`` and
-``TransformerLM``, with the JAX package's layer and vertex names, so that
-the keypaths of its zips match. The other zoo models, pretrained weights
-and the MoE variant of ``TransformerLM`` are not ported yet.
+(``conf``, ``init``, ``_builder``), ``LeNet``, ``ResNet50``,
+``TextGenerationLSTM`` and ``TransformerLM``, with the JAX package's layer
+and vertex names, so that the keypaths of its zips match;
+``generate_tokens``, the sampling loop over either container's
+``rnn_time_step``; and ``ModelSelector``, which knows every name the JAX
+package's does. The other zoo models (selecting one raises), pretrained
+weights and the MoE variant of ``TransformerLM`` are not ported yet.
 """
 from __future__ import annotations
 
 from typing import Optional, Tuple
 
+import numpy as np
+
 from ..nn.conf import InputType, MultiLayerConfiguration, NeuralNetConfiguration
 from ..nn.conf.graph import ElementWiseVertex
 from ..nn.conf.layers import (ActivationLayer, BatchNormalization, ConvolutionLayer,
                               ConvolutionMode, DenseLayer, EmbeddingSequenceLayer,
-                              GlobalPoolingLayer, LayerNormalization, OutputLayer, PoolingType,
-                              RnnOutputLayer, SelfAttentionLayer, SubsamplingLayer)
+                              GlobalPoolingLayer, GravesLSTM, LayerNormalization, OutputLayer,
+                              PoolingType, RnnOutputLayer, SelfAttentionLayer,
+                              SubsamplingLayer)
 from ..nn.graph import ComputationGraph
 from ..nn.multilayer import MultiLayerNetwork
 from ..nn.updaters import Adam
 
-__all__ = ["ZooModel", "LeNet", "ResNet50", "TransformerLM"]
+__all__ = ["ZooModel", "LeNet", "ResNet50", "TextGenerationLSTM", "TransformerLM",
+           "generate_tokens", "ZOO", "ModelSelector"]
 
 
 class ZooModel:
@@ -140,6 +147,36 @@ class ResNet50(ZooModel):
         return g.build()
 
 
+class TextGenerationLSTM(ZooModel):
+    """Reference ``zoo/model/TextGenerationLSTM.java``: a char-level stack of
+    ``num_layers`` (>= 2) GravesLSTM(``lstm_size``, tanh) and a per-step
+    softmax (a MultiLayerNetwork), 47 characters by default."""
+
+    name = "textgenlstm"
+
+    def __init__(self, total_unique_characters: Optional[int] = None,
+                 num_classes: Optional[int] = None, seed: int = 123,
+                 lstm_size: int = 256, num_layers: int = 2, **kw):
+        n = total_unique_characters if total_unique_characters is not None \
+            else (num_classes if num_classes is not None else 47)
+        super().__init__(n, seed, **kw)
+        self.lstm_size = lstm_size
+        if int(num_layers) < 2:
+            raise ValueError(f"TextGenerationLSTM needs num_layers >= 2 (got {num_layers})")
+        self.num_layers = int(num_layers)
+
+    def conf(self):
+        n = self.num_classes
+        b = (self._builder(activation="tanh", weight_init="xavier")
+             .list()
+             .layer(GravesLSTM(n_in=n, n_out=self.lstm_size, activation="tanh")))
+        for _ in range(self.num_layers - 1):
+            b.layer(GravesLSTM(n_in=self.lstm_size, n_out=self.lstm_size, activation="tanh"))
+        b.layer(RnnOutputLayer(n_in=self.lstm_size, n_out=n, activation="softmax",
+                               loss="mcxent"))
+        return b.build()
+
+
 class TransformerLM(ZooModel):
     """Decoder-only transformer language model, built as a ComputationGraph
     so that the residual adds are ``ElementWiseVertex`` edges:
@@ -208,3 +245,91 @@ class TransformerLM(ZooModel):
                                               loss="mcxent"), "ln-final")
              .set_outputs("out"))
         return g.build()
+
+
+def generate_tokens(net, prompt_ids, n_tokens, temperature=1.0, seed=0,
+                    advance_state=True):
+    """Autoregressive sampling through the streaming state of either
+    container (``rnn_time_step``): a ``TransformerLM`` through its KV
+    cache (id inputs), a ``TextGenerationLSTM`` through its recurrent state
+    (one-hot inputs). ``prompt_ids`` [b, T] or [T] ints -> [b, n_tokens]
+    sampled ids (int64). The prompt is primed in one call; sampling is the
+    JAX package's numpy loop (``np.random.default_rng(seed)``, probabilities
+    floored at 1e-12, ``temperature`` -> 0 approaches greedy), so it is
+    deterministic given ``seed``. ``advance_state`` also feeds the last
+    sampled token, so that a caller continuing with ``rnn_time_step`` sees
+    the returned history; False saves that last step."""
+    prompt = np.asarray(prompt_ids)
+    if prompt.ndim == 1:
+        prompt = prompt[None]
+    prompt = prompt.astype(np.int64)
+    b = prompt.shape[0]
+    if prompt.shape[1] == 0:
+        raise ValueError("generate_tokens needs a non-empty prompt (the first sampling "
+                         "distribution comes from the prompt's last step)")
+    if int(n_tokens) <= 0:
+        return np.zeros((b, 0), np.int64)
+    first = (next(iter(net.conf.vertices.values())) if hasattr(net.conf, "vertices")
+             else net.conf.layers[0])
+    takes_ids = type(first).__name__ == "EmbeddingSequenceLayer"
+    vocab = first.n_in
+
+    def last_probs(x):
+        y = net.rnn_time_step(x).float().cpu().numpy()
+        return (y[:, -1, :] if y.ndim == 3 else y).astype(np.float64)     # [b, V]
+
+    def encode(toks):
+        """[b, T] ids -> a sequence input: ids [b, T, 1] (rank 3, so that the
+        container takes the sequence path) or one-hot [b, T, V]."""
+        if takes_ids:
+            return toks[:, :, None].astype(np.float32)
+        return np.eye(vocab, dtype=np.float32)[toks]
+
+    def step(tok):
+        """[b] ids -> one step: ids [b, 1] or one-hot [b, V]."""
+        if takes_ids:
+            return tok[:, None].astype(np.float32)
+        return np.eye(vocab, dtype=np.float32)[tok]
+
+    net.rnn_clear_previous_state()
+    rng = np.random.default_rng(seed)
+    probs = last_probs(encode(prompt))
+    out = []
+    for t in range(int(n_tokens)):
+        p = np.maximum(probs, 1e-12)
+        if temperature != 1.0:
+            logp = np.log(p) / max(float(temperature), 1e-6)
+            p = np.exp(logp - logp.max(-1, keepdims=True))
+        p = p / p.sum(-1, keepdims=True)
+        nxt = np.array([rng.choice(p.shape[-1], p=p[i]) for i in range(b)], dtype=np.int64)
+        out.append(nxt)
+        if t + 1 < int(n_tokens) or advance_state:
+            probs = last_probs(step(nxt))
+    return np.stack(out, axis=1)
+
+
+class _NotPorted:
+    """A zoo model the JAX package has and the port does not yet."""
+
+    def __init__(self, name):
+        self.name = name
+
+    def __call__(self, **kwargs):
+        raise NotImplementedError(f"zoo model '{self.name}' is not ported to "
+                                  f"deeplearning4j_torch yet")
+
+
+ZOO = {m.name: m for m in (LeNet, ResNet50, TextGenerationLSTM, TransformerLM)}
+ZOO.update({n: _NotPorted(n) for n in ("simplecnn", "alexnet", "vgg16", "vgg19", "googlenet",
+                                        "inceptionresnetv1", "facenetnn4small2")})
+
+
+class ModelSelector:
+    """Reference ``zoo/ModelSelector.java``: select zoo models by name."""
+
+    @staticmethod
+    def select(name: str, **kwargs) -> ZooModel:
+        key = name.lower()
+        if key not in ZOO:
+            raise ValueError(f"Unknown zoo model '{name}' (known: {sorted(ZOO)})")
+        return ZOO[key](**kwargs)

@@ -12,8 +12,11 @@ JAX step core: loss -> autograd gradients -> minimize flip ->
 place, then the layers' new state (BatchNormalization's running
 statistics) is committed. Each layer vertex's input preprocessor runs just
 before it, and convolutional inputs arrive NCHW and flow NHWC
-(``nchw_to_nhwc``). Not ported yet: TBPTT over the graph,
-``rnn_time_step``, MultiDataSets, listeners and ``fit_external_errors``.
+(``nchw_to_nhwc``). ``rnn_time_step`` streams over the DAG under
+``torch.inference_mode``: every vertex with a stream state (LSTM layers,
+the attention layers' KV cache) carries it by vertex name from call to
+call. Not ported yet: TBPTT over the graph, MultiDataSets, listeners and
+``fit_external_errors``.
 """
 from __future__ import annotations
 
@@ -61,6 +64,7 @@ class ComputationGraph(nn.Module):
         self.score_ = float("nan")
         self.last_etl_ms = 0.0       # wait for the last minibatch in fit
         self._gen = None             # draws attention-dropout seeds in training
+        self._rnn_state = None       # streaming state for rnn_time_step, by vertex
 
     # ------------------------------------------------------------------ init
     def init(self, params: Optional[Dict[str, Dict]] = None, device="cuda",
@@ -92,6 +96,7 @@ class ComputationGraph(nn.Module):
             impls[name] = impl
         self.impls = nn.ModuleDict(impls)
         self.device = dev
+        self._rnn_state = None
         self._gen = torch.Generator().manual_seed(int(self.gc.seed) + 1)
         self.updater = NetworkUpdater({
             n: getattr(conf.vertices[n], "updater", None) or self.gc.updater
@@ -125,12 +130,15 @@ class ComputationGraph(nn.Module):
     numParams = num_params
 
     # -------------------------------------------------------------- forward
-    def _apply_graph(self, inputs, input_masks, train, rng=None, skip=(), new_states=None):
+    def _apply_graph(self, inputs, input_masks, train, rng=None, skip=(), new_states=None,
+                     rnn_state_in=None):
         """Forward over the topological order. Returns (activations, masks,
         ctx). ``rng`` (a ``torch.Generator``, training only) draws attention
         dropout; ``skip`` names vertices not to run (the loss pass skips
         output-layer forwards); in training, layers with state leave their
-        new state in ``new_states`` when it is given."""
+        new state in ``new_states`` when it is given. ``rnn_state_in``
+        ({vertex name: carry}) continues a stream; each carrying vertex
+        leaves its new carry in ``ctx["rnn_state_out"]``."""
         conf = self.conf
         its = conf.input_types or [None] * len(inputs)
         acts = dict(zip(conf.network_inputs,
@@ -139,6 +147,8 @@ class ComputationGraph(nn.Module):
         ctx = {"inputs": acts, "input_masks": masks, "train": train, "rng": rng}
         if new_states is not None:
             ctx["new_states"] = new_states
+        if rnn_state_in is not None:
+            ctx["rnn_state_in"] = rnn_state_in
         for name in self.topo:
             if name in skip:
                 continue
@@ -167,6 +177,39 @@ class ComputationGraph(nn.Module):
             acts, _, _ = self._apply_graph(xs, ms, False)
             outs = [acts[n] for n in self.conf.network_outputs]
         return outs[0] if len(outs) == 1 else outs
+
+    # ------------------------------------------------------------- streaming
+    def _init_rnn_state(self, batch):
+        return {n: impl.init_stream_state(batch, self.device)
+                for n, impl in self.impls.items() if hasattr(impl, "init_stream_state")}
+
+    def rnn_time_step(self, *inputs):
+        """Stateful streaming inference over the DAG (reference CG
+        ``rnnTimeStep``): each input [b, T, f] (or one step [b, f]; token
+        ids [b, 1] are one step too) continues from the state the previous
+        call left. A single step's rank-3 outputs are squeezed to their
+        last step. One tensor when the graph has one output, else a
+        list."""
+        with torch.inference_mode():
+            xs = [self._to_device(x) for x in inputs]
+            single_step = xs[0].dim() == 2
+            if single_step:
+                xs = [x[:, None, :] for x in xs]
+            if self._rnn_state is None:
+                self._rnn_state = self._init_rnn_state(int(xs[0].shape[0]))
+            acts, _, ctx = self._apply_graph(xs, None, False, rnn_state_in=self._rnn_state)
+            self._rnn_state = ctx.get("rnn_state_out")
+            outs = [acts[n] for n in self.conf.network_outputs]
+        if single_step:
+            outs = [o[:, -1, :] if o.dim() == 3 else o for o in outs]
+        return outs[0] if len(outs) == 1 else outs
+
+    rnnTimeStep = rnn_time_step
+
+    def rnn_clear_previous_state(self):
+        self._rnn_state = None
+
+    rnnClearPreviousState = rnn_clear_previous_state
 
     # -------------------------------------------------------------- training
     def _loss_fn(self, inputs, labels, input_masks, label_masks, train, rng=None,

@@ -3,10 +3,10 @@
 Counterpart of ``deeplearning4j_tpu/nn/layers/attention.py``: the routing
 of ``mha`` (the flash-attention kernels of ``ops/flash_attention.py`` for
 long, block-divisible sequences, the dense body otherwise), the dense body
-``_dense_attention`` and the full-sequence forward of
-``SelfAttentionImpl``. Streaming inference over the KV cache
-(``_cached_attention``) and the sequence-parallel ring are not ported yet
-and raise.
+``_dense_attention``, the full-sequence forward of ``SelfAttentionImpl``
+and streaming over its KV cache (``init_stream_state``,
+``_cached_attention``: ``rnn_time_step`` of a ComputationGraph). The
+sequence-parallel ring is not ported.
 
 Attention dropout in training draws from the network's
 ``torch.Generator`` (``ctx["rng"]``): on the flash route one int32 seed per
@@ -100,19 +100,70 @@ class SelfAttentionImpl(LayerImpl):
         params["b"] = torch.full((c.n_out,), self.bias_init, dtype=self.dtype)
         return params
 
+    def init_stream_state(self, batch, device):
+        """The KV cache of streaming inference: a circular buffer of
+        ``stream_max_length`` slots of k and v [b, L, h, d] in the compute
+        dtype, each example's global position per slot [b, L] (-1: empty
+        or masked, kept per example so that uneven key padding stays
+        exact), and the global token counter, a Python int so that
+        building positions needs no sync."""
+        h, d = self._dims()
+        L = int(self.conf.stream_max_length)
+        kv = torch.zeros((batch, L, h, d), dtype=self.compute_dtype, device=device)
+        return (kv, kv.clone(), torch.full((batch, L), -1, dtype=torch.int64, device=device), 0)
+
+    def _cached_attention(self, q, k, v, carry, key_mask, rate, gen):
+        """Attention of one chunk against the KV cache, a sliding window:
+        past capacity the oldest entries are evicted. The chunk attends
+        over [retained cache | this chunk] before its writes land, so each
+        causal query at global position p sees exactly the keys at
+        positions in (p - L, p], as if the chunk were fed a token at a
+        time; a non-causal query sees every key retained after the
+        chunk's writes. Key-masked tokens advance time but are never
+        visible. One dense body with ``mha``'s."""
+        k_c, v_c, pos_c, n = carry
+        b, T = q.shape[:2]
+        L = k_c.shape[1]
+        if T > L:
+            raise ValueError(
+                f"SelfAttentionLayer stream chunk of {T} tokens exceeds "
+                f"stream_max_length={L}; raise stream_max_length on the "
+                f"layer config (it must cover the TBPTT segment length)")
+        qpos = torch.arange(n, n + T, device=q.device)                 # [T]
+        chunk_pos = qpos.expand(b, T)
+        if key_mask is not None:
+            chunk_pos = torch.where(key_mask > 0, chunk_pos, -1)
+        k, v = k.to(k_c.dtype), v.to(v_c.dtype)
+        pos_all = torch.cat([pos_c, chunk_pos], dim=1)[:, None, :]      # [b, 1, L+T]
+        visible = pos_all >= 0
+        if self.conf.causal:
+            p = qpos[None, :, None]
+            visible = visible & (pos_all <= p) & (pos_all > p - L)     # [b, Tq, L+T]
+        else:
+            visible = visible & (pos_all > n + T - 1 - L)
+        o = _dense_attention(q, torch.cat([k_c, k], dim=1), torch.cat([v_c, v], dim=1),
+                             visible[:, None], self.compute_dtype, rate, gen)
+        slots = qpos % L
+        return o, (k_c.index_copy(1, slots, k), v_c.index_copy(1, slots, v),
+                   pos_c.index_copy(1, slots, chunk_pos), n + T)
+
     def forward(self, x, mask=None, ctx=None):
         c = self.conf
         h, d = self._dims()
         b, T, _ = x.shape
         ctx = ctx or {}
-        if self.index in ctx.get("rnn_state_in", {}):
-            raise NotImplementedError("SelfAttentionLayer streaming over the KV cache "
-                                      "(rnn_time_step, TBPTT) is not ported yet")
         q = (x @ self.Wq.to(x.dtype)).reshape(b, T, h, d)
         k = (x @ self.Wk.to(x.dtype)).reshape(b, T, h, d)
         v = (x @ self.Wv.to(x.dtype)).reshape(b, T, h, d)
-        o = mha(q, k, v, c.causal, self.compute_dtype, c.dropout_rate, ctx.get("rng"),
-                ctx.get("train", False), key_mask=mask)
+        carry = ctx.get("rnn_state_in", {}).get(self.index)
+        if carry is not None:
+            gen = ctx.get("rng")
+            rate = c.dropout_rate if (ctx.get("train", False) and gen is not None) else 0.0
+            o, carry = self._cached_attention(q, k, v, carry, mask, rate, gen)
+            ctx.setdefault("rnn_state_out", {})[self.index] = carry
+        else:
+            o = mha(q, k, v, c.causal, self.compute_dtype, c.dropout_rate, ctx.get("rng"),
+                    ctx.get("train", False), key_mask=mask)
         o = o.reshape(b, T, h * d)
         y = o @ self.Wo.to(o.dtype) + self.b.to(o.dtype)
         return self.activation(y).to(self.out_dtype)

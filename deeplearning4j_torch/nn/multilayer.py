@@ -67,8 +67,11 @@ def nchw_to_nhwc(x, input_type):
 
 
 def _detached(state):
-    return None if state is None else {i: tuple(t.detach() for t in hc)
-                                       for i, hc in state.items()}
+    """A carry cut from the graph: tensors detached, other members (the KV
+    cache's Python token counter) kept as they are."""
+    return None if state is None else {
+        i: tuple(t.detach() if isinstance(t, torch.Tensor) else t for t in hc)
+        for i, hc in state.items()}
 
 
 class MultiLayerNetwork(nn.Module):

@@ -24,7 +24,8 @@ DEFAULT_BATCH_BUCKETS = (1, 2, 4, 8, 16, 32)
 class ServedModel:
     """One hosted model: the net, its batcher, and its serving config.
 
-    ``model`` is anything with ``output(features[, mask=])``. ``device`` is
+    ``model`` is anything with ``output(features[, mask=])``, or a
+    ``ZooModel``, which is built on ``device``. ``device`` is
     where batches are staged (the card unless ``device="cpu"``); a model
     that lives on a device (``model.device``) must live there.
     ``input_shape`` (the per-example trailing shape, e.g. ``(T, vocab)``)
@@ -38,9 +39,11 @@ class ServedModel:
                  default_deadline_ms: Optional[float] = 2000.0,
                  input_shape: Optional[Sequence[int]] = None,
                  warmup: bool = False):
+        dev = resolve_device(device)
+        if hasattr(model, "conf") and not hasattr(model, "output"):
+            model = model.init(device=dev)          # a ZooModel, not yet built
         if not callable(getattr(model, "output", None)):
             raise TypeError(f"model {name!r} has no callable output(features)")
-        dev = resolve_device(device)
         model_dev = getattr(model, "device", None)
         if model_dev is not None and model_dev != dev:
             raise ValueError(f"model {name!r} lives on {model_dev}, but the "

@@ -71,6 +71,10 @@ lm = TransformerLM(vocab_size=5, embed_dim=8, num_heads=2, num_blocks=1).init(de
 ids = np.arange(8, dtype=np.float32).reshape(2, 4) % 5
 lm.fit(ids, np.eye(5, dtype=np.float32)[ids.astype(int)])
 lm.output(ids)
+from deeplearning4j_torch.models import generate_tokens
+from deeplearning4j_torch.utils.model_guesser import load_model_guess
+from deeplearning4j_torch.utils.model_serializer import write_model
+generate_tokens(load_model_guess(write_model(lm, "lm.zip"), device="cpu"), [[1, 2]], 3)
 print(json.dumps(sorted(m for m in sys.modules
                         if m.split(".")[0] in ("jax", "jaxlib", "deeplearning4j_tpu"))))
 """
@@ -86,7 +90,9 @@ def test_entry_points_default_to_the_card(tmp_path, monkeypatch):
                                       resolve_device)
     from deeplearning4j_torch.nn.conf.layers import DenseLayer, OutputLayer
     from deeplearning4j_torch.serving import ServedModel
-    from deeplearning4j_torch.utils.model_serializer import restore_multi_layer_network
+    from deeplearning4j_torch.utils.model_guesser import load_model_guess
+    from deeplearning4j_torch.utils.model_serializer import (restore_model,
+                                                             restore_multi_layer_network)
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     conf = (NeuralNetConfiguration.builder().list()
@@ -100,12 +106,15 @@ def test_entry_points_default_to_the_card(tmp_path, monkeypatch):
     assert cpu_net.output([[1.0, 2.0, 3.0]]).device.type == "cpu"
     with pytest.raises(RuntimeError, match="CUDA"):
         ServedModel("m", cpu_net)
-    with pytest.raises(RuntimeError, match="CUDA"):
-        restore_multi_layer_network(tmp_path / "missing.zip")   # before any read
-    from deeplearning4j_torch.models import LeNet, ResNet50
-    for model in (LeNet(), ResNet50()):
+    for restore in (restore_multi_layer_network, restore_model, load_model_guess):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            restore(tmp_path / "missing.zip")           # before any read
+    from deeplearning4j_torch.models import LeNet, ResNet50, TextGenerationLSTM, TransformerLM
+    for model in (LeNet(), ResNet50(), TextGenerationLSTM(), TransformerLM()):
         with pytest.raises(RuntimeError, match="CUDA"):
             model.init()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ServedModel("zoo", TextGenerationLSTM())        # a ZooModel is built on the card
     assert LeNet().init(device="cpu").device.type == "cpu"
 
 
