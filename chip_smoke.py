@@ -113,9 +113,32 @@ and the CUDA toolkit; run from the root of the repository. It
 14. holds ResNet50 at 3x64x64, b=8 on the card in f64, f32 with TF32 off,
    and bf16 against the CPU in f64 (output, score, gradients), the CPU
    replaying the card's ReLU signs and max-pool picks, at fixed limits;
-15. prints a ``{"cnn": ...}`` line with those numbers, a ``{"generate":
-   ...}`` line with steps 6 and 10's, a ``{"kernels": [...]}`` line (K1's
-   and K3's entries with their decode rows) and, last, the ``{"ok": true,
+15. (``moe_lm``) builds the TransformerLM of step 8 with every block's FFN
+   up-projection a MoEDenseLayer (8 experts, top 2, capacity factor 1.25,
+   aux loss weight 1e-2) under ``CacheMode.DEVICE``: ``output`` (8 K5
+   launches; rows summing to 1), 4 ``fit`` steps (each 8 K5, 8 K6 and 8
+   K7; the loss finite and falling), the aux loss, each expert's share of
+   the assignments and the share dropped over capacity, the MoE step
+   beside the dense model's in alternating turns (ms, tokens/s, peak
+   memory), a profiled step grouped into the MoE products, K5-K7, the
+   dense products, the updater and elementwise work; capacity dispatch
+   against the dense combine at the model's shape where nothing drops;
+   the trained net saved, guessed back and sampling 32 tokens at b=4 (the
+   dense combine, no K5-K7); and a 2-block, 4-expert f32 copy against the
+   CPU on the flash route (T=4096);
+16. (``graph_tbptt``) builds the char-RNN of step 4 as a ComputationGraph
+   from the MultiLayerNetwork's weights: one segment's gradients against
+   the MLN's (K1/K2 a layer against the fused K3/K4), a TBPTT fit of b=64,
+   T=200 (each of the 4 segments 2 K1 with the reserve and 2 K2; the loss
+   and parameters against the MLN's fit), both fits timed in alternating
+   turns; and a small two-input, two-output graph (Merge, LastTimeStep,
+   DuplicateToTimeSeries, Subset and L2Normalize vertices, two f32 LSTMs)
+   fitting a MultiDataSet and taking external errors, card against CPU;
+17. prints a ``{"cnn": ...}`` line with those numbers, a ``{"generate":
+   ...}`` line with steps 6 and 10's, a ``{"moe_lm": ..., "graph_tbptt":
+   ...}`` line with steps 15 and 16's, a ``{"kernels": [...]}`` line (K1's
+   and K3's entries with their decode rows; K1/K2's launches in step 16's
+   fit, K5-K7's in step 15's steps) and, last, the ``{"ok": true,
    "device": ...}`` line.
 
 Any failure raises, and the script exits nonzero without the last line.
@@ -322,6 +345,45 @@ R50_REF_B, R50_REF_IMG, R50_REF_CLASSES, R50_REF_STATS_B = 8, (3, 64, 64), 10, 6
 R50_REF_BRANCH_GAMMA = 0.2
 R50_REF_LIMITS = {"float64": (1e-5, 1e-5, 1e-4, 1e-4), "float32": (1e-5, 1e-5, 1e-4, 1e-4),
                   "bfloat16": (3.5e-2, 1e-2, 0.4, 0.14)}
+
+# The MoE TransformerLM: bench.py:1730's model (LM_*) with every block's
+# FFN up-projection a MoEDenseLayer of 8 experts, top 2, capacity factor
+# 1.25 in training (groups of 1024 tokens, 320 slots an expert), aux loss
+# weight 1e-2: the JAX package's defaults. MOE_STEPS Adam steps on one
+# cached batch; each must launch 8 K5, 8 K6 and 8 K7. The loss must fall
+# by MOE_LOSS_DROP from the first step to the last (set before the first
+# run; the dense model fell 61% over 6 steps). Then the MoE step and the
+# dense model's step, both under CacheMode.DEVICE, in MOE_TURNS
+# alternating turns.
+MOE_EXPERTS, MOE_TOP_K, MOE_CF, MOE_AUX = 8, 2, 1.25, 1e-2
+MOE_STEPS, MOE_TURNS, MOE_LOSS_DROP = 4, 3, 0.10
+# Capacity dispatch against the dense combine on the card, one MoE layer at
+# the model's shape (32768 tokens, 512 -> 2048, bf16) at capacity factor
+# E/k, where no assignment can drop: the same bf16 products (one nonzero a
+# dispatch sum, the expert products tiled another way), so an output may
+# move by a bf16 unit or two of its largest entry (2^-8 = 3.9e-3); the
+# limit, set before the first run, is 1e-2 of the largest entry.
+MOE_SPARSE_RTOL = 1e-2
+# The trained MoE net saved, guessed back and sampling MOE_GEN_TOKENS
+# tokens at b=GEN_B from a MOE_GEN_PROMPT-token prompt (the dense combine,
+# no K5-K7).
+MOE_GEN_PROMPT, MOE_GEN_TOKENS = 64, 32
+# The char-RNN built as a ComputationGraph (vertices l0, l1, out) fits one
+# b=64, T=200 DataSet by TBPTT 50 from the MultiLayerNetwork char-RNN's
+# weights: each segment K1 with the reserve and K2 a layer, the MLN the
+# fused K3/K4. The two hold each other at the CPU reference's limits for
+# one segment's gradients (TRAIN_SCORE_RTOL, TRAIN_GRAD_RTOL), the fits'
+# last-segment losses at TRAIN_SCORE_RTOL, and the parameters after the 4
+# Adam updates at 2 x lr x 4 absolute (Adam moves an entry whose gradient
+# is at rounding level by lr in either direction a step).
+GRAPH_PARAM_ATOL = 2 * 1e-3 * 4
+# A small two-input, two-output graph (Merge, LastTimeStep,
+# DuplicateToTimeSeries, Subset and L2Normalize vertices; two f32 LSTMs on
+# K1/K2) fitting one MultiDataSet with SGD and taking external errors once,
+# on the card and on the CPU from the same weights (TF32 off): the same
+# f32 arithmetic in another order; limits set before the first run: score
+# 1e-5 relative, parameters 1e-5 absolute.
+SMALL_GRAPH_SCORE_RTOL, SMALL_GRAPH_PARAM_ATOL = 1e-5, 1e-5
 
 
 def log(msg):
@@ -1012,7 +1074,7 @@ def periodic_text(rng, b, t, period=23):
     return eye[ids[:, :-1]], eye[ids[:, 1:]]
 
 
-def profile_call(label, fn, updater=None, forbid=()):
+def profile_call(label, fn, updater=None, forbid=(), group=None):
     """One call of ``fn`` under torch.profiler: device time and launches by
     kernel, and the card's busy share of the call's wall time (profiler
     on, so slightly slower than an unprofiled call). With ``updater``, its
@@ -1020,7 +1082,7 @@ def profile_call(label, fn, updater=None, forbid=()):
     summed by ``kernel_group``. Raises if a kernel's name holds a word of
     ``forbid`` (any case). None when the profiler recorded no device
     events, unless ``forbid`` is given: then that raises, since nothing
-    was checked."""
+    was checked. ``group`` replaces ``kernel_group``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
 
@@ -1087,7 +1149,7 @@ def profile_call(label, fn, updater=None, forbid=()):
     groups = {}
     for e in events:
         if e.device_type == DeviceType.CPU and e.kernels:
-            g = kernel_group(chain(e))
+            g = (group or kernel_group)(chain(e))
             n, ms = groups.get(g, (0, 0.0))
             groups[g] = (n + len(e.kernels), ms + sum(k.duration for k in e.kernels) / 1e3)
     log("  device time by group (launches):")
@@ -1543,13 +1605,17 @@ def check_keep_bits(fa, seed):
         f"({100 * want.float().mean().item():.1f}% kept at rate 0.1)")
 
 
-def lm_conf(vocab=LM_VOCAB, embed=LM_E, heads=LM_HEADS, blocks=LM_BLOCKS):
-    """The TransformerLM of bench.py:1730 (or a cut of it), bf16 compute."""
+def lm_conf(vocab=LM_VOCAB, embed=LM_E, heads=LM_HEADS, blocks=LM_BLOCKS, experts=0,
+            compute="bfloat16"):
+    """The TransformerLM of bench.py:1730 (or a cut of it), bf16 compute;
+    with ``experts`` its MoE variant (top MOE_TOP_K, capacity factor
+    MOE_CF, aux loss weight MOE_AUX)."""
     from deeplearning4j_torch.models import TransformerLM
 
     conf = TransformerLM(vocab_size=vocab, embed_dim=embed, num_heads=heads,
-                         num_blocks=blocks, seed=1).conf()
-    conf.global_conf.compute_dtype = "bfloat16"
+                         num_blocks=blocks, seed=1, num_experts=experts, top_k=MOE_TOP_K,
+                         capacity_factor=MOE_CF, aux_loss_weight=MOE_AUX).conf()
+    conf.global_conf.compute_dtype = compute
     return conf
 
 
@@ -1645,16 +1711,18 @@ def transformer_lm():
             "losses": losses, "step_ms": step_ms, "profile": prof, "net": net}
 
 
-def check_lm_reference():
+def check_lm_reference(experts=0, compute="bfloat16"):
     """compute_gradient_and_score of a cut TransformerLM on the card against
     the same network on the CPU, both on the flash route (T=4096): the card
-    through K5-K7, the CPU through their plain versions."""
+    through K5-K7, the CPU through their plain versions. With ``experts``
+    the MoE variant (capacity dispatch in the training forward)."""
     from deeplearning4j_torch import DataSet
     from deeplearning4j_torch.nn.graph import ComputationGraph
 
-    conf = lm_conf(vocab=256, embed=128, heads=2, blocks=2)
-    net = ComputationGraph(conf).init()
-    cpu = ComputationGraph(lm_conf(vocab=256, embed=128, heads=2, blocks=2)).init(
+    cut = {"vocab": 256, "embed": 128, "heads": 2, "blocks": 2, "experts": experts,
+           "compute": compute}
+    net = ComputationGraph(lm_conf(**cut)).init()
+    cpu = ComputationGraph(lm_conf(**cut)).init(
         params={n: {k: t.cpu() for k, t in p.items()} for n, p in net.params.items()},
         device="cpu")
     f, l = periodic_tokens(np.random.default_rng(9), 1, 4096, 256)
@@ -1670,7 +1738,8 @@ def check_lm_reference():
              for n, gs in g_cpu.items() for k, g in gs.items()}
     key = max(g_err, key=g_err.get)
     p_err = (net.output(f).cpu() - cpu.output(f)).abs().max().item()
-    log(f"card vs CPU reference, TransformerLM E=128 2 blocks T=4096: score {s_card:.3f} vs "
+    log(f"card vs CPU reference, TransformerLM E=128 2 blocks T=4096"
+        f"{f' {experts} experts' if experts else ''} {compute}: score {s_card:.3f} vs "
         f"{s_cpu:.3f} (rel {s_err:.2e}); worst gradient {key} rel {g_err[key]:.2e}; "
         f"probabilities max_abs_err {p_err:.2e}")
     if not s_err <= LM_REF_SCORE_RTOL:
@@ -2592,6 +2661,398 @@ def stream_and_output(net, ids):
     return steps, net.output(ids).float()
 
 
+def moe_kernel_group(chain):
+    """``kernel_group`` for a TransformerLM step: the MoE layers' batched
+    einsums (bmm, forward and backward) and the dense layers' products
+    (mm) apart from K5-K7 and the elementwise work."""
+    names = " ".join(chain).lower()
+    for key, group in (("dl4j::updater", "updater"), ("flash", "K5-K7"),
+                       ("bmm", "MoE einsums (bmm)"), ("aten::mm", "dense products (mm)"),
+                       ("addmm", "dense products (mm)"), ("mmbackward", "dense products (mm)")):
+        if key in names:
+            return group
+    return "other elementwise"
+
+
+def moe_routing(net, moes, f):
+    """One training forward of the MoE net without gradients: the
+    auxiliary loss, each expert's share of the top-k assignments over all
+    MoE layers, and the share of assignments over an expert's capacity in
+    its group (the ones capacity dispatch drops)."""
+    gates = {}
+
+    def recording(name, route):
+        def recorded(xr, Wg):
+            g, prob = route(xr, Wg)
+            gates[name] = g
+            return g, prob
+        return recorded
+
+    for name, impl in moes.items():
+        impl._route = recording(name, impl._route)
+    try:
+        with torch.no_grad():
+            _, _, ctx = net._apply_graph([net._to_device(f)], None, True)
+    finally:
+        for impl in moes.values():
+            del impl._route
+    load, dropped, total = 0, 0, 0
+    for name, g in gates.items():
+        impl = moes[name]
+        sel = (g > 0).to(torch.int64)
+        n, E = sel.shape
+        G = max(8, min(n, int(impl.conf.group_size)))
+        groups = -(-n // G)
+        sel = torch.cat([sel, sel.new_zeros((groups * G - n, E))])
+        per = sel.reshape(groups, G, E).sum(1)                 # [groups, E]
+        dropped += (per - impl._capacity(G)).clamp(min=0).sum().item()
+        total += per.sum().item()
+        load = load + per.sum(0)
+    return float(ctx["aux_loss"]), (load / load.sum()).tolist(), dropped / total
+
+
+def moe_lm():
+    """The MoE TransformerLM (bench.py:1730's model, MOE_EXPERTS experts
+    top MOE_TOP_K in every block, bf16, CacheMode.DEVICE) on the card:
+    ``output`` on one b=4, T=8192 batch (8 K5 launches; rows that sum to
+    1), MOE_STEPS ``fit`` steps (each 8 K5, 8 K6 and 8 K7; the loss finite
+    and falling), the aux loss, each expert's token share and the dropped
+    share, the MoE step beside the dense model's in alternating turns
+    (ms, tokens/s, peak memory), a profiled step grouped by
+    ``moe_kernel_group``, capacity dispatch against the dense combine at
+    the model's shape, and the trained net saved, guessed back and
+    sampling MOE_GEN_TOKENS tokens (the dense combine; no K5-K7). Counts
+    are reset just before and read just after ``output`` and the steps."""
+    from deeplearning4j_torch import DataSet
+    from deeplearning4j_torch.models import generate_tokens
+    from deeplearning4j_torch.nn.graph import ComputationGraph
+    from deeplearning4j_torch.nn.layers.moe import MoEDenseImpl
+
+    conf = lm_conf(experts=MOE_EXPERTS)
+    conf.global_conf.cache_mode = "device"
+    net = ComputationGraph(conf).init()                 # device defaults to the card
+    moes = {n: impl for n, impl in net.impls.items() if isinstance(impl, MoEDenseImpl)}
+    if len(moes) != LM_BLOCKS:
+        raise AssertionError(f"the MoE TransformerLM has {len(moes)} MoE layers")
+    f, l = periodic_tokens(np.random.default_rng(8), LM_B, LM_T, LM_VOCAB)
+    ds = DataSet(f, l)
+    reset_counts()
+    probs = net.output(f)
+    torch.cuda.synchronize()
+    out_launches = read_counts()
+    want = {n: 0 for n in out_launches}
+    want["flash_fwd"] = LM_BLOCKS
+    if out_launches != want:
+        raise AssertionError(f"MoE output launched {out_launches}, expected {want}")
+    sums = probs.sum(-1)
+    if tuple(probs.shape) != (LM_B, LM_T, LM_VOCAB) or not torch.isfinite(probs).all() \
+            or (sums - 1).abs().max().item() > 1e-2:
+        raise AssertionError(f"MoE output: shape {tuple(probs.shape)}, or rows that are not "
+                             f"finite probabilities summing to 1")
+    del probs, sums
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    net.output(f)
+    torch.cuda.synchronize()
+    output_ms = (time.perf_counter() - t0) * 1e3
+    log(f"MoE TransformerLM ({net.num_params() / 1e6:.1f}M parameters, {MOE_EXPERTS} experts "
+        f"top {MOE_TOP_K}) output b={LM_B} T={LM_T}: launches {out_launches}; a second call "
+        f"{output_ms:.1f} ms")
+
+    per_step = {n: 0 for n in out_launches}
+    per_step.update(flash_fwd=LM_BLOCKS, flash_dq=LM_BLOCKS, flash_dkv=LM_BLOCKS)
+    aux0 = moe_routing(net, moes, f)[0]
+    losses = []
+    reset_counts()
+    for _ in range(MOE_STEPS):
+        before = read_counts()
+        net.fit(ds)
+        losses.append(net.score())
+        got = {n: c - before[n] for n, c in read_counts().items()}
+        if got != per_step:
+            raise AssertionError(f"a MoE training step launched {got}, expected {per_step}")
+    launches = read_counts()
+    aux, share, dropped = moe_routing(net, moes, f)
+    drop = 1.0 - losses[-1] / losses[0]
+    log(f"MoE TransformerLM training: {MOE_STEPS} Adam steps, launches {launches}; loss per "
+        f"step " + " ".join(f"{x:.1f}" for x in losses) + f" (fell {100 * drop:.2f}%); aux "
+        f"loss {aux0:.5f} before, {aux:.5f} after; expert shares of the top-{MOE_TOP_K} "
+        f"assignments over the {LM_BLOCKS} layers "
+        + " ".join(f"{x:.4f}" for x in share)
+        + f"; {100 * dropped:.3f}% of the assignments over capacity (dropped)")
+    if not np.isfinite(losses).all() or not np.isfinite(aux):
+        raise AssertionError(f"MoE TransformerLM loss is not finite: {losses}, aux {aux}")
+    if not drop >= MOE_LOSS_DROP:
+        raise AssertionError(f"the MoE TransformerLM loss fell by {drop:.4f}, less than "
+                             f"{MOE_LOSS_DROP}")
+
+    dconf = lm_conf()
+    dconf.global_conf.cache_mode = "device"
+    dense = ComputationGraph(dconf).init()
+    dense.fit(ds)
+    turns, peaks = {"moe": [], "dense": []}, {}
+    for turn in range(MOE_TURNS):
+        for name in (("moe", "dense") if turn % 2 == 0 else ("dense", "moe")):
+            model = net if name == "moe" else dense
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            model.fit(ds)
+            model.score()                                # the value: a sync
+            turns[name].append((time.perf_counter() - t0) * 1e3)
+            peaks[name] = torch.cuda.max_memory_allocated() / 2 ** 30
+    med = {k: float(np.median(v)) for k, v in turns.items()}
+    log(f"smoke number, not a benchmark: a MoE TransformerLM step {med['moe']:.1f} ms, the "
+        f"dense model's {med['dense']:.1f} ms (CacheMode.DEVICE, medians of {MOE_TURNS} "
+        f"alternating turns: {' '.join(f'{x:.1f}' for x in turns['moe'])} and "
+        f"{' '.join(f'{x:.1f}' for x in turns['dense'])}); {LM_B * LM_T / med['moe'] * 1e3:.0f} "
+        f"and {LM_B * LM_T / med['dense'] * 1e3:.0f} tokens/s; peak memory in a step "
+        f"{peaks['moe']:.2f} and {peaks['dense']:.2f} GiB")
+    del dense
+    torch.cuda.empty_cache()
+    prof = profile_call("one MoE TransformerLM step", lambda: net.fit(ds), updater=net.updater,
+                        group=moe_kernel_group)
+    sparse = check_moe_sparse(moes["b0-ffn"])
+
+    restored, write_s, load_s, nbytes = save_and_guess(net, "moe_lm")
+    prompt = np.random.default_rng(16).integers(0, LM_VOCAB, (GEN_B, MOE_GEN_PROMPT))
+    reset_counts()
+    tokens = generate_tokens(restored, prompt, MOE_GEN_TOKENS, seed=GEN_SEED)
+    torch.cuda.synchronize()
+    gen_launches = read_counts()
+    if any(gen_launches.values()):
+        raise AssertionError(f"MoE generation launched a kernel of the repo: {gen_launches}")
+    if tokens.shape != (GEN_B, MOE_GEN_TOKENS) or tokens.min() < 0 or tokens.max() >= LM_VOCAB:
+        raise AssertionError(f"bad MoE tokens {tokens.shape}")
+    restored.rnn_clear_previous_state()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    restored.rnn_time_step(prompt[:, :, None].astype(np.float32))
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    again = generate_tokens(restored, prompt, MOE_GEN_TOKENS, seed=GEN_SEED)
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    if not np.array_equal(tokens, again):
+        raise AssertionError("the same seed sampled other MoE tokens")
+    token_ms = (wall_ms - prefill_ms) / MOE_GEN_TOKENS
+    log(f"MoE TransformerLM: zip {nbytes / 1e6:.1f} MB written in {write_s:.2f} s, guessed "
+        f"back in {load_s:.2f} s; generate_tokens b={GEN_B}, prompt {MOE_GEN_PROMPT} + "
+        f"{MOE_GEN_TOKENS} tokens: launches {gen_launches}; prefill {prefill_ms:.2f} ms, "
+        f"{token_ms:.3f} ms a sampled token, {GEN_B * MOE_GEN_TOKENS / wall_ms * 1e3:.0f} "
+        f"tokens/s; the same seed the same tokens")
+    return {"launches": launches, "output_launches": out_launches, "output_ms": output_ms,
+            "losses": losses, "aux_loss": [aux0, aux], "expert_share": share,
+            "dropped_share": dropped, "step_ms": med["moe"], "dense_step_ms": med["dense"],
+            "turns_ms": turns, "peak_gib": peaks,
+            "tokens_per_s": LM_B * LM_T / med["moe"] * 1e3, "profile": prof,
+            "sparse_vs_dense": sparse, "zip_bytes": nbytes, "prefill_ms": prefill_ms,
+            "ms_per_token": token_ms}
+
+
+def check_moe_sparse(impl):
+    """Capacity dispatch against the dense combine on the card, one MoE
+    layer at the model's shape (LM_B x LM_T tokens, bf16 input) at
+    capacity factor E/k, where nothing drops; each timed once more."""
+    dev = impl.W.device
+    g = torch.Generator(device=dev).manual_seed(17)
+    x = torch.randn(LM_B * LM_T, LM_E, generator=g, device=dev).to(torch.bfloat16)
+    cf = impl.conf.capacity_factor
+    impl.conf.capacity_factor = MOE_EXPERTS / MOE_TOP_K
+    ms = {}
+    try:
+        with torch.no_grad():
+            out = {}
+            for name, train in (("sparse", True), ("dense", False)):
+                out[name] = impl(x, ctx={"train": train}).float()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                impl(x, ctx={"train": train})
+                torch.cuda.synchronize()
+                ms[name] = (time.perf_counter() - t0) * 1e3
+    finally:
+        impl.conf.capacity_factor = cf
+    err = ((out["sparse"] - out["dense"]).abs().max() / out["dense"].abs().max()).item()
+    log(f"MoE capacity dispatch vs the dense combine, {LM_B * LM_T} tokens {LM_E} -> "
+        f"{4 * LM_E} bf16, capacity factor {MOE_EXPERTS / MOE_TOP_K:g} (nothing drops): "
+        f"max_abs_err over the largest entry {err:.3e} (limit {MOE_SPARSE_RTOL}); forward "
+        f"{ms['sparse']:.2f} ms sparse, {ms['dense']:.2f} ms dense")
+    if not err <= MOE_SPARSE_RTOL:
+        raise AssertionError(f"capacity dispatch disagrees with the dense combine: {err}")
+    return {"rel_err": err, "sparse_ms": ms["sparse"], "dense_ms": ms["dense"]}
+
+
+def char_rnn_graph_conf():
+    """The char-RNN of bench.py:230 as a ComputationGraph: vertices l0,
+    l1 (GravesLSTM) and out, the same global configuration."""
+    from deeplearning4j_torch import Adam, NeuralNetConfiguration
+    from deeplearning4j_torch.nn.conf.layers import GravesLSTM, RnnOutputLayer
+
+    return (NeuralNetConfiguration.builder().seed(1).updater(Adam(learning_rate=1e-3))
+            .activation("tanh").compute_dtype("bfloat16").graph_builder()
+            .add_inputs("in")
+            .add_layer("l0", GravesLSTM(n_in=VOCAB, n_out=H), "in")
+            .add_layer("l1", GravesLSTM(n_in=H, n_out=H), "l0")
+            .add_layer("out", RnnOutputLayer(n_in=H, n_out=VOCAB, activation="softmax",
+                                             loss="mcxent"), "l1")
+            .set_outputs("out")
+            .backprop_type("tbptt").t_bptt_forward_length(TRAIN_T)
+            .t_bptt_backward_length(TRAIN_T).build())
+
+
+def small_graph_conf():
+    """Two inputs (a masked sequence and a side sequence), two outputs (per
+    step and per example), through Merge, LastTimeStep,
+    DuplicateToTimeSeries, Subset and L2Normalize vertices and two f32
+    LSTMs (K1/K2), SGD."""
+    from deeplearning4j_torch import NeuralNetConfiguration, Sgd
+    from deeplearning4j_torch.nn.conf.graph import (DuplicateToTimeSeriesVertex,
+                                                    L2NormalizeVertex, LastTimeStepVertex,
+                                                    MergeVertex, SubsetVertex)
+    from deeplearning4j_torch.nn.conf.layers import LSTM, GravesLSTM, OutputLayer, RnnOutputLayer
+
+    return (NeuralNetConfiguration.builder().seed(4).updater(Sgd(learning_rate=0.1))
+            .activation("tanh").graph_builder()
+            .add_inputs("seq", "side")
+            .add_layer("enc", GravesLSTM(n_in=16, n_out=64), "seq")
+            .add_vertex("last", LastTimeStepVertex(mask_input="seq"), "enc")
+            .add_vertex("sub", SubsetVertex(from_idx=0, to_idx=31), "last")
+            .add_vertex("norm", L2NormalizeVertex(), "sub")
+            .add_vertex("dup", DuplicateToTimeSeriesVertex(reference_input="side"), "norm")
+            .add_vertex("cat", MergeVertex(), "dup", "side")
+            .add_layer("dec", LSTM(n_in=40, n_out=64), "cat")
+            .add_layer("per_step", RnnOutputLayer(n_in=64, n_out=10, activation="softmax",
+                                                  loss="mcxent"), "dec")
+            .add_layer("summary", OutputLayer(n_in=32, n_out=3, activation="softmax",
+                                              loss="mcxent"), "norm")
+            .set_outputs("per_step", "summary").build())
+
+
+def rel_errs(got, want):
+    """{vertex/param: max |got - want| over max |want|}."""
+    return {f"{n}/{k}": ((got[n][k].float().cpu() - w.float().cpu()).abs().max()
+                         / w.float().abs().max().clamp(min=1e-30).cpu()).item()
+            for n, ws in want.items() for k, w in ws.items()}
+
+
+def graph_tbptt():
+    """Truncated BPTT over a ComputationGraph on the card: the char-RNN
+    as a graph (K1 with the reserve and K2 a layer, each segment) against
+    the MultiLayerNetwork char-RNN (the fused K3/K4) from the same weights
+    on one b=64, T=200 DataSet: one segment's gradients, then a fit of 4
+    segments (launches counted a segment), its loss and parameters. Then
+    a small two-input, two-output graph fitting a MultiDataSet and taking
+    external errors, card against CPU."""
+    from deeplearning4j_torch import DataSet, MultiDataSet
+    from deeplearning4j_torch.nn.graph import ComputationGraph
+
+    mln = build_net(char_rnn_conf(), seed=11)
+    cg = ComputationGraph(char_rnn_graph_conf()).init(
+        params={v: mln.params[str(i)] for i, v in enumerate(("l0", "l1", "out"))})
+    f, l = periodic_text(np.random.default_rng(12), TRAIN_B, TRAIN_SEQ)
+    seg = DataSet(f[:, :TRAIN_T], l[:, :TRAIN_T])
+    reset_counts()
+    g_cg, s_cg = cg.compute_gradient_and_score(seg)
+    seg_launches = read_counts()
+    g_mln, s_mln = mln.compute_gradient_and_score(seg)
+    g_err = rel_errs(g_cg, {v: g_mln[str(i)] for i, v in enumerate(("l0", "l1", "out"))})
+    worst = max(g_err, key=g_err.get)
+    s_err = abs(s_cg - s_mln) / abs(s_mln)
+    log(f"graph char-RNN vs the MultiLayerNetwork, one segment b={TRAIN_B} T={TRAIN_T}: score "
+        f"{s_cg:.4f} vs {s_mln:.4f} (rel {s_err:.2e}), worst gradient {worst} rel "
+        f"{g_err[worst]:.2e}; the graph launched {seg_launches}")
+    if seg_launches["lstm_fwd_train"] != 2 or seg_launches["lstm_bwd"] != 2:
+        raise AssertionError(f"the graph's segment launched {seg_launches}")
+    if not (s_err <= TRAIN_SCORE_RTOL and g_err[worst] <= TRAIN_GRAD_RTOL):
+        raise AssertionError(f"the graph and the MLN char-RNN disagree: score {s_err}, "
+                             f"{worst} {g_err[worst]}")
+
+    segs = -(-TRAIN_SEQ // TRAIN_T)
+    per_segment = []
+
+    def counted_steps(*a, **k):
+        before = read_counts()
+        out = ComputationGraph._steps(cg, *a, **k)
+        per_segment.append({n: c - before[n] for n, c in read_counts().items() if c - before[n]})
+        return out
+
+    cg._steps = counted_steps
+    ds = DataSet(f, l)
+    reset_counts()
+    try:
+        cg.fit(ds)
+        cg_loss = cg.score()
+    finally:
+        del cg._steps
+    launches = read_counts()
+    mln.fit(ds)
+    mln_loss = mln.score()
+    want = {"lstm_fwd_train": 2, "lstm_bwd": 2}
+    if per_segment != [want] * segs:
+        raise AssertionError(f"the graph's TBPTT segments launched {per_segment}, expected "
+                             f"{segs} x {want}")
+    p_err = max((cg.params[v][k].float() - mln.params[str(i)][k].float()).abs().max().item()
+                for i, v in enumerate(("l0", "l1", "out")) for k in cg.params[v])
+    l_err = abs(cg_loss - mln_loss) / abs(mln_loss)
+    if not (l_err <= TRAIN_SCORE_RTOL and p_err <= GRAPH_PARAM_ATOL):
+        raise AssertionError(f"the graph's TBPTT fit disagrees with the MLN's: loss {l_err}, "
+                             f"parameters {p_err}")
+    turns = {"graph": [], "mln": []}
+    for turn in range(FIT_TURNS):
+        for name in (("graph", "mln") if turn % 2 == 0 else ("mln", "graph")):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            (cg if name == "graph" else mln).fit(ds)
+            (cg if name == "graph" else mln).score()        # the value: a sync
+            turns[name].append((time.perf_counter() - t0) * 1e3)
+    fit_ms = {k: float(np.median(v)) for k, v in turns.items()}
+    log(f"graph char-RNN TBPTT fit b={TRAIN_B} T={TRAIN_SEQ} ({segs} segments, each "
+        f"{per_segment[0]}): loss {cg_loss:.4f} vs the MLN's {mln_loss:.4f} (rel {l_err:.2e}, "
+        f"limit {TRAIN_SCORE_RTOL}); parameters max_abs_err {p_err:.2e} (limit "
+        f"{GRAPH_PARAM_ATOL}). Smoke number, not a benchmark: a fit {fit_ms['graph']:.2f} ms "
+        f"(graph, per layer: K1 + K2) and {fit_ms['mln']:.2f} ms (MLN, fused pair: K3 + K4), "
+        f"medians of {FIT_TURNS} alternating turns")
+
+    conf = small_graph_conf()
+    card = ComputationGraph(conf).init()
+    cpu = ComputationGraph(small_graph_conf()).init(
+        params={n: {k: t.cpu() for k, t in p.items()} for n, p in card.params.items()},
+        device="cpu")
+    rng = np.random.default_rng(18)
+    b, t = 16, 40
+    xs = [rng.normal(size=(b, t, 16)).astype(np.float32),
+          rng.normal(size=(b, t, 8)).astype(np.float32)]
+    m = (np.arange(t)[None, :] < rng.integers(t // 2, t + 1, b)[:, None]).astype(np.float32)
+    ys = [np.eye(10, dtype=np.float32)[rng.integers(0, 10, (b, t))],
+          np.eye(3, dtype=np.float32)[rng.integers(0, 3, b)]]
+    mds = MultiDataSet(xs, ys, [m, None], [m, None])
+    eps = [rng.normal(size=(b, t, 10)).astype(np.float32) * 0.1,
+           rng.normal(size=(b, 3)).astype(np.float32) * 0.1]
+    small = {}
+    for label, step in (("MultiDataSet fit", lambda net: net.fit(mds)),
+                        ("fit_external_errors", lambda net: net.fit_external_errors(xs, eps))):
+        reset_counts()
+        step(card)
+        torch.cuda.synchronize()
+        got = read_counts()
+        step(cpu)
+        s_card, s_cpu = card.score(mds), cpu.score(mds)
+        ss_err = abs(s_card - s_cpu) / abs(s_cpu)
+        sp_err = max((card.params[n][k].cpu() - w).abs().max().item()
+                     for n, ws in cpu.params.items() for k, w in ws.items())
+        log(f"small graph on the card vs the CPU after {label}: score {s_card:.5f} vs "
+            f"{s_cpu:.5f} (rel {ss_err:.2e}), parameters max_abs_err {sp_err:.2e}; launches "
+            f"{ {n: c for n, c in got.items() if c} }")
+        if got["lstm_fwd_train"] != 2 or got["lstm_bwd"] != 2:
+            raise AssertionError(f"the small graph's {label} launched {got}")
+        if not (ss_err <= SMALL_GRAPH_SCORE_RTOL and sp_err <= SMALL_GRAPH_PARAM_ATOL):
+            raise AssertionError(f"the small graph's {label} disagrees with the CPU: "
+                                 f"score {ss_err}, parameters {sp_err}")
+        small[label] = {"score_rel": ss_err, "param_abs": sp_err}
+    return {"launches": launches, "per_segment": per_segment, "loss_rel": l_err,
+            "param_abs": p_err, "fit_ms": fit_ms, "small": small}
+
+
 def build():
     """Compile every kernel of the port, one nvcc per source, all at once,
     and print what ptxas reports of registers, shared memory and spills."""
@@ -2621,12 +3082,15 @@ def build():
                 log(f"  {src}: {entry[:72] + ': ' if named else ''}{line.strip()}")
 
 
-def kernel_line(serving, training, served, streamed, trained, flash, lm, decode):
+def kernel_line(serving, training, served, streamed, trained, flash, lm, decode, moe, graph):
     """The {"kernels": [...]} entries: for K1-K4 numbers at the char-RNN's
     training shape, the launches of its training main path, and K1/K3's
     serving numbers and their decode rows (T=1, b=GEN_B, one a
     generating char-RNN); for K5-K7 numbers at the TransformerLM's shape
-    and the launches of its training main path (its ``output`` apart)."""
+    and the launches of its training main path (its ``output`` apart).
+    K1 and K2 also carry their launches in the graph char-RNN's TBPTT fit
+    (``graph_tbptt_launches``), K5-K7 theirs in the MoE TransformerLM's
+    steps (``moe_lm_launches``)."""
     shape = {"b": TRAIN_B, "T": TRAIN_T, "H": H, "w": "bf16", "peepholes": True}
     sshape = {"b": B, "T": T, "H": H, "w": "bf16", "peepholes": True}
 
@@ -2659,30 +3123,34 @@ def kernel_line(serving, training, served, streamed, trained, flash, lm, decode)
               [training["lstm_fwd_train/masked"], training["lstm_fwd_train/unmasked"]],
               {**serving_of("lstm_fwd", ["lstm_fwd/masked", "lstm_fwd/unmasked"]),
                "decode": decode["lstm_fwd"],
-               "design": training["lstm_fwd_train/masked"]["design"]}),
+               "design": training["lstm_fwd_train/masked"]["design"],
+               "graph_tbptt_launches": graph["launches"]["lstm_fwd_train"]}),
         entry("lstm_bwd", "lstm_bwd", "lstm_cell_bwd.cu", "deeplearning4j_tpu/ops/lstm_cell.py:235",
               [training["lstm_bwd/masked"], training["lstm_bwd/unmasked"]],
-              {"design": training["lstm_bwd/masked"]["design"]}),
+              {"design": training["lstm_bwd/masked"]["design"],
+               "graph_tbptt_launches": graph["launches"]["lstm_bwd"]}),
         entry("lstm2_fwd", "lstm2_fwd_train", "lstm_fused.cu", "deeplearning4j_tpu/ops/lstm_fused.py:111",
               [training["lstm2_fwd_train"]],
               {**serving_of("lstm2_fwd", ["lstm2_fwd"]), "decode": decode["lstm2_fwd"],
                "design": training["lstm2_fwd_train"]["design"]}),
         entry("lstm2_bwd", "lstm2_bwd", "lstm_fused_bwd.cu", "deeplearning4j_tpu/ops/lstm_fused.py:249",
               [training["lstm2_bwd"]], {"design": training["lstm2_bwd"]["design"]}),
-        *(flash_entry(name, src, line, flash[name], lm) for name, src, line in (
+        *(flash_entry(name, src, line, flash[name], lm, moe) for name, src, line in (
             ("flash_fwd", "flash_attn_fwd.cu", 202), ("flash_dq", "flash_attn_dq.cu", 311),
             ("flash_dkv", "flash_attn_dkv.cu", 361))),
     ]
 
 
-def flash_entry(name, source, line, res, lm):
+def flash_entry(name, source, line, res, lm, moe):
     e = {"name": name, "route": "cuda", "source": f"deeplearning4j_torch/csrc/{source}",
          "replaces": f"deeplearning4j_tpu/ops/flash_attention.py:{line}",
          "launches": lm["launches"][name], "launches_per_step": lm["launches"][name] // LM_STEPS,
          **res,
          "shape": {"b": LM_B, "h": LM_HEADS, "T": LM_T, "d": LM_D, "dtype": "bf16",
                    "causal": True},
-         "output_launches": lm["output_launches"][name]}
+         "output_launches": lm["output_launches"][name],
+         "moe_lm_launches": moe["launches"][name], "moe_lm_output_launches":
+         moe["output_launches"][name]}
     e["design"] = design(torch.bfloat16, LM_D, source)
     if name == "flash_fwd":
         e["library_note"] = (f"scaled_dot_product_attention forward; ms and library_ms are "
@@ -2738,10 +3206,19 @@ def main() -> int:
     cnn["lenet"] = lenet()
     cnn["reference"] = check_cnn_reference()
     print(json.dumps({"cnn": cnn}))
+    torch.cuda.empty_cache()
+    moe = moe_lm()
+    torch.cuda.empty_cache()
+    moe["reference"] = check_lm_reference(experts=4, compute="float32")
+    graph = graph_tbptt()
+    torch.cuda.empty_cache()
+    print(json.dumps({"moe_lm": {k: v for k, v in moe.items() if k != "profile"},
+                      "graph_tbptt": graph}))
 
     print(json.dumps({"generate": generated}))
     print(json.dumps({"kernels": kernel_line(serving, training, served, streamed,
-                                             trained["launches"], flash, lm, decode)}))
+                                             trained["launches"], flash, lm, decode, moe,
+                                             graph)}))
     log(f"chip_smoke took {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -2,12 +2,12 @@
 
 Counterpart of ``deeplearning4j_tpu/models/zoo.py``: the ``ZooModel`` base
 (``conf``, ``init``, ``_builder``), ``LeNet``, ``ResNet50``,
-``TextGenerationLSTM`` and ``TransformerLM``, with the JAX package's layer
-and vertex names, so that the keypaths of its zips match;
+``TextGenerationLSTM`` and ``TransformerLM`` (dense or MoE), with the JAX
+package's layer and vertex names, so that the keypaths of its zips match;
 ``generate_tokens``, the sampling loop over either container's
 ``rnn_time_step``; and ``ModelSelector``, which knows every name the JAX
-package's does. The other zoo models (selecting one raises), pretrained
-weights and the MoE variant of ``TransformerLM`` are not ported yet.
+package's does. The other zoo models (selecting one raises) and pretrained
+weights are not ported yet.
 """
 from __future__ import annotations
 
@@ -19,8 +19,8 @@ from ..nn.conf import InputType, MultiLayerConfiguration, NeuralNetConfiguration
 from ..nn.conf.graph import ElementWiseVertex
 from ..nn.conf.layers import (ActivationLayer, BatchNormalization, ConvolutionLayer,
                               ConvolutionMode, DenseLayer, EmbeddingSequenceLayer,
-                              GlobalPoolingLayer, GravesLSTM, LayerNormalization, OutputLayer,
-                              PoolingType, RnnOutputLayer, SelfAttentionLayer,
+                              GlobalPoolingLayer, GravesLSTM, LayerNormalization, MoEDenseLayer,
+                              OutputLayer, PoolingType, RnnOutputLayer, SelfAttentionLayer,
                               SubsamplingLayer)
 from ..nn.graph import ComputationGraph
 from ..nn.multilayer import MultiLayerNetwork
@@ -212,10 +212,19 @@ class TransformerLM(ZooModel):
         if self.embed_dim % self.num_heads:
             raise ValueError(f"num_heads {num_heads} must divide embed_dim {embed_dim}")
 
-    def conf(self):
+    def _ffn(self, E, F):
+        """The block FFN's up-projection: a dense gelu layer, or with
+        ``num_experts`` > 0 a gelu ``MoEDenseLayer`` (the Mixtral-style
+        sparse decoder; capacity dispatch in training). The
+        down-projection stays one shared dense layer."""
         if self.num_experts > 0:
-            raise NotImplementedError("TransformerLM with num_experts > 0 (MoE) is not "
-                                      "ported yet")
+            return MoEDenseLayer(n_in=E, n_out=F, activation="gelu",
+                                 num_experts=self.num_experts, top_k=self.top_k,
+                                 capacity_factor=self.capacity_factor,
+                                 aux_loss_weight=self.aux_loss_weight)
+        return DenseLayer(n_in=E, n_out=F, activation="gelu")
+
+    def conf(self):
         E, V = self.embed_dim, self.num_classes
         F = E * self.ffn_mult
         # explicit n_in everywhere and no input types: every layer is
@@ -233,8 +242,7 @@ class TransformerLM(ZooModel):
                             f"b{i}-ln-a")
                  .add_vertex(f"b{i}-res-a", ElementWiseVertex(op="add"), prev, f"b{i}-attn")
                  .add_layer(f"b{i}-ln-f", LayerNormalization(n_in=E, n_out=E), f"b{i}-res-a")
-                 .add_layer(f"b{i}-ffn", DenseLayer(n_in=E, n_out=F, activation="gelu"),
-                            f"b{i}-ln-f")
+                 .add_layer(f"b{i}-ffn", self._ffn(E, F), f"b{i}-ln-f")
                  .add_layer(f"b{i}-proj", DenseLayer(n_in=F, n_out=E, activation="identity"),
                             f"b{i}-ffn")
                  .add_vertex(f"b{i}-res-f", ElementWiseVertex(op="add"),

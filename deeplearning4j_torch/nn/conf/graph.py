@@ -1,15 +1,12 @@
 """ComputationGraph configuration: a DAG of layers and vertices.
 
-Counterpart of ``deeplearning4j_tpu/nn/conf/graph.py``: the vertex config
-classes, :class:`ComputationGraphConfiguration` (topological order, shape
-inference, JSON) and :class:`GraphBuilder`. A vertex is one serializable
-dataclass whose ``forward(inputs, ctx)`` is a torch function; autograd
-derives its backward.
-
-:class:`MergeVertex` and :class:`ElementWiseVertex` (all five ops) are
-ported. The other twelve vertex classes decode and re-encode with their
-fields (so a JAX-written configuration round-trips) and raise
-``NotImplementedError`` naming themselves when a graph uses them.
+Counterpart of ``deeplearning4j_tpu/nn/conf/graph.py``: the fourteen
+vertex config classes, :class:`ComputationGraphConfiguration` (topological
+order, shape inference, JSON) and :class:`GraphBuilder`. A vertex is one
+serializable dataclass whose ``forward(inputs, ctx)`` is a torch function
+(autograd derives its backward), with ``n_inputs``, ``propagate_mask`` and
+``get_output_type``. ``ctx["inputs"]`` and ``ctx["input_masks"]`` hold the
+forward's activations and masks by name, network inputs included.
 """
 from __future__ import annotations
 
@@ -110,96 +107,223 @@ class ElementWiseVertex(GraphVertexConf):
         raise ValueError(f"Unknown ElementWiseVertex op '{self.op}'")
 
 
-@dataclasses.dataclass
-class _UnportedVertex(GraphVertexConf):
-    """A vertex the port decodes as data but cannot run yet."""
-
-    def _unported(self):
-        raise NotImplementedError(f"{type(self).__name__} is not ported to "
-                                  f"deeplearning4j_torch yet")
-
-    def forward(self, inputs, ctx):
-        self._unported()
-
-    def propagate_mask(self, in_masks):
-        self._unported()
-
-    def get_output_type(self, input_types):
-        self._unported()
-
-
 @register
 @dataclasses.dataclass
-class SubsetVertex(_UnportedVertex):
+class SubsetVertex(GraphVertexConf):
+    """Features [from_idx, to_idx], both ends included (reference
+    ``SubsetVertex``)."""
     from_idx: int = 0
     to_idx: int = 0
 
+    def n_inputs(self):
+        return 1
+
+    def forward(self, inputs, ctx):
+        return inputs[0][..., self.from_idx:self.to_idx + 1]
+
+    def get_output_type(self, input_types):
+        t = input_types[0]
+        n = self.to_idx - self.from_idx + 1
+        if isinstance(t, InputTypeRecurrent):
+            return InputTypeRecurrent(n, t.timeseries_length)
+        if isinstance(t, InputTypeConvolutional):
+            return InputTypeConvolutional(t.height, t.width, n)
+        return InputTypeFeedForward(n)
+
 
 @register
 @dataclasses.dataclass
-class StackVertex(_UnportedVertex):
-    pass
+class StackVertex(GraphVertexConf):
+    """Concatenate along the minibatch axis (reference ``StackVertex``)."""
+
+    def forward(self, inputs, ctx):
+        return torch.cat(inputs, dim=0)
+
+    def propagate_mask(self, in_masks):
+        if all(m is None for m in in_masks):
+            return None
+        if any(m is None for m in in_masks):
+            raise ValueError("StackVertex: either all or no inputs must have feature masks")
+        return torch.cat(in_masks, dim=0)
 
 
 @register
 @dataclasses.dataclass
-class UnstackVertex(_UnportedVertex):
+class UnstackVertex(GraphVertexConf):
+    """Chunk ``from_idx`` of ``stack_size`` equal minibatch chunks: the
+    inverse of StackVertex (reference ``UnstackVertex``)."""
     from_idx: int = 0
     stack_size: int = 1
 
+    def n_inputs(self):
+        return 1
+
+    def _chunk(self, x):
+        step = x.shape[0] // self.stack_size
+        return x[self.from_idx * step:(self.from_idx + 1) * step]
+
+    def forward(self, inputs, ctx):
+        return self._chunk(inputs[0])
+
+    def propagate_mask(self, in_masks):
+        return None if in_masks[0] is None else self._chunk(in_masks[0])
+
 
 @register
 @dataclasses.dataclass
-class ScaleVertex(_UnportedVertex):
+class ScaleVertex(GraphVertexConf):
     scale: float = 1.0
 
+    def n_inputs(self):
+        return 1
+
+    def forward(self, inputs, ctx):
+        return inputs[0] * self.scale
+
 
 @register
 @dataclasses.dataclass
-class ShiftVertex(_UnportedVertex):
+class ShiftVertex(GraphVertexConf):
     shift: float = 0.0
 
+    def n_inputs(self):
+        return 1
+
+    def forward(self, inputs, ctx):
+        return inputs[0] + self.shift
+
 
 @register
 @dataclasses.dataclass
-class L2NormalizeVertex(_UnportedVertex):
+class L2NormalizeVertex(GraphVertexConf):
+    """x / (||x||_2 + eps) over every axis but the minibatch's (reference
+    ``L2NormalizeVertex``)."""
     eps: float = 1e-8
 
+    def n_inputs(self):
+        return 1
+
+    def forward(self, inputs, ctx):
+        x = inputs[0]
+        norm = (x * x).sum(dim=tuple(range(1, x.dim())), keepdim=True).sqrt()
+        return x / (norm + self.eps)
+
 
 @register
 @dataclasses.dataclass
-class L2Vertex(_UnportedVertex):
+class L2Vertex(GraphVertexConf):
+    """Euclidean distance between two activations, example by example ->
+    [b, 1] (reference ``L2Vertex``)."""
     eps: float = 1e-8
 
+    def n_inputs(self):
+        return 2
+
+    def forward(self, inputs, ctx):
+        d = inputs[0] - inputs[1]
+        return ((d * d).sum(dim=tuple(range(1, d.dim()))) + self.eps).sqrt()[:, None]
+
+    def get_output_type(self, input_types):
+        return InputTypeFeedForward(1)
+
 
 @register
 @dataclasses.dataclass
-class PreprocessorVertex(_UnportedVertex):
+class PreprocessorVertex(GraphVertexConf):
+    """An input preprocessor as a vertex of its own (reference
+    ``PreprocessorVertex``)."""
     preprocessor: Any = None
 
+    def n_inputs(self):
+        return 1
+
+    def forward(self, inputs, ctx):
+        return self.preprocessor(inputs[0], ctx)
+
+    def get_output_type(self, input_types):
+        return self.preprocessor.get_output_type(input_types[0])
+
 
 @register
 @dataclasses.dataclass
-class ReshapeVertex(_UnportedVertex):
+class ReshapeVertex(GraphVertexConf):
+    """Reshape to ``shape`` (-1 for the minibatch keeps it; reference
+    ``ReshapeVertex``)."""
     shape: Any = None
 
+    def n_inputs(self):
+        return 1
+
+    def forward(self, inputs, ctx):
+        return inputs[0].reshape(tuple(self.shape))
+
 
 @register
 @dataclasses.dataclass
-class PoolHelperVertex(_UnportedVertex):
-    pass
+class PoolHelperVertex(GraphVertexConf):
+    """Drops the first row and column of an NHWC activation, the
+    reference's shim for badly padded imported GoogLeNet models
+    (``PoolHelperVertex``)."""
+
+    def n_inputs(self):
+        return 1
+
+    def forward(self, inputs, ctx):
+        return inputs[0][:, 1:, 1:, :]
+
+    def get_output_type(self, input_types):
+        t = input_types[0]
+        return InputTypeConvolutional(t.height - 1, t.width - 1, t.channels)
 
 
 @register
 @dataclasses.dataclass
-class LastTimeStepVertex(_UnportedVertex):
+class LastTimeStepVertex(GraphVertexConf):
+    """[b, T, s] -> [b, s]: each example's last unmasked step, by the mask
+    of the network input named ``mask_input`` (the last step without one;
+    reference ``rnn/LastTimeStepVertex``)."""
     mask_input: Optional[str] = None
 
+    def n_inputs(self):
+        return 1
+
+    def forward(self, inputs, ctx):
+        x = inputs[0]
+        mask = (ctx or {}).get("input_masks", {}).get(self.mask_input)
+        if mask is None:
+            return x[:, -1, :]
+        last = ((mask > 0).sum(dim=1) - 1).clamp(min=0)
+        return x[torch.arange(x.shape[0], device=x.device), last]
+
+    def propagate_mask(self, in_masks):
+        return None     # the time axis is gone
+
+    def get_output_type(self, input_types):
+        t = input_types[0]
+        return InputTypeFeedForward(t.size if isinstance(t, InputTypeRecurrent) else t.arity())
+
 
 @register
 @dataclasses.dataclass
-class DuplicateToTimeSeriesVertex(_UnportedVertex):
+class DuplicateToTimeSeriesVertex(GraphVertexConf):
+    """[b, s] -> [b, T, s], T the time length of the network input named
+    ``reference_input`` (under truncated BPTT, the segment's; reference
+    ``rnn/DuplicateToTimeSeriesVertex``)."""
     reference_input: Optional[str] = None
+
+    def n_inputs(self):
+        return 1
+
+    def forward(self, inputs, ctx):
+        x = inputs[0]
+        ref = (ctx or {}).get("inputs", {}).get(self.reference_input)
+        if ref is None:
+            raise ValueError(f"DuplicateToTimeSeriesVertex: reference input "
+                             f"'{self.reference_input}' not found")
+        return x[:, None, :].expand(x.shape[0], ref.shape[1], x.shape[1])
+
+    def get_output_type(self, input_types):
+        return InputTypeRecurrent(input_types[0].arity())
 
 
 # ---------------------------------------------------------------------------

@@ -1,8 +1,8 @@
 """Layer configuration classes.
 
 Counterpart of ``deeplearning4j_tpu/nn/conf/layers.py``, holding only the
-classes the ported slices run (the char-RNN's, the TransformerLM's, LeNet's
-and ResNet50's). Field names and order are unchanged so JSON written by the
+classes the ported slices run (the char-RNN's, the TransformerLM's and its
+MoE variant's, LeNet's and ResNet50's). Field names and order are unchanged so JSON written by the
 JAX package decodes here and re-encodes byte for byte; any other layer
 ``@class`` fails to decode with the "Unknown config class" error.
 
@@ -18,9 +18,12 @@ from typing import Any, List, Optional, Tuple
 from .serde import register
 from .inputs import (InputTypeConvolutional, InputTypeConvolutionalFlat,
                      InputTypeFeedForward, InputTypeRecurrent)
-from .preprocessors import CnnToFeedForwardPreProcessor, FeedForwardToCnnPreProcessor
+from .preprocessors import (CnnToFeedForwardPreProcessor, CnnToRnnPreProcessor,
+                            FeedForwardToCnnPreProcessor, FeedForwardToRnnPreProcessor,
+                            RnnToFeedForwardPreProcessor)
 
-__all__ = ["Layer", "BaseLayer", "FeedForwardLayer", "DenseLayer", "ConvolutionLayer",
+__all__ = ["Layer", "BaseLayer", "FeedForwardLayer", "DenseLayer", "MoEDenseLayer",
+           "ConvolutionLayer",
            "SubsamplingLayer", "PoolingType", "BatchNormalization", "LayerNormalization",
            "ActivationLayer", "EmbeddingSequenceLayer", "LSTM", "GravesLSTM",
            "SelfAttentionLayer", "OutputLayer", "RnnOutputLayer", "GlobalPoolingLayer",
@@ -119,9 +122,7 @@ class FeedForwardLayer(BaseLayer):
             return CnnToFeedForwardPreProcessor(input_type.height, input_type.width,
                                                 input_type.channels)
         if isinstance(input_type, InputTypeRecurrent):
-            raise ValueError(
-                f"{type(self).__name__} after {type(input_type).__name__} needs "
-                f"RnnToFeedForwardPreProcessor, which the port does not have yet")
+            return RnnToFeedForwardPreProcessor()
         return None
 
 
@@ -130,6 +131,31 @@ class FeedForwardLayer(BaseLayer):
 class DenseLayer(FeedForwardLayer):
     """Fully connected layer."""
     has_bias: bool = True
+
+
+@register
+@dataclasses.dataclass
+class MoEDenseLayer(FeedForwardLayer):
+    """Mixture-of-experts dense layer: a softmax router over
+    ``num_experts`` experts keeps each token's ``top_k`` gates
+    (renormalised), each expert a dense [n_in, n_out] map. The Switch
+    load-balancing loss, scaled by ``aux_loss_weight``, enters the training
+    objective through the forward's ``ctx``.
+
+    ``capacity_factor`` > 0 turns on capacity dispatch in training: within
+    each group of ``group_size`` tokens an expert takes at most
+    ``ceil(top_k * group_size * capacity_factor / num_experts)`` (rounded
+    up to a multiple of 8) assignments, and the lowest-gate assignments
+    over that are dropped (Switch semantics). Inference always routes
+    exactly, through the dense combine, so ``output``, ``score`` and
+    ``rnn_time_step`` agree whatever the batch's shape; 0 keeps the dense
+    combine everywhere."""
+    num_experts: int = 4
+    top_k: int = 2
+    aux_loss_weight: float = 1e-2
+    has_bias: bool = True
+    capacity_factor: float = 0.0
+    group_size: int = 1024
 
 
 @register
@@ -263,11 +289,11 @@ class BaseRecurrentLayer(FeedForwardLayer):
             self.n_in = input_type.size
 
     def preprocessor_for(self, input_type):
-        if not isinstance(input_type, InputTypeRecurrent):
-            raise ValueError(
-                f"{type(self).__name__} after {type(input_type).__name__} needs a "
-                f"FeedForwardToRnn or CnnToRnn preprocessor, which the port does not "
-                f"have yet")
+        if isinstance(input_type, InputTypeFeedForward):
+            return FeedForwardToRnnPreProcessor()
+        if isinstance(input_type, InputTypeConvolutional):
+            return CnnToRnnPreProcessor(input_type.height, input_type.width,
+                                        input_type.channels)
         return None
 
 
@@ -322,7 +348,9 @@ class RnnOutputLayer(OutputLayer):
             self.n_in = input_type.size
 
     def preprocessor_for(self, input_type):
-        return BaseRecurrentLayer.preprocessor_for(self, input_type)
+        if isinstance(input_type, InputTypeFeedForward):
+            return FeedForwardToRnnPreProcessor()
+        return None
 
 
 @register

@@ -1,8 +1,9 @@
 """ComputationGraph: DAG network container.
 
-Counterpart of ``deeplearning4j_tpu/nn/graph.py`` for single-input,
-single-output-set training with standard backprop: ``init``, ``output``,
-``fit`` (a DataSet, an iterator of DataSets, or arrays), ``score``,
+Counterpart of ``deeplearning4j_tpu/nn/graph.py``: ``init``, ``output``,
+``feed_forward``, ``fit`` (a DataSet or MultiDataSet, an iterator of
+either, or arrays; several inputs and outputs with a mask a stream;
+truncated BPTT), ``fit_external_errors``, ``score``,
 ``compute_gradient_and_score`` and ``params``. The forward walks the
 configuration's topological order (``_apply_graph``); the training loss
 skips the forward of output layers that nothing consumes and evaluates
@@ -10,13 +11,16 @@ their loss on the preoutput (``fused_softmax_skip_set``). An update is the
 JAX step core: loss -> autograd gradients -> minimize flip ->
 ``normalize_gradients`` -> each layer vertex's updater -> ``p - u`` in
 place, then the layers' new state (BatchNormalization's running
-statistics) is committed. Each layer vertex's input preprocessor runs just
-before it, and convolutional inputs arrive NCHW and flow NHWC
+statistics) is committed. The loss adds the auxiliary losses layers leave
+in ``ctx["aux_loss"]`` (MoE load balancing). Truncated BPTT is the loop
+both containers share (``multilayer._run_tbptt``): every input stream and
+3-D label sliced per segment, the carries detached by vertex name. Each
+layer vertex's input preprocessor runs just before it, and convolutional
+inputs arrive NCHW and flow NHWC
 (``nchw_to_nhwc``). ``rnn_time_step`` streams over the DAG under
 ``torch.inference_mode``: every vertex with a stream state (LSTM layers,
 the attention layers' KV cache) carries it by vertex name from call to
-call. Not ported yet: TBPTT over the graph, MultiDataSets, listeners and
-``fit_external_errors``.
+call. Not ported yet: listeners and ``evaluate``.
 """
 from __future__ import annotations
 
@@ -26,14 +30,14 @@ import torch
 from torch import nn
 
 from .. import resolve_device
-from .conf import BackpropType
+from .conf import BackpropType, CacheMode
 from .conf.graph import ComputationGraphConfiguration
 from .conf.layers import Layer
 from .layers import impl_for
-from .multilayer import _fit_epochs, _n_iterations, nchw_to_nhwc
+from .multilayer import _detached, _fit_epochs, _run_tbptt, nchw_to_nhwc
 from .multilayer import MultiLayerNetwork
 from .updaters import Sgd
-from ..datasets.dataset import DataSet, MultiDataSet
+from ..datasets.dataset import DataSet
 from ..optimize.updater import NetworkUpdater
 
 __all__ = ["ComputationGraph", "fused_softmax_skip_set"]
@@ -65,6 +69,7 @@ class ComputationGraph(nn.Module):
         self.last_etl_ms = 0.0       # wait for the last minibatch in fit
         self._gen = None             # draws attention-dropout seeds in training
         self._rnn_state = None       # streaming state for rnn_time_step, by vertex
+        self._warned_tbptt = False
 
     # ------------------------------------------------------------------ init
     def init(self, params: Optional[Dict[str, Dict]] = None, device="cuda",
@@ -124,7 +129,8 @@ class ComputationGraph(nn.Module):
     _to_device = MultiLayerNetwork._to_device
     _grads = MultiLayerNetwork._grads
     _update = MultiLayerNetwork._update
-    _batch_tensors = MultiLayerNetwork._batch_tensors
+    _apply_gradients = MultiLayerNetwork._apply_gradients
+    _steps = MultiLayerNetwork._steps
     _commit_states = MultiLayerNetwork._commit_states
     num_params = MultiLayerNetwork.num_params
     numParams = num_params
@@ -178,6 +184,16 @@ class ComputationGraph(nn.Module):
             outs = [acts[n] for n in self.conf.network_outputs]
         return outs[0] if len(outs) == 1 else outs
 
+    def feed_forward(self, *inputs, train=False):
+        """Every vertex's activation, and the inputs', by name (reference
+        ``feedForward``); ``train`` runs the training forward (batch
+        statistics) without changing any state."""
+        with torch.no_grad():
+            acts, _, _ = self._apply_graph([self._to_device(x) for x in inputs], None, train)
+        return dict(acts)
+
+    feedForward = feed_forward
+
     # ------------------------------------------------------------- streaming
     def _init_rnn_state(self, batch):
         return {n: impl.init_stream_state(batch, self.device)
@@ -213,17 +229,20 @@ class ComputationGraph(nn.Module):
 
     # -------------------------------------------------------------- training
     def _loss_fn(self, inputs, labels, input_masks, label_masks, train, rng=None,
-                 new_states=None):
-        """Sum of the output layers' losses + L1/L2 (``_loss_fn`` of the JAX
-        package, without the MoE auxiliary loss); a training forward's new
-        layer state goes into ``new_states`` when it is given."""
+                 new_states=None, rnn_state_in=None, rnn_state_out=None):
+        """Sum of the output layers' losses + L1/L2 + the auxiliary losses
+        the forward left in ``ctx["aux_loss"]`` (``_loss_fn`` of the JAX
+        package). A training forward's new layer state goes into
+        ``new_states`` when it is given; ``rnn_state_in`` continues the
+        vertices' carries, and their new carries go into ``rnn_state_out``
+        when it is given."""
         conf = self.conf
         if train:
             for impl in self.impls.values():
                 impl.check_trainable()
         out_set = fused_softmax_skip_set(conf, self.impls)
         acts, masks, ctx = self._apply_graph(inputs, input_masks, train, rng, skip=out_set,
-                                             new_states=new_states)
+                                             new_states=new_states, rnn_state_in=rnn_state_in)
         total = 0.0
         for out_name, lbl, lm in zip(conf.network_outputs, labels,
                                      label_masks or [None] * len(labels)):
@@ -241,57 +260,101 @@ class ComputationGraph(nn.Module):
         reg = 0.0
         for impl in self.impls.values():
             reg = reg + impl.regularization()
-        return total + reg
+        if rnn_state_out is not None:
+            rnn_state_out.update(ctx.get("rnn_state_out") or {})
+        return total + reg + ctx.get("aux_loss", 0.0)
 
-    def _step(self, f, l, fm, lm, iteration):
-        new_states = {}
-        loss = self._loss_fn([f], [l], None if fm is None else [fm],
-                             None if lm is None else [lm], True, self._gen, new_states)
+    def _step(self, inputs, labels, fms, lms, iteration, rnn_state_in=None):
+        """One update, then the layers' new state. Returns (detached loss,
+        detached carries by vertex name), as ``MultiLayerNetwork._step``."""
+        new_states, rnn_out = {}, {}
+        loss = self._loss_fn(inputs, labels, fms, lms, True, self._gen, new_states,
+                             rnn_state_in, rnn_out)
         self._update(loss, iteration)
         self._commit_states(new_states)
-        return loss.detach()
+        return loss.detach(), _detached(rnn_out)
+
+    def _streams(self, ds, cached=False):
+        """A DataSet's or MultiDataSet's (inputs, labels, features masks,
+        labels masks) on the device: tuples, a masks entry None when the
+        set has none. ``cached`` (``CacheMode.DEVICE`` in fit) keeps the
+        copies on the caller's set (a DataSet's own cache, not a
+        wrapper's, so that it hits on the next epoch); a put-ahead view's
+        tensors pass as they are."""
+        if isinstance(ds, DataSet):
+            f, l, fm, lm = ds.device_arrays(self.device) if cached else self._tensors(ds)
+            return (f,), (l,), None if fm is None else (fm,), None if lm is None else (lm,)
+        if cached:
+            return ds.device_arrays(self.device)
+
+        def put(seq):
+            return None if seq is None else tuple(
+                None if a is None else self._to_device(a) for a in seq)
+        return (put(ds.features), put(ds.labels), put(ds.features_masks),
+                put(ds.labels_masks))
 
     def _tensors(self, ds: DataSet):
         return tuple(self._to_device(a) for a in
                      (ds.features, ds.labels, ds.features_mask, ds.labels_mask))
 
     def fit(self, data, labels=None, epochs=1):
-        """Train. Accepts a DataSet, a DataSetIterator (or any iterable of
-        DataSets), or (features, labels) arrays; iterators go through the
-        prefetch pipeline, as in ``MultiLayerNetwork.fit``. Under
-        ``CacheMode.DEVICE`` the cache sits on the caller's DataSet."""
+        """Train. Accepts a DataSet or MultiDataSet, an iterator of either
+        (or any iterable), or (features, labels) arrays; iterators go
+        through the prefetch pipeline, as in ``MultiLayerNetwork.fit``.
+        Under ``CacheMode.DEVICE`` the cache sits on the caller's set."""
         return _fit_epochs(self, data, labels, epochs)
 
-    def _fit_batch(self, ds: DataSet):
-        if len(self.conf.network_inputs) != 1 or isinstance(ds, MultiDataSet):
-            raise NotImplementedError("graphs with several inputs need MultiDataSets, "
-                                      "whose fit is not ported yet")
-        f, l, fm, lm = self._batch_tensors(ds)
-        if (self.conf.backprop_type == BackpropType.TruncatedBPTT and f.dim() == 3
-                and f.shape[1] > self.conf.tbptt_fwd_length):
-            raise NotImplementedError("truncated BPTT over a ComputationGraph is not ported yet")
-        n_iter = _n_iterations(self.gc)
-        for k in range(n_iter):
-            loss = self._step(f, l, fm, lm, self.iteration_count + k)
-        self.iteration_count += n_iter
-        self.score_ = loss
+    def _fit_batch(self, ds):
+        inputs, labels, fms, lms = self._streams(ds, self.gc.cache_mode == CacheMode.DEVICE)
+        if len(inputs) != len(self.conf.network_inputs):
+            raise ValueError(f"the graph has {len(self.conf.network_inputs)} inputs, the "
+                             f"minibatch {len(inputs)} feature arrays")
+        if (self.conf.backprop_type == BackpropType.TruncatedBPTT
+                and all(x.dim() == 3 for x in inputs)
+                and inputs[0].shape[1] > self.conf.tbptt_fwd_length):
+            _run_tbptt(self, inputs, labels, fms, lms)
+            return
+        self.score_, _ = self._steps(inputs, labels, fms, lms)
 
-    def score(self, ds: Optional[DataSet] = None, training=False) -> float:
-        """Loss (+ penalty) on a dataset, or the last training score when
+    def fit_external_errors(self, inputs, epsilons):
+        """One update from errors computed outside the graph (reference
+        ``calcBackpropGradients`` with external epsilons): the
+        vector-Jacobian product of the output vertices' activations (a
+        training forward) with ``epsilons`` (one per output, in
+        ``network_outputs`` order) -> gradient normalization -> the
+        updaters -> ``p - u``; one iteration. As in the JAX package the
+        layers' state is not committed and there is no minimize flip."""
+        xs = [self._to_device(x) for x in _as_list(inputs)]
+        eps = [self._to_device(e) for e in _as_list(epsilons)]
+        for impl in self.impls.values():
+            impl.check_trainable()
+        acts, _, _ = self._apply_graph(xs, None, True)
+        outs = [acts[n] for n in self.conf.network_outputs]
+        grads = self._grads(outs, [e.to(o.dtype) for o, e in zip(outs, eps)])
+        self._apply_gradients(grads, self.iteration_count)
+        self.iteration_count += 1
+        return self
+
+    def score(self, ds=None, training=False) -> float:
+        """Loss (+ penalty and auxiliary losses) on a DataSet or
+        MultiDataSet, masks included, or the last training score when
         called without arguments."""
         if ds is None:
             return float(self.score_)
-        f, l, fm, lm = self._tensors(ds)
+        inputs, labels, fms, lms = self._streams(ds)
         with torch.no_grad():
-            loss = self._loss_fn([f], [l], None if fm is None else [fm],
-                                 None if lm is None else [lm], training)
+            loss = self._loss_fn(inputs, labels, fms, lms, training)
         return float(loss)
 
-    def compute_gradient_and_score(self, ds: DataSet):
+    def compute_gradient_and_score(self, ds):
         """({vertex: {param: grad}}, score) without updating the parameters.
         As in the JAX package, the masks are not used and dropout is off."""
-        f, l, _, _ = self._tensors(ds)
-        loss = self._loss_fn([f], [l], None, None, True)
+        inputs, labels, _, _ = self._streams(ds)
+        loss = self._loss_fn(inputs, labels, None, None, True)
         grads = self._grads(loss)
         self.score_ = loss.detach()
         return grads, float(self.score_)
+
+
+def _as_list(x):
+    return list(x) if isinstance(x, (list, tuple)) else [x]

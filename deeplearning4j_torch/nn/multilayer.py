@@ -3,8 +3,10 @@
 Counterpart of ``deeplearning4j_tpu/nn/multilayer.py``. Inference:
 ``init``, ``output``, ``rnn_time_step``, ``rnn_clear_previous_state``.
 Training: ``fit`` (a DataSet, an iterator, or arrays), one update per
-minibatch or, with truncated BPTT, per segment (``_fit_batch``,
-``_fit_tbptt``), ``score`` and ``compute_gradient_and_score``. The update
+minibatch or, with truncated BPTT, per segment (``_fit_batch``;
+``_run_tbptt``, the loop both containers share), ``score`` and
+``compute_gradient_and_score``. The loss adds the auxiliary losses layers
+leave in ``ctx["aux_loss"]`` (MoE load balancing). The update
 is the JAX step core (``_raw_update_core``/``_raw_step``): loss ->
 autograd gradients -> minimize flip -> ``normalize_gradients`` -> the
 layer's updater -> ``p - u``, applied in place; then the layers' new state
@@ -290,9 +292,10 @@ class MultiLayerNetwork(nn.Module):
 
     # -------------------------------------------------------------- training
     def _loss_fn(self, f, l, fm, lm, train, rnn_state_in=None, new_states=None):
-        """Loss + L1/L2 penalty (``_loss_fn`` of the JAX package). Returns
-        (loss, rnn_state_out); a training forward's new layer state goes
-        into ``new_states`` when it is given."""
+        """Loss + L1/L2 penalty + the auxiliary losses the forward left in
+        ``ctx["aux_loss"]`` (MoE load balancing), as ``_loss_fn`` of the
+        JAX package. Returns (loss, rnn_state_out); a training forward's
+        new layer state goes into ``new_states`` when it is given."""
         if train:
             for impl in self.impls:
                 impl.check_trainable()
@@ -310,23 +313,30 @@ class MultiLayerNetwork(nn.Module):
         reg = 0.0
         for impl in self.impls:
             reg = reg + impl.regularization()
-        return loss + reg, ctx.get("rnn_state_out")
+        return loss + reg + ctx.get("aux_loss", 0.0), ctx.get("rnn_state_out")
 
-    def _grads(self, loss) -> Dict[str, Dict[str, torch.Tensor]]:
+    def _grads(self, outputs, grad_outputs=None) -> Dict[str, Dict[str, torch.Tensor]]:
+        """{layer: {param: gradient}} of ``outputs`` (a loss, or tensors
+        weighted by ``grad_outputs``: a vector-Jacobian product); zeros for
+        a parameter that does not reach them."""
         params = self._trainable()
         flat = [(i, k, p) for i, ps in params.items() for k, p in ps.items()]
-        gs = torch.autograd.grad(loss, [p for _, _, p in flat], allow_unused=True)
+        gs = torch.autograd.grad(outputs, [p for _, _, p in flat], grad_outputs=grad_outputs,
+                                 allow_unused=True)
         grads = {i: {} for i in params}
         for (i, k, p), g in zip(flat, gs):
             grads[i][k] = torch.zeros_like(p) if g is None else g
         return grads
 
     def _update(self, loss, iteration) -> None:
-        """Gradients of ``loss`` -> minimize flip -> normalization -> the
-        layers' updaters -> ``p - u`` in place."""
+        """Gradients of ``loss`` -> minimize flip -> :meth:`_apply_gradients`."""
         grads = self._grads(loss)
         if not self.gc.minimize:
             grads = {i: {k: -g for k, g in gs.items()} for i, gs in grads.items()}
+        self._apply_gradients(grads, iteration)
+
+    def _apply_gradients(self, grads, iteration) -> None:
+        """Normalization -> the layers' updaters -> ``p - u`` in place."""
         grads = normalize_gradients(grads, self.gc.gradient_normalization,
                                     self.gc.gradient_normalization_threshold)
         updates, self.updater_state = self.updater.apply(self.updater_state, grads, iteration)
@@ -376,34 +386,9 @@ class MultiLayerNetwork(nn.Module):
         f, l, fm, lm = self._batch_tensors(ds)
         if (self.conf.backprop_type == BackpropType.TruncatedBPTT and f.dim() == 3
                 and f.shape[1] > self.conf.tbptt_fwd_length):
-            self._fit_tbptt(f, l, fm, lm)
+            _run_tbptt(self, f, l, fm, lm)
             return
         self.score_, _ = self._steps(f, l, fm, lm)
-
-    def _fit_tbptt(self, f, l, fm, lm):
-        """Truncated BPTT (reference ``doTruncatedBPTT``): segments of
-        ``tbptt_fwd_length`` steps (the last one ragged), one update per
-        segment, (h, c) carried detached from segment to segment; labels
-        and masks are sliced per segment, ``score_`` is the last segment's
-        loss. A differing ``tbptt_back_length`` is treated as the forward
-        length (warned once), as in the JAX package."""
-        L = self.conf.tbptt_fwd_length
-        if self.conf.tbptt_back_length != L and not self._warned_tbptt:
-            log.warning("tbptt_back_length=%d differs from tbptt_fwd_length=%d; "
-                        "backprop truncation uses the forward chunk length",
-                        self.conf.tbptt_back_length, L)
-            self._warned_tbptt = True
-        T = int(f.shape[1])
-        state = self._init_rnn_state(int(f.shape[0]))
-        for start in range(0, T, L):
-            sl = slice(start, min(start + L, T))
-
-            def seg(a):
-                return None if a is None else a[:, sl]
-
-            loss, state = self._steps(seg(f), seg(l) if l.dim() == 3 else l, seg(fm), seg(lm),
-                                      state)
-        self.score_ = loss
 
     def score(self, ds: Optional[DataSet] = None, training=False) -> float:
         """Loss (+ penalty) on a dataset (reference ``score(DataSet)``), or the
@@ -421,6 +406,51 @@ class MultiLayerNetwork(nn.Module):
         grads = self._grads(loss)
         self.score_ = loss.detach()
         return grads, float(self.score_)
+
+
+def _map_streams(fn, x):
+    """``fn`` on every stream: a tensor (MultiLayerNetwork) or each member
+    of a tuple of optional tensors (ComputationGraph); None passes."""
+    if x is None:
+        return None
+    if isinstance(x, (tuple, list)):
+        return tuple(None if a is None else fn(a) for a in x)
+    return fn(x)
+
+
+def _run_tbptt(net, f, l, fm, lm):
+    """Truncated BPTT, shared by both containers (reference
+    ``doTruncatedBPTT``; the JAX package's ``multilayer._run_tbptt``):
+    segments of ``tbptt_fwd_length`` steps (the last one ragged), each
+    taking ``iterations(n)`` updates from the same carried-in state; every
+    input stream, features mask and labels mask is sliced per segment, and
+    every rank-3 label (a rank-2 one is whole-sequence and passes as it
+    is). The recurrent carries ((h, c) of an LSTM, a KV cache) go from
+    segment to segment detached, keyed by layer index or vertex name;
+    ``score_`` is the last segment's loss. A differing
+    ``tbptt_back_length`` is treated as the forward length (warned once),
+    as in the JAX package. The JAX package runs equal segments as one
+    ``lax.scan``, a compiler device; this loop has the same arithmetic and
+    iteration counts."""
+    L = net.conf.tbptt_fwd_length
+    if net.conf.tbptt_back_length != L and not net._warned_tbptt:
+        log.warning("tbptt_back_length=%d differs from tbptt_fwd_length=%d; "
+                    "backprop truncation uses the forward chunk length",
+                    net.conf.tbptt_back_length, L)
+        net._warned_tbptt = True
+    first = f[0] if isinstance(f, (tuple, list)) else f
+    T = int(first.shape[1])
+    state = net._init_rnn_state(int(first.shape[0]))
+    for start in range(0, T, L):
+        sl = slice(start, min(start + L, T))
+
+        def seg(a):
+            return a[:, sl]
+
+        loss, state = net._steps(_map_streams(seg, f),
+                                 _map_streams(lambda a: seg(a) if a.dim() == 3 else a, l),
+                                 _map_streams(seg, fm), _map_streams(seg, lm), state)
+    net.score_ = loss
 
 
 def _fit_epochs(net, data, labels, epochs):
