@@ -134,12 +134,36 @@ and the CUDA toolkit; run from the root of the repository. It
    turns; and a small two-input, two-output graph (Merge, LastTimeStep,
    DuplicateToTimeSeries, Subset and L2Normalize vertices, two f32 LSTMs)
    fitting a MultiDataSet and taking external errors, card against CPU;
-17. prints a ``{"cnn": ...}`` line with those numbers, a ``{"generate":
+17. (``regularized_char_rnn``) fits the char-RNN of step 4 once each with
+   dropout 0.8 on layer 0 (the pair stays on K3/K4: 4 launches each),
+   dropout 0.8 on layer 1 and DropConnect 0.9 on layer 0 (the pair splits:
+   8 K1 and 8 K2), MaxNorm 1.0 on both LSTMs (every column norm of W and
+   RW at most 1 after) and the retain probability 1.0 everywhere (loss and
+   parameters bit-equal to the plain fit's); holds the dropout and
+   DropConnect losses and gradients on the card against a CPU copy that
+   replays the card's draws; times each fit, and a fit with two listeners,
+   beside the plain fit in alternating turns; stops a fit over three
+   minibatches, the second NaN, with ``TrainingHealthListener(action=
+   "halt")`` after that minibatch; and restores the last
+   ``CheckpointListener`` zip bit for bit. (``lm_dropout``) fits the
+   TransformerLM of step 8 with attention dropout 0.1 under
+   ``CacheMode.DEVICE`` (8 K5, 8 K6 and 8 K7 a step, every call with a
+   seed; the loss falls by 20% over 4 steps), times its step beside the
+   dropout-free step, checks K5's keep bits in a full-shape call against
+   ``dropout_keep_mask`` and times K5-K7 with dropout beside
+   ``scaled_dot_product_attention(dropout_p=0.1)``. (``solvers``) runs
+   LBFGS on a 4096 x 784 -> 512 -> 10 f32 net: card against CPU at the
+   card's iterates and along an independent CPU run, then 30 iterations
+   against 30 SGD steps;
+18. prints a ``{"cnn": ...}`` line with those numbers, a ``{"generate":
    ...}`` line with steps 6 and 10's, a ``{"moe_lm": ..., "graph_tbptt":
-   ...}`` line with steps 15 and 16's, a ``{"kernels": [...]}`` line (K1's
-   and K3's entries with their decode rows; K1/K2's launches in step 16's
-   fit, K5-K7's in step 15's steps) and, last, the ``{"ok": true,
-   "device": ...}`` line.
+   ...}`` line with steps 15 and 16's, a ``{"regularized_char_rnn": ...,
+   "lm_dropout": ..., "solvers": ...}`` line with step 17's, a
+   ``{"kernels": [...]}`` line (K1's and K3's entries with their decode
+   rows; K1/K2's launches in step 16's fit, K5-K7's in step 15's steps;
+   K1-K4's in each regularised fit, K5-K7's in the dropout LM's steps and
+   their times with dropout) and, last, the ``{"ok": true, "device":
+   ...}`` line.
 
 Any failure raises, and the script exits nonzero without the last line.
 """
@@ -149,6 +173,7 @@ import contextlib
 import copy
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -384,6 +409,47 @@ GRAPH_PARAM_ATOL = 2 * 1e-3 * 4
 # f32 arithmetic in another order; limits set before the first run: score
 # 1e-5 relative, parameters 1e-5 absolute.
 SMALL_GRAPH_SCORE_RTOL, SMALL_GRAPH_PARAM_ATOL = 1e-5, 1e-5
+# Regularised char-RNN fits (regularized_char_rnn): the char-RNN of
+# char_rnn_conf with one regularisation each, one fit of one b=64, T=200
+# batch (4 TBPTT segments): dropout 0.8 on layer 0 (the pair stays on
+# K3/K4, its dropout before the hoisted projection), dropout 0.8 on layer 1
+# and DropConnect 0.9 on layer 0 (the pair splits onto K1/K2, as in the JAX
+# package), MaxNorm 1.0 on both LSTMs, and the retain probability 1.0 on
+# every layer (nothing drawn; the plain fit's routes and bits). Each timed
+# beside the plain fit in REG_TURNS alternating turns of REG_FITS fits,
+# synchronously (DL4J_TPU_PREFETCH_WORKERS=0), medians compared; so is a
+# fit with two listeners (one float(loss) a fit) against one without.
+REG_VARIANTS = ("dropout_layer0", "dropout_layer1", "dropconnect_layer0", "maxnorm",
+                "retain_all")
+REG_TURNS, REG_FITS = 4, 3
+# MaxNorm 1.0: every column norm of W and RW after the fit, f32 rounding
+# of the projection (w * max_norm / norm) allowed.
+MAXNORM_ATOL = 1e-6
+# The TransformerLM of lm_conf with attention dropout 0.1 under
+# CacheMode.DEVICE: LM_DROPOUT_STEPS steps, each 8 K5, 8 K6 and 8 K7 with a
+# nonzero seed; the loss must fall by LM_DROPOUT_LOSS_DROP over them (set
+# before the first run: the dense model fell 61% over 6 steps, the MoE
+# model 43% over 4); the step timed beside the dropout-free step in
+# LM_DROPOUT_TURNS alternating turns.
+LM_DROPOUT_RATE, LM_DROPOUT_STEPS, LM_DROPOUT_TURNS = 0.1, 4, 3
+LM_DROPOUT_LOSS_DROP = 0.20
+# LBFGS on a full-batch dense net of f32 (SOLVER_N examples, 784 -> 512 ->
+# 10, tanh, softmax, random labels), TF32 off, then SOLVER_ITERS
+# iterations on the card against as many SGD steps. Card against CPU: the
+# loss and gradient at each of the card's first SOLVER_CHECK_ITERS
+# iterates, evaluated again on a CPU copy (the same f32 arithmetic in
+# another order: loss SOLVER_LOSS_RTOL relative, set before the first run;
+# gradient SOLVER_GRAD_RTOL of its largest entry, set before its first
+# reading), and an independent LBFGS run on the CPU whose losses are held
+# at SOLVER_LOSS_RTOL for its first SOLVER_SAME_PATH_ITERS iterations and
+# reported after: in f32 two summation orders part LBFGS's paths within
+# a few iterations (an H100 at 700 W read 9e-8, 2.1e-6 and 1.5e-6 over
+# the first three, then 2.1e-5 and 7.3e-5 as the loss fell from 2.67 to
+# 0.15; the CPU tests see JAX and the port part the same way in f32 and
+# agree to 1e-10 in f64).
+SOLVER_N, SOLVER_IN, SOLVER_HIDDEN, SOLVER_OUT = 4096, 784, 512, 10
+SOLVER_CHECK_ITERS, SOLVER_SAME_PATH_ITERS, SOLVER_ITERS = 5, 3, 30
+SOLVER_LOSS_RTOL, SOLVER_GRAD_RTOL = 1e-5, 1e-4
 
 
 def log(msg):
@@ -3053,6 +3119,458 @@ def graph_tbptt():
             "param_abs": p_err, "fit_ms": fit_ms, "small": small}
 
 
+
+
+def regularized_conf(variant):
+    """char_rnn_conf with one of REG_VARIANTS."""
+    from deeplearning4j_torch.nn.conf.dropout import DropConnect, Dropout, MaxNormConstraint
+
+    conf = char_rnn_conf()
+    l0, l1, _ = conf.layers
+    if variant == "dropout_layer0":
+        l0.dropout = Dropout(0.8)
+    elif variant == "dropout_layer1":
+        l1.dropout = Dropout(0.8)
+    elif variant == "dropconnect_layer0":
+        l0.weight_noise = DropConnect(0.9)
+    elif variant == "maxnorm":
+        l0.constraints = [MaxNormConstraint(1.0)]
+        l1.constraints = [MaxNormConstraint(1.0)]
+    else:
+        # the retain probability 1.0: disabled (a Dropout object on the
+        # pair's second layer would split it, whatever its p, as in JAX)
+        for layer in conf.layers:
+            layer.dropout = 1.0
+    return conf
+
+
+@contextlib.contextmanager
+def recorded_draws(draws, replay=False):
+    """Every dropout and weight-noise draw (``nn/conf/dropout.bernoulli``
+    and ``normal``) appended to ``draws``; with ``replay``, taken from
+    ``draws`` in order instead (moved to the caller's device, shapes
+    checked)."""
+    from deeplearning4j_torch.nn.conf import dropout as pdrop
+
+    real = {n: getattr(pdrop, n) for n in ("bernoulli", "normal")}
+
+    def make(name):
+        def draw(gen, *args):
+            shape, device = args[-2:] if name == "bernoulli" else (args[0], args[-1])
+            if replay:
+                got = draws.pop(0)
+                if tuple(got.shape) != tuple(shape):
+                    raise AssertionError(f"replayed {name} draw of shape {tuple(got.shape)} "
+                                         f"where {tuple(shape)} is drawn")
+                return got.to(device)
+            out = real[name](gen, *args)
+            draws.append(out.cpu())
+            return out
+        return draw
+    try:
+        for n in real:
+            setattr(pdrop, n, make(n))
+        yield draws
+    finally:
+        for n, fn in real.items():
+            setattr(pdrop, n, fn)
+
+
+def regularized_reference(variant):
+    """One training loss and its gradients of a ``variant`` char-RNN on
+    the card (b=4, T=30, as check_train_reference) against a CPU copy
+    replaying the card's draws. Returns (score rel err, worst gradient rel
+    err, draws)."""
+    from deeplearning4j_torch import DataSet, MultiLayerNetwork
+
+    conf = regularized_conf(variant)
+    net = build_net(conf, seed=4)
+    cpu = MultiLayerNetwork(conf).init(
+        params={k: {n: t.cpu() for n, t in p.items()} for k, p in net.params.items()},
+        device="cpu")
+    ds = DataSet(*periodic_text(np.random.default_rng(7), 4, 30))
+    draws = []
+    with recorded_draws(draws):
+        s_card, _ = net._loss_fn(*net._tensors(ds), True, rng=net._gen)
+    g_card = net._grads(s_card)
+    n_draws = len(draws)
+    with recorded_draws(draws, replay=True):
+        s_cpu, _ = cpu._loss_fn(*cpu._tensors(ds), True, rng=cpu._gen)
+    if draws:
+        raise AssertionError(f"{variant}: {len(draws)} of the card's draws were not replayed")
+    g_cpu = cpu._grads(s_cpu)
+    s_card, s_cpu = float(s_card.detach()), float(s_cpu.detach())
+    s_err = abs(s_card - s_cpu) / abs(s_cpu)
+    g_err = {f"{i}/{k}": ((g_card[i][k].cpu() - g).abs().max() / g.abs().max()).item()
+             for i, gs in g_cpu.items() for k, g in gs.items()}
+    key = max(g_err, key=g_err.get)
+    log(f"card vs CPU on the card's {n_draws} draws, {variant}: score {s_card:.4f} vs "
+        f"{s_cpu:.4f} (rel {s_err:.2e}); worst gradient {key} rel {g_err[key]:.2e}")
+    if not (s_err <= TRAIN_SCORE_RTOL and g_err[key] <= TRAIN_GRAD_RTOL):
+        raise AssertionError(f"{variant}: card and CPU disagree on the replayed draws: score "
+                             f"{s_err}, {key} {g_err[key]}")
+    return s_err, g_err[key], n_draws
+
+
+def timed_fits(nets, ds, turns, fits):
+    """{label: median ms a fit} of the nets (label -> net or (net,
+    listeners)) fitted ``fits`` times a turn in alternating order,
+    synchronously; and the turns themselves."""
+    out = {k: [] for k in nets}
+    labels = list(nets)
+    with prefetch_workers(0):
+        for turn in range(turns):
+            for label in (labels if turn % 2 == 0 else labels[::-1]):
+                net, listeners = nets[label]
+                net.set_listeners(*listeners)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(fits):
+                    net.fit(ds)
+                net.score()                           # the value: a sync
+                out[label].append((time.perf_counter() - t0) * 1e3 / fits)
+                net.set_listeners()
+    return {k: float(np.median(v)) for k, v in out.items()}, out
+
+
+def regularized_char_rnn():
+    """The char-RNN's training main path with dropout, DropConnect, MaxNorm
+    and listeners (see REG_VARIANTS): each variant's fit launches what its
+    route says, counts reset just before and read just after; MaxNorm
+    holds; the disabled variant's loss and parameters equal the plain
+    fit's bit for bit; the dropout and DropConnect losses and gradients on
+    the card equal a CPU copy's on the card's draws; the costs against
+    the plain fit and of the listeners' sync; a health halt on a NaN batch;
+    a checkpoint that restores bit-equal."""
+    from deeplearning4j_torch import DataSet, ListDataSetIterator
+    from deeplearning4j_torch.monitor.health import TrainingHealthListener
+    from deeplearning4j_torch.optimize.listeners import (CheckpointListener,
+                                                         CollectScoresIterationListener,
+                                                         ScoreIterationListener)
+
+    f, l = periodic_text(np.random.default_rng(6), TRAIN_B, TRAIN_SEQ)
+    ds = DataSet(f, l)
+    segs = -(-TRAIN_SEQ // TRAIN_T)
+    fused = {"lstm2_fwd_train": segs, "lstm2_bwd": segs}
+    split = {"lstm_fwd_train": 2 * segs, "lstm_bwd": 2 * segs}
+    routes = {"plain": fused, "dropout_layer0": fused, "dropout_layer1": split,
+              "dropconnect_layer0": split, "maxnorm": fused, "retain_all": fused}
+    nets = {v: build_net(char_rnn_conf() if v == "plain" else regularized_conf(v), seed=3)
+            for v in routes}
+    launches, losses = {}, {}
+    for v, want in routes.items():
+        reset_counts()
+        nets[v].fit(ds)
+        torch.cuda.synchronize()
+        got = read_counts()
+        launches[v] = got
+        losses[v] = nets[v].score_.detach().clone()
+        if got != {n: want.get(n, 0) for n in got}:
+            raise AssertionError(f"a {v} fit of {segs} TBPTT segments launched {got}, "
+                                 f"expected {want}")
+    log(f"regularised char-RNN fits (b={TRAIN_B}, T={TRAIN_SEQ}, {segs} segments), launches: "
+        + "; ".join(f"{v} {({n: c for n, c in g.items() if c})}" for v, g in launches.items()))
+    log("their losses: " + " ".join(f"{v} {float(x):.4f}" for v, x in losses.items()))
+    if not all(torch.isfinite(x) for x in losses.values()):
+        raise AssertionError(f"a regularised fit's loss is not finite: {losses}")
+    norms = {f"{i}/{k}": torch.linalg.vector_norm(nets["maxnorm"].params[i][k], dim=0).max().item()
+             for i in ("0", "1") for k in ("W", "RW")}
+    log(f"MaxNorm 1.0 after the fit: largest column norm {norms} (plain fit: "
+        f"{torch.linalg.vector_norm(nets['plain'].params['1']['RW'], dim=0).max().item():.4f})")
+    if max(norms.values()) > 1.0 + MAXNORM_ATOL:
+        raise AssertionError(f"MaxNorm 1.0 does not hold after the fit: {norms}")
+    same = (torch.equal(losses["retain_all"], losses["plain"])
+            and same_tensors(nets["retain_all"].params, nets["plain"].params))
+    log(f"retain probability 1.0 everywhere: loss and parameters bit-equal to the plain "
+        f"fit's: {same}")
+    if not same:
+        raise AssertionError("the disabled-dropout fit differs from the plain fit")
+    reference = {v: regularized_reference(v)
+                 for v in ("dropout_layer0", "dropout_layer1", "dropconnect_layer0")}
+
+    med, turns = timed_fits({v: (nets[v], ()) for v in routes}, ds, REG_TURNS, REG_FITS)
+    for v in REG_VARIANTS:
+        log(f"smoke number, not a benchmark: a {v} fit {med[v]:.3f} ms against the plain "
+            f"fit's {med['plain']:.3f} ({100 * (med[v] / med['plain'] - 1):+.1f}%; medians of "
+            f"{REG_TURNS} alternating turns of {REG_FITS} fits: "
+            f"{' '.join(f'{x:.3f}' for x in turns[v])})")
+    plain = nets["plain"]
+    lst_med, lst_turns = timed_fits(
+        {"none": (plain, ()),
+         "listeners": (plain, (ScoreIterationListener(1), CollectScoresIterationListener()))},
+        ds, REG_TURNS, REG_FITS)
+    log(f"smoke number, not a benchmark: a fit with ScoreIterationListener + "
+        f"CollectScoresIterationListener {lst_med['listeners']:.3f} ms against "
+        f"{lst_med['none']:.3f} without ({100 * (lst_med['listeners'] / lst_med['none'] - 1):+.1f}%)")
+
+    # the health halt: the second of three minibatches holds a NaN
+    halt_net = build_net(char_rnn_conf(), seed=5)
+    bad = f.copy()
+    bad[0, 0, :] = np.nan
+    health, collect = TrainingHealthListener(action="halt"), CollectScoresIterationListener()
+    halt_net.set_listeners(health, collect)
+    reset_counts()
+    halt_net.fit(ListDataSetIterator([ds, DataSet(bad, l), ds]), epochs=2)
+    torch.cuda.synchronize()
+    halt_launches = read_counts()
+    scores = [s for _, s in collect.scores]
+    log(f"TrainingHealthListener(action='halt') over 3 minibatches x 2 epochs, the second "
+        f"NaN: stopped after {len(scores)} minibatches (scores {scores}), iteration_count "
+        f"{halt_net.iteration_count}, epochs {halt_net.epoch_count}, launches "
+        f"{({n: c for n, c in halt_launches.items() if c})}, triggered {health.triggered[:1]}")
+    if not (halt_net.halt_requested and len(scores) == 2 and np.isnan(scores[1])
+            and halt_net.iteration_count == 2 * segs and halt_net.epoch_count == 1
+            and halt_launches["lstm2_fwd_train"] == 2 * segs):
+        raise AssertionError("the health halt did not stop the fit after the NaN minibatch")
+
+    # a checkpoint every fit (4 iterations), the last two kept
+    ck = Path("build") / "checkpoints"
+    shutil.rmtree(ck, ignore_errors=True)
+    plain.set_listeners(CheckpointListener(str(ck), save_every_n_iterations=segs,
+                                           keep_last=2))
+    for _ in range(3):
+        plain.fit(ds)
+    plain.set_listeners()
+    files = CheckpointListener.checkpoints(str(ck))
+    restored = CheckpointListener.last_checkpoint(str(ck))      # on the card
+    ok = (len(files) == 2 and same_tensors(restored.params, plain.params)
+          and same_tensors(restored.updater_state, plain.updater_state)
+          and restored.iteration_count == plain.iteration_count)
+    log(f"CheckpointListener: kept {[Path(p).name for p in files]}; the last restores "
+        f"bit-equal (parameters, Adam state, iteration count): {ok}")
+    if not ok:
+        raise AssertionError("the last checkpoint does not restore the net bit for bit")
+    del nets, halt_net, restored
+    return {"launches": {v: {n: c for n, c in g.items() if c} for v, g in launches.items()},
+            "losses": {v: float(x) for v, x in losses.items()}, "maxnorm_column_norms": norms,
+            "retain_all_bit_equal": same,
+            "card_vs_cpu": {v: {"score_rel_err": r[0], "grad_rel_err": r[1], "draws": r[2]}
+                            for v, r in reference.items()},
+            "fit_ms": med, "fit_turns_ms": turns, "listener_fit_ms": lst_med,
+            "listener_turns_ms": lst_turns, "halt_after_minibatches": len(scores),
+            "halt_launches": {n: c for n, c in halt_launches.items() if c}}
+
+
+def lm_dropout():
+    """The TransformerLM of lm_conf with attention dropout LM_DROPOUT_RATE
+    under CacheMode.DEVICE: LM_DROPOUT_STEPS fit steps, each 8 K5, 8 K6 and
+    8 K7 launches (counts reset just before, read just after) with nonzero
+    seeds; the loss finite and falling; the step beside the dropout-free
+    step in alternating turns; K5's keep bits against dropout_keep_mask on
+    the first 64 keys of every row of a full-shape call at a seed the fit
+    drew; and K5, K6 and K7 with dropout timed beside
+    scaled_dot_product_attention with dropout_p at the same shape."""
+    from deeplearning4j_torch import DataSet
+    from deeplearning4j_torch.nn.graph import ComputationGraph
+    from deeplearning4j_torch.ops import flash_attention as fa
+
+    def conf(rate):
+        c = lm_conf()
+        c.global_conf.cache_mode = "device"
+        for v in c.vertices.values():
+            if hasattr(v, "dropout_rate"):
+                v.dropout_rate = rate
+        return c
+
+    net = ComputationGraph(conf(LM_DROPOUT_RATE)).init()
+    f, l = periodic_tokens(np.random.default_rng(8), LM_B, LM_T, LM_VOCAB)
+    ds = DataSet(f, l)
+    seeds, real = [], fa.flash_attention
+
+    def spy(*a, **k):
+        seeds.append((k.get("dropout_rate"), k.get("dropout_seed")))
+        return real(*a, **k)
+
+    fa.flash_attention = spy
+    losses = []
+    try:
+        reset_counts()
+        for _ in range(LM_DROPOUT_STEPS):
+            net.fit(ds)
+            losses.append(net.score())
+        launches = read_counts()
+    finally:
+        fa.flash_attention = real
+    want = {n: 0 for n in launches}
+    want.update(flash_fwd=LM_BLOCKS * LM_DROPOUT_STEPS, flash_dq=LM_BLOCKS * LM_DROPOUT_STEPS,
+                flash_dkv=LM_BLOCKS * LM_DROPOUT_STEPS)
+    drop = 1.0 - losses[-1] / losses[0]
+    log(f"TransformerLM with attention dropout {LM_DROPOUT_RATE}: {LM_DROPOUT_STEPS} steps, "
+        f"launches {({n: c for n, c in launches.items() if c})}; {len(seeds)} attention calls, "
+        f"rates {sorted({r for r, _ in seeds})}, seeds nonzero {all(s for _, s in seeds)}; "
+        f"loss per step " + " ".join(f"{x:.1f}" for x in losses)
+        + f", fell {100 * drop:.2f}%")
+    if launches != want:
+        raise AssertionError(f"the dropout LM's steps launched {launches}, expected {want}")
+    if len(seeds) != LM_BLOCKS * LM_DROPOUT_STEPS or not all(
+            r == LM_DROPOUT_RATE and s for r, s in seeds):
+        raise AssertionError(f"the attention calls did not all drop with a seed: {seeds}")
+    if not (np.isfinite(losses).all() and drop >= LM_DROPOUT_LOSS_DROP):
+        raise AssertionError(f"the dropout LM's loss did not fall by {LM_DROPOUT_LOSS_DROP}: "
+                             f"{losses}")
+
+    plain = ComputationGraph(conf(0.0)).init()
+    plain.fit(ds)
+    med, turns = timed_fits({"dropout": (net, ()), "plain": (plain, ())}, ds,
+                            LM_DROPOUT_TURNS, 1)
+    log(f"smoke number, not a benchmark: a TransformerLM step with attention dropout "
+        f"{LM_DROPOUT_RATE} {med['dropout']:.1f} ms against {med['plain']:.1f} without "
+        f"({100 * (med['dropout'] / med['plain'] - 1):+.1f}%; medians of {LM_DROPOUT_TURNS} "
+        f"alternating turns, cached: {turns})")
+    dev = net.device
+    del net, plain
+    torch.cuda.empty_cache()
+
+    # K5's keep bits in a full-shape call: q = k = 0 makes every visible
+    # probability of row i 1/(i+1); v = e_j for the first 64 keys and 0
+    # after, so o[i, j] != 0 exactly where key j < 64 is visible and kept
+    bh, t, d = LM_B * LM_HEADS, LM_T, LM_D
+    z = torch.zeros((bh, t, d), device=dev, dtype=torch.bfloat16)
+    v = torch.zeros((bh, t, d), device=dev, dtype=torch.bfloat16)
+    v[:, :d] = torch.eye(d, device=dev, dtype=torch.bfloat16)
+    sd = fa.seed3(seeds[0][1])
+    o, _ = fa.flash_fwd(z, z, v, None, True, d ** -0.5, LM_DROPOUT_RATE, sd)
+    want_keep = fa.dropout_keep_mask(bh, t, d, sd[0], LM_DROPOUT_RATE, sd[1], sd[2],
+                                     device=dev)
+    visible = torch.tril(torch.ones((t, d), dtype=torch.bool, device=dev))
+    keep_ok = torch.equal(o[:, :, :d] != 0, want_keep & visible)
+    log(f"K5 keep bits at full shape (b={LM_B} h={LM_HEADS} T={t} d={d}, the fit's first "
+        f"seed) equal dropout_keep_mask on keys 0..{d - 1} of every row: {keep_ok} "
+        f"({100 * want_keep.float().mean().item():.2f}% kept)")
+    if not keep_ok:
+        raise AssertionError("K5's keep bits at full shape differ from dropout_keep_mask")
+    del z, v, o, want_keep
+
+    # K5, K6 and K7 with dropout beside SDPA with dropout_p, same shape
+    g = torch.Generator().manual_seed(21)
+    q, k, vv, do = (torch.randn((bh, t, d), generator=g).to(dev, torch.bfloat16)
+                    for _ in range(4))
+    scale = d ** -0.5
+    o, lse = fa.flash_fwd(q, k, vv, None, True, scale, LM_DROPOUT_RATE, sd)
+    delta = fa.rowwise_delta(do, o)
+    args = (q, k, vv, None, do, delta, lse, True, scale, sd, LM_DROPOUT_RATE)
+    ms = {"flash_fwd": cuda_ms(lambda: fa.flash_fwd(q, k, vv, None, True, scale,
+                                                    LM_DROPOUT_RATE, sd), 10),
+          "flash_dq": cuda_ms(lambda: fa.dq_block(*args), 10),
+          "flash_dkv": cuda_ms(lambda: fa.dkv_block(*args), 10)}
+    plain_ms = {"flash_fwd": cuda_ms(lambda: fa.flash_fwd_plain(q, k, vv, None, True, scale,
+                                                                LM_DROPOUT_RATE, sd), 1),
+                "flash_dq": cuda_ms(lambda: fa.flash_dq_plain(*args), 1),
+                "flash_dkv": cuda_ms(lambda: fa.flash_dkv_plain(*args), 1)}
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qs, ks, vs = (x.view(LM_B, LM_HEADS, t, d).detach().requires_grad_(True)
+                  for x in (q, k, vv))
+    dos = do.view(LM_B, LM_HEADS, t, d)
+    lib_fwd = cuda_ms(lambda: sdpa(qs, ks, vs, is_causal=True, dropout_p=LM_DROPOUT_RATE), 10)
+    out = sdpa(qs, ks, vs, is_causal=True, dropout_p=LM_DROPOUT_RATE)
+    lib_bwd = cuda_ms(lambda: torch.autograd.grad(out, (qs, ks, vs), dos, retain_graph=True),
+                      10)
+    cells = bh * t * (t + 1) // 2
+    x = bh * t * d * 2
+    rows = bh * t * 4
+    work = {"flash_fwd": (4 * x + rows, 2 * 2 * d * cells),
+            "flash_dq": (5 * x + 2 * rows, 3 * 2 * d * cells),
+            "flash_dkv": (6 * x + 2 * rows, 4 * 2 * d * cells)}
+    timing = {}
+    for name, (nbytes, flops) in work.items():
+        bms, by = bound(nbytes, flops, 0)
+        timing[name] = {"ms": ms[name], "plain_ms": plain_ms[name], "bound_ms": bms,
+                        "bound_by": by,
+                        "library_ms": lib_fwd if name == "flash_fwd" else lib_bwd}
+        log(f"{name} causal with dropout {LM_DROPOUT_RATE} b={LM_B} h={LM_HEADS} T={t} d={d}: "
+            f"kernel_ms={ms[name]:.3f} plain_ms={plain_ms[name]:.1f} bound_ms={bms:.4f} ({by}) "
+            f"library_ms={timing[name]['library_ms']:.3f}")
+    log(f"yardstick scaled_dot_product_attention causal dropout_p={LM_DROPOUT_RATE}: forward "
+        f"{lib_fwd:.3f} ms (K5 {ms['flash_fwd']:.3f}), backward {lib_bwd:.3f} ms (K6 + K7 "
+        f"{ms['flash_dq'] + ms['flash_dkv']:.3f})")
+    return {"launches": {n: c for n, c in launches.items() if c}, "losses": losses,
+            "step_ms": med, "step_turns_ms": turns, "keep_bits_equal": keep_ok,
+            "kernels": timing}
+
+
+def solvers():
+    """LBFGS (``optimize/solvers.py``) on a full-batch dense net on the
+    card: its first SOLVER_CHECK_ITERS iterates' losses and gradients
+    against a CPU copy's at the same iterates, an independent CPU run's
+    losses against the card's (see SOLVER_SAME_PATH_ITERS), then
+    SOLVER_ITERS iterations against as many SGD steps of the same net; ms
+    an iteration."""
+    from deeplearning4j_torch import DataSet, MultiLayerNetwork, NeuralNetConfiguration, Sgd
+    from deeplearning4j_torch.nn.conf.layers import DenseLayer, OutputLayer
+    from deeplearning4j_torch.optimize import solvers as S
+
+    def conf(algo):
+        return (NeuralNetConfiguration.builder().seed(3).updater(Sgd(learning_rate=0.1))
+                .activation("tanh").optimization_algo(algo).list()
+                .layer(DenseLayer(n_in=SOLVER_IN, n_out=SOLVER_HIDDEN))
+                .layer(OutputLayer(n_in=SOLVER_HIDDEN, n_out=SOLVER_OUT, activation="softmax",
+                                   loss="mcxent")).build())
+
+    rng = np.random.default_rng(31)
+    ds = DataSet(rng.normal(size=(SOLVER_N, SOLVER_IN)).astype(np.float32),
+                 np.eye(SOLVER_OUT, dtype=np.float32)[rng.integers(0, SOLVER_OUT, SOLVER_N)])
+    card = MultiLayerNetwork(conf("lbfgs")).init()
+    params = {k: {n: t.cpu().clone() for n, t in p.items()} for k, p in card.params.items()}
+    cpu = MultiLayerNetwork(conf("lbfgs")).init(params=params, device="cpu")
+    recorded = {"card": [], "cpu": []}
+    iterates = []
+    real = S.BaseOptimizer.f_g
+
+    def f_g(self, x):
+        out = real(self, x)
+        on_card = self.net is card
+        recorded["card" if on_card else "cpu"].append(out)
+        if on_card:
+            iterates.append(x.copy())
+        return out
+
+    S.BaseOptimizer.f_g = f_g
+    try:
+        S.LBFGS(cpu, ds, max_iterations=SOLVER_CHECK_ITERS).optimize()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        S.Solver.builder().model(card).max_iterations(SOLVER_ITERS).build().optimize(ds)
+        torch.cuda.synchronize()
+        lbfgs_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        S.BaseOptimizer.f_g = real
+    n = min(SOLVER_CHECK_ITERS + 1, len(recorded["cpu"]), len(iterates))
+    at_card = S.BaseOptimizer(cpu, ds)
+    same_x = []
+    for x, (loss, g) in zip(iterates[:n], recorded["card"][:n]):
+        c_loss, c_g = at_card.f_g(x)
+        same_x.append((abs(loss - c_loss) / abs(c_loss),
+                       float(np.abs(g - c_g).max() / np.abs(c_g).max())))
+    path = [abs(a[0] - b[0]) / abs(b[0]) for a, b in zip(recorded["card"][:n],
+                                                         recorded["cpu"][:n])]
+    sgd = MultiLayerNetwork(conf("sgd")).init(params=params)
+    for _ in range(SOLVER_ITERS):
+        sgd.fit(ds)
+    lbfgs_loss, sgd_loss = card.score(ds, training=True), sgd.score(ds, training=True)
+    log(f"LBFGS {SOLVER_N} x {SOLVER_IN} -> {SOLVER_HIDDEN} -> {SOLVER_OUT} f32 on the card: "
+        f"losses at its first {n} evaluations "
+        f"{[f'{x[0]:.6f}' for x in recorded['card'][:n]]}; the CPU at the same iterates: loss "
+        f"rel err {[f'{e[0]:.1e}' for e in same_x]}, gradient {[f'{e[1]:.1e}' for e in same_x]}; "
+        f"an independent CPU run: loss rel err {[f'{e:.1e}' for e in path]}; {SOLVER_ITERS} "
+        f"iterations ({len(recorded['card'])} loss-and-gradient calls) {lbfgs_ms:.1f} ms, "
+        f"{lbfgs_ms / SOLVER_ITERS:.2f} ms an iteration; loss {lbfgs_loss:.5f} against "
+        f"{sgd_loss:.5f} after {SOLVER_ITERS} SGD steps")
+    if not (max(e[0] for e in same_x) <= SOLVER_LOSS_RTOL
+            and max(e[1] for e in same_x) <= SOLVER_GRAD_RTOL):
+        raise AssertionError(f"the CPU disagrees with the card at the card's iterates: {same_x}")
+    if not max(path[:SOLVER_SAME_PATH_ITERS + 1]) <= SOLVER_LOSS_RTOL:
+        raise AssertionError(f"LBFGS on the card and the CPU part within "
+                             f"{SOLVER_SAME_PATH_ITERS} iterations: {path}")
+    if not lbfgs_loss < sgd_loss:
+        raise AssertionError(f"LBFGS ({lbfgs_loss}) did not beat {SOLVER_ITERS} SGD steps "
+                             f"({sgd_loss})")
+    return {"same_iterate_rel_err": same_x, "independent_run_rel_err": path,
+            "losses_card": [x[0] for x in recorded["card"][:n]],
+            "losses_cpu": [x[0] for x in recorded["cpu"][:n]], "ms": lbfgs_ms,
+            "ms_per_iteration": lbfgs_ms / SOLVER_ITERS, "lbfgs_loss": lbfgs_loss,
+            "sgd_loss": sgd_loss}
+
+
 def build():
     """Compile every kernel of the port, one nvcc per source, all at once,
     and print what ptxas reports of registers, shared memory and spills."""
@@ -3082,7 +3600,8 @@ def build():
                 log(f"  {src}: {entry[:72] + ': ' if named else ''}{line.strip()}")
 
 
-def kernel_line(serving, training, served, streamed, trained, flash, lm, decode, moe, graph):
+def kernel_line(serving, training, served, streamed, trained, flash, lm, decode, moe, graph,
+                reg, lmd):
     """The {"kernels": [...]} entries: for K1-K4 numbers at the char-RNN's
     training shape, the launches of its training main path, and K1/K3's
     serving numbers and their decode rows (T=1, b=GEN_B, one a
@@ -3090,7 +3609,10 @@ def kernel_line(serving, training, served, streamed, trained, flash, lm, decode,
     and the launches of its training main path (its ``output`` apart).
     K1 and K2 also carry their launches in the graph char-RNN's TBPTT fit
     (``graph_tbptt_launches``), K5-K7 theirs in the MoE TransformerLM's
-    steps (``moe_lm_launches``)."""
+    steps (``moe_lm_launches``); K1-K4 theirs in each regularised char-RNN
+    fit (``regularized_launches``), K5-K7 theirs in the dropout
+    TransformerLM's steps (``lm_dropout_launches``) and their times with
+    dropout beside SDPA's with ``dropout_p`` (``dropout``)."""
     shape = {"b": TRAIN_B, "T": TRAIN_T, "H": H, "w": "bf16", "peepholes": True}
     sshape = {"b": B, "T": T, "H": H, "w": "bf16", "peepholes": True}
 
@@ -3099,7 +3621,9 @@ def kernel_line(serving, training, served, streamed, trained, flash, lm, decode,
              "replaces": replaces, "launches": trained[counter],
              "max_abs_err": max(r["max_abs_err"] for r in res), "ms": res[0]["ms"],
              "plain_ms": res[0]["plain_ms"], "bound_ms": res[0]["bound_ms"],
-             "bound_by": res[0]["bound_by"], "library_ms": None, "shape": shape}
+             "bound_by": res[0]["bound_by"], "library_ms": None, "shape": shape,
+             "regularized_launches": {v: g.get(counter, 0)
+                                      for v, g in reg["launches"].items()}}
         if len(res) > 1:
             e.update(ms_unmasked=res[1]["ms"], plain_ms_unmasked=res[1]["plain_ms"])
         e.update(extra or {})
@@ -3135,13 +3659,13 @@ def kernel_line(serving, training, served, streamed, trained, flash, lm, decode,
                "design": training["lstm2_fwd_train"]["design"]}),
         entry("lstm2_bwd", "lstm2_bwd", "lstm_fused_bwd.cu", "deeplearning4j_tpu/ops/lstm_fused.py:249",
               [training["lstm2_bwd"]], {"design": training["lstm2_bwd"]["design"]}),
-        *(flash_entry(name, src, line, flash[name], lm, moe) for name, src, line in (
+        *(flash_entry(name, src, line, flash[name], lm, moe, lmd) for name, src, line in (
             ("flash_fwd", "flash_attn_fwd.cu", 202), ("flash_dq", "flash_attn_dq.cu", 311),
             ("flash_dkv", "flash_attn_dkv.cu", 361))),
     ]
 
 
-def flash_entry(name, source, line, res, lm, moe):
+def flash_entry(name, source, line, res, lm, moe, lmd):
     e = {"name": name, "route": "cuda", "source": f"deeplearning4j_torch/csrc/{source}",
          "replaces": f"deeplearning4j_tpu/ops/flash_attention.py:{line}",
          "launches": lm["launches"][name], "launches_per_step": lm["launches"][name] // LM_STEPS,
@@ -3150,7 +3674,8 @@ def flash_entry(name, source, line, res, lm, moe):
                    "causal": True},
          "output_launches": lm["output_launches"][name],
          "moe_lm_launches": moe["launches"][name], "moe_lm_output_launches":
-         moe["output_launches"][name]}
+         moe["output_launches"][name], "lm_dropout_launches": lmd["launches"][name],
+         "dropout": {"rate": LM_DROPOUT_RATE, **lmd["kernels"][name]}}
     e["design"] = design(torch.bfloat16, LM_D, source)
     if name == "flash_fwd":
         e["library_note"] = (f"scaled_dot_product_attention forward; ms and library_ms are "
@@ -3214,11 +3739,16 @@ def main() -> int:
     torch.cuda.empty_cache()
     print(json.dumps({"moe_lm": {k: v for k, v in moe.items() if k != "profile"},
                       "graph_tbptt": graph}))
+    reg = regularized_char_rnn()
+    torch.cuda.empty_cache()
+    lmd = lm_dropout()
+    torch.cuda.empty_cache()
+    print(json.dumps({"regularized_char_rnn": reg, "lm_dropout": lmd, "solvers": solvers()}))
 
     print(json.dumps({"generate": generated}))
     print(json.dumps({"kernels": kernel_line(serving, training, served, streamed,
                                              trained["launches"], flash, lm, decode, moe,
-                                             graph)}))
+                                             graph, reg, lmd)}))
     log(f"chip_smoke took {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -14,7 +14,8 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["resolve_device", "NeuralNetConfiguration", "CacheMode", "MultiLayerNetwork",
+__all__ = ["resolve_device", "NeuralNetConfiguration", "CacheMode", "OptimizationAlgorithm",
+           "WorkspaceMode", "MultiLayerNetwork",
            "ComputationGraph", "InferenceServer", "ModelRegistry", "ServedModel", "DataSet",
            "MultiDataSet", "DataSetIterator", "ListDataSetIterator", "PrefetchDataSetIterator",
            "ShapeBucketingDataSetIterator", "NormalizerStandardize", "NormalizerMinMaxScaler",
@@ -45,7 +46,8 @@ from .datasets.prefetch import PrefetchDataSetIterator  # noqa: E402
 from .datasets.bucketing import ShapeBucketingDataSetIterator  # noqa: E402
 from .datasets.normalizers import (ImagePreProcessingScaler,  # noqa: E402
                                    NormalizerMinMaxScaler, NormalizerStandardize)
-from .nn.conf import CacheMode, NeuralNetConfiguration  # noqa: E402
+from .nn.conf import (CacheMode, NeuralNetConfiguration, OptimizationAlgorithm,  # noqa: E402
+                      WorkspaceMode)
 from .nn.losses import LossFunction  # noqa: E402
 from .nn.updaters import (AdaDelta, AdaGrad, AdaMax, Adam, AMSGrad, Nadam,  # noqa: E402
                           Nesterovs, NoOp, RmsProp, Sgd)

@@ -6,7 +6,15 @@ resolved at network init. ``dtype``/``compute_dtype`` are the
 mixed-precision policy (f32 parameters, bf16 matmul operands). Updaters and
 learning-rate schedules decode to the classes of ``nn/updaters.py``;
 weight-distribution configs are carried as data (:class:`serde.PlainConfig`)
-so that JSON written by the JAX package decodes.
+so that JSON written by the JAX package decodes; the dropout, weight-noise
+and constraint objects decode to the classes of ``nn/conf/dropout.py``.
+
+Some knobs are carried as configuration only, so that a JAX
+``configuration.json`` that sets them round-trips: the workspace modes
+(the port has no workspaces; PyTorch's caching allocator reuses memory
+whatever they say), ``remat`` (there is no compiler to rematerialise
+under; autograd keeps what the backward needs), ``mini_batch`` and
+``backprop``/``pretrain`` (no layer of the port pretrains).
 """
 from __future__ import annotations
 
@@ -14,6 +22,7 @@ import copy
 import dataclasses
 from typing import Any, Dict, List, Optional
 
+from . import dropout as _dropout  # noqa: F401  (registers its @class names)
 from . import serde
 from .serde import register, to_json, from_json
 from .inputs import InputType
@@ -25,7 +34,8 @@ from ..updaters import SCHEDULES, UPDATERS, Sgd
 
 __all__ = ["GlobalConfig", "MultiLayerConfiguration", "ComputationGraphConfiguration",
            "ListBuilder", "GraphBuilder", "Builder", "NeuralNetConfiguration", "InputType",
-           "GradientNormalization", "BackpropType", "CacheMode"]
+           "GradientNormalization", "BackpropType", "CacheMode", "OptimizationAlgorithm",
+           "WorkspaceMode"]
 
 for _cls in (*UPDATERS.values(), *SCHEDULES.values()):
     register(_cls)
@@ -34,6 +44,24 @@ serde.register_plain(
     # weight-init distributions (deeplearning4j_tpu/nn/weights.py)
     "NormalDistribution", "GaussianDistribution", "UniformDistribution",
     "ConstantDistribution", "BinomialDistribution")
+
+
+class OptimizationAlgorithm:
+    """Reference ``nn/api/OptimizationAlgorithm.java``: ``Solver`` reads it
+    (``optimize/solvers.py``); SGD is the containers' minibatch ``fit``."""
+    STOCHASTIC_GRADIENT_DESCENT = "sgd"
+    LINE_GRADIENT_DESCENT = "line_gd"
+    CONJUGATE_GRADIENT = "cg"
+    LBFGS = "lbfgs"
+
+
+class WorkspaceMode:
+    """Reference ``nn/conf/WorkspaceMode.java``, carried as configuration
+    only: the port has no workspaces."""
+    NONE = "none"
+    SINGLE = "single"
+    SEPARATE = "separate"
+    ENABLED = "enabled"
 
 
 class GradientNormalization:
@@ -117,6 +145,9 @@ class MultiLayerConfiguration:
             raise ValueError("JSON does not describe a MultiLayerConfiguration")
         return obj
 
+    def clone(self) -> "MultiLayerConfiguration":
+        return copy.deepcopy(self)
+
 
 class ListBuilder:
     """Collects layers; ``set_input_type`` runs shape inference (n_in
@@ -127,7 +158,10 @@ class ListBuilder:
     def __init__(self, global_conf: GlobalConfig):
         self._global = global_conf
         self._layers: List[Layer] = []
+        self._preprocessors: Dict[int, InputPreProcessor] = {}
         self._input_type = None
+        self._backprop = True
+        self._pretrain = False
         self._backprop_type = BackpropType.Standard
         self._tbptt_fwd = 20
         self._tbptt_back = 20
@@ -142,11 +176,29 @@ class ListBuilder:
             self._layers[idx] = layer
         return self
 
+    def input_preprocessor(self, idx, preproc) -> "ListBuilder":
+        """An explicit input preprocessor for layer ``idx`` (shape inference
+        inserts none there)."""
+        self._preprocessors[int(idx)] = preproc
+        return self
+
+    inputPreProcessor = input_preprocessor
+
     def set_input_type(self, input_type) -> "ListBuilder":
         self._input_type = input_type
         return self
 
     setInputType = set_input_type
+
+    def backprop(self, flag: bool) -> "ListBuilder":
+        """Carried as configuration (the JAX package's field)."""
+        self._backprop = bool(flag)
+        return self
+
+    def pretrain(self, flag: bool) -> "ListBuilder":
+        """Carried as configuration: no layer of the port pretrains."""
+        self._pretrain = bool(flag)
+        return self
 
     def backprop_type(self, t) -> "ListBuilder":
         self._backprop_type = t
@@ -170,19 +222,23 @@ class ListBuilder:
         layers = list(self._layers)
         if any(l is None for l in layers):
             raise ValueError("Gaps in layer list (indexed .layer(i, ...) left holes)")
-        preprocs = {}
+        preprocs = dict(self._preprocessors)
         if self._input_type is not None:
             it = self._input_type
             for i, layer in enumerate(layers):
-                p = layer.preprocessor_for(it)
-                if p is not None:
-                    preprocs[str(i)] = p
-                    it = p.get_output_type(it)
+                if i not in preprocs:
+                    p = layer.preprocessor_for(it)
+                    if p is not None:
+                        preprocs[i] = p
+                if i in preprocs:
+                    it = preprocs[i].get_output_type(it)
                 layer.set_n_in(it, override=False)
                 it = layer.get_output_type(i, it)
         return MultiLayerConfiguration(global_conf=self._global, layers=layers,
-                                       input_preprocessors=preprocs,
+                                       input_preprocessors={str(k): v
+                                                            for k, v in preprocs.items()},
                                        input_type=self._input_type,
+                                       backprop=self._backprop, pretrain=self._pretrain,
                                        backprop_type=self._backprop_type,
                                        tbptt_fwd_length=self._tbptt_fwd,
                                        tbptt_back_length=self._tbptt_back)
@@ -223,6 +279,40 @@ class Builder:
     def minimize(self, flag=True):
         return self._set("minimize", bool(flag))
 
+    def optimization_algo(self, o):
+        """The :class:`OptimizationAlgorithm` ``Solver`` runs."""
+        return self._set("optimization_algo", o)
+
+    optimizationAlgo = optimization_algo
+
+    def max_num_line_search_iterations(self, n):
+        return self._set("max_num_line_search_iterations", int(n))
+
+    maxNumLineSearchIterations = max_num_line_search_iterations
+
+    def mini_batch(self, flag):
+        return self._set("mini_batch", bool(flag))
+
+    miniBatch = mini_batch
+
+    def remat(self, mode):
+        """"auto" | "on" | "off": carried as configuration only (autograd
+        keeps what the backward needs; there is no compiler to
+        rematerialise under)."""
+        return self._set("remat", str(mode))
+
+    def training_workspace_mode(self, m):
+        """A :class:`WorkspaceMode`, carried as configuration only."""
+        return self._set("training_workspace_mode", m)
+
+    trainingWorkspaceMode = training_workspace_mode
+
+    def inference_workspace_mode(self, m):
+        """A :class:`WorkspaceMode`, carried as configuration only."""
+        return self._set("inference_workspace_mode", m)
+
+    inferenceWorkspaceMode = inference_workspace_mode
+
     def gradient_normalization(self, g):
         return self._set("gradient_normalization", g)
 
@@ -254,6 +344,7 @@ class Builder:
         return self._set("dropout", float(p))
 
     dropOut = drop_out
+    dropout = drop_out
 
     def dtype(self, d):
         return self._set("dtype", str(d))

@@ -432,6 +432,7 @@ class GraphBuilder:
         self._outputs: List[str] = []
         self._vertices: Dict[str, Any] = {}
         self._vertex_inputs: Dict[str, List[str]] = {}
+        self._preprocessors: Dict[str, Any] = {}
         self._input_types = None
         self._backprop_type = "standard"
         self._tbptt_fwd = 20
@@ -452,7 +453,7 @@ class GraphBuilder:
         if name in self._inputs:
             raise ValueError(f"Vertex name '{name}' collides with a network input")
 
-    def add_layer(self, name, layer, *inputs) -> "GraphBuilder":
+    def add_layer(self, name, layer, *inputs, preprocessor=None) -> "GraphBuilder":
         self._check_name(name)
         ins = list(inputs)
         if len(ins) > 1:
@@ -463,6 +464,8 @@ class GraphBuilder:
             ins = [merge_name]
         self._vertices[name] = layer
         self._vertex_inputs[name] = ins
+        if preprocessor is not None:
+            self._preprocessors[name] = preprocessor
         return self
 
     addLayer = add_layer
@@ -486,6 +489,14 @@ class GraphBuilder:
         return self
 
     setInputTypes = set_input_types
+
+    def input_preprocessor(self, layer_name, preproc) -> "GraphBuilder":
+        """An explicit input preprocessor for a layer vertex (shape
+        inference inserts none there)."""
+        self._preprocessors[layer_name] = preproc
+        return self
+
+    inputPreProcessor = input_preprocessor
 
     def backprop_type(self, t) -> "GraphBuilder":
         self._backprop_type = t
@@ -519,6 +530,7 @@ class GraphBuilder:
             network_outputs=list(self._outputs),
             vertices=dict(self._vertices),
             vertex_inputs=dict(self._vertex_inputs),
+            input_preprocessors=dict(self._preprocessors),
             input_types=self._input_types,
             backprop_type=self._backprop_type,
             tbptt_fwd_length=self._tbptt_fwd,

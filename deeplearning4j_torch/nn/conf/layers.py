@@ -2,12 +2,14 @@
 
 Counterpart of ``deeplearning4j_tpu/nn/conf/layers.py``, holding only the
 classes the ported slices run (the char-RNN's, the TransformerLM's and its
-MoE variant's, LeNet's and ResNet50's). Field names and order are unchanged so JSON written by the
+MoE variant's, LeNet's and ResNet50's, and DropoutLayer). Field names and order are unchanged so JSON written by the
 JAX package decodes here and re-encodes byte for byte; any other layer
 ``@class`` fails to decode with the "Unknown config class" error.
 
 Note on dropout: following the reference's 0.9.x semantics, ``dropout`` is
-the **retain probability** (1.0 = keep everything / disabled).
+the **retain probability** (1.0 = keep everything / disabled), or a dropout
+object of ``nn/conf/dropout.py``; ``weight_noise`` and ``constraints`` hold
+that module's weight-noise and constraint objects.
 """
 from __future__ import annotations
 
@@ -25,7 +27,7 @@ from .preprocessors import (CnnToFeedForwardPreProcessor, CnnToRnnPreProcessor,
 __all__ = ["Layer", "BaseLayer", "FeedForwardLayer", "DenseLayer", "MoEDenseLayer",
            "ConvolutionLayer",
            "SubsamplingLayer", "PoolingType", "BatchNormalization", "LayerNormalization",
-           "ActivationLayer", "EmbeddingSequenceLayer", "LSTM", "GravesLSTM",
+           "ActivationLayer", "DropoutLayer", "EmbeddingSequenceLayer", "LSTM", "GravesLSTM",
            "SelfAttentionLayer", "OutputLayer", "RnnOutputLayer", "GlobalPoolingLayer",
            "ConvolutionMode"]
 
@@ -73,7 +75,7 @@ def _conv_output_type(layer, input_type, channels):
 class Layer:
     """Base config: fields shared by every layer."""
     name: Optional[str] = None
-    dropout: Optional[float] = None  # retain probability, reference semantics
+    dropout: Optional[Any] = None  # retain probability or a dropout object
 
     # shape inference hooks -------------------------------------------------
     def get_output_type(self, index, input_type):
@@ -257,6 +259,23 @@ class LayerNormalization(FeedForwardLayer):
 @dataclasses.dataclass
 class ActivationLayer(BaseLayer):
     """An activation function as a layer of its own."""
+
+
+@register
+@dataclasses.dataclass
+class DropoutLayer(FeedForwardLayer):
+    """Dropout as a layer of its own (reference ``DropoutLayer``): its
+    ``dropout`` on the input in training, the identity otherwise; no
+    parameters, and no n_in/n_out to infer."""
+
+    def get_output_type(self, index, input_type):
+        return input_type
+
+    def set_n_in(self, input_type, override=False):
+        pass
+
+    def preprocessor_for(self, input_type):
+        return None
 
 
 @register

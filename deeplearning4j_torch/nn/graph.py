@@ -20,7 +20,12 @@ inputs arrive NCHW and flow NHWC
 (``nchw_to_nhwc``). ``rnn_time_step`` streams over the DAG under
 ``torch.inference_mode``: every vertex with a stream state (LSTM layers,
 the attention layers' KV cache) carries it by vertex name from call to
-call. Not ported yet: listeners and ``evaluate``.
+call. Dropout, weight noise, constraints, listeners and the health halt
+work as in ``MultiLayerNetwork`` (its docstring): each training forward
+splits the graph's generator per layer vertex in topological order, and
+the output layers' loss is taken on unnoised parameters with their input
+dropout from the step's stream (JAX ``graph.py:201``). Not ported yet:
+``evaluate``.
 """
 from __future__ import annotations
 
@@ -34,7 +39,8 @@ from .conf import BackpropType, CacheMode
 from .conf.graph import ComputationGraphConfiguration
 from .conf.layers import Layer
 from .layers import impl_for
-from .multilayer import _detached, _fit_epochs, _run_tbptt, nchw_to_nhwc
+from .layers.base import StepGenerators
+from .multilayer import _detached, _fit_epochs, _observe, _run_tbptt, nchw_to_nhwc
 from .multilayer import MultiLayerNetwork
 from .updaters import Sgd
 from ..datasets.dataset import DataSet
@@ -67,7 +73,10 @@ class ComputationGraph(nn.Module):
         self.epoch_count = 0
         self.score_ = float("nan")
         self.last_etl_ms = 0.0       # wait for the last minibatch in fit
-        self._gen = None             # draws attention-dropout seeds in training
+        self.last_batch_size = 0
+        self.listeners = []
+        self.halt_requested = False  # TrainingHealthListener's "halt"
+        self._gen = None             # the training step's stream (dropout, noise)
         self._rnn_state = None       # streaming state for rnn_time_step, by vertex
         self._warned_tbptt = False
 
@@ -80,7 +89,8 @@ class ComputationGraph(nn.Module):
         it, weights are drawn from a ``torch.Generator`` seeded with the
         config's seed, in topological order. ``states`` (same keys)
         installs the layers' state, else each starts from its initial
-        state. Updater state starts at zero."""
+        state. Updater state starts at zero; the training draws start from
+        a generator seeded with the config's seed + 1."""
         dev = resolve_device(device)
         conf = self.conf
         conf.infer_shapes()
@@ -115,8 +125,9 @@ class ComputationGraph(nn.Module):
         parameters (they share storage, so they follow training)."""
         return {n: {k: p.detach() for k, p in ps.items()} for n, ps in self._trainable().items()}
 
-    def _trainable(self) -> Dict[str, Dict[str, nn.Parameter]]:
-        return {n: impl.param_dict() for n, impl in self.impls.items()}
+    def _layers(self) -> Dict[str, nn.Module]:
+        """Each layer vertex's implementation by name."""
+        return dict(self.impls.items())
 
     @property
     def states(self) -> Dict[str, Dict[str, torch.Tensor]]:
@@ -125,32 +136,39 @@ class ComputationGraph(nn.Module):
         return {n: impl.layer_state() for n, impl in self.impls.items()}
 
     # Shared with MultiLayerNetwork: they read only device, gc, updater,
-    # updater_state, impls and _trainable().
+    # updater_state, impls, listeners and _layers().
     _to_device = MultiLayerNetwork._to_device
+    _trainable = MultiLayerNetwork._trainable
     _grads = MultiLayerNetwork._grads
     _update = MultiLayerNetwork._update
     _apply_gradients = MultiLayerNetwork._apply_gradients
+    _apply_constraints = MultiLayerNetwork._apply_constraints
     _steps = MultiLayerNetwork._steps
     _commit_states = MultiLayerNetwork._commit_states
     num_params = MultiLayerNetwork.num_params
     numParams = num_params
+    set_listeners = setListeners = MultiLayerNetwork.set_listeners
+    add_listeners = addListeners = MultiLayerNetwork.add_listeners
 
     # -------------------------------------------------------------- forward
     def _apply_graph(self, inputs, input_masks, train, rng=None, skip=(), new_states=None,
                      rnn_state_in=None):
         """Forward over the topological order. Returns (activations, masks,
-        ctx). ``rng`` (a ``torch.Generator``, training only) draws attention
-        dropout; ``skip`` names vertices not to run (the loss pass skips
-        output-layer forwards); in training, layers with state leave their
-        new state in ``new_states`` when it is given. ``rnn_state_in``
-        ({vertex name: carry}) continues a stream; each carrying vertex
-        leaves its new carry in ``ctx["rnn_state_out"]``."""
+        ctx). ``rng`` (the step's ``torch.Generator``, training only) is
+        split per layer vertex (``ctx["rng"]`` while it runs) for its weight
+        noise, input dropout and attention dropout; ``skip`` names vertices
+        not to run (the loss pass skips output-layer forwards); in
+        training, layers with state leave their new state in
+        ``new_states`` when it is given. ``rnn_state_in`` ({vertex name:
+        carry}) continues a stream; each carrying vertex leaves its new
+        carry in ``ctx["rnn_state_out"]``."""
         conf = self.conf
         its = conf.input_types or [None] * len(inputs)
         acts = dict(zip(conf.network_inputs,
                         [nchw_to_nhwc(x, it) for x, it in zip(inputs, its)]))
         masks = dict(zip(conf.network_inputs, input_masks or [None] * len(conf.network_inputs)))
-        ctx = {"inputs": acts, "input_masks": masks, "train": train, "rng": rng}
+        ctx = {"inputs": acts, "input_masks": masks, "train": train}
+        gens = StepGenerators(rng if train else None)
         if new_states is not None:
             ctx["new_states"] = new_states
         if rnn_state_in is not None:
@@ -167,11 +185,13 @@ class ComputationGraph(nn.Module):
                 if pre is not None:
                     x = pre(x, ctx)
                 m = masks.get(in_names[0])
-                acts[name] = self.impls[name](x, mask=m, ctx=ctx)
+                ctx["rng"] = gens.next(self.impls[name])
+                acts[name] = self.impls[name].noised_forward(x, m, ctx)
                 masks[name] = m
             else:
                 acts[name] = v.forward(xs, ctx)
                 masks[name] = v.propagate_mask([masks.get(i) for i in in_names])
+        ctx.pop("rng", None)
         return acts, masks, ctx
 
     def output(self, *inputs, masks=None):
@@ -237,9 +257,7 @@ class ComputationGraph(nn.Module):
         vertices' carries, and their new carries go into ``rnn_state_out``
         when it is given."""
         conf = self.conf
-        if train:
-            for impl in self.impls.values():
-                impl.check_trainable()
+        rng = rng if train else None
         out_set = fused_softmax_skip_set(conf, self.impls)
         acts, masks, ctx = self._apply_graph(inputs, input_masks, train, rng, skip=out_set,
                                              new_states=new_states, rnn_state_in=rnn_state_in)
@@ -256,7 +274,7 @@ class ComputationGraph(nn.Module):
             if pre is not None:
                 x = pre(x, ctx)
             mask = lm if lm is not None else (masks.get(in_name) if x.dim() == 3 else None)
-            total = total + impl.loss_on(x, lbl, mask=mask)
+            total = total + impl.loss_on(x, lbl, mask=mask, train=train, gen=rng)
         reg = 0.0
         for impl in self.impls.values():
             reg = reg + impl.regularization()
@@ -306,6 +324,7 @@ class ComputationGraph(nn.Module):
 
     def _fit_batch(self, ds):
         inputs, labels, fms, lms = self._streams(ds, self.gc.cache_mode == CacheMode.DEVICE)
+        self.last_batch_size = int(inputs[0].shape[0])
         if len(inputs) != len(self.conf.network_inputs):
             raise ValueError(f"the graph has {len(self.conf.network_inputs)} inputs, the "
                              f"minibatch {len(inputs)} feature arrays")
@@ -315,6 +334,7 @@ class ComputationGraph(nn.Module):
             _run_tbptt(self, inputs, labels, fms, lms)
             return
         self.score_, _ = self._steps(inputs, labels, fms, lms)
+        _observe(self)
 
     def fit_external_errors(self, inputs, epsilons):
         """One update from errors computed outside the graph (reference
@@ -323,11 +343,10 @@ class ComputationGraph(nn.Module):
         training forward) with ``epsilons`` (one per output, in
         ``network_outputs`` order) -> gradient normalization -> the
         updaters -> ``p - u``; one iteration. As in the JAX package the
-        layers' state is not committed and there is no minimize flip."""
+        layers' state is not committed, there is no minimize flip and no
+        constraint, and no dropout or weight noise is drawn."""
         xs = [self._to_device(x) for x in _as_list(inputs)]
         eps = [self._to_device(e) for e in _as_list(epsilons)]
-        for impl in self.impls.values():
-            impl.check_trainable()
         acts, _, _ = self._apply_graph(xs, None, True)
         outs = [acts[n] for n in self.conf.network_outputs]
         grads = self._grads(outs, [e.to(o.dtype) for o, e in zip(outs, eps)])

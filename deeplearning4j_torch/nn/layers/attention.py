@@ -8,9 +8,10 @@ and streaming over its KV cache (``init_stream_state``,
 ``_cached_attention``: ``rnn_time_step`` of a ComputationGraph). The
 sequence-parallel ring is not ported.
 
-Attention dropout in training draws from the network's
-``torch.Generator`` (``ctx["rng"]``): on the flash route one int32 seed per
-call for the kernels' counter hash, on the dense route a keep mask from a
+Attention dropout in training draws from the layer's ``torch.Generator``
+for the step (``ctx["rng"]``, which also draws the layer's input dropout
+before the q/k/v projections): on the flash route one int32 seed per call
+for the kernels' counter hash, on the dense route a keep mask from a
 device generator seeded from it. The streams differ from the JAX
 package's; the semantics are the same.
 """
@@ -18,14 +19,9 @@ from __future__ import annotations
 
 import torch
 
-from .base import LayerImpl, implements
+from .base import LayerImpl, implements, train_rng
+from ..conf.dropout import draw_seed
 from ...ops import flash_attention as fa
-
-_INT32_MAX = 2 ** 31 - 1
-
-
-def _draw_seed(gen: torch.Generator) -> int:
-    return int(torch.randint(0, _INT32_MAX, (), generator=gen))
 
 
 def mha(q, k, v, causal, compute_dtype, dropout_rate=0.0, gen=None, train=False,
@@ -40,7 +36,7 @@ def mha(q, k, v, causal, compute_dtype, dropout_rate=0.0, gen=None, train=False,
     rate = dropout_rate if (train and gen is not None) else 0.0
     if q.shape == k.shape and fa.supported(T, d, rate, key_mask, dtype=compute_dtype,
                                            bh=b * h):
-        seed = _draw_seed(gen) if rate > 0.0 else None
+        seed = draw_seed(gen) if rate > 0.0 else None
         return fa.flash_attention(q.to(compute_dtype), k.to(compute_dtype),
                                   v.to(compute_dtype), causal=causal, key_mask=key_mask,
                                   dropout_rate=rate, dropout_seed=seed)
@@ -69,7 +65,7 @@ def _dense_attention(q, k, v, visible, compute_dtype, rate=0.0, gen=None):
     if visible is not None:
         probs = torch.where(visible.any(dim=-1, keepdim=True), probs, torch.zeros_like(probs))
     if rate > 0.0:
-        g = torch.Generator(device=probs.device).manual_seed(_draw_seed(gen))
+        g = torch.Generator(device=probs.device).manual_seed(draw_seed(gen))
         keep = torch.rand(probs.shape, generator=g, device=probs.device) < 1.0 - rate
         probs = torch.where(keep, probs / (1.0 - rate), torch.zeros_like(probs))
     return torch.einsum("bhqk,bkhd->bqhd", probs.to(compute_dtype), v.to(compute_dtype))
@@ -80,6 +76,9 @@ class SelfAttentionImpl(LayerImpl):
     """Parameters ``Wq``, ``Wk``, ``Wv`` [nIn, h*d], ``Wo`` [h*d, nOut] and
     ``b`` [nOut]: q/k/v projections in the activations' type, ``mha``, the
     output projection plus bias, the activation, cast to ``out_dtype``."""
+
+    def draws(self) -> bool:
+        return super().draws() or self.conf.dropout_rate > 0.0
 
     def _dims(self):
         c = self.conf
@@ -152,6 +151,7 @@ class SelfAttentionImpl(LayerImpl):
         h, d = self._dims()
         b, T, _ = x.shape
         ctx = ctx or {}
+        x = self.maybe_dropout(x, *train_rng(ctx))
         q = (x @ self.Wq.to(x.dtype)).reshape(b, T, h, d)
         k = (x @ self.Wk.to(x.dtype)).reshape(b, T, h, d)
         v = (x @ self.Wv.to(x.dtype)).reshape(b, T, h, d)

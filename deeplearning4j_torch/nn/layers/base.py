@@ -18,10 +18,14 @@ step's update, so ``score(training=True)`` and
 ``compute_gradient_and_score`` use batch statistics but change nothing,
 as in the JAX package.
 
-Dropout and weight noise draw from the JAX package's random streams and
-are not ported: a training forward of a layer that configures either
-raises (:meth:`LayerImpl.check_trainable`); inference ignores them, as the
-reference does.
+Regularisation in training (``nn/conf/dropout.py``): ``maybe_dropout``
+applies the layer's input dropout, ``noised_forward`` runs the forward on
+weight-noised parameters (``torch.func.functional_call``, so autograd
+reaches the parameters through the noise), and the containers project
+``constraints`` after each update. Each draws from the layer's
+``torch.Generator`` for the step (``ctx["rng"]``, split per layer by the
+container); with none (inference, ``score``, the gradient check) every
+one of them is the identity, as with ``rng=None`` in the JAX package.
 
 Dtype policy (``base.py:78-86``, ``:211-226`` of the JAX package):
 parameters live in ``dtype`` (f32 masters); matmul operands are cast to
@@ -38,6 +42,7 @@ import torch
 from torch import nn
 
 from ..activations import get_activation
+from ..conf.dropout import draw_seed, resolve_dropout
 from ..weights import init_weight
 
 _IMPL_REGISTRY: Dict[str, Type["LayerImpl"]] = {}
@@ -74,6 +79,32 @@ def impl_for(conf, global_conf) -> "LayerImpl":
     return _IMPL_REGISTRY[name](conf, global_conf)
 
 
+class StepGenerators:
+    """One training forward's per-layer streams, the JAX package's
+    ``jax.random.split(rng, n)``: one seed drawn from the step's generator,
+    and the k-th layer's generator (a CPU ``torch.Generator``) seeded from
+    it and k, made only for a layer that draws. Without a step generator
+    every layer gets None."""
+
+    def __init__(self, gen):
+        self._seed = None if gen is None else draw_seed(gen)
+        self._k = 0
+
+    def next(self, impl):
+        """The generator of the next layer of the forward (None when it
+        draws nothing or outside training)."""
+        self._k += 1
+        if self._seed is None or not impl.draws():
+            return None
+        return torch.Generator().manual_seed(self._seed * 65536 + self._k)
+
+
+def train_rng(ctx):
+    """(training?, the layer's generator) from a forward's ``ctx``."""
+    ctx = ctx or {}
+    return ctx.get("train", False), ctx.get("rng")
+
+
 def _is_bias_key(k: str) -> bool:
     return k == "b" or k.endswith("_b") or k == "beta"
 
@@ -106,25 +137,44 @@ class LayerImpl(nn.Module):
         self.l2 = float(_resolved(conf, gc, "l2", 0.0))
         self.l1_bias = float(_resolved(conf, gc, "l1_bias", 0.0))
         self.l2_bias = float(_resolved(conf, gc, "l2_bias", 0.0))
-        self.dropout_p = _resolved(conf, gc, "dropout")
+        # float (retain probability) or a dropout object -> one apply() object
+        self.dropout_obj = resolve_dropout(_resolved(conf, gc, "dropout"))
         self.weight_noise = getattr(conf, "weight_noise", None)
+        self.constraints = getattr(conf, "constraints", None)
 
-    def dropout_active(self) -> bool:
-        """Whether dropout applies in training: a retain probability below 1
-        (the JAX ``resolve_dropout``) or a dropout object."""
-        p = self.dropout_p
-        return p is not None and not (isinstance(p, (int, float)) and p >= 1.0)
+    def draws(self) -> bool:
+        """Whether a training forward of this layer draws random numbers
+        (the container makes its generator only then)."""
+        return self.dropout_obj is not None or self.weight_noise is not None
 
-    def check_trainable(self) -> None:
-        """Raise for what a training forward of this layer would need and the
-        port does not have yet, rather than skip it silently."""
-        for what, on in (("dropout", self.dropout_active()),
-                         ("weight noise", self.weight_noise is not None),
-                         ("parameter constraints", bool(getattr(self.conf, "constraints", None)))):
-            if on:
-                raise NotImplementedError(
-                    f"layer {self.index} ({type(self.conf).__name__}): training with "
-                    f"{what} is not ported yet")
+    def maybe_dropout(self, x, train, gen):
+        """Input dropout or noise in training (reference
+        ``BaseLayer.preOutput``); the identity otherwise."""
+        if self.dropout_obj is None or not train or gen is None:
+            return x
+        return self.dropout_obj.apply(x, gen, train)
+
+    def noised_params(self, params, train, gen):
+        """``params`` with this forward's weight noise (DropConnect,
+        WeightNoise), drawn in sorted key order, the order the JAX
+        package's jitted step sees a layer's parameters in; ``params``
+        itself when none applies."""
+        wn = self.weight_noise
+        if wn is None or not train or gen is None or not params:
+            return params
+        return {k: wn.apply_to_weights(params[k], k, gen, train) for k in sorted(params)}
+
+    def noised_forward(self, x, mask, ctx):
+        """The forward, on weight-noised parameters when ``ctx`` trains with
+        a generator: the noised tensors stand in for the parameters
+        (``functional_call``), so a kernel receives them and autograd
+        carries their gradients back through the noise (a DropConnect
+        mask included)."""
+        params = self.param_dict()
+        noised = self.noised_params(params, ctx.get("train", False), ctx.get("rng"))
+        if noised is params:
+            return self(x, mask=mask, ctx=ctx)
+        return torch.func.functional_call(self, noised, (x,), {"mask": mask, "ctx": ctx})
 
     # ----------------------------------------------------------- parameters
     def param_shapes(self) -> Dict[str, Tuple[int, ...]]:

@@ -18,7 +18,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from .base import LayerImpl, implements
+from .base import LayerImpl, implements, train_rng
 from ..conf.layers import ConvolutionMode, _pair
 
 
@@ -71,6 +71,7 @@ class Conv2DImpl(LayerImpl):
         return params
 
     def forward(self, x, mask=None, ctx=None):
+        x = self.maybe_dropout(x, *train_rng(ctx))
         c = self.conf
         cd = self.compute_dtype
         k, s, p, d = (_pair(c.kernel_size), _pair(c.stride), _pair(c.padding),

@@ -1,13 +1,13 @@
 """Feed-forward layer implementations.
 
 Counterpart of ``deeplearning4j_tpu/nn/layers/feedforward.py`` (DenseLayer,
-ActivationLayer, EmbeddingSequenceLayer).
+ActivationLayer, DropoutLayer, EmbeddingSequenceLayer).
 """
 from __future__ import annotations
 
 import torch
 
-from .base import LayerImpl, implements
+from .base import LayerImpl, implements, train_rng
 
 
 def _dot(x, w, compute_dtype):
@@ -39,6 +39,7 @@ class DenseImpl(LayerImpl):
         return z
 
     def forward(self, x, mask=None, ctx=None):
+        x = self.maybe_dropout(x, *train_rng(ctx))
         return self.activation(self.preout(x)).to(self.out_dtype)
 
 
@@ -48,6 +49,14 @@ class ActivationImpl(LayerImpl):
 
     def forward(self, x, mask=None, ctx=None):
         return self.activation(x)
+
+
+@implements("DropoutLayer")
+class DropoutImpl(LayerImpl):
+    """The layer's dropout on its input in training, else the identity."""
+
+    def forward(self, x, mask=None, ctx=None):
+        return self.maybe_dropout(x, *train_rng(ctx))
 
 
 @implements("EmbeddingSequenceLayer")

@@ -27,7 +27,7 @@ from __future__ import annotations
 
 import torch
 
-from .base import LayerImpl, implements
+from .base import LayerImpl, implements, train_rng
 
 __all__ = ["MoEDenseImpl"]
 
@@ -135,6 +135,7 @@ class MoEDenseImpl(LayerImpl):
 
     def forward(self, x, mask=None, ctx=None):
         c = self.conf
+        x = self.maybe_dropout(x, *train_rng(ctx))
         flat = x.reshape(-1, x.shape[-1])
         rdt = self._router_dtype()
         gates, probs = self._route(flat.to(rdt), self.Wg)

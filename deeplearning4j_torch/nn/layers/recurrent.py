@@ -20,7 +20,7 @@ from __future__ import annotations
 
 import torch
 
-from .base import LayerImpl, implements, acc_dtype
+from .base import LayerImpl, implements, acc_dtype, train_rng
 from ...ops import lstm_cell
 
 __all__ = ["LSTMImpl", "GravesLSTMImpl"]
@@ -90,6 +90,7 @@ class _BaseLSTMImpl(LayerImpl):
         return y.to(self.out_dtype), hc
 
     def forward(self, x, mask=None, ctx=None):
+        x = self.maybe_dropout(x, *train_rng(ctx))
         h0c0 = None
         if ctx is not None and self.index is not None:
             h0c0 = ctx.get("rnn_state_in", {}).get(self.index)

@@ -9,8 +9,27 @@ minibatch or, with truncated BPTT, per segment (``_fit_batch``;
 leave in ``ctx["aux_loss"]`` (MoE load balancing). The update
 is the JAX step core (``_raw_update_core``/``_raw_step``): loss ->
 autograd gradients -> minimize flip -> ``normalize_gradients`` -> the
-layer's updater -> ``p - u``, applied in place; then the layers' new state
-(BatchNormalization's running statistics) is committed.
+layer's updater -> ``p - u``, applied in place -> the layers' constraints;
+then the layers' new state (BatchNormalization's running statistics) is
+committed.
+
+Regularisation in training (``nn/conf/dropout.py``): the network's own
+``torch.Generator`` (``_gen``) is the step's stream; each training forward
+splits it per layer (``layers.base.StepGenerators``, the JAX package's
+``jax.random.split``), and a layer draws its weight noise, then its input
+dropout, from its own. Layers [0, n-1) run on noised parameters; the
+output layer's parameters are not noised in the loss, and its input
+dropout draws from the step's stream itself (JAX ``multilayer.py:399``).
+``score``, ``compute_gradient_and_score`` and the gradient check pass no
+generator, so nothing is dropped or noised there.
+
+Listeners (``optimize/listeners.py``) hear ``on_epoch_start``/
+``on_epoch_end`` around each epoch and ``iteration_done`` once a
+minibatch (under TBPTT once a batch, with its last segment's loss); the
+loss's value, a device-to-host sync, is read only when a listener is set.
+``halt_requested`` (``monitor/health.py``'s halt) is cleared when ``fit``
+starts and checked between minibatches; an exception out of ``fit`` goes
+to every listener's ``on_training_error`` first.
 
 Each layer's input preprocessor (``conf.input_preprocessors``) runs just
 before it, and convolutional inputs arrive NCHW at the user boundary and
@@ -36,14 +55,18 @@ from torch import nn
 
 from .. import resolve_device
 from .conf import BackpropType, CacheMode, MultiLayerConfiguration
+from .conf.dropout import apply_constraints
 from .conf.inputs import InputTypeConvolutional
-from .conf.layers import FeedForwardLayer
+from .conf.layers import DropoutLayer, FeedForwardLayer
 from .layers import impl_for
+from .layers.base import StepGenerators
 from .layers.recurrent import _BaseLSTMImpl
 from .updaters import Sgd
 from ..datasets.dataset import DataSet, ListDataSetIterator, MultiDataSet, to_tensor
 from ..datasets.prefetch import wrap_for_training
+from ..monitor.health import get_health
 from ..ops import lstm_fused
+from ..optimize.listeners import dispatch_training_error
 from ..optimize.updater import NetworkUpdater, normalize_gradients
 
 __all__ = ["MultiLayerNetwork"]
@@ -89,6 +112,10 @@ class MultiLayerNetwork(nn.Module):
         self.epoch_count = 0
         self.score_ = float("nan")
         self.last_etl_ms = 0.0      # wait for the last minibatch in fit
+        self.last_batch_size = 0
+        self.listeners = []
+        self.halt_requested = False  # TrainingHealthListener's "halt"
+        self._gen = None            # the training step's stream (dropout, noise)
         self._rnn_state = None      # streaming state for rnn_time_step
         self._warned_tbptt = False
 
@@ -101,7 +128,8 @@ class MultiLayerNetwork(nn.Module):
         config; without it, weights are drawn from a ``torch.Generator``
         seeded with the config's seed. ``states`` (same keys) installs the
         layers' state, else each layer starts from its initial state.
-        Updater state starts at zero."""
+        Updater state starts at zero; the training draws start from a
+        generator seeded with the config's seed + 1."""
         dev = resolve_device(device)
         layers = self.conf.layers
         it = self.conf.input_type
@@ -113,7 +141,7 @@ class MultiLayerNetwork(nn.Module):
                 lc.set_n_in(it, override=False)
                 it = lc.get_output_type(i, it)
         for i, lc in enumerate(layers):
-            if isinstance(lc, FeedForwardLayer):
+            if isinstance(lc, FeedForwardLayer) and not isinstance(lc, DropoutLayer):
                 if lc.n_out is None or lc.n_in is None:
                     raise ValueError(f"Layer {i} ({type(lc).__name__}): n_in and "
                                      f"n_out must be set (or set_input_type)")
@@ -135,6 +163,7 @@ class MultiLayerNetwork(nn.Module):
         self.impls = nn.ModuleList(impls)
         self.device = dev
         self._rnn_state = None
+        self._gen = torch.Generator().manual_seed(int(self.gc.seed) + 1)
         # one updater per layer: its own override or the global default
         self.updater = NetworkUpdater({
             str(i): getattr(lc, "updater", None) or self.gc.updater or Sgd(learning_rate=1e-1)
@@ -149,8 +178,12 @@ class MultiLayerNetwork(nn.Module):
         return {i: {k: p.detach() for k, p in ps.items()}
                 for i, ps in self._trainable().items()}
 
+    def _layers(self) -> Dict[str, nn.Module]:
+        """Each layer's implementation by its parameter key."""
+        return {str(i): impl for i, impl in enumerate(self.impls)}
+
     def _trainable(self) -> Dict[str, Dict[str, nn.Parameter]]:
-        return {str(i): impl.param_dict() for i, impl in enumerate(self.impls)}
+        return {k: impl.param_dict() for k, impl in self._layers().items()}
 
     @property
     def states(self) -> Dict[str, Dict[str, torch.Tensor]]:
@@ -178,12 +211,15 @@ class MultiLayerNetwork(nn.Module):
         return to_tensor(a, self.device)
 
     def _apply_layers(self, x, fmask, rnn_state_in=None, train=False, upto=None,
-                      new_states=None):
+                      new_states=None, rng=None):
         """Run layers [0, upto), each after its input preprocessor. Returns
         (x, ctx); ``ctx["rnn_state_out"]`` holds each recurrent layer's
         final (h, c). In training, layers with state leave their new state
-        in ``new_states`` when it is given."""
+        in ``new_states`` when it is given, and ``rng`` (the step's
+        generator) is split per layer for its weight noise and input
+        dropout (``ctx["rng"]`` while the layer runs)."""
         ctx = {"train": train}
+        gens = StepGenerators(rng if train else None)
         if rnn_state_in is not None:
             ctx["rnn_state_in"] = rnn_state_in
         if new_states is not None:
@@ -195,13 +231,16 @@ class MultiLayerNetwork(nn.Module):
             pre = self.conf.preprocessor(i)
             if pre is not None:
                 x = pre(x, ctx)
+            ctx["rng"] = gens.next(self.impls[i])
             if (i + 1 < n and self.conf.preprocessor(i + 1) is None
                     and self._lstm_pair_fusable(i, x, fmask, train)):
-                x = self._fused_lstm_forward(x, ctx, i)
+                x = self._fused_lstm_forward(x, ctx, i, ctx["rng"])
+                gens.next(self.impls[i + 1])
                 i += 2
                 continue
-            x = self.impls[i](x, mask=fmask, ctx=ctx)
+            x = self.impls[i].noised_forward(x, fmask, ctx)
             i += 1
+        ctx.pop("rng", None)
         return x, ctx
 
     def _lstm_pair_fusable(self, i, x, fmask, train=False) -> bool:
@@ -224,7 +263,7 @@ class MultiLayerNetwork(nn.Module):
             return False
         if a.peepholes != b.peepholes or not (a.kernel_ok() and b.kernel_ok()):
             return False
-        if train and b.dropout_active():
+        if train and b.dropout_obj is not None:
             return False
         if a.compute_dtype != b.compute_dtype:
             return False
@@ -236,11 +275,13 @@ class MultiLayerNetwork(nn.Module):
             return False
         return not train or lstm_fused.bwd_route(wd, bsz, H, device=x.device)[1] > 0
 
-    def _fused_lstm_forward(self, x, ctx, i):
-        """Layers (i, i+1) through the fused kernel, with the hoisted
-        layer-1 projection and the ctx-carried (h, c) state of both layer
+    def _fused_lstm_forward(self, x, ctx, i, gen=None):
+        """Layers (i, i+1) through the fused kernel, with layer i's input
+        dropout (drawn from ``gen`` in training) before the hoisted layer-1
+        projection and the ctx-carried (h, c) state of both layer
         indices."""
         a, b = self.impls[i], self.impls[i + 1]
+        x = a.maybe_dropout(x, ctx.get("train", False), gen)
         cd = a.compute_dtype
         bsz = x.shape[0]
         xp1 = a.input_projection(x)
@@ -291,17 +332,16 @@ class MultiLayerNetwork(nn.Module):
     rnnClearPreviousState = rnn_clear_previous_state
 
     # -------------------------------------------------------------- training
-    def _loss_fn(self, f, l, fm, lm, train, rnn_state_in=None, new_states=None):
+    def _loss_fn(self, f, l, fm, lm, train, rnn_state_in=None, new_states=None, rng=None):
         """Loss + L1/L2 penalty + the auxiliary losses the forward left in
         ``ctx["aux_loss"]`` (MoE load balancing), as ``_loss_fn`` of the
         JAX package. Returns (loss, rnn_state_out); a training forward's
-        new layer state goes into ``new_states`` when it is given."""
-        if train:
-            for impl in self.impls:
-                impl.check_trainable()
+        new layer state goes into ``new_states`` when it is given. ``rng``
+        (training only) draws dropout and weight noise."""
+        rng = rng if train else None
         n = len(self.impls)
         x, ctx = self._apply_layers(f, fm, rnn_state_in, train, upto=n - 1,
-                                    new_states=new_states)
+                                    new_states=new_states, rng=rng)
         pre = self.conf.preprocessor(n - 1)
         if pre is not None:
             x = pre(x, ctx)
@@ -309,7 +349,7 @@ class MultiLayerNetwork(nn.Module):
         if not hasattr(out, "loss_on"):
             raise ValueError(f"Last layer {type(out).__name__} is not an output layer")
         mask = lm if lm is not None else (fm if x.dim() == 3 else None)
-        loss = out.loss_on(x, l, mask=mask)
+        loss = out.loss_on(x, l, mask=mask, train=train, gen=rng)
         reg = 0.0
         for impl in self.impls:
             reg = reg + impl.regularization()
@@ -329,11 +369,13 @@ class MultiLayerNetwork(nn.Module):
         return grads
 
     def _update(self, loss, iteration) -> None:
-        """Gradients of ``loss`` -> minimize flip -> :meth:`_apply_gradients`."""
+        """Gradients of ``loss`` -> minimize flip -> :meth:`_apply_gradients`
+        -> :meth:`_apply_constraints`."""
         grads = self._grads(loss)
         if not self.gc.minimize:
             grads = {i: {k: -g for k, g in gs.items()} for i, gs in grads.items()}
         self._apply_gradients(grads, iteration)
+        self._apply_constraints()
 
     def _apply_gradients(self, grads, iteration) -> None:
         """Normalization -> the layers' updaters -> ``p - u`` in place."""
@@ -345,11 +387,23 @@ class MultiLayerNetwork(nn.Module):
                 for k, p in ps.items():
                     p.sub_(updates[i][k].to(p.dtype))
 
+    def _apply_constraints(self) -> None:
+        """Each layer's constraints projected onto its parameters in place,
+        after an update (reference ``BaseConstraint.applyConstraint``)."""
+        with torch.no_grad():
+            for impl in self._layers().values():
+                if impl.constraints:
+                    ps = impl.param_dict()
+                    for k, t in apply_constraints(impl.constraints, ps).items():
+                        if t is not ps[k]:
+                            ps[k].copy_(t)
+
     def _step(self, f, l, fm, lm, iteration, rnn_state_in=None):
         """One update, then the layers' new state. Returns (detached loss,
         detached rnn state out)."""
         new_states = {}
-        loss, rnn_out = self._loss_fn(f, l, fm, lm, True, rnn_state_in, new_states)
+        loss, rnn_out = self._loss_fn(f, l, fm, lm, True, rnn_state_in, new_states,
+                                      rng=self._gen)
         self._update(loss, iteration)
         self._commit_states(new_states)
         return loss.detach(), _detached(rnn_out)
@@ -374,6 +428,19 @@ class MultiLayerNetwork(nn.Module):
         the device, ``CacheMode.DEVICE``), shut down when fit ends."""
         return _fit_epochs(self, data, labels, epochs)
 
+    def set_listeners(self, *listeners):
+        """Replace the listeners (``optimize/listeners.py``)."""
+        self.listeners = list(listeners)
+        return self
+
+    setListeners = set_listeners
+
+    def add_listeners(self, *listeners):
+        self.listeners.extend(listeners)
+        return self
+
+    addListeners = add_listeners
+
     def _batch_tensors(self, ds: DataSet):
         """A minibatch's (f, l, fm, lm) on the device: the DataSet's cached
         copies under ``CacheMode.DEVICE``, else the put-ahead view's
@@ -384,11 +451,13 @@ class MultiLayerNetwork(nn.Module):
 
     def _fit_batch(self, ds: DataSet):
         f, l, fm, lm = self._batch_tensors(ds)
+        self.last_batch_size = int(f.shape[0])
         if (self.conf.backprop_type == BackpropType.TruncatedBPTT and f.dim() == 3
                 and f.shape[1] > self.conf.tbptt_fwd_length):
             _run_tbptt(self, f, l, fm, lm)
             return
         self.score_, _ = self._steps(f, l, fm, lm)
+        _observe(self)
 
     def score(self, ds: Optional[DataSet] = None, training=False) -> float:
         """Loss (+ penalty) on a dataset (reference ``score(DataSet)``), or the
@@ -451,28 +520,63 @@ def _run_tbptt(net, f, l, fm, lm):
                                  _map_streams(lambda a: seg(a) if a.dim() == 3 else a, l),
                                  _map_streams(seg, fm), _map_streams(seg, lm), state)
     net.score_ = loss
+    _observe(net)
+
+
+def _observe(net):
+    """The listeners' view of one minibatch, after its updates: with a
+    listener set, the score's value (a device-to-host sync, taken only
+    then, as the JAX package's ``observe``) goes to the health state and
+    to each listener's ``iteration_done`` at the last update's
+    iteration."""
+    if not net.listeners:
+        return
+    score = float(net.score_)
+    iteration = net.iteration_count - 1
+    get_health().record_iteration(iteration, score)
+    for lst in net.listeners:
+        lst.iteration_done(net, iteration, score)
 
 
 def _fit_epochs(net, data, labels, epochs):
     """The fit loop both containers share (``fit`` of the JAX package's
     ``MultiLayerNetwork`` and ``ComputationGraph``): wrap the iterator for
-    training, time each wait for a minibatch (``last_etl_ms``), run
-    ``net._fit_batch`` on each, and shut an owned pipeline down however
-    the loop ends."""
+    training, run the listeners' epoch hooks around each epoch, time each
+    wait for a minibatch (``last_etl_ms``), run ``net._fit_batch`` on
+    each, stop between minibatches once ``halt_requested`` is set (cleared
+    when fit starts), hand an exception to the listeners'
+    ``on_training_error`` before it leaves, and shut an owned pipeline
+    down however the loop ends."""
     if labels is not None:
         data = DataSet(np.asarray(data), np.asarray(labels))
     if isinstance(data, (DataSet, MultiDataSet)):
         data = ListDataSetIterator([data])
     it, own_pipeline = wrap_for_training(
         data, net.device, cache_device=net.gc.cache_mode == CacheMode.DEVICE)
+    # a new fit supersedes an earlier halt
+    net.halt_requested = False
+    get_health().clear_halt()
     try:
         for _ in range(epochs):
+            for lst in net.listeners:
+                lst.on_epoch_start(net, net.epoch_count)
             t_etl = time.perf_counter()
             for ds in it:
                 net.last_etl_ms = (time.perf_counter() - t_etl) * 1e3
                 net._fit_batch(ds)
+                if net.halt_requested:
+                    break
                 t_etl = time.perf_counter()
+            for lst in net.listeners:
+                lst.on_epoch_end(net, net.epoch_count)
             net.epoch_count += 1
+            if net.halt_requested:
+                log.warning("fit halted at epoch %d (halt_requested; see "
+                            "TrainingHealthListener)", net.epoch_count)
+                break
+    except BaseException as e:
+        dispatch_training_error(net, net.listeners, e)
+        raise
     finally:
         if own_pipeline:
             it.shutdown()   # no prefetch worker outlives its fit

@@ -325,11 +325,18 @@ class LSTMFunction(torch.autograd.Function):
         return dz, weight_grad(h_prev, dz, rw.dtype), dpeep, dh0, dc0, None
 
 
-def pack_peepholes(peep: Optional[Sequence[torch.Tensor]]):
-    """(pi, pf, po) -> one contiguous [3, H] f32 tensor, or None."""
+def stream_dtype(t) -> torch.dtype:
+    """The streams' and states' dtype for a projection ``t``: f32 (the
+    kernels'), and f64 for a float64 network (a gradient check on the
+    CPU; a CUDA tensor in f64 raises at the kernel)."""
+    return torch.float64 if t.dtype == torch.float64 else torch.float32
+
+
+def pack_peepholes(peep: Optional[Sequence[torch.Tensor]], dtype=torch.float32):
+    """(pi, pf, po) -> one contiguous [3, H] tensor of ``dtype``, or None."""
     if peep is None:
         return None
-    return torch.stack([p.float() for p in peep]).contiguous()
+    return torch.stack([p.to(dtype) for p in peep]).contiguous()
 
 
 def recording(*ts) -> bool:
@@ -343,13 +350,15 @@ def lstm_scan(xp, rw, peep, h0, c0, mask=None
     [b, T, 4H] hoisted input projection (+bias), ``rw`` [H, 4H] in the
     compute dtype, ``peep`` (pi, pf, po) or None, ``h0``/``c0`` [b, H],
     ``mask`` [b, T] (values in [0, 1], data: it gets no gradient) or None.
-    Returns (ys [b, T, H] f32, (hT, cT) f32). While autograd records, the
-    call goes through :class:`LSTMFunction` (K1 with reserve, K2);
-    otherwise through the inference kernel, which writes no reserve."""
-    xp_tm = xp.transpose(0, 1).float().contiguous()
-    mk = None if mask is None else mask.detach().float().transpose(0, 1).contiguous()
-    args = (xp_tm, rw.contiguous(), pack_peepholes(peep), h0.float().contiguous(),
-            c0.float().contiguous())
+    Returns (ys [b, T, H] f32, (hT, cT) f32; f64 for an f64 ``xp``). While
+    autograd records, the call goes through :class:`LSTMFunction` (K1 with
+    reserve, K2); otherwise through the inference kernel, which writes no
+    reserve."""
+    sd = stream_dtype(xp)
+    xp_tm = xp.transpose(0, 1).to(sd).contiguous()
+    mk = None if mask is None else mask.detach().to(sd).transpose(0, 1).contiguous()
+    args = (xp_tm, rw.contiguous(), pack_peepholes(peep, sd), h0.to(sd).contiguous(),
+            c0.to(sd).contiguous())
     if recording(*args):
         ys, hT, cT = LSTMFunction.apply(*args, mk)
     else:

@@ -29,7 +29,7 @@ import torch
 
 from . import cuda_build
 from .lstm_cell import (_check_cuda, _same_device, cell, cell_bwd, pack_peepholes,
-                        recording, weight_grad)
+                        recording, stream_dtype, weight_grad)
 
 __all__ = ["lstm_scan2", "lstm2_fwd", "lstm2_fwd_plain", "lstm2_bwd", "lstm2_bwd_plain",
            "LSTM2Function", "fwd_route", "bwd_route", "COUNTER", "TRAIN_COUNTER",
@@ -276,17 +276,18 @@ def lstm_scan2(xp1, rw1, peep1, w2, b2, rw2, peep2, h01, c01, h02, c02
     ``xp1`` [b, T, 4H] layer-1 projection (+bias), ``rw1``/``w2``/``rw2``
     [H, 4H] in the compute dtype, ``b2`` [4H] layer-2 bias, ``peep1``/
     ``peep2`` (pi, pf, po) or both None, ``h01``..``c02`` [b, H]. Returns
-    (ys2 [b, T, H] f32, (h1T, c1T), (h2T, c2T)). While autograd records,
-    the call goes through :class:`LSTM2Function` (K3 with reserve, K4);
-    otherwise through the inference kernel."""
+    (ys2 [b, T, H] f32, (h1T, c1T), (h2T, c2T); f64 for an f64 ``xp1``).
+    While autograd records, the call goes through :class:`LSTM2Function`
+    (K3 with reserve, K4); otherwise through the inference kernel."""
     if (peep1 is None) != (peep2 is None):
         raise ValueError("lstm_scan2: both layers need peepholes, or neither")
+    sd = stream_dtype(xp1)
     pk = None
     if peep1 is not None:
-        pk = pack_peepholes(tuple(peep1) + tuple(peep2))
-    h0 = torch.stack([h01.float(), c01.float(), h02.float(), c02.float()]).contiguous()
-    args = (xp1.transpose(0, 1).float().contiguous(), rw1.contiguous(), w2.contiguous(),
-            rw2.contiguous(), b2.float().contiguous(), pk, h0)
+        pk = pack_peepholes(tuple(peep1) + tuple(peep2), sd)
+    h0 = torch.stack([h01.to(sd), c01.to(sd), h02.to(sd), c02.to(sd)]).contiguous()
+    args = (xp1.transpose(0, 1).to(sd).contiguous(), rw1.contiguous(), w2.contiguous(),
+            rw2.contiguous(), b2.to(sd).contiguous(), pk, h0)
     fn = LSTM2Function.apply if recording(*args) else lstm2_fwd
     ys2, hc = fn(*args)
     return ys2.transpose(0, 1), (hc[0], hc[1]), (hc[2], hc[3])

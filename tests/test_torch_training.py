@@ -248,8 +248,8 @@ def test_jax_checkpoint_resumes_with_updater_state(tmp_path, monkeypatch):
 def test_dropout_fuses_in_inference_and_refuses_training(monkeypatch):
     """Dropout on the pair's second layer blocks fusion only in training,
     as in the JAX package (multilayer.py:321); an inference ``output``
-    still takes the fused kernel, and a training step raises, since
-    dropout is not ported yet."""
+    still takes the fused kernel, and a training step runs the pair per
+    layer (no fused launch) and trains."""
     conf = (NeuralNetConfiguration.builder().seed(3).activation("tanh").list()
             .layer(GravesLSTM(n_in=V, n_out=16))
             .layer(GravesLSTM(n_in=16, n_out=16, dropout=0.5))
@@ -263,8 +263,10 @@ def test_dropout_fuses_in_inference_and_refuses_training(monkeypatch):
     x = torch.from_numpy(f)
     assert net._lstm_pair_fusable(0, x, None, train=False)
     assert not net._lstm_pair_fusable(0, x, None, train=True)
-    with pytest.raises(NotImplementedError, match="layer 1 .*dropout"):
-        net.fit(f, l)
+    before = {k: p.clone() for k, p in net.params["1"].items()}
+    net.fit(f, l)
+    assert calls == [1] and np.isfinite(net.score())
+    assert all(not torch.equal(before[k], p) for k, p in net.params["1"].items())
 
 
 def _rng_tree(seed):
