@@ -1,4 +1,4 @@
-"""On-card check of the PyTorch/CUDA port: build, hold, serve, train.
+"""On-card check of the PyTorch/CUDA port: build, hold, serve, train, evaluate.
 
     python3 chip_smoke.py
 
@@ -155,15 +155,34 @@ and the CUDA toolkit; run from the root of the repository. It
    LBFGS on a 4096 x 784 -> 512 -> 10 f32 net: card against CPU at the
    card's iterates and along an independent CPU run, then 30 iterations
    against 30 SGD steps;
-18. prints a ``{"cnn": ...}`` line with those numbers, a ``{"generate":
+18. (``evaluation``) trains the char-RNN of step 4 with
+   ``EarlyStoppingTrainer`` (two b=64, T=200 batches of one text cycle,
+   ``DataSetLossCalculator`` over two more, ``MaxEpochsTerminationCondition(3)``
+   and ``ScoreImprovementEpochTerminationCondition(1)``) once with
+   ``InMemoryModelSaver`` and once with ``LocalFileModelSaver``: the same
+   scores and epochs, each training batch 4 K3 with the reserve and 4 K4,
+   the best model restored from its zip onto the card answering bit for bit
+   as the in-memory best; ``evaluate`` of the best model on a masked batch
+   (2 K1) and an unmasked one (1 K3); ``ComputationGraph.evaluate`` of the
+   TransformerLM of step 8 over two b=4, T=8192 batches (8 K5 each), per
+   batch the forward, the on-card reduction, the labels' host argmax and
+   the bytes copied to the host (the [b*T] index vector only), then the
+   graph kept by ``InMemoryModelSaver`` (a deep copy) answering bit for
+   bit; every on-card ``Evaluation`` held count for count against the same
+   class fed the predictions copied to the host; SimpleCNN (3x48x48, b=256) on the
+   LFW fetcher's synthetic stand-in and LeNet on ``MnistDataSetIterator``'s
+   (b=1024) fit and evaluated, the fetchers reading an empty data directory
+   under ``build/``;
+19. prints a ``{"cnn": ...}`` line with those numbers, a ``{"generate":
    ...}`` line with steps 6 and 10's, a ``{"moe_lm": ..., "graph_tbptt":
    ...}`` line with steps 15 and 16's, a ``{"regularized_char_rnn": ...,
-   "lm_dropout": ..., "solvers": ...}`` line with step 17's, a
-   ``{"kernels": [...]}`` line (K1's and K3's entries with their decode
-   rows; K1/K2's launches in step 16's fit, K5-K7's in step 15's steps;
-   K1-K4's in each regularised fit, K5-K7's in the dropout LM's steps and
-   their times with dropout) and, last, the ``{"ok": true, "device":
-   ...}`` line.
+   "lm_dropout": ..., "solvers": ...}`` line with step 17's, an
+   ``{"evaluation": ...}`` line with step 18's (the card's name and power
+   limit in it), a ``{"kernels": [...]}`` line (K1's and K3's entries with
+   their decode rows; K1/K2's launches in step 16's fit, K5-K7's in step
+   15's steps; K1-K4's in each regularised fit, K5-K7's in the dropout
+   LM's steps and their times with dropout; K1, K3, K4 and K5's in step
+   18) and, last, the ``{"ok": true, "device": ...}`` line.
 
 Any failure raises, and the script exits nonzero without the last line.
 """
@@ -450,6 +469,22 @@ LM_DROPOUT_LOSS_DROP = 0.20
 SOLVER_N, SOLVER_IN, SOLVER_HIDDEN, SOLVER_OUT = 4096, 784, 512, 10
 SOLVER_CHECK_ITERS, SOLVER_SAME_PATH_ITERS, SOLVER_ITERS = 5, 3, 30
 SOLVER_LOSS_RTOL, SOLVER_GRAD_RTOL = 1e-5, 1e-4
+# Evaluation and early stopping (``evaluation``). The char-RNN of
+# char_rnn_conf trained by EarlyStoppingTrainer on ES_TRAIN batches of
+# b=TRAIN_B, T=TRAIN_SEQ periodic text (4 TBPTT segments each), scored by
+# DataSetLossCalculator over ES_VAL validation batches, stopped by
+# MaxEpochsTerminationCondition(ES_MAX_EPOCHS) or
+# ScoreImprovementEpochTerminationCondition(ES_PATIENCE), once with each
+# saver; then evaluate on one masked and one unmasked validation batch.
+# The TransformerLM of lm_conf evaluated over LM_EVAL_BATCHES batches.
+# SimpleCNN at its 3x48x48 input (SCNN_CLASSES classes, b=SCNN_B) on the
+# LFW fetcher's stand-in resized to 48 (SCNN_EXAMPLES examples), and LeNet
+# on MnistDataSetIterator (b=LENET_B), each fit for ZOO_EPOCHS epochs and
+# evaluated. No file of data is in the repository, so the fetchers serve
+# their synthetic stand-in from a data directory under build/.
+ES_TRAIN, ES_VAL, ES_MAX_EPOCHS, ES_PATIENCE = 2, 2, 3, 1
+LM_EVAL_BATCHES = 2
+SCNN_B, SCNN_CLASSES, SCNN_EXAMPLES, ZOO_EPOCHS = 256, 10, 512, 2
 
 
 def log(msg):
@@ -3571,6 +3606,281 @@ def solvers():
             "sgd_loss": sgd_loss}
 
 
+def held_evaluation(label, labels, out, mask=None):
+    """``Evaluation.eval`` on the tensor where it lies against the same
+    class fed the same predictions copied to the host (exactly equal
+    counts): returns the on-card evaluation."""
+    from deeplearning4j_torch.eval import Evaluation
+
+    ev, host = Evaluation(), Evaluation()
+    ev.eval(labels, out, mask=mask)
+    host.eval(labels, out.float().cpu().numpy(), mask=mask)
+    if not (np.array_equal(ev.confusion.matrix, host.confusion.matrix)
+            and ev.total == host.total):
+        raise AssertionError(f"{label}: the card's Evaluation counts differ from the host's "
+                             f"on the same predictions")
+    return ev
+
+
+def early_stopping_char_rnn():
+    """EarlyStoppingTrainer on the char-RNN, once with InMemoryModelSaver
+    and once with LocalFileModelSaver, from the same start on the same
+    data: the same epochs, scores and best epoch; the best model restored
+    from its zip onto the card answers bit for bit as the in-memory best.
+    Launch counts over both runs (each training batch 4 K3 with the
+    reserve and 4 K4; each validation score one K3)."""
+    from deeplearning4j_torch import DataSet, ListDataSetIterator
+    from deeplearning4j_torch import earlystopping as es
+
+    # one cycle of text for training and validation: something to learn
+    f, l = periodic_text(np.random.default_rng(21), TRAIN_B * (ES_TRAIN + ES_VAL), TRAIN_SEQ)
+    sets = [DataSet(f[i:i + TRAIN_B], l[i:i + TRAIN_B]) for i in range(0, len(f), TRAIN_B)]
+    train, val = sets[:ES_TRAIN], sets[ES_TRAIN:]
+    out_dir = Path("build") / "earlystopping"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    results, times = {}, {}
+    reset_counts()
+    for kind in ("memory", "file"):
+        saver = es.InMemoryModelSaver() if kind == "memory" else \
+            es.LocalFileModelSaver(str(out_dir))
+        conf = (es.EarlyStoppingConfiguration.builder()
+                .score_calculator(es.DataSetLossCalculator(ListDataSetIterator(val)))
+                .epoch_termination_conditions(
+                    es.MaxEpochsTerminationCondition(ES_MAX_EPOCHS),
+                    es.ScoreImprovementEpochTerminationCondition(ES_PATIENCE))
+                .model_saver(saver).build())
+        net = build_net(char_rnn_conf())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        results[kind] = es.EarlyStoppingTrainer(conf, net, ListDataSetIterator(train)).fit()
+        torch.cuda.synchronize()
+        times[kind] = time.perf_counter() - t0
+    mem, fil = results["memory"], results["file"]
+    scores = {int(e): s for e, s in mem.score_vs_epoch.items()}
+    if not (mem.score_vs_epoch == fil.score_vs_epoch and mem.total_epochs == fil.total_epochs
+            and mem.best_model_epoch == fil.best_model_epoch):
+        raise AssertionError(f"the two early-stopping runs differ: {mem.score_vs_epoch} "
+                             f"{fil.score_vs_epoch}")
+    if not (np.isfinite(list(scores.values())).all() and mem.best_model is not None):
+        raise AssertionError(f"early stopping: scores {scores}, best {mem.best_model}")
+    best = fil.best_model
+    if best.device != net.device or mem.best_model.device != net.device:
+        raise AssertionError(f"the best models are on {best.device} and "
+                             f"{mem.best_model.device}, the trained net on {net.device}")
+    f, _ = periodic_text(np.random.default_rng(22), TRAIN_B, TRAIN_SEQ)
+    same = torch.equal(best.output(f), mem.best_model.output(f))
+    if not same:
+        raise AssertionError("the best model restored from its zip does not answer bit for "
+                             "bit as the in-memory best")
+    launches = read_counts()
+    want = {n: 0 for n in launches}
+    steps = -(-TRAIN_SEQ // TRAIN_T) * ES_TRAIN * (mem.total_epochs + fil.total_epochs)
+    epochs = mem.total_epochs + fil.total_epochs
+    want.update(lstm2_fwd_train=steps, lstm2_bwd=steps,
+                lstm2_fwd=ES_VAL * epochs + 2)          # + the two outputs just compared
+    if launches != want:
+        raise AssertionError(f"early stopping launched {launches}, expected {want}")
+    log(f"early stopping (char-RNN b={TRAIN_B} T={TRAIN_SEQ}, {ES_TRAIN} training and {ES_VAL} "
+        f"validation batches): {mem.termination_reason} ({mem.termination_details}) after "
+        f"{mem.total_epochs} epochs, best epoch {mem.best_model_epoch}, validation scores "
+        f"{scores}; both savers the same run; the zip's best model answers bit for bit as the "
+        f"in-memory best; {times['memory']:.2f} s in memory, {times['file']:.2f} s with the "
+        f"file saver; launches {launches}")
+    return mem.best_model, val, {"scores": scores, "total_epochs": mem.total_epochs,
+                                 "best_epoch": mem.best_model_epoch,
+                                 "reason": mem.termination_reason, "seconds": times,
+                                 "restored_bit_equal": same, "launches": launches}
+
+
+def evaluate_char_rnn(net, val):
+    """``MultiLayerNetwork.evaluate`` on one masked validation batch (K1 a
+    layer, the masked route) and one unmasked (one K3), counts held against
+    the host path on the same predictions."""
+    from deeplearning4j_torch import DataSet, ListDataSetIterator
+
+    ds = val[0]
+    lengths = np.random.default_rng(23).integers(TRAIN_SEQ // 2, TRAIN_SEQ + 1, TRAIN_B)
+    mask = (np.arange(TRAIN_SEQ)[None, :] < lengths[:, None]).astype(np.float32)
+    masked = DataSet(ds.features, ds.labels, mask, mask)
+    out = {}
+    for kind, batch, want in (("masked", masked, {"lstm_fwd": 2}),
+                              ("unmasked", val[1], {"lstm2_fwd": 1})):
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ev = net.evaluate(ListDataSetIterator([batch]))
+        ms = (time.perf_counter() - t0) * 1e3
+        launches = read_counts()
+        t0 = time.perf_counter()
+        net.evaluate(ListDataSetIterator([batch]))           # a second call: warm
+        warm_ms = (time.perf_counter() - t0) * 1e3
+        expect = {n: 0 for n in launches}
+        expect.update(want)
+        if launches != expect:
+            raise AssertionError(f"evaluate ({kind}) launched {launches}, expected {expect}")
+        probs = net.output(batch.features, mask=batch.features_mask)
+        held = held_evaluation(f"char-RNN {kind}", batch.labels, probs, batch.labels_mask)
+        if not np.array_equal(held.confusion.matrix, ev.confusion.matrix):
+            raise AssertionError(f"evaluate ({kind}) counts differ from its output's")
+        want_total = int(mask.sum()) if kind == "masked" else TRAIN_B * TRAIN_SEQ
+        if ev.total != want_total or ev.host_bytes != 8 * TRAIN_B * TRAIN_SEQ:
+            raise AssertionError(f"evaluate ({kind}): {ev.total} steps counted, "
+                                 f"{ev.host_bytes} bytes copied to the host")
+        out[kind] = {"ms": ms, "warm_ms": warm_ms, "accuracy": ev.accuracy(), "f1": ev.f1(),
+                     "total": ev.total, "d2h_bytes": ev.host_bytes, "launches": launches}
+        log(f"char-RNN evaluate ({kind}, b={TRAIN_B} T={TRAIN_SEQ}): {ms:.2f} ms, a second "
+            f"call {warm_ms:.2f} ms, accuracy "
+            f"{ev.accuracy():.4f} over {ev.total} steps, {ev.host_bytes} bytes to the host, "
+            f"launches {launches}; counts equal to the host path's")
+    return out
+
+
+def evaluate_lm():
+    """``ComputationGraph.evaluate`` of the full-width TransformerLM over
+    LM_EVAL_BATCHES batches (8 K5 launches each). Per batch: the forward,
+    the on-card reduction (argmax, and the copy of its [b*T] indices), the
+    labels' host argmax, and the bytes the evaluation copied to the host;
+    the counts held against the host path on the same predictions. Then
+    ``InMemoryModelSaver`` deep-copies the graph on the card and the copy
+    answers bit for bit."""
+    from deeplearning4j_torch import DataSet, ListDataSetIterator
+    from deeplearning4j_torch import earlystopping as es
+    from deeplearning4j_torch.eval import Evaluation
+    from deeplearning4j_torch.nn.graph import ComputationGraph
+
+    net = ComputationGraph(lm_conf()).init()
+    rng = np.random.default_rng(24)
+    batches = [DataSet(*periodic_tokens(rng, LM_B, LM_T, LM_VOCAB))
+               for _ in range(LM_EVAL_BATCHES)]
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    whole = net.evaluate(ListDataSetIterator(batches))
+    whole_ms = (time.perf_counter() - t0) * 1e3
+    launches = read_counts()
+    expect = {n: 0 for n in launches}
+    expect["flash_fwd"] = LM_BLOCKS * LM_EVAL_BATCHES
+    if launches != expect:
+        raise AssertionError(f"the TransformerLM's evaluate launched {launches}, "
+                             f"expected {expect}")
+    rows = LM_B * LM_T
+    per_batch, merged = [], Evaluation()
+    for i, ds in enumerate(batches):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        probs = net.output(ds.features)
+        torch.cuda.synchronize()
+        fwd_ms = (time.perf_counter() - t0) * 1e3
+        ev = held_evaluation(f"TransformerLM batch {i}", ds.labels, probs)
+        merged.merge(ev)
+        pred_bytes = probs.numel() * probs.element_size()
+        if ev.host_bytes != 8 * rows:
+            raise AssertionError(f"TransformerLM batch {i}: Evaluation.eval copied "
+                                 f"{ev.host_bytes} bytes to the host, not the {8 * rows} of "
+                                 f"the index vector")
+        per_batch.append({"forward_ms": fwd_ms, "reduction_ms": ev.eval_ms["predictions"],
+                          "labels_argmax_ms": ev.eval_ms["labels"],
+                          "d2h_bytes": ev.host_bytes, "prediction_bytes": pred_bytes})
+        log(f"TransformerLM evaluate batch {i} (b={LM_B} T={LM_T} V={LM_VOCAB}): forward "
+            f"{fwd_ms:.2f} ms, reduction on the card {ev.eval_ms['predictions']:.2f} ms, "
+            f"labels' host argmax {ev.eval_ms['labels']:.2f} ms ({ds.labels.nbytes} bytes of "
+            f"one-hot labels), {ev.host_bytes} bytes copied to the host against "
+            f"{pred_bytes} of predictions {tuple(probs.shape)} {probs.dtype}")
+        del probs
+    if not (np.array_equal(merged.confusion.matrix, whole.confusion.matrix)
+            and whole.total == rows * LM_EVAL_BATCHES):
+        raise AssertionError("the TransformerLM's evaluate differs from its batches' "
+                             "evaluations merged")
+    log(f"TransformerLM evaluate over {LM_EVAL_BATCHES} batches: {whole_ms:.1f} ms, accuracy "
+        f"{whole.accuracy():.5f} (random weights), launches {launches}")
+    # InMemoryModelSaver keeps a graph as a deep copy (the graph has no
+    # clone): parameters, states, generators on the card
+    saver = es.InMemoryModelSaver()
+    t0 = time.perf_counter()
+    saver.save_best_model(net, 0.0)
+    torch.cuda.synchronize()
+    copy_ms = (time.perf_counter() - t0) * 1e3
+    twin, f = saver.get_best_model(), batches[0].features
+    if twin is net or twin.device != net.device or not torch.equal(twin.output(f),
+                                                                   net.output(f)):
+        raise AssertionError("the in-memory copy of the TransformerLM does not answer bit "
+                             "for bit as the graph")
+    log(f"InMemoryModelSaver on the TransformerLM graph: a deep copy on the card in "
+        f"{copy_ms:.1f} ms, its output bit-equal to the graph's")
+    return {"ms": whole_ms, "accuracy": whole.accuracy(), "batches": per_batch,
+            "launches": launches, "deepcopy_ms": copy_ms}
+
+
+def zoo_evaluations():
+    """SimpleCNN (``ModelSelector.select("simplecnn")``, 3x48x48) on the
+    LFW fetcher's stand-in and LeNet on ``MnistDataSetIterator``: fit, then
+    evaluate; neither path launches K1-K7."""
+    from deeplearning4j_torch import DataSet
+    from deeplearning4j_torch.datasets.dataset import ExistingDataSetIterator
+    from deeplearning4j_torch.datasets.impl import LFWDataSetIterator, MnistDataSetIterator
+    from deeplearning4j_torch.models import LeNet, ModelSelector
+
+    out = {}
+    scnn = ModelSelector.select("simplecnn", num_classes=SCNN_CLASSES).init()
+    c, h, w = scnn.conf.input_type.channels, scnn.conf.input_type.height, \
+        scnn.conf.input_type.width
+    it = LFWDataSetIterator(batch=SCNN_B, image_size=h, num_classes=SCNN_CLASSES,
+                            num_synthetic=SCNN_EXAMPLES)
+    mnist = MnistDataSetIterator(batch=LENET_B)
+    # LeNet's input type is NCHW 1x28x28; the MNIST rows are 784 wide
+    lenet_it = ExistingDataSetIterator(
+        [DataSet(ds.features.reshape(-1, 1, 28, 28), ds.labels) for ds in mnist])
+    lenet_net = LeNet(num_classes=10).init()
+    for name, net, data, synthetic in (
+            ("SimpleCNN", scnn, it, it.fetcher.is_synthetic),
+            ("LeNet", lenet_net, lenet_it, mnist.fetcher.is_synthetic)):
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        net.fit(data, epochs=ZOO_EPOCHS)
+        score = net.score()
+        fit_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ev = net.evaluate(data)
+        eval_ms = (time.perf_counter() - t0) * 1e3
+        launches = read_counts()
+        if any(launches.values()) or not np.isfinite(score) or ev.total == 0:
+            raise AssertionError(f"{name}: launches {launches}, score {score}, "
+                                 f"{ev.total} evaluated")
+        shape = next(iter(data)).features.shape
+        out[name] = {"synthetic": bool(synthetic), "fit_s": fit_s, "score": score,
+                     "evaluate_ms": eval_ms, "accuracy": ev.accuracy(), "total": ev.total,
+                     "d2h_bytes": ev.host_bytes}
+        source = "the SYNTHETIC stand-in" if synthetic else "local files"
+        log(f"{name} ({net.num_params()} parameters) on {source} {tuple(shape)}: "
+            f"{ZOO_EPOCHS} epochs in {fit_s:.2f} s, last loss {score:.4f}; "
+            f"evaluate {eval_ms:.1f} ms, accuracy {ev.accuracy():.4f} over {ev.total} "
+            f"examples, {ev.host_bytes} bytes to the host")
+        if not synthetic:
+            raise AssertionError(f"{name}: expected the synthetic stand-in, found data files")
+    return out
+
+
+def evaluation(smi):
+    """The evaluation phase: early stopping and evaluate on the char-RNN
+    (K1 masked, K3 unmasked, K3/K4 in the early-stopping fits), the
+    TransformerLM's evaluate (K5), SimpleCNN and LeNet on the fetchers.
+    The fetchers read a data directory under build/ that holds no files."""
+    data_dir = Path("build") / "data"
+    data_dir.mkdir(parents=True, exist_ok=True)
+    os.environ["DL4J_TPU_DATA_DIR"] = str(data_dir.resolve())
+    best, val, stopping = early_stopping_char_rnn()
+    char_rnn = evaluate_char_rnn(best, val)
+    del best
+    torch.cuda.empty_cache()
+    lm = evaluate_lm()
+    torch.cuda.empty_cache()
+    zoo = zoo_evaluations()
+    torch.cuda.empty_cache()
+    return {"card": smi, "early_stopping": stopping, "char_rnn": char_rnn,
+            "transformer_lm": lm, "zoo": zoo}
+
+
 def build():
     """Compile every kernel of the port, one nvcc per source, all at once,
     and print what ptxas reports of registers, shared memory and spills."""
@@ -3601,7 +3911,7 @@ def build():
 
 
 def kernel_line(serving, training, served, streamed, trained, flash, lm, decode, moe, graph,
-                reg, lmd):
+                reg, lmd, ev):
     """The {"kernels": [...]} entries: for K1-K4 numbers at the char-RNN's
     training shape, the launches of its training main path, and K1/K3's
     serving numbers and their decode rows (T=1, b=GEN_B, one a
@@ -3612,8 +3922,18 @@ def kernel_line(serving, training, served, streamed, trained, flash, lm, decode,
     steps (``moe_lm_launches``); K1-K4 theirs in each regularised char-RNN
     fit (``regularized_launches``), K5-K7 theirs in the dropout
     TransformerLM's steps (``lm_dropout_launches``) and their times with
-    dropout beside SDPA's with ``dropout_p`` (``dropout``)."""
+    dropout beside SDPA's with ``dropout_p`` (``dropout``). K1, K3, K4 and
+    K5 carry their launches in the evaluation phase (``evaluate_launches``:
+    the early-stopping runs, the char-RNN's masked and unmasked evaluate,
+    the TransformerLM's evaluate)."""
     shape = {"b": TRAIN_B, "T": TRAIN_T, "H": H, "w": "bf16", "peepholes": True}
+    phases = {"early_stopping": ev["early_stopping"]["launches"],
+              "evaluate_masked": ev["char_rnn"]["masked"]["launches"],
+              "evaluate_unmasked": ev["char_rnn"]["unmasked"]["launches"],
+              "lm_evaluate": ev["transformer_lm"]["launches"]}
+
+    def evaluate_launches(*names):
+        return {"evaluate_launches": {p: sum(c[n] for n in names) for p, c in phases.items()}}
     sshape = {"b": B, "T": T, "H": H, "w": "bf16", "peepholes": True}
 
     def entry(name, counter, source, replaces, res, extra=None):
@@ -3648,7 +3968,8 @@ def kernel_line(serving, training, served, streamed, trained, flash, lm, decode,
               {**serving_of("lstm_fwd", ["lstm_fwd/masked", "lstm_fwd/unmasked"]),
                "decode": decode["lstm_fwd"],
                "design": training["lstm_fwd_train/masked"]["design"],
-               "graph_tbptt_launches": graph["launches"]["lstm_fwd_train"]}),
+               "graph_tbptt_launches": graph["launches"]["lstm_fwd_train"],
+               **evaluate_launches("lstm_fwd", "lstm_fwd_train")}),
         entry("lstm_bwd", "lstm_bwd", "lstm_cell_bwd.cu", "deeplearning4j_tpu/ops/lstm_cell.py:235",
               [training["lstm_bwd/masked"], training["lstm_bwd/unmasked"]],
               {"design": training["lstm_bwd/masked"]["design"],
@@ -3656,16 +3977,20 @@ def kernel_line(serving, training, served, streamed, trained, flash, lm, decode,
         entry("lstm2_fwd", "lstm2_fwd_train", "lstm_fused.cu", "deeplearning4j_tpu/ops/lstm_fused.py:111",
               [training["lstm2_fwd_train"]],
               {**serving_of("lstm2_fwd", ["lstm2_fwd"]), "decode": decode["lstm2_fwd"],
-               "design": training["lstm2_fwd_train"]["design"]}),
+               "design": training["lstm2_fwd_train"]["design"],
+               **evaluate_launches("lstm2_fwd", "lstm2_fwd_train")}),
         entry("lstm2_bwd", "lstm2_bwd", "lstm_fused_bwd.cu", "deeplearning4j_tpu/ops/lstm_fused.py:249",
-              [training["lstm2_bwd"]], {"design": training["lstm2_bwd"]["design"]}),
-        *(flash_entry(name, src, line, flash[name], lm, moe, lmd) for name, src, line in (
+              [training["lstm2_bwd"]], {"design": training["lstm2_bwd"]["design"],
+                                        **evaluate_launches("lstm2_bwd")}),
+        *(flash_entry(name, src, line, flash[name], lm, moe, lmd,
+                      evaluate_launches(name) if name == "flash_fwd" else {})
+          for name, src, line in (
             ("flash_fwd", "flash_attn_fwd.cu", 202), ("flash_dq", "flash_attn_dq.cu", 311),
             ("flash_dkv", "flash_attn_dkv.cu", 361))),
     ]
 
 
-def flash_entry(name, source, line, res, lm, moe, lmd):
+def flash_entry(name, source, line, res, lm, moe, lmd, extra):
     e = {"name": name, "route": "cuda", "source": f"deeplearning4j_torch/csrc/{source}",
          "replaces": f"deeplearning4j_tpu/ops/flash_attention.py:{line}",
          "launches": lm["launches"][name], "launches_per_step": lm["launches"][name] // LM_STEPS,
@@ -3675,7 +4000,7 @@ def flash_entry(name, source, line, res, lm, moe, lmd):
          "output_launches": lm["output_launches"][name],
          "moe_lm_launches": moe["launches"][name], "moe_lm_output_launches":
          moe["output_launches"][name], "lm_dropout_launches": lmd["launches"][name],
-         "dropout": {"rate": LM_DROPOUT_RATE, **lmd["kernels"][name]}}
+         "dropout": {"rate": LM_DROPOUT_RATE, **lmd["kernels"][name]}, **extra}
     e["design"] = design(torch.bfloat16, LM_D, source)
     if name == "flash_fwd":
         e["library_note"] = (f"scaled_dot_product_attention forward; ms and library_ms are "
@@ -3744,11 +4069,13 @@ def main() -> int:
     lmd = lm_dropout()
     torch.cuda.empty_cache()
     print(json.dumps({"regularized_char_rnn": reg, "lm_dropout": lmd, "solvers": solvers()}))
+    ev = evaluation(smi)
+    print(json.dumps({"evaluation": ev}))
 
     print(json.dumps({"generate": generated}))
     print(json.dumps({"kernels": kernel_line(serving, training, served, streamed,
                                              trained["launches"], flash, lm, decode, moe,
-                                             graph, reg, lmd)}))
+                                             graph, reg, lmd, ev)}))
     log(f"chip_smoke took {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -14,12 +14,18 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["resolve_device", "NeuralNetConfiguration", "CacheMode", "OptimizationAlgorithm",
-           "WorkspaceMode", "MultiLayerNetwork",
-           "ComputationGraph", "InferenceServer", "ModelRegistry", "ServedModel", "DataSet",
+__version__ = "0.1.0"
+
+# every name of the JAX package's top level but the TransferLearning three
+__all__ = ["resolve_device", "NeuralNetConfiguration", "MultiLayerConfiguration",
+           "OptimizationAlgorithm", "GradientNormalization", "BackpropType", "WorkspaceMode",
+           "CacheMode", "GlobalConfig", "InputType", "Activation", "LossFunction",
+           "LossFunctions", "WeightInit", "MultiLayerNetwork", "ComputationGraph",
+           "ComputationGraphConfiguration", "InferenceServer", "ModelRegistry", "ServedModel",
+           "ContinuousBatcher", "OverloadedError", "DeadlineExceededError", "DataSet",
            "MultiDataSet", "DataSetIterator", "ListDataSetIterator", "PrefetchDataSetIterator",
            "ShapeBucketingDataSetIterator", "NormalizerStandardize", "NormalizerMinMaxScaler",
-           "ImagePreProcessingScaler", "LossFunction", "Sgd", "Adam", "AdaMax", "Nadam",
+           "ImagePreProcessingScaler", "ModelSerializer", "Sgd", "Adam", "AdaMax", "Nadam",
            "Nesterovs", "RmsProp", "AdaGrad", "AdaDelta", "NoOp", "AMSGrad"]
 
 
@@ -46,11 +52,17 @@ from .datasets.prefetch import PrefetchDataSetIterator  # noqa: E402
 from .datasets.bucketing import ShapeBucketingDataSetIterator  # noqa: E402
 from .datasets.normalizers import (ImagePreProcessingScaler,  # noqa: E402
                                    NormalizerMinMaxScaler, NormalizerStandardize)
-from .nn.conf import (CacheMode, NeuralNetConfiguration, OptimizationAlgorithm,  # noqa: E402
-                      WorkspaceMode)
-from .nn.losses import LossFunction  # noqa: E402
+from .nn.conf import (BackpropType, CacheMode, ComputationGraphConfiguration,  # noqa: E402
+                      GlobalConfig, GradientNormalization, MultiLayerConfiguration,
+                      NeuralNetConfiguration, OptimizationAlgorithm, WorkspaceMode)
+from .nn.conf.inputs import InputType  # noqa: E402
+from .nn.activations import Activation  # noqa: E402
+from .nn.losses import LossFunction, LossFunctions  # noqa: E402
+from .nn.weights import WeightInit  # noqa: E402
 from .nn.updaters import (AdaDelta, AdaGrad, AdaMax, Adam, AMSGrad, Nadam,  # noqa: E402
                           Nesterovs, NoOp, RmsProp, Sgd)
 from .nn.multilayer import MultiLayerNetwork  # noqa: E402
 from .nn.graph import ComputationGraph  # noqa: E402
-from .serving import InferenceServer, ModelRegistry, ServedModel  # noqa: E402
+from .utils.model_serializer import ModelSerializer  # noqa: E402
+from .serving import (ContinuousBatcher, DeadlineExceededError, InferenceServer,  # noqa: E402
+                      ModelRegistry, OverloadedError, ServedModel)

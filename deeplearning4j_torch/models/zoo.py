@@ -1,7 +1,7 @@
 """Model zoo: standard architectures as config builders.
 
 Counterpart of ``deeplearning4j_tpu/models/zoo.py``: the ``ZooModel`` base
-(``conf``, ``init``, ``_builder``), ``LeNet``, ``ResNet50``,
+(``conf``, ``init``, ``_builder``), ``LeNet``, ``SimpleCNN``, ``ResNet50``,
 ``TextGenerationLSTM`` and ``TransformerLM`` (dense or MoE), with the JAX
 package's layer and vertex names, so that the keypaths of its zips match;
 ``generate_tokens``, the sampling loop over either container's
@@ -18,7 +18,7 @@ import numpy as np
 from ..nn.conf import InputType, MultiLayerConfiguration, NeuralNetConfiguration
 from ..nn.conf.graph import ElementWiseVertex
 from ..nn.conf.layers import (ActivationLayer, BatchNormalization, ConvolutionLayer,
-                              ConvolutionMode, DenseLayer, EmbeddingSequenceLayer,
+                              ConvolutionMode, DenseLayer, DropoutLayer, EmbeddingSequenceLayer,
                               GlobalPoolingLayer, GravesLSTM, LayerNormalization, MoEDenseLayer,
                               OutputLayer, PoolingType, RnnOutputLayer, SelfAttentionLayer,
                               SubsamplingLayer)
@@ -26,7 +26,7 @@ from ..nn.graph import ComputationGraph
 from ..nn.multilayer import MultiLayerNetwork
 from ..nn.updaters import Adam
 
-__all__ = ["ZooModel", "LeNet", "ResNet50", "TextGenerationLSTM", "TransformerLM",
+__all__ = ["ZooModel", "LeNet", "SimpleCNN", "ResNet50", "TextGenerationLSTM", "TransformerLM",
            "generate_tokens", "ZOO", "ModelSelector"]
 
 
@@ -83,6 +83,44 @@ class LeNet(ZooModel):
                 .layer(SubsamplingLayer(pooling_type=PoolingType.MAX, kernel_size=(2, 2),
                                         stride=(2, 2)))
                 .layer(DenseLayer(n_out=500, activation="relu"))
+                .layer(OutputLayer(n_out=self.num_classes, activation="softmax",
+                                   loss="mcxent"))
+                .set_input_type(InputType.convolutional(h, w, c))
+                .build())
+
+
+class SimpleCNN(ZooModel):
+    """Reference ``zoo/model/SimpleCNN.java``: a compact 48x48 CNN (a
+    MultiLayerNetwork): three SAME 3x3 convolutions (16, 32, 64; relu) each
+    with BatchNormalization and relu, max pools after the second and
+    third, global average pool, DropoutLayer(0.5), softmax."""
+
+    name = "simplecnn"
+    input_shape = (3, 48, 48)
+
+    def __init__(self, num_classes: int = 10, seed: int = 123, **kw):
+        super().__init__(num_classes, seed, **kw)
+
+    def conf(self):
+        c, h, w = self.input_shape
+        same = ConvolutionMode.Same
+        return (self._builder()
+                .list()
+                .layer(ConvolutionLayer(n_out=16, kernel_size=(3, 3), convolution_mode=same))
+                .layer(BatchNormalization())
+                .layer(ActivationLayer(activation="relu"))
+                .layer(ConvolutionLayer(n_out=32, kernel_size=(3, 3), convolution_mode=same))
+                .layer(BatchNormalization())
+                .layer(ActivationLayer(activation="relu"))
+                .layer(SubsamplingLayer(pooling_type=PoolingType.MAX, kernel_size=(2, 2),
+                                        stride=(2, 2)))
+                .layer(ConvolutionLayer(n_out=64, kernel_size=(3, 3), convolution_mode=same))
+                .layer(BatchNormalization())
+                .layer(ActivationLayer(activation="relu"))
+                .layer(SubsamplingLayer(pooling_type=PoolingType.MAX, kernel_size=(2, 2),
+                                        stride=(2, 2)))
+                .layer(GlobalPoolingLayer(pooling_type=PoolingType.AVG))
+                .layer(DropoutLayer(dropout=0.5))
                 .layer(OutputLayer(n_out=self.num_classes, activation="softmax",
                                    loss="mcxent"))
                 .set_input_type(InputType.convolutional(h, w, c))
@@ -327,8 +365,8 @@ class _NotPorted:
                                   f"deeplearning4j_torch yet")
 
 
-ZOO = {m.name: m for m in (LeNet, ResNet50, TextGenerationLSTM, TransformerLM)}
-ZOO.update({n: _NotPorted(n) for n in ("simplecnn", "alexnet", "vgg16", "vgg19", "googlenet",
+ZOO = {m.name: m for m in (LeNet, SimpleCNN, ResNet50, TextGenerationLSTM, TransformerLM)}
+ZOO.update({n: _NotPorted(n) for n in ("alexnet", "vgg16", "vgg19", "googlenet",
                                         "inceptionresnetv1", "facenetnn4small2")})
 
 

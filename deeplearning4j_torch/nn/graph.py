@@ -24,8 +24,9 @@ call. Dropout, weight noise, constraints, listeners and the health halt
 work as in ``MultiLayerNetwork`` (its docstring): each training forward
 splits the graph's generator per layer vertex in topological order, and
 the output layers' loss is taken on unnoised parameters with their input
-dropout from the step's stream (JAX ``graph.py:201``). Not ported yet:
-``evaluate``.
+dropout from the step's stream (JAX ``graph.py:201``). ``evaluate``
+ranks the output on the device (``eval/evaluation.py``); ``param_table``
+and ``summary`` walk the topological order.
 """
 from __future__ import annotations
 
@@ -43,7 +44,7 @@ from .layers.base import StepGenerators
 from .multilayer import _detached, _fit_epochs, _observe, _run_tbptt, nchw_to_nhwc
 from .multilayer import MultiLayerNetwork
 from .updaters import Sgd
-from ..datasets.dataset import DataSet
+from ..datasets.dataset import DataSet, MultiDataSet
 from ..optimize.updater import NetworkUpdater
 
 __all__ = ["ComputationGraph", "fused_softmax_skip_set"]
@@ -373,6 +374,49 @@ class ComputationGraph(nn.Module):
         grads = self._grads(loss)
         self.score_ = loss.detach()
         return grads, float(self.score_)
+
+    # ------------------------------------------------------------ evaluation
+    def evaluate(self, iterator, output_idx=0):
+        """Classification evaluation on output ``output_idx`` (reference
+        ``evaluate``) over DataSets or MultiDataSets: each minibatch's
+        ``output`` (with its features masks) stays on the device and goes
+        to :class:`eval.Evaluation`, which copies only class indices to
+        the host; that output's labels mask, else the first features mask,
+        picks the steps that count."""
+        from ..eval.evaluation import Evaluation
+        ev = Evaluation()
+        for ds in iterator:
+            if isinstance(ds, DataSet):
+                ds = MultiDataSet([ds.features], [ds.labels],
+                                  None if ds.features_mask is None else [ds.features_mask],
+                                  None if ds.labels_mask is None else [ds.labels_mask])
+            outs = self.output(*ds.features, masks=ds.features_masks)
+            out = outs[output_idx] if isinstance(outs, list) else outs
+            lm = None if ds.labels_masks is None else ds.labels_masks[output_idx]
+            if lm is None and ds.features_masks is not None:
+                lm = ds.features_masks[0]
+            ev.eval(ds.labels[output_idx], out, mask=lm)
+        return ev
+
+    # ------------------------------------------------------------ parameters
+    def param_table(self) -> Dict[str, torch.Tensor]:
+        """{"vertex_W": tensor, ...} in topological order: the parameters'
+        detached views."""
+        params = self.params
+        return {f"{n}_{k}": v for n in self.topo if n in params
+                for k, v in params[n].items()}
+
+    paramTable = param_table
+
+    def summary(self) -> str:
+        lines = [f"{'vertex':<32} {'type':<28} {'params':>10}"]
+        for name in self.topo:
+            v = self.conf.vertices[name]
+            n = (sum(p.numel() for p in self.impls[name].param_dict().values())
+                 if name in self.impls else 0)
+            lines.append(f"{name:<32} {type(v).__name__:<28} {n:>10}")
+        lines.append(f"Total params: {self.num_params()}")
+        return "\n".join(lines)
 
 
 def _as_list(x):

@@ -1,7 +1,13 @@
 """MultiLayerNetwork: sequential network container.
 
 Counterpart of ``deeplearning4j_tpu/nn/multilayer.py``. Inference:
-``init``, ``output``, ``rnn_time_step``, ``rnn_clear_previous_state``.
+``init``, ``output``, ``rnn_time_step``, ``rnn_clear_previous_state``,
+``feed_forward``/``feed_forward_to_layer`` (layer by layer, no fusion).
+Evaluation: ``evaluate`` (the output ranked on the device,
+``eval/evaluation.py``) and ``evaluate_regression``. Parameters:
+``param_table``, ``get_param``, ``params_flat``/``set_params_flat``
+(layer-major, a layer's parameters in init order), ``clone``,
+``summary``.
 Training: ``fit`` (a DataSet, an iterator, or arrays), one update per
 minibatch or, with truncated BPTT, per segment (``_fit_batch``;
 ``_run_tbptt``, the loop both containers share), ``score`` and
@@ -45,6 +51,7 @@ PyTorch takes the place of the JAX package's jitted step and its
 """
 from __future__ import annotations
 
+import copy
 import logging
 import time
 from typing import Dict, Optional
@@ -475,6 +482,123 @@ class MultiLayerNetwork(nn.Module):
         grads = self._grads(loss)
         self.score_ = loss.detach()
         return grads, float(self.score_)
+
+    def feed_forward(self, x, train=False):
+        """Every layer's activation, the (adapted) input first (reference
+        ``feedForward``): each layer on its own, as in the JAX package (no
+        pair fusion, no mask, nothing drawn); ``train`` runs the training
+        forward (batch statistics) without changing any state."""
+        return self._layer_walk(x, train, len(self.impls) - 1, keep_all=True)
+
+    feedForward = feed_forward
+
+    def feed_forward_to_layer(self, layer_idx, x, train=False):
+        """The activation of layer ``layer_idx`` (reference
+        ``feedForwardToLayer``), layer by layer as :meth:`feed_forward`."""
+        return self._layer_walk(x, train, layer_idx, keep_all=False)
+
+    feedForwardToLayer = feed_forward_to_layer
+
+    def _layer_walk(self, x, train, last, keep_all):
+        with torch.no_grad():
+            x = nchw_to_nhwc(self._to_device(x), self.conf.input_type)
+            acts = [x]
+            ctx = {"train": train, "rng": None}
+            for i in range(last + 1):
+                pre = self.conf.preprocessor(i)
+                if pre is not None:
+                    x = pre(x, ctx)
+                x = self.impls[i](x, mask=None, ctx=ctx)
+                acts.append(x)
+        return acts if keep_all else x
+
+    # ------------------------------------------------------------ evaluation
+    def evaluate(self, iterator):
+        """Classification evaluation over ``iterator`` (reference
+        ``evaluate``): each minibatch's ``output`` (with its features mask)
+        stays on the device and goes to :class:`eval.Evaluation`, which
+        copies only class indices to the host; the labels mask, else the
+        features mask, picks the steps that count."""
+        from ..eval.evaluation import Evaluation
+        ev = Evaluation()
+        for ds in iterator:
+            out = self.output(ds.features, mask=ds.features_mask)
+            ev.eval(ds.labels, out, mask=ds.labels_mask if ds.labels_mask is not None
+                    else ds.features_mask)
+        return ev
+
+    def evaluate_regression(self, iterator):
+        """Regression evaluation over ``iterator``; as in the JAX package no
+        mask is passed, to ``output`` or to the evaluation."""
+        from ..eval.regression import RegressionEvaluation
+        ev = RegressionEvaluation()
+        for ds in iterator:
+            ev.eval(ds.labels, self.output(ds.features))
+        return ev
+
+    # ------------------------------------------------------------ parameters
+    def param_table(self) -> Dict[str, torch.Tensor]:
+        """{"0_W": tensor, ...} (reference ``paramTable()`` naming): the
+        parameters' detached views, layer-major."""
+        return {f"{i}_{k}": v for i, ps in self.params.items() for k, v in ps.items()}
+
+    paramTable = param_table
+
+    def get_param(self, key) -> torch.Tensor:
+        i, k = key.split("_", 1)
+        return self.params[i][k]
+
+    getParam = get_param
+
+    def params_flat(self) -> torch.Tensor:
+        """Every parameter in one vector on the network's device (reference
+        flattened params buffer): layer-major, each layer's parameters in
+        the order its init creates them (the JAX package's order before a
+        jitted step hands them back key-sorted)."""
+        chunks = [v.reshape(-1) for v in self.param_table().values()]
+        if not chunks:
+            return torch.zeros(0, device=self.device)
+        return torch.cat(chunks)
+
+    def set_params_flat(self, vec) -> None:
+        """Write ``vec`` (in :meth:`params_flat`'s order; an array or a
+        tensor) into the parameters in place, each slice cast to its
+        parameter's dtype on its device."""
+        vec = torch.as_tensor(vec).reshape(-1)
+        total = sum(p.numel() for ps in self._trainable().values() for p in ps.values())
+        if total != vec.numel():
+            raise ValueError(f"Param vector length {vec.numel()} != model {total}")
+        pos = 0
+        with torch.no_grad():
+            for ps in self._trainable().values():
+                for p in ps.values():
+                    n = p.numel()
+                    p.copy_(vec[pos:pos + n].reshape(p.shape).to(device=p.device,
+                                                                  dtype=p.dtype))
+                    pos += n
+
+    # ------------------------------------------------------------------ misc
+    def clone(self) -> "MultiLayerNetwork":
+        """A new network of a copy of this configuration on the same device,
+        with copies of the parameters, layer state and updater state (the
+        JAX package's ``clone``: counters, listeners and the streaming state
+        start afresh)."""
+        net = MultiLayerNetwork(self.conf.clone()).init(params=self.params, device=self.device,
+                                                        states=self.states)
+        net.updater_state = copy.deepcopy(self.updater_state)
+        return net
+
+    @property
+    def n_layers(self) -> int:
+        return len(self.conf.layers)
+
+    def summary(self) -> str:
+        lines = [f"{'idx':>3}  {'type':<28} {'params':>10}"]
+        for i, impl in enumerate(self.impls):
+            n = sum(p.numel() for p in impl.param_dict().values())
+            lines.append(f"{i:>3}  {type(self.conf.layers[i]).__name__:<28} {n:>10}")
+        lines.append(f"Total params: {self.num_params()}")
+        return "\n".join(lines)
 
 
 def _map_streams(fn, x):

@@ -3,15 +3,92 @@
 Counterpart of ``deeplearning4j_tpu/nn/weights.py`` with the same formulas
 (reference ``WeightInitUtil.initWeights``), drawn from an explicit
 ``torch.Generator``. The draws differ from the JAX package's (it seeds
-numpy from jax key data); only the distributions agree.
+numpy from jax key data); only the distributions agree. ``WeightInit``
+names the schemes; the five ``Distribution`` classes (reference
+``nn/conf/distribution/``) serialise to the JAX package's
+``configuration.json`` data, ``{"@class": "NormalDistribution", "mean":
+..., "std": ...}``, which a decoded configuration carries as
+``serde.PlainConfig``; ``init_weight`` reads either through ``kind`` and
+``fields``.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import torch
 
-__all__ = ["init_weight"]
+__all__ = ["WeightInit", "Distribution", "NormalDistribution", "GaussianDistribution",
+           "UniformDistribution", "ConstantDistribution", "BinomialDistribution",
+           "init_weight"]
+
+
+class WeightInit:
+    DISTRIBUTION = "distribution"
+    ZERO = "zero"
+    ONES = "ones"
+    CONSTANT = "constant"
+    SIGMOID_UNIFORM = "sigmoid_uniform"
+    NORMAL = "normal"
+    LECUN_NORMAL = "lecun_normal"
+    LECUN_UNIFORM = "lecun_uniform"
+    UNIFORM = "uniform"
+    XAVIER = "xavier"
+    XAVIER_UNIFORM = "xavier_uniform"
+    XAVIER_FAN_IN = "xavier_fan_in"
+    XAVIER_LEGACY = "xavier_legacy"
+    RELU = "relu"
+    RELU_UNIFORM = "relu_uniform"
+    IDENTITY = "identity"
+    VAR_SCALING_NORMAL_FAN_IN = "var_scaling_normal_fan_in"
+    VAR_SCALING_NORMAL_FAN_OUT = "var_scaling_normal_fan_out"
+    VAR_SCALING_NORMAL_FAN_AVG = "var_scaling_normal_fan_avg"
+    VAR_SCALING_UNIFORM_FAN_IN = "var_scaling_uniform_fan_in"
+    VAR_SCALING_UNIFORM_FAN_OUT = "var_scaling_uniform_fan_out"
+    VAR_SCALING_UNIFORM_FAN_AVG = "var_scaling_uniform_fan_avg"
+
+
+@dataclasses.dataclass
+class Distribution:
+    """Base for WeightInit.DISTRIBUTION: its class name and fields are the
+    data a configuration carries."""
+
+    @property
+    def kind(self) -> str:
+        return type(self).__name__
+
+    @property
+    def fields(self):
+        return dataclasses.asdict(self)
+
+
+@dataclasses.dataclass
+class NormalDistribution(Distribution):
+    mean: float = 0.0
+    std: float = 1.0
+
+
+# Reference has both GaussianDistribution and NormalDistribution (synonyms).
+@dataclasses.dataclass
+class GaussianDistribution(NormalDistribution):
+    pass
+
+
+@dataclasses.dataclass
+class UniformDistribution(Distribution):
+    lower: float = -1.0
+    upper: float = 1.0
+
+
+@dataclasses.dataclass
+class ConstantDistribution(Distribution):
+    value: float = 0.0
+
+
+@dataclasses.dataclass
+class BinomialDistribution(Distribution):
+    trials: int = 1
+    p: float = 0.5
 
 
 def _normal(gen, shape, dtype, scale=1.0, shift=0.0):
@@ -25,7 +102,8 @@ def _uniform(gen, shape, dtype, lo, hi):
 
 
 def _from_dist(gen, dist, shape, dtype):
-    """A weight-init distribution carried as data (``serde.PlainConfig``)."""
+    """A weight-init distribution: a :class:`Distribution` or the same data
+    decoded from JSON (``serde.PlainConfig``)."""
     f = dist.fields
     if dist.kind in ("NormalDistribution", "GaussianDistribution"):
         return _normal(gen, shape, dtype, f.get("std", 1.0), f.get("mean", 0.0))

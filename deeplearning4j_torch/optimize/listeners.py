@@ -171,9 +171,10 @@ class SleepyTrainingListener(TrainingListener):
 
 
 class EvaluativeListener(TrainingListener):
-    """Evaluation every ``frequency`` iterations. The port's containers have
-    no ``evaluate`` yet (ROADMAP Queue A 7): the listener is built as in the
-    JAX package and raises ``NotImplementedError`` when it fires."""
+    """Reference ``EvaluativeListener``: ``model.evaluate(iterator)`` every
+    ``frequency`` iterations (iteration 0 excepted), kept in
+    ``last_evaluation`` and logged. ``evaluation_factory`` is accepted and,
+    as in the JAX package, not used."""
 
     def __init__(self, iterator, frequency: int = 100, evaluation_factory=None):
         self.iterator = iterator
@@ -183,10 +184,6 @@ class EvaluativeListener(TrainingListener):
 
     def iteration_done(self, model, iteration, score):
         if iteration and iteration % self.frequency == 0:
-            if not hasattr(model, "evaluate"):
-                raise NotImplementedError(
-                    "EvaluativeListener needs the model's evaluate(), which is not "
-                    "ported yet (ROADMAP Queue A 7: eval/evaluation.py)")
             self.last_evaluation = model.evaluate(self.iterator)
             log.info("Evaluation at iteration %d:\n%s", iteration,
                      self.last_evaluation.stats())

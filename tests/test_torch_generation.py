@@ -313,7 +313,7 @@ def test_model_selector_knows_every_jax_name():
     raise NotImplementedError naming the model."""
     assert set(ZOO) == set(JZOO)
     for name in JZOO:
-        if name in ("lenet", "resnet50", "textgenlstm", "transformerlm"):
+        if name in ("lenet", "simplecnn", "resnet50", "textgenlstm", "transformerlm"):
             assert ModelSelector.select(name).name == name
         else:
             with pytest.raises(NotImplementedError, match=name):

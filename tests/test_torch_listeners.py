@@ -421,15 +421,29 @@ def test_no_host_read_of_the_loss_without_listeners(monkeypatch):
 
 
 def test_evaluative_listener_raises_only_when_it_fires():
-    """EvaluativeListener is built as in the JAX package; the port has no
-    ``evaluate`` yet, so it raises when it fires, not before."""
-    lst = plisteners.EvaluativeListener(iterator=None, frequency=2)
+    """EvaluativeListener runs only when it fires (every ``frequency``
+    iterations, iteration 0 excepted) and then evaluates, as in the JAX
+    package: before its first firing it has no evaluation, and an error in
+    ``evaluate`` (here a bad iterator) surfaces only when it fires; once
+    given data its evaluation is the container's ``evaluate``."""
+    bad = plisteners.EvaluativeListener(iterator=None, frequency=2)
+    net = _net()
+    net.set_listeners(bad)
+    net.fit(_ds())                      # iteration 0: does not fire
+    net.fit(_ds())                      # iteration 1: does not fire
+    assert bad.last_evaluation is None
+    with pytest.raises(TypeError):
+        net.fit(_ds())                  # iteration 2 fires on None
+    val = ListDataSetIterator([_ds(7)])
+    lst = plisteners.EvaluativeListener(iterator=val, frequency=2)
     net = _net()
     net.set_listeners(lst)
-    net.fit(_ds())                      # iteration 0: does not fire
-    with pytest.raises(NotImplementedError, match="evaluate"):
-        for _ in range(2):
-            net.fit(_ds())
+    for _ in range(3):
+        net.fit(_ds())
+    want = net.evaluate(val)
+    assert lst.last_evaluation.total == want.total == 16
+    np.testing.assert_array_equal(lst.last_evaluation.confusion.matrix,
+                                  want.confusion.matrix)
 
 
 def test_health_state_core():
