@@ -173,16 +173,35 @@ and the CUDA toolkit; run from the root of the repository. It
    LFW fetcher's synthetic stand-in and LeNet on ``MnistDataSetIterator``'s
    (b=1024) fit and evaluated, the fetchers reading an empty data directory
    under ``build/``;
-19. prints a ``{"cnn": ...}`` line with those numbers, a ``{"generate":
+19. (``recurrent_family``) at the char-RNN's widths (vocab 80, H=512,
+   b=64, T=200, bf16, Adam 1e-3): ``bidir_char_rnn``, 2 x
+   GravesBidirectionalLSTM(512) + RnnOutputLayer, 3 unmasked and 3 masked
+   fits (each step 4 K1 with the reserve and 4 K2, no K3/K4; the loss
+   falls), ``output`` (4 K1), a profile of one masked fit (K1's and K2's
+   shares); ``bidir_classifier``, LastTimeStep(Bidirectional(LSTM(512),
+   concat)) + OutputLayer over 128 CSV sequences of lengths 50-200 that
+   it writes to a temporary directory and reads back through
+   SequenceRecordReaderDataSetIterator (each step 2 K1 with the reserve
+   and 2 K2), then ``evaluate`` (2 K1 a batch); ``simple_rnn``, 2 x
+   SimpleRnn(512) by TBPTT and ``rnn_time_step`` over 200 characters one
+   at a time against ``output`` (no K1-K4 launch); ``lstm_step_loop``, a
+   softsign GravesLSTM(512) and a tanh GravesLSTM(500), which the kernels
+   decline, through the step loop (no K1-K4 launch) beside a tanh
+   GravesLSTM(512) on K1/K2; every net's gradients, score and output held
+   against the CPU masked and unmasked, each step timed by CUDA events in
+   alternating turns;
+20. prints a ``{"cnn": ...}`` line with those numbers, a ``{"generate":
    ...}`` line with steps 6 and 10's, a ``{"moe_lm": ..., "graph_tbptt":
    ...}`` line with steps 15 and 16's, a ``{"regularized_char_rnn": ...,
    "lm_dropout": ..., "solvers": ...}`` line with step 17's, an
-   ``{"evaluation": ...}`` line with step 18's (the card's name and power
-   limit in it), a ``{"kernels": [...]}`` line (K1's and K3's entries with
+   ``{"evaluation": ...}`` line with step 18's and a
+   ``{"recurrent_family": ...}`` line with step 19's (the card's name and
+   power limit in both), a ``{"kernels": [...]}`` line (K1's and K3's entries with
    their decode rows; K1/K2's launches in step 16's fit, K5-K7's in step
    15's steps; K1-K4's in each regularised fit, K5-K7's in the dropout
    LM's steps and their times with dropout; K1, K3, K4 and K5's in step
-   18) and, last, the ``{"ok": true, "device": ...}`` line.
+   18; K1-K4's in each path of step 19) and, last, the ``{"ok": true,
+   "device": ...}`` line.
 
 Any failure raises, and the script exits nonzero without the last line.
 """
@@ -254,11 +273,15 @@ BWD_ATOL = 1e-3
 # package at 3e-2 on the same quantity).
 TRAIN_SCORE_RTOL = 5e-3
 TRAIN_GRAD_RTOL = 3e-2
-# Each fit's score is its last TBPTT segment's loss, which moves from fit
-# to fit by up to a fifth on this data (on an H100: 160.8 at the first
-# fit, 110.4 to 148.3 after). The check compares the mean of the last
-# three fits with the first: 19.5% lower on the card; it must be at least
-# 10% lower.
+# The loss must fall: the full-batch score of the training batch (its 200
+# steps, ``score(ds)``) after each unmasked fit, the mean of the last three
+# fits against the first, at least 10% lower. A fit's own score is its last
+# TBPTT segment's loss, which the check read until the Adam bias
+# corrections became f32 scalars (ROADMAP C 6): that one-ulp change of a
+# divisor moved the tenth fit's last segment from 160.7 to 233.4 on an
+# H100 (700 W) and the three-fit mean from 20.8% to 6.5% below the first,
+# while the full-batch score fell 43.9% (40.2% with the Python-float
+# corrections) from the untrained net's; the segment losses are logged.
 LOSS_DROP = 0.10
 
 # TransformerLM of bench.py:1730: b=4, T=8192, vocab 4096, embed 512, 8
@@ -485,6 +508,30 @@ SOLVER_LOSS_RTOL, SOLVER_GRAD_RTOL = 1e-5, 1e-4
 ES_TRAIN, ES_VAL, ES_MAX_EPOCHS, ES_PATIENCE = 2, 2, 3, 1
 LM_EVAL_BATCHES = 2
 SCNN_B, SCNN_CLASSES, SCNN_EXAMPLES, ZOO_EPOCHS = 256, 10, 512, 2
+# The rest of the recurrent family (recurrent_family), at the char-RNN's
+# widths (VOCAB, H, b=TRAIN_B, T=TRAIN_SEQ, bf16, Adam 1e-3), standard
+# backprop (a bidirectional layer reads the whole sequence): RF_FITS fits
+# unmasked and RF_FITS masked (lengths RF_LENGTHS) of each net, timed in
+# RF_TURNS alternating turns of one fit each. The classifier reads
+# RF_CLS_BATCHES minibatches of TRAIN_B CSV sequences (lengths RF_LENGTHS)
+# through SequenceRecordReaderDataSetIterator. SimpleRnn streams
+# RF_STREAM_T characters one at a time at b=GEN_B against its output on
+# them (the same bf16 limit as the generation stream's). The step loop
+# runs a softsign GravesLSTM(H) and a tanh GravesLSTM(RF_ODD_H); the
+# card-vs-CPU checks run at b=RF_REF_B, T=RF_REF_T at TRAIN_SCORE_RTOL
+# and TRAIN_GRAD_RTOL, the char-RNN's limits (the same bf16 products
+# rounded at other places).
+RF_FITS, RF_TURNS, RF_CLS_BATCHES, RF_STREAM_T = 3, 4, 2, 200
+RF_LENGTHS = (50, 200)
+RF_ODD_H = 500
+RF_REF_B, RF_REF_T = 4, 30
+# The card-vs-CPU outputs are those of nets the phase has trained, whose
+# bf16 softmax puts probabilities near 1, where one rounding step of bf16
+# is 2^-9 below 1 and 2^-8 across it: the random net's REF_ATOL (1e-3)
+# failed at 1.46e-3 on the trained bidirectional char-RNN on an H100
+# (700 W), and the trained SimpleRnn read 3.91e-3 (one step across 1), so
+# these are held at two bf16 steps at 1 (PROB_SUM_ATOL's reasoning).
+RF_OUT_ATOL = 2.0 ** -7
 
 
 def log(msg):
@@ -1265,7 +1312,9 @@ def train(conf):
     unmasked (the fused pair: one K3-with-reserve and one K4 launch per
     TBPTT segment) and masked with variable lengths (per layer: two K1-
     with-reserve and two K2 launches per segment). Counts are reset just
-    before and read just after; each fit's own launches are checked too."""
+    before and read just after; each fit's own launches are checked too.
+    The full-batch score after each unmasked fit must fall (LOSS_DROP);
+    its own launches are left out of the counts."""
     from deeplearning4j_torch import DataSet
 
     net = build_net(conf, seed=3)
@@ -1277,7 +1326,8 @@ def train(conf):
     segs = -(-TRAIN_SEQ // TRAIN_T)
     routes = (("unmasked", ds, TRAIN_FITS, {"lstm2_fwd_train": segs, "lstm2_bwd": segs}),
               ("masked", mds, MASKED_FITS, {"lstm_fwd_train": 2 * segs, "lstm_bwd": 2 * segs}))
-    losses = {}
+    losses, scores = {}, []
+    scoring = dict.fromkeys(counters(), 0)    # the full-batch scores' launches
     reset_counts()
     for label, data, fits, per_fit in routes:
         losses[label] = []
@@ -1290,17 +1340,23 @@ def train(conf):
             if got != want:
                 raise AssertionError(f"a {label} fit of {segs} TBPTT segments launched "
                                      f"{got}, expected {want}")
-    launches = read_counts()
+            if label == "unmasked":
+                before = read_counts()
+                scores.append(net.score(data))
+                for n, c in read_counts().items():
+                    scoring[n] += c - before[n]
+    launches = {n: c - scoring[n] for n, c in read_counts().items()}
     log(f"training main path: {TRAIN_FITS} unmasked + {MASKED_FITS} masked fits of b={TRAIN_B} "
         f"T={TRAIN_SEQ} ({segs} TBPTT segments each), launches {launches}")
     for label, ls in losses.items():
         log(f"{label} loss per fit: " + " ".join(f"{x:.3f}" for x in ls))
         if not np.isfinite(ls).all():
             raise AssertionError(f"{label} training loss is not finite: {ls}")
-    first, last3 = losses["unmasked"][0], float(np.mean(losses["unmasked"][-3:]))
+    log("unmasked full-batch score after each fit: " + " ".join(f"{x:.3f}" for x in scores))
+    first, last3 = scores[0], float(np.mean(scores[-3:]))
     drop = 1.0 - last3 / first
-    log(f"unmasked loss: mean of the last three fits {last3:.3f}, {100 * drop:.1f}% below "
-        f"the first fit's {first:.3f}")
+    log(f"unmasked full-batch score: mean of the last three fits {last3:.3f}, "
+        f"{100 * drop:.1f}% below the first fit's {first:.3f}")
     if not drop >= LOSS_DROP:
         raise AssertionError(f"the loss fell by {drop:.3f}, less than {LOSS_DROP}")
 
@@ -1352,8 +1408,8 @@ def train(conf):
             log(f"{kernel} in one masked fit: {k:.3f} ms of device time, "
                 f"{100 * k / prof_m['busy_ms']:.1f}% of the fit's {prof_m['busy_ms']:.3f} ms "
                 f"device busy")
-    return {"launches": launches, "losses": losses, "fit_ms": times, "pipeline": pipe,
-            "profile": prof, "profile_masked": prof_m, "net": net}
+    return {"launches": launches, "losses": losses, "scores": scores, "fit_ms": times,
+            "pipeline": pipe, "profile": prof, "profile_masked": prof_m, "net": net}
 
 
 def pipeline_breakdown(net, ds, reps=20):
@@ -2374,7 +2430,7 @@ def check_cnn_reference():
 
 def same_tensors(a, b):
     """Whether two nested trees hold the same keypaths and the same bits."""
-    from deeplearning4j_torch.utils.model_serializer import leaves
+    from deeplearning4j_torch.utils.trees import leaves
 
     fa, fb = dict(leaves(a)), dict(leaves(b))
     return fa.keys() == fb.keys() and all(
@@ -3881,6 +3937,349 @@ def evaluation(smi):
             "transformer_lm": lm, "zoo": zoo}
 
 
+def rf_conf(layers, out, tbptt=False):
+    """A bf16 Adam(1e-3) net of ``layers`` then ``out``, as the char-RNN's
+    config (TBPTT over TRAIN_T with ``tbptt``)."""
+    from deeplearning4j_torch import Adam, NeuralNetConfiguration
+
+    lst = (NeuralNetConfiguration.builder().seed(1).updater(Adam(learning_rate=1e-3))
+           .activation("tanh").compute_dtype("bfloat16").list())
+    for layer in layers + [out]:
+        lst = lst.layer(layer)
+    if tbptt:
+        lst = (lst.backprop_type("tbptt").t_bptt_forward_length(TRAIN_T)
+               .t_bptt_backward_length(TRAIN_T))
+    return lst.build()
+
+
+def rnn_out(n_in, last=False):
+    from deeplearning4j_torch.nn.conf.layers import OutputLayer, RnnOutputLayer
+
+    return (OutputLayer if last else RnnOutputLayer)(n_in=n_in, n_out=VOCAB,
+                                                     activation="softmax", loss="mcxent")
+
+
+def masked_text(rng, b, t):
+    """periodic_text with right-padded lengths from t * RF_LENGTHS[0] /
+    RF_LENGTHS[1] to t (RF_LENGTHS at T=TRAIN_SEQ): (f, l, mask)."""
+    f, l = periodic_text(rng, b, t)
+    lengths = rng.integers(max(1, t * RF_LENGTHS[0] // RF_LENGTHS[1]), t + 1, b)
+    m = (np.arange(t)[None, :] < lengths[:, None]).astype(np.float32)
+    return f, l, m
+
+
+def event_ms(fn):
+    """Milliseconds of one call of ``fn`` between two CUDA events."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end)
+
+
+def alternating_ms(fns, turns=RF_TURNS):
+    """Each of ``fns`` ({label: fn}) timed by CUDA events in ``turns``
+    turns, the order reversed every other turn: (medians, every turn)."""
+    times = {k: [] for k in fns}
+    for turn in range(turns):
+        for k in (list(fns) if turn % 2 == 0 else list(fns)[::-1]):
+            times[k].append(event_ms(fns[k]))
+    return {k: float(np.median(v)) for k, v in times.items()}, times
+
+
+def launches_of(fn, want, label):
+    """Run ``fn`` with every count set to 0 just before and read just
+    after; the counts must equal ``want`` (names left out: 0)."""
+    reset_counts()
+    fn()
+    got = read_counts()
+    expect = {n: want.get(n, 0) for n in got}
+    if got != expect:
+        raise AssertionError(f"{label} launched {got}, expected {expect}")
+    log(f"{label}: launches {({n: c for n, c in got.items() if c})}")
+    return got
+
+
+def card_vs_cpu(label, conf, net, f, l, m):
+    """compute_gradient_and_score (and output) on the card against the
+    same net on the CPU, where every kernel is its plain version and
+    every step loop runs on the CPU, unmasked and masked."""
+    from deeplearning4j_torch import DataSet, MultiLayerNetwork
+    from deeplearning4j_torch.utils.trees import leaves, tree_map
+
+    cpu = MultiLayerNetwork(conf).init(
+        params={k: tree_map(lambda t: t.cpu(), p) for k, p in net.params.items()},
+        device="cpu")
+    worst = {}
+    for tag, mask in (("unmasked", None), ("masked", m)):
+        lm = None if l.ndim == 2 else mask
+        ds = DataSet(f, l, mask, lm)
+        g_card, s_card = net.compute_gradient_and_score(ds)
+        g_cpu, s_cpu = cpu.compute_gradient_and_score(ds)
+        s_err = abs(s_card - s_cpu) / abs(s_cpu)
+        card = dict(leaves(g_card))
+        g_err = {k: ((card[k].cpu() - g).abs().max() / g.abs().max()).item()
+                 for k, g in leaves(g_cpu)}
+        key = max(g_err, key=g_err.get)
+        o_err = (net.output(f, mask=mask).cpu() - cpu.output(f, mask=mask)).abs().max().item()
+        log(f"{label} card vs CPU ({tag}): score {s_card:.4f} vs {s_cpu:.4f} (rel "
+            f"{s_err:.2e}), worst gradient {key} rel {g_err[key]:.2e}, output max abs "
+            f"{o_err:.2e}")
+        if not (s_err <= TRAIN_SCORE_RTOL and g_err[key] <= TRAIN_GRAD_RTOL
+                and o_err <= RF_OUT_ATOL):
+            raise AssertionError(f"{label}: card and CPU disagree ({tag}): score {s_err}, "
+                                 f"{key} {g_err[key]}, output {o_err}")
+        worst[tag] = {"score_rel": s_err, "grad_rel": g_err[key], "output_abs": o_err}
+    return worst
+
+
+def bidir_char_rnn(rng):
+    """2 x GravesBidirectionalLSTM(H) + RnnOutputLayer: fits (each step 4 K1
+    with the reserve and 4 K2, never K3/K4), ``output`` (4 K1), a profile
+    of one masked fit (K1's and K2's shares), card against CPU."""
+    from deeplearning4j_torch import DataSet, MultiLayerNetwork
+    from deeplearning4j_torch.nn.conf.layers import GravesBidirectionalLSTM
+
+    conf = rf_conf([GravesBidirectionalLSTM(n_in=VOCAB, n_out=H),
+                    GravesBidirectionalLSTM(n_in=H, n_out=H)], rnn_out(H))
+    net = MultiLayerNetwork(conf).init()
+    f, l, m = masked_text(rng, TRAIN_B, TRAIN_SEQ)
+    ds, mds = DataSet(f, l), DataSet(f, l, m, m)
+    losses = {"unmasked": [], "masked": []}
+
+    def fits():
+        for tag, data in (("unmasked", ds), ("masked", mds)):
+            for _ in range(RF_FITS):
+                net.fit(data)
+                losses[tag].append(net.score())
+    per_step = {"lstm_fwd_train": 4, "lstm_bwd": 4}
+    train = launches_of(fits, {k: 2 * RF_FITS * v for k, v in per_step.items()},
+                        f"bidir_char_rnn: {2 * RF_FITS} fits of b={TRAIN_B} T={TRAIN_SEQ}")
+    out = launches_of(lambda: net.output(f, mask=m), {"lstm_fwd": 4}, "bidir_char_rnn output")
+    probs = net.output(f, mask=m)
+    check_probabilities("bidir_char_rnn output", probs, (TRAIN_B, TRAIN_SEQ, VOCAB),
+                        PROB_SUM_ATOL)
+    for tag, ls in losses.items():
+        log(f"bidir_char_rnn {tag} loss per fit: " + " ".join(f"{x:.3f}" for x in ls))
+        if not np.isfinite(ls).all():
+            raise AssertionError(f"bidir_char_rnn {tag} loss is not finite: {ls}")
+    if not losses["unmasked"][-1] < losses["unmasked"][0]:
+        raise AssertionError(f"bidir_char_rnn: the unmasked loss did not fall: "
+                             f"{losses['unmasked']}")
+    med, turns = alternating_ms({"unmasked": lambda: net.fit(ds), "masked": lambda: net.fit(mds)})
+    log(f"smoke number, not a benchmark: a bidir_char_rnn step {med['unmasked']:.3f} ms "
+        f"unmasked, {med['masked']:.3f} ms masked (medians of {RF_TURNS} alternating turns)")
+    prof = profile_call("one masked bidir_char_rnn fit", lambda: net.fit(mds))
+    shares = {}
+    if prof is not None:
+        for kernel, key in (("K1 with reserve", "lstm_fwd"), ("K2", "lstm_bwd")):
+            k = sum(ms for name, ms in prof["top_ms"].items() if key in name)
+            shares[kernel] = {"ms": k, "share_of_busy": k / prof["busy_ms"]}
+            log(f"{kernel} in one masked bidir_char_rnn fit: {k:.3f} ms of device time, "
+                f"{100 * k / prof['busy_ms']:.1f}% of the fit's {prof['busy_ms']:.3f} ms busy")
+    ref = card_vs_cpu("bidir_char_rnn", conf, net, *masked_text(rng, RF_REF_B, RF_REF_T))
+    return {"launches": {"train": train, "train_per_step": per_step, "output": out},
+            "losses": losses, "step_ms": med, "turns_ms": turns, "profile": prof,
+            "kernel_shares": shares, "reference": ref}
+
+
+def write_sequences(root, rng, n):
+    """``n`` CSV sequences of periodic text under ``root``, lengths in
+    RF_LENGTHS: each row a character's one-hot features, then the next
+    character's id. Returns the paths."""
+    cycle = rng.integers(0, VOCAB, 23)
+    eye = np.eye(VOCAB, dtype=np.int64)
+    paths = []
+    for i in range(n):
+        t = int(rng.integers(RF_LENGTHS[0], RF_LENGTHS[1] + 1))
+        ids = cycle[(int(rng.integers(0, 23)) + np.arange(t + 1)) % 23]
+        rows = np.concatenate([eye[ids[:-1]], ids[1:, None]], axis=1)
+        path = Path(root) / f"seq_{i:04d}.csv"
+        np.savetxt(path, rows, fmt="%d", delimiter=",")
+        paths.append(str(path))
+    return paths
+
+
+def last_step_sets(iterator):
+    """Each sequence DataSet with its labels at the last valid step ([b,
+    VOCAB]) and a per-example labels mask of ones: what LastTimeStep's
+    output is held to, by the loss and by ``evaluate``."""
+    from deeplearning4j_torch import DataSet
+
+    out = []
+    for ds in iterator:
+        last = ds.features_mask.sum(1).astype(np.int64) - 1
+        labels = ds.labels[np.arange(len(last)), last]
+        out.append(DataSet(ds.features, labels, ds.features_mask,
+                           np.ones(len(last), np.float32)))
+    return out
+
+
+def bidir_classifier(rng):
+    """LastTimeStep(Bidirectional(LSTM(H), concat)) + OutputLayer over CSV
+    sequences read by SequenceRecordReaderDataSetIterator: fits (each step
+    2 K1 with the reserve and 2 K2, masked), ``evaluate`` (2 K1 a batch),
+    card against CPU."""
+    import tempfile
+
+    from deeplearning4j_torch import MultiLayerNetwork
+    from deeplearning4j_torch.datasets.records import (CSVSequenceRecordReader,
+                                                       SequenceRecordReaderDataSetIterator)
+    from deeplearning4j_torch.nn.conf.layers import LSTM, Bidirectional, LastTimeStep
+
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        paths = write_sequences(root, rng, RF_CLS_BATCHES * TRAIN_B)
+        t1 = time.perf_counter()
+        sets = last_step_sets(SequenceRecordReaderDataSetIterator(
+            CSVSequenceRecordReader(paths), TRAIN_B, VOCAB, VOCAB))
+        t2 = time.perf_counter()
+    log(f"bidir_classifier data: {len(paths)} CSV sequences written in {t1 - t0:.2f} s, read "
+        f"into {len(sets)} masked minibatches in {t2 - t1:.2f} s "
+        f"(T {[int(d.features.shape[1]) for d in sets]})")
+    conf = rf_conf([LastTimeStep(inner=Bidirectional(inner=LSTM(n_in=VOCAB, n_out=H),
+                                                     mode="concat"))],
+                   rnn_out(2 * H, last=True))
+    net = MultiLayerNetwork(conf).init()
+    losses = []
+
+    def fits():
+        for _ in range(RF_FITS):
+            for d in sets:
+                net.fit(d)
+                losses.append(net.score())
+    steps = RF_FITS * len(sets)
+    per_step = {"lstm_fwd_train": 2, "lstm_bwd": 2}
+    train = launches_of(fits, {k: steps * v for k, v in per_step.items()},
+                        f"bidir_classifier: {steps} masked fit steps")
+    log("bidir_classifier loss per step: " + " ".join(f"{x:.3f}" for x in losses))
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"bidir_classifier loss is not finite: {losses}")
+    ev = {}
+    evaluate = launches_of(lambda: ev.setdefault("e", net.evaluate(sets)),
+                           {"lstm_fwd": 2 * len(sets)}, "bidir_classifier evaluate")
+    e = ev["e"]
+    if e.total != sum(d.num_examples() for d in sets):
+        raise AssertionError(f"bidir_classifier evaluate counted {e.total} examples")
+    log(f"bidir_classifier evaluate: accuracy {e.accuracy():.4f} over {e.total} sequences")
+    med, turns = alternating_ms({f"batch{i}": (lambda d=d: net.fit(d))
+                                 for i, d in enumerate(sets)})
+    log(f"smoke number, not a benchmark: a bidir_classifier step "
+        + ", ".join(f"{k} (T={int(d.features.shape[1])}) {v:.3f} ms"
+                    for (k, v), d in zip(med.items(), sets))
+        + f" (medians of {RF_TURNS} alternating turns)")
+    f, l, m = masked_text(rng, RF_REF_B, RF_REF_T)
+    last = m.sum(1).astype(np.int64) - 1
+    ref = card_vs_cpu("bidir_classifier", conf, net, f, l[np.arange(RF_REF_B), last], m)
+    return {"launches": {"train": train, "train_per_step": per_step, "evaluate": evaluate},
+            "losses": losses, "accuracy": e.accuracy(), "step_ms": med, "turns_ms": turns,
+            "reference": ref}
+
+
+def simple_rnn(rng):
+    """2 x SimpleRnn(H) + RnnOutputLayer: TBPTT fits and ``rnn_time_step``
+    over RF_STREAM_T characters one at a time against ``output`` on them;
+    no K1-K4 launch; card against CPU."""
+    from deeplearning4j_torch import DataSet, MultiLayerNetwork
+    from deeplearning4j_torch.nn.conf.layers import SimpleRnn
+
+    conf = rf_conf([SimpleRnn(n_in=VOCAB, n_out=H), SimpleRnn(n_in=H, n_out=H)], rnn_out(H),
+                   tbptt=True)
+    net = MultiLayerNetwork(conf).init()
+    f, l, m = masked_text(rng, TRAIN_B, TRAIN_SEQ)
+    ds, mds = DataSet(f, l), DataSet(f, l, m, m)
+    losses = []
+
+    def fits():
+        for data in [ds] * RF_FITS + [mds] * RF_FITS:
+            net.fit(data)
+            losses.append(net.score())
+    train = launches_of(fits, {}, f"simple_rnn: {2 * RF_FITS} TBPTT fits")
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"simple_rnn loss is not finite: {losses}")
+    x = periodic_text(rng, GEN_B, RF_STREAM_T)[0]
+
+    def stream():
+        net.rnn_clear_previous_state()
+        return torch.stack([net.rnn_time_step(x[:, t]) for t in range(RF_STREAM_T)], 1)
+    got = {}
+    streamed = launches_of(lambda: got.setdefault("s", stream()), {},
+                           f"simple_rnn rnn_time_step over {RF_STREAM_T} characters")
+    whole = net.output(x)
+    err = ((got["s"] - whole).abs().max() / whole.abs().max()).item()
+    log(f"simple_rnn stream vs output: {err:.3e} of the largest probability")
+    if not (torch.isfinite(got["s"]).all() and err <= GEN_STREAM_RTOL):
+        raise AssertionError(f"simple_rnn stream and output disagree: {err}")
+    med, turns = alternating_ms({"unmasked": lambda: net.fit(ds), "masked": lambda: net.fit(mds),
+                                 "stream": stream})
+    log(f"smoke number, not a benchmark: a simple_rnn fit ({TRAIN_SEQ // TRAIN_T} TBPTT "
+        f"segments) {med['unmasked']:.3f} ms unmasked, {med['masked']:.3f} ms masked; "
+        f"{med['stream'] / RF_STREAM_T:.3f} ms a streamed character at b={GEN_B}")
+    ref = card_vs_cpu("simple_rnn", conf, net, *masked_text(rng, RF_REF_B, RF_REF_T))
+    return {"launches": {"train": train, "stream": streamed}, "losses": losses,
+            "stream_rel_err": err, "step_ms": med, "turns_ms": turns, "reference": ref}
+
+
+def lstm_step_loop(rng):
+    """A softsign GravesLSTM(H) and a tanh GravesLSTM(RF_ODD_H), which the
+    kernels decline, fit and answer through the step loop (no K1-K4
+    launch, nothing raised), held against the CPU; each timed beside the
+    kernel route's tanh GravesLSTM(H) at the same shape."""
+    from deeplearning4j_torch import DataSet, MultiLayerNetwork
+    from deeplearning4j_torch.nn.conf.layers import GravesLSTM
+
+    nets = {"kernel_tanh": GravesLSTM(n_in=VOCAB, n_out=H),
+            "softsign": GravesLSTM(n_in=VOCAB, n_out=H, activation="softsign"),
+            f"h{RF_ODD_H}": GravesLSTM(n_in=VOCAB, n_out=RF_ODD_H)}
+    f, l, m = masked_text(rng, TRAIN_B, TRAIN_SEQ)
+    ds = DataSet(f, l, m, m)
+    out, fns = {}, {}
+    for name, layer in nets.items():
+        conf = rf_conf([layer], rnn_out(layer.n_out))
+        net = MultiLayerNetwork(conf).init()
+        want = {"lstm_fwd_train": RF_FITS, "lstm_bwd": RF_FITS} if name == "kernel_tanh" else {}
+        losses = []
+
+        def fits(net=net, losses=losses):
+            for _ in range(RF_FITS):
+                net.fit(ds)
+                losses.append(net.score())
+        train = launches_of(fits, want, f"lstm_step_loop {name}: {RF_FITS} masked fits")
+        answer = launches_of(lambda net=net: net.output(f, mask=m),
+                             {"lstm_fwd": 1} if name == "kernel_tanh" else {},
+                             f"lstm_step_loop {name} output")
+        if not np.isfinite(losses).all():
+            raise AssertionError(f"lstm_step_loop {name} loss is not finite: {losses}")
+        out[name] = {"launches": {"train": train, "output": answer}, "losses": losses}
+        if name != "kernel_tanh":
+            out[name]["reference"] = card_vs_cpu(f"lstm_step_loop {name}", conf, net,
+                                                 *masked_text(rng, RF_REF_B, RF_REF_T))
+        fns[name] = (lambda net=net: net.fit(ds))
+    med, turns = alternating_ms(fns)
+    log(f"smoke number, not a benchmark: a masked fit step of b={TRAIN_B} T={TRAIN_SEQ} "
+        + ", ".join(f"{k} {v:.3f} ms" for k, v in med.items())
+        + f" (medians of {RF_TURNS} alternating turns)")
+    return {"nets": out, "step_ms": med, "turns_ms": turns}
+
+
+def recurrent_family(smi):
+    """The rest of the recurrent family on the card: bidir_char_rnn,
+    bidir_classifier, simple_rnn and lstm_step_loop, each driven with the
+    counts set to 0 just before and read just after."""
+    rng = np.random.default_rng(17)
+    t0 = time.perf_counter()
+    res = {"card": smi}
+    for name, fn in (("bidir_char_rnn", bidir_char_rnn), ("bidir_classifier", bidir_classifier),
+                     ("simple_rnn", simple_rnn), ("lstm_step_loop", lstm_step_loop)):
+        res[name] = fn(rng)
+        torch.cuda.empty_cache()
+    res["seconds"] = time.perf_counter() - t0
+    log(f"recurrent_family took {res['seconds']:.1f} s")
+    return res
+
+
 def build():
     """Compile every kernel of the port, one nvcc per source, all at once,
     and print what ptxas reports of registers, shared memory and spills."""
@@ -3911,7 +4310,7 @@ def build():
 
 
 def kernel_line(serving, training, served, streamed, trained, flash, lm, decode, moe, graph,
-                reg, lmd, ev):
+                reg, lmd, ev, rf):
     """The {"kernels": [...]} entries: for K1-K4 numbers at the char-RNN's
     training shape, the launches of its training main path, and K1/K3's
     serving numbers and their decode rows (T=1, b=GEN_B, one a
@@ -3925,7 +4324,11 @@ def kernel_line(serving, training, served, streamed, trained, flash, lm, decode,
     dropout beside SDPA's with ``dropout_p`` (``dropout``). K1, K3, K4 and
     K5 carry their launches in the evaluation phase (``evaluate_launches``:
     the early-stopping runs, the char-RNN's masked and unmasked evaluate,
-    the TransformerLM's evaluate)."""
+    the TransformerLM's evaluate). K1-K4 carry their launches in each path
+    of the recurrent-family phase (``recurrent_family_launches``: the
+    bidirectional char-RNN's fits and output, the classifier's fits and
+    evaluate, SimpleRnn's fits and stream, and the step-loop nets' fits and
+    outputs, which must be 0)."""
     shape = {"b": TRAIN_B, "T": TRAIN_T, "H": H, "w": "bf16", "peepholes": True}
     phases = {"early_stopping": ev["early_stopping"]["launches"],
               "evaluate_masked": ev["char_rnn"]["masked"]["launches"],
@@ -3934,6 +4337,18 @@ def kernel_line(serving, training, served, streamed, trained, flash, lm, decode,
 
     def evaluate_launches(*names):
         return {"evaluate_launches": {p: sum(c[n] for n in names) for p, c in phases.items()}}
+
+    bidi, cls, srnn, loop = (rf["bidir_char_rnn"]["launches"], rf["bidir_classifier"]["launches"],
+                             rf["simple_rnn"]["launches"], rf["lstm_step_loop"])
+    family_phases = {
+        "bidir_char_rnn_fits": [bidi["train"]], "bidir_char_rnn_output": [bidi["output"]],
+        "bidir_classifier_fits": [cls["train"]], "bidir_classifier_evaluate": [cls["evaluate"]],
+        "simple_rnn": [srnn["train"], srnn["stream"]],
+        "lstm_step_loop": [c for k, v in loop["nets"].items() if k != "kernel_tanh"
+                           for c in v["launches"].values()]}
+
+    def family_launches(*names):
+        return {p: sum(c[n] for c in cs for n in names) for p, cs in family_phases.items()}
     sshape = {"b": B, "T": T, "H": H, "w": "bf16", "peepholes": True}
 
     def entry(name, counter, source, replaces, res, extra=None):
@@ -3969,19 +4384,24 @@ def kernel_line(serving, training, served, streamed, trained, flash, lm, decode,
                "decode": decode["lstm_fwd"],
                "design": training["lstm_fwd_train/masked"]["design"],
                "graph_tbptt_launches": graph["launches"]["lstm_fwd_train"],
-               **evaluate_launches("lstm_fwd", "lstm_fwd_train")}),
+               **evaluate_launches("lstm_fwd", "lstm_fwd_train"),
+               "recurrent_family_launches": family_launches("lstm_fwd", "lstm_fwd_train")}),
         entry("lstm_bwd", "lstm_bwd", "lstm_cell_bwd.cu", "deeplearning4j_tpu/ops/lstm_cell.py:235",
               [training["lstm_bwd/masked"], training["lstm_bwd/unmasked"]],
               {"design": training["lstm_bwd/masked"]["design"],
-               "graph_tbptt_launches": graph["launches"]["lstm_bwd"]}),
+               "graph_tbptt_launches": graph["launches"]["lstm_bwd"],
+               "recurrent_family_launches": family_launches("lstm_bwd")}),
         entry("lstm2_fwd", "lstm2_fwd_train", "lstm_fused.cu", "deeplearning4j_tpu/ops/lstm_fused.py:111",
               [training["lstm2_fwd_train"]],
               {**serving_of("lstm2_fwd", ["lstm2_fwd"]), "decode": decode["lstm2_fwd"],
                "design": training["lstm2_fwd_train"]["design"],
-               **evaluate_launches("lstm2_fwd", "lstm2_fwd_train")}),
+               **evaluate_launches("lstm2_fwd", "lstm2_fwd_train"),
+               "recurrent_family_launches": family_launches("lstm2_fwd", "lstm2_fwd_train")}),
         entry("lstm2_bwd", "lstm2_bwd", "lstm_fused_bwd.cu", "deeplearning4j_tpu/ops/lstm_fused.py:249",
               [training["lstm2_bwd"]], {"design": training["lstm2_bwd"]["design"],
-                                        **evaluate_launches("lstm2_bwd")}),
+                                        **evaluate_launches("lstm2_bwd"),
+                                        "recurrent_family_launches":
+                                            family_launches("lstm2_bwd")}),
         *(flash_entry(name, src, line, flash[name], lm, moe, lmd,
                       evaluate_launches(name) if name == "flash_fwd" else {})
           for name, src, line in (
@@ -4071,11 +4491,14 @@ def main() -> int:
     print(json.dumps({"regularized_char_rnn": reg, "lm_dropout": lmd, "solvers": solvers()}))
     ev = evaluation(smi)
     print(json.dumps({"evaluation": ev}))
+    rf = recurrent_family(smi)
+    torch.cuda.empty_cache()
+    print(json.dumps({"recurrent_family": rf}))
 
     print(json.dumps({"generate": generated}))
     print(json.dumps({"kernels": kernel_line(serving, training, served, streamed,
                                              trained["launches"], flash, lm, decode, moe,
-                                             graph, reg, lmd, ev)}))
+                                             graph, reg, lmd, ev, rf)}))
     log(f"chip_smoke took {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

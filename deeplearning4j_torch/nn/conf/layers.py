@@ -2,7 +2,10 @@
 
 Counterpart of ``deeplearning4j_tpu/nn/conf/layers.py``, holding only the
 classes the ported slices run (the char-RNN's, the TransformerLM's and its
-MoE variant's, LeNet's and ResNet50's, and DropoutLayer). Field names and order are unchanged so JSON written by the
+MoE variant's, LeNet's and ResNet50's, DropoutLayer, and the rest of the
+recurrent family: GravesBidirectionalLSTM, SimpleRnn and the Bidirectional
+and LastTimeStep wrappers, whose ``inner`` layer encodes as a nested
+object). Field names and order are unchanged so JSON written by the
 JAX package decodes here and re-encodes byte for byte; any other layer
 ``@class`` fails to decode with the "Unknown config class" error.
 
@@ -28,6 +31,7 @@ __all__ = ["Layer", "BaseLayer", "FeedForwardLayer", "DenseLayer", "MoEDenseLaye
            "ConvolutionLayer",
            "SubsamplingLayer", "PoolingType", "BatchNormalization", "LayerNormalization",
            "ActivationLayer", "DropoutLayer", "EmbeddingSequenceLayer", "LSTM", "GravesLSTM",
+           "GravesBidirectionalLSTM", "SimpleRnn", "Bidirectional", "LastTimeStep",
            "SelfAttentionLayer", "OutputLayer", "RnnOutputLayer", "GlobalPoolingLayer",
            "ConvolutionMode"]
 
@@ -328,6 +332,58 @@ class LSTM(BaseRecurrentLayer):
 @dataclasses.dataclass
 class GravesLSTM(LSTM):
     """LSTM with peephole connections."""
+
+
+@register
+@dataclasses.dataclass
+class GravesBidirectionalLSTM(GravesLSTM):
+    """Two GravesLSTMs over time, forward and backward, each with its own
+    parameters; their outputs are summed, so the output stays nOut wide
+    (reference ``GravesBidirectionalLSTM.java``)."""
+
+
+@register
+@dataclasses.dataclass
+class SimpleRnn(BaseRecurrentLayer):
+    """``h_t = act(x_t W + h_{t-1} RW + b)``."""
+
+
+@register
+@dataclasses.dataclass
+class Bidirectional(Layer):
+    """An inner recurrent layer run in both directions; ``mode`` merges
+    them: concat | add | mul | ave (reference 1.0 line
+    ``Bidirectional.java``)."""
+    inner: Optional[Any] = None
+    mode: str = "concat"
+
+    def get_output_type(self, index, input_type):
+        out = self.inner.get_output_type(index, input_type)
+        if self.mode == "concat":
+            out = InputTypeRecurrent(out.size * 2, out.timeseries_length)
+        return out
+
+    def set_n_in(self, input_type, override=False):
+        self.inner.set_n_in(input_type, override)
+
+    def preprocessor_for(self, input_type):
+        return self.inner.preprocessor_for(input_type)
+
+
+@register
+@dataclasses.dataclass
+class LastTimeStep(Layer):
+    """The last (mask-aware) time step of an inner recurrent layer."""
+    inner: Optional[Any] = None
+
+    def get_output_type(self, index, input_type):
+        return InputTypeFeedForward(self.inner.get_output_type(index, input_type).size)
+
+    def set_n_in(self, input_type, override=False):
+        self.inner.set_n_in(input_type, override)
+
+    def preprocessor_for(self, input_type):
+        return self.inner.preprocessor_for(input_type)
 
 
 @register

@@ -22,6 +22,8 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..utils.trees import sorted_leaves
+
 __all__ = ["GradientCheckUtil", "check_gradients", "check_function_gradients"]
 
 log = logging.getLogger(__name__)
@@ -40,17 +42,6 @@ def _loss_at(net, ds):
         return net._loss_fn(f, l, fm, lm, True)[0]
     inputs, labels, fms, lms = net._streams(ds, cached=True)
     return net._loss_fn(inputs, labels, fms, lms, True)
-
-
-def _sorted_leaves(tree, prefix=""):
-    """(path, tensor) of a dict tree in sorted key order, paths joined by
-    "/" (the JAX package's ``_key_str`` of ``tree_flatten_with_path``)."""
-    if isinstance(tree, torch.Tensor):
-        return [(prefix, tree)]
-    out = []
-    for k in sorted(tree):
-        out += _sorted_leaves(tree[k], f"{prefix}/{k}" if prefix else str(k))
-    return out
 
 
 def _check(leaves, analytic, loss_at, epsilon, max_rel_error, min_abs_error,
@@ -102,7 +93,7 @@ def check_function_gradients(loss_fn, params, epsilon: float = 1e-6,
     ``expect_zero``: path substrings whose gradient must be exactly zero;
     those tensors skip the numeric comparison."""
     tree = _detached_copy(params)
-    leaves = _sorted_leaves(tree)
+    leaves = sorted_leaves(tree)
     for _, t in leaves:
         t.requires_grad_(True)
     grads = torch.autograd.grad(loss_fn(tree), [t for _, t in leaves], allow_unused=True)
@@ -143,7 +134,7 @@ class GradientCheckUtil:
         below ``min_abs_error`` pass). ``max_per_param`` samples that many
         elements of a larger tensor; ``exclude`` skips parameter paths
         ("layer/name") containing any of its strings."""
-        leaves = _sorted_leaves(net.params)
+        leaves = sorted_leaves(net.params)
         dtypes = {t.dtype for _, t in leaves}
         if dtypes - {torch.float64}:
             raise ValueError(
@@ -151,7 +142,7 @@ class GradientCheckUtil:
                 f"with dtype='float64', compute_dtype='float64' (reference "
                 f"GradientCheckUtil double-precision rule)")
         grads = net._grads(_loss_at(net, ds))
-        analytic = {name: g.detach().cpu().numpy() for name, g in _sorted_leaves(grads)}
+        analytic = {name: g.detach().cpu().numpy() for name, g in sorted_leaves(grads)}
 
         def fail(msg):
             if print_results:

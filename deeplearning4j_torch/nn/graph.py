@@ -46,6 +46,7 @@ from .multilayer import MultiLayerNetwork
 from .updaters import Sgd
 from ..datasets.dataset import DataSet, MultiDataSet
 from ..optimize.updater import NetworkUpdater
+from ..utils.trees import leaves, tree_map
 
 __all__ = ["ComputationGraph", "fused_softmax_skip_set"]
 
@@ -123,8 +124,9 @@ class ComputationGraph(nn.Module):
     @property
     def params(self) -> Dict[str, Dict[str, torch.Tensor]]:
         """{vertex name: {"W": tensor, ...}}: detached views of the
-        parameters (they share storage, so they follow training)."""
-        return {n: {k: p.detach() for k, p in ps.items()} for n, ps in self._trainable().items()}
+        parameters (they share storage, so they follow training); a wrapper
+        layer's nest."""
+        return {n: tree_map(torch.Tensor.detach, ps) for n, ps in self._trainable().items()}
 
     def _layers(self) -> Dict[str, nn.Module]:
         """Each layer vertex's implementation by name."""
@@ -400,11 +402,10 @@ class ComputationGraph(nn.Module):
 
     # ------------------------------------------------------------ parameters
     def param_table(self) -> Dict[str, torch.Tensor]:
-        """{"vertex_W": tensor, ...} in topological order: the parameters'
-        detached views."""
+        """{"vertex_W": tensor, ...} in topological order (a nested parameter
+        "vertex_fwd/W"): the parameters' detached views."""
         params = self.params
-        return {f"{n}_{k}": v for n in self.topo if n in params
-                for k, v in params[n].items()}
+        return {f"{n}_{k}": v for n in self.topo if n in params for k, v in leaves(params[n])}
 
     paramTable = param_table
 
@@ -412,7 +413,7 @@ class ComputationGraph(nn.Module):
         lines = [f"{'vertex':<32} {'type':<28} {'params':>10}"]
         for name in self.topo:
             v = self.conf.vertices[name]
-            n = (sum(p.numel() for p in self.impls[name].param_dict().values())
+            n = (sum(p.numel() for _, p in leaves(self.impls[name].param_dict()))
                  if name in self.impls else 0)
             lines.append(f"{name:<32} {type(v).__name__:<28} {n:>10}")
         lines.append(f"Total params: {self.num_params()}")

@@ -99,6 +99,14 @@ class StepGenerators:
         return torch.Generator().manual_seed(self._seed * 65536 + self._k)
 
 
+def split_generator(gen):
+    """Two generators seeded from ``gen`` in turn (the JAX package's
+    ``jax.random.split`` of one layer's key); two Nones for None."""
+    if gen is None:
+        return None, None
+    return tuple(torch.Generator().manual_seed(draw_seed(gen)) for _ in range(2))
+
+
 def train_rng(ctx):
     """(training?, the layer's generator) from a forward's ``ctx``."""
     ctx = ctx or {}
@@ -233,6 +241,12 @@ class LayerImpl(nn.Module):
         with torch.no_grad():
             for name, t in new_state.items():
                 getattr(self, name).copy_(t)
+
+    def constraint_sets(self):
+        """(constraints, {name: parameter}) pairs that the container
+        projects after each update: this layer's constraints on its own
+        parameters (a wrapper gives its inner layers')."""
+        return [(self.constraints, self.param_dict())] if self.constraints else []
 
     def regularization(self):
         """L1/L2 penalty (reference ``BaseLayer.calcL1/calcL2``), weights and

@@ -7,7 +7,10 @@ Evaluation: ``evaluate`` (the output ranked on the device,
 ``eval/evaluation.py``) and ``evaluate_regression``. Parameters:
 ``param_table``, ``get_param``, ``params_flat``/``set_params_flat``
 (layer-major, a layer's parameters in init order), ``clone``,
-``summary``.
+``summary``. A wrapper layer's parameters nest (Bidirectional's ``{"fwd":
+{...}, "bwd": {...}}``): every walk over them goes through
+``utils/trees.py``, and a nested name joins its keys with "/"
+(``param_table``'s ``"0_fwd/W"``).
 Training: ``fit`` (a DataSet, an iterator, or arrays), one update per
 minibatch or, with truncated BPTT, per segment (``_fit_batch``;
 ``_run_tbptt``, the loop both containers share), ``score`` and
@@ -44,8 +47,9 @@ flow NHWC inside (``nchw_to_nhwc``).
 Two consecutive plain LSTM layers run as one fused kernel
 (``ops/lstm_fused.py``: K3, and K4 backward in training) when
 :meth:`MultiLayerNetwork._lstm_pair_fusable` admits them
-(``multilayer.py:299-334``); every other recurrent layer runs the
-per-layer kernel (``ops/lstm_cell.py``: K1, and K2 backward). Eager
+(``multilayer.py:299-334``); every other LSTM runs the per-layer kernel
+(``ops/lstm_cell.py``: K1, and K2 backward) or, where
+``lstm_cell.supported`` declines it, the layer's step loop. Eager
 PyTorch takes the place of the JAX package's jitted step and its
 ``lax.scan`` over TBPTT segments.
 """
@@ -67,14 +71,15 @@ from .conf.inputs import InputTypeConvolutional
 from .conf.layers import DropoutLayer, FeedForwardLayer
 from .layers import impl_for
 from .layers.base import StepGenerators
-from .layers.recurrent import _BaseLSTMImpl
+from .layers.recurrent import GravesBidirectionalLSTMImpl, _BaseLSTMImpl
 from .updaters import Sgd
 from ..datasets.dataset import DataSet, ListDataSetIterator, MultiDataSet, to_tensor
 from ..datasets.prefetch import wrap_for_training
 from ..monitor.health import get_health
-from ..ops import lstm_fused
+from ..ops import lstm_cell, lstm_fused
 from ..optimize.listeners import dispatch_training_error
 from ..optimize.updater import NetworkUpdater, normalize_gradients
+from ..utils.trees import leaves, nest, tree_map
 
 __all__ = ["MultiLayerNetwork"]
 
@@ -100,9 +105,12 @@ def nchw_to_nhwc(x, input_type):
 
 def _detached(state):
     """A carry cut from the graph: tensors detached, other members (the KV
-    cache's Python token counter) kept as they are."""
+    cache's Python token counter) kept as they are. A carry is a tuple
+    ((h, c) of an LSTM, a KV cache) or one tensor (SimpleRnn's h)."""
+    def cut(t):
+        return t.detach() if isinstance(t, torch.Tensor) else t
     return None if state is None else {
-        i: tuple(t.detach() if isinstance(t, torch.Tensor) else t for t in hc)
+        i: cut(hc) if isinstance(hc, torch.Tensor) else tuple(cut(t) for t in hc)
         for i, hc in state.items()}
 
 
@@ -148,9 +156,10 @@ class MultiLayerNetwork(nn.Module):
                 lc.set_n_in(it, override=False)
                 it = lc.get_output_type(i, it)
         for i, lc in enumerate(layers):
-            if isinstance(lc, FeedForwardLayer) and not isinstance(lc, DropoutLayer):
-                if lc.n_out is None or lc.n_in is None:
-                    raise ValueError(f"Layer {i} ({type(lc).__name__}): n_in and "
+            inner = getattr(lc, "inner", None) or lc
+            if isinstance(inner, FeedForwardLayer) and not isinstance(inner, DropoutLayer):
+                if inner.n_out is None or inner.n_in is None:
+                    raise ValueError(f"Layer {i} ({type(inner).__name__}): n_in and "
                                      f"n_out must be set (or set_input_type)")
         if params is not None:
             extra = set(params) - {str(i) for i in range(len(layers))}
@@ -181,9 +190,9 @@ class MultiLayerNetwork(nn.Module):
     @property
     def params(self) -> Dict[str, Dict[str, torch.Tensor]]:
         """{"0": {"W": tensor, ...}, ...}: detached views of the parameters
-        (they share storage, so they follow training)."""
-        return {i: {k: p.detach() for k, p in ps.items()}
-                for i, ps in self._trainable().items()}
+        (they share storage, so they follow training); a wrapper layer's
+        nest."""
+        return {i: tree_map(torch.Tensor.detach, ps) for i, ps in self._trainable().items()}
 
     def _layers(self) -> Dict[str, nn.Module]:
         """Each layer's implementation by its parameter key."""
@@ -200,7 +209,7 @@ class MultiLayerNetwork(nn.Module):
         return {str(i): impl.layer_state() for i, impl in enumerate(self.impls)}
 
     def num_params(self) -> int:
-        return sum(p.numel() for ps in self._trainable().values() for p in ps.values())
+        return sum(p.numel() for _, p in leaves(self._trainable()))
 
     numParams = num_params
 
@@ -260,15 +269,21 @@ class MultiLayerNetwork(nn.Module):
         8 == 0, and a grid for K3 (with the reserve in training) and, in
         training, for K4 on x's device (``fwd_route``/``bwd_route``; the
         CPU's plain loops take every shape). A pair they cannot take runs
-        as two per-layer calls, decided before any launch."""
+        as two per-layer calls, decided before any launch. Each layer must
+        be one the per-layer kernels take (``lstm_cell.supported``), and
+        neither may be a GravesBidirectionalLSTM, as in the JAX package."""
         if fmask is not None or x.dim() != 3:
             return False
         a, b = self.impls[i], self.impls[i + 1]
-        if not (isinstance(a, _BaseLSTMImpl) and isinstance(b, _BaseLSTMImpl)):
-            return False
+        for im in (a, b):
+            if not isinstance(im, _BaseLSTMImpl) or isinstance(im, GravesBidirectionalLSTMImpl):
+                return False
         if train and (a.weight_noise is not None or b.weight_noise is not None):
             return False
-        if a.peepholes != b.peepholes or not (a.kernel_ok() and b.kernel_ok()):
+        bsz, T = int(x.shape[0]), int(x.shape[1])
+        if a.peepholes != b.peepholes or not all(
+                lstm_cell.supported(bsz, T, im.conf.n_out, im.activation_name, im.gate_name,
+                                    x.device) for im in (a, b)):
             return False
         if train and b.dropout_obj is not None:
             return False
@@ -277,7 +292,7 @@ class MultiLayerNetwork(nn.Module):
         H = a.conf.n_out
         if not (H == b.conf.n_in == b.conf.n_out) or H % 8:
             return False
-        bsz, wd = int(x.shape[0]), a.compute_dtype
+        wd = a.compute_dtype
         if lstm_fused.fwd_route(wd, bsz, H, reserve=train, device=x.device)[1] == 0:
             return False
         return not train or lstm_fused.bwd_route(wd, bsz, H, device=x.device)[1] > 0
@@ -367,20 +382,19 @@ class MultiLayerNetwork(nn.Module):
         weighted by ``grad_outputs``: a vector-Jacobian product); zeros for
         a parameter that does not reach them."""
         params = self._trainable()
-        flat = [(i, k, p) for i, ps in params.items() for k, p in ps.items()]
-        gs = torch.autograd.grad(outputs, [p for _, _, p in flat], grad_outputs=grad_outputs,
+        flat = list(leaves(params))
+        gs = torch.autograd.grad(outputs, [p for _, p in flat], grad_outputs=grad_outputs,
                                  allow_unused=True)
-        grads = {i: {} for i in params}
-        for (i, k, p), g in zip(flat, gs):
-            grads[i][k] = torch.zeros_like(p) if g is None else g
-        return grads
+        grads = nest({path: torch.zeros_like(p) if g is None else g
+                      for (path, p), g in zip(flat, gs)})
+        return {i: grads.get(i, {}) for i in params}
 
     def _update(self, loss, iteration) -> None:
         """Gradients of ``loss`` -> minimize flip -> :meth:`_apply_gradients`
         -> :meth:`_apply_constraints`."""
         grads = self._grads(loss)
         if not self.gc.minimize:
-            grads = {i: {k: -g for k, g in gs.items()} for i, gs in grads.items()}
+            grads = {i: tree_map(torch.neg, gs) for i, gs in grads.items()}
         self._apply_gradients(grads, iteration)
         self._apply_constraints()
 
@@ -391,17 +405,16 @@ class MultiLayerNetwork(nn.Module):
         updates, self.updater_state = self.updater.apply(self.updater_state, grads, iteration)
         with torch.no_grad():
             for i, ps in self._trainable().items():
-                for k, p in ps.items():
-                    p.sub_(updates[i][k].to(p.dtype))
+                tree_map(lambda p, u: p.sub_(u.to(p.dtype)), ps, updates[i])
 
     def _apply_constraints(self) -> None:
         """Each layer's constraints projected onto its parameters in place,
-        after an update (reference ``BaseConstraint.applyConstraint``)."""
+        after an update (reference ``BaseConstraint.applyConstraint``); a
+        wrapper's inner layers' constraints on their own parameters."""
         with torch.no_grad():
             for impl in self._layers().values():
-                if impl.constraints:
-                    ps = impl.param_dict()
-                    for k, t in apply_constraints(impl.constraints, ps).items():
+                for cons, ps in impl.constraint_sets():
+                    for k, t in apply_constraints(cons, ps).items():
                         if t is not ps[k]:
                             ps[k].copy_(t)
 
@@ -538,15 +551,18 @@ class MultiLayerNetwork(nn.Module):
 
     # ------------------------------------------------------------ parameters
     def param_table(self) -> Dict[str, torch.Tensor]:
-        """{"0_W": tensor, ...} (reference ``paramTable()`` naming): the
-        parameters' detached views, layer-major."""
-        return {f"{i}_{k}": v for i, ps in self.params.items() for k, v in ps.items()}
+        """{"0_W": tensor, ...} (reference ``paramTable()`` naming; a nested
+        parameter "0_fwd/W"): the parameters' detached views, layer-major."""
+        return {f"{i}_{k}": v for i, ps in self.params.items() for k, v in leaves(ps)}
 
     paramTable = param_table
 
     def get_param(self, key) -> torch.Tensor:
         i, k = key.split("_", 1)
-        return self.params[i][k]
+        t = self.params[i]
+        for part in k.split("/"):
+            t = t[part]
+        return t
 
     getParam = get_param
 
@@ -565,17 +581,15 @@ class MultiLayerNetwork(nn.Module):
         tensor) into the parameters in place, each slice cast to its
         parameter's dtype on its device."""
         vec = torch.as_tensor(vec).reshape(-1)
-        total = sum(p.numel() for ps in self._trainable().values() for p in ps.values())
+        total = self.num_params()
         if total != vec.numel():
             raise ValueError(f"Param vector length {vec.numel()} != model {total}")
         pos = 0
         with torch.no_grad():
-            for ps in self._trainable().values():
-                for p in ps.values():
-                    n = p.numel()
-                    p.copy_(vec[pos:pos + n].reshape(p.shape).to(device=p.device,
-                                                                  dtype=p.dtype))
-                    pos += n
+            for _, p in leaves(self._trainable()):
+                n = p.numel()
+                p.copy_(vec[pos:pos + n].reshape(p.shape).to(device=p.device, dtype=p.dtype))
+                pos += n
 
     # ------------------------------------------------------------------ misc
     def clone(self) -> "MultiLayerNetwork":
@@ -595,7 +609,7 @@ class MultiLayerNetwork(nn.Module):
     def summary(self) -> str:
         lines = [f"{'idx':>3}  {'type':<28} {'params':>10}"]
         for i, impl in enumerate(self.impls):
-            n = sum(p.numel() for p in impl.param_dict().values())
+            n = sum(p.numel() for _, p in leaves(impl.param_dict()))
             lines.append(f"{i:>3}  {type(self.conf.layers[i]).__name__:<28} {n:>10}")
         lines.append(f"Total params: {self.num_params()}")
         return "\n".join(lines)

@@ -9,11 +9,17 @@ and the caller subtracts the update from the parameter. State per
 parameter is ``()``, one tensor, or a tuple of tensors, so the keypaths of
 a saved ``updaterState.bin`` (``"<layer>/<param>/<slot>"``) map onto it.
 ``iteration`` is the count of applied updates; the bias-correction step
-is ``t = iteration + 1``.
+is ``t = iteration + 1``. A parameter dict may nest (a ``Bidirectional``
+layer's ``{"fwd": {...}, "bwd": {...}}``); its state nests the same way.
+
+The Adam family's bias corrections ``1 - beta ** t`` are float32 scalars,
+as the JAX package takes them (``jnp.power`` of a weak float and an f32
+step count) whatever the parameters' dtype: :func:`bias_correction`.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any, Dict, Optional
 
@@ -170,14 +176,20 @@ class IUpdater:
         raise NotImplementedError
 
     def init_state(self, params: Dict[str, torch.Tensor]):
-        return {k: self.init_one(p) for k, p in params.items()}
+        return {k: self.init_state(p) if isinstance(p, dict) else self.init_one(p)
+                for k, p in params.items()}
 
     def apply(self, state, grads, iteration):
-        lr = _lr_at(self, iteration)
-        t = iteration + 1  # bias-correction step count (1-based)
+        # t: the bias-correction step count (1-based)
+        return self._apply_tree(state, grads, _lr_at(self, iteration), iteration + 1)
+
+    def _apply_tree(self, state, grads, lr, t):
         updates, new_state = {}, {}
         for k, g in grads.items():
-            updates[k], new_state[k] = self.apply_one(state[k], g, lr, t)
+            if isinstance(g, dict):
+                updates[k], new_state[k] = self._apply_tree(state[k], g, lr, t)
+            else:
+                updates[k], new_state[k] = self.apply_one(state[k], g, lr, t)
         return updates, new_state
 
     def to_dict(self):
@@ -190,6 +202,20 @@ class IUpdater:
 
 def _zeros(p):
     return torch.zeros_like(p, memory_format=torch.contiguous_format)
+
+
+@functools.lru_cache(maxsize=4096)
+def bias_correction(beta: float, t: int) -> float:
+    """``1 - beta ** t`` in float32, as a Python float: the power of two
+    f32 scalars on the CPU (the C library's ``powf``, which XLA's CPU
+    backend calls for the JAX package's ``jnp.power``; numpy's and torch's
+    vectorised loops differ in the last bit at some steps), then an f32
+    subtraction. Dividing an f64 moment by it gives the JAX package's f64
+    update bit for bit."""
+    one = torch.ones((), dtype=torch.float32)
+    p = torch.pow(torch.tensor(beta, dtype=torch.float32),
+                  torch.tensor(float(t), dtype=torch.float32))
+    return float(one - p)
 
 
 @dataclasses.dataclass
@@ -232,8 +258,8 @@ class Adam(IUpdater):
         m, v = state
         m = self.beta1 * m + (1 - self.beta1) * g
         v = self.beta2 * v + (1 - self.beta2) * (g * g)
-        mhat = m / (1 - self.beta1 ** t)
-        vhat = v / (1 - self.beta2 ** t)
+        mhat = m / bias_correction(self.beta1, t)
+        vhat = v / bias_correction(self.beta2, t)
         return lr * mhat / (torch.sqrt(vhat) + self.epsilon), (m, v)
 
 
@@ -252,7 +278,7 @@ class AMSGrad(IUpdater):
         m = self.beta1 * m + (1 - self.beta1) * g
         v = self.beta2 * v + (1 - self.beta2) * (g * g)
         vmax = torch.maximum(vmax, v)
-        mhat = m / (1 - self.beta1 ** t)
+        mhat = m / bias_correction(self.beta1, t)
         return lr * mhat / (torch.sqrt(vmax) + self.epsilon), (m, v, vmax)
 
 
@@ -270,7 +296,7 @@ class AdaMax(IUpdater):
         m, u = state
         m = self.beta1 * m + (1 - self.beta1) * g
         u = torch.maximum(self.beta2 * u, torch.abs(g))
-        mhat = m / (1 - self.beta1 ** t)
+        mhat = m / bias_correction(self.beta1, t)
         return lr * mhat / (u + self.epsilon), (m, u)
 
 
@@ -288,9 +314,9 @@ class Nadam(IUpdater):
         m, v = state
         m = self.beta1 * m + (1 - self.beta1) * g
         v = self.beta2 * v + (1 - self.beta2) * (g * g)
-        mhat = m / (1 - self.beta1 ** t)
-        vhat = v / (1 - self.beta2 ** t)
-        nad = self.beta1 * mhat + (1 - self.beta1) * g / (1 - self.beta1 ** t)
+        mhat = m / bias_correction(self.beta1, t)
+        vhat = v / bias_correction(self.beta2, t)
+        nad = self.beta1 * mhat + (1 - self.beta1) * g / bias_correction(self.beta1, t)
         return lr * nad / (torch.sqrt(vhat) + self.epsilon), (m, v)
 
 

@@ -18,7 +18,9 @@ bf16(h) @ RW`` accumulated in f32, Graves peepholes ``zi,zf += c*pi,pf``
 and ``zo += c_new*po``, fractional step mask ``h = m*h_new + (1-m)*h``
 (same for c). h, c, ys and the reserve stay f32; the caller casts ys to
 its out dtype. Only tanh cell activation and sigmoid gates exist in the
-kernels.
+kernels: :func:`supported` is the route predicate (the JAX package's
+``lstm_cell.supported``), and a layer it declines runs the step loop of
+``nn/layers/recurrent.py`` instead, decided before any launch.
 
 :class:`LSTMFunction` is the autograd seam: its forward launches K1 with
 the reserve (post-activation gates, post-mask c sequence), its backward
@@ -34,7 +36,7 @@ import torch
 
 from . import cuda_build
 
-__all__ = ["lstm_scan", "lstm_fwd", "lstm_fwd_plain", "lstm_bwd", "lstm_bwd_plain",
+__all__ = ["supported", "lstm_scan", "lstm_fwd", "lstm_fwd_plain", "lstm_bwd", "lstm_bwd_plain",
            "fwd_route", "bwd_route", "LSTMFunction", "COUNTER", "TRAIN_COUNTER",
            "BWD_COUNTER"]
 
@@ -232,6 +234,22 @@ def bwd_route(w_dtype, b, H) -> Tuple[bool, int]:
     lib = cuda_build.library(BWD_SOURCE, "dl4j_lstm_bwd_tc", _ROUTE_ARGTYPES)
     cuda_build.library(BWD_SOURCE, "dl4j_lstm_bwd_units", _ROUTE_ARGTYPES)
     return bool(lib.dl4j_lstm_bwd_tc(w_bf16, b, H)), lib.dl4j_lstm_bwd_units(w_bf16, b, H)
+
+
+def supported(b: int, T: int, H: int, activation: str, gate_activation: str,
+              device) -> bool:
+    """Whether a layer of this shape and these activations on ``device``
+    runs through K1/K2 (:func:`lstm_scan`): the kernels, and their plain
+    versions on the CPU, hard-code a tanh cell and sigmoid gates; on the
+    card the kernels also need H % 8 == 0 (every b and T has a grid).
+    A layer this declines takes the step loop; a CUDA tensor this admits
+    launches the kernels or raises."""
+    if str(activation).lower() != "tanh" or str(gate_activation).lower() != "sigmoid":
+        return False
+    kind = torch.device(device).type
+    if kind == "cuda":
+        return H % 8 == 0
+    return kind == "cpu"
 
 
 def lstm_fwd(xp, rw, peep, mask, h0, c0, save_reserve=False):

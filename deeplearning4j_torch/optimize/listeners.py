@@ -25,6 +25,8 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..utils.trees import sorted_leaves
+
 log = logging.getLogger(__name__)
 
 __all__ = ["TrainingListener", "IterationListener", "dispatch_training_error",
@@ -193,9 +195,7 @@ def _flat_params(model) -> np.ndarray:
     """Every parameter of ``model`` in one host vector, layer by layer in
     sorted key order with each layer's parameters sorted (the JAX
     package's ``tree_leaves`` order), in the parameters' dtype."""
-    params = model.params
-    return np.concatenate([_host(params[k][n]).ravel()
-                           for k in sorted(params) for n in sorted(params[k])])
+    return np.concatenate([_host(t).ravel() for _, t in sorted_leaves(model.params)])
 
 
 def _host(t) -> np.ndarray:

@@ -21,6 +21,7 @@ import torch
 
 from ..nn.conf import OptimizationAlgorithm
 from ..nn.gradientcheck import _loss_at
+from ..utils.trees import sorted_leaves
 
 __all__ = ["BackTrackLineSearch", "BaseOptimizer", "LineGradientDescent",
            "ConjugateGradient", "LBFGS", "Solver"]
@@ -59,9 +60,7 @@ class BaseOptimizer:
         self.ds = ds
         self.max_iterations = max_iterations
         self.tol = tol
-        trainable = net._trainable()
-        self._params = [trainable[k][n] for k in sorted(trainable)
-                        for n in sorted(trainable[k])]
+        self._params = [p for _, p in sorted_leaves(net._trainable())]
         self._x0 = np.concatenate(
             [p.detach().cpu().double().numpy().ravel() for p in self._params]) \
             if self._params else np.zeros(0)

@@ -4,19 +4,27 @@ Counterpart of ``deeplearning4j_tpu/optimize/updater.py``: which updater
 governs each layer (the global default or a per-layer override), the five
 gradient-normalization modes (reference ``GradientNormalization.java``),
 and the joint ``apply`` over ``{layer: {param: tensor}}`` dicts. Updater
-state is keyed like the parameters.
+state is keyed like the parameters. A wrapper layer's dict nests
+(``{"fwd": {...}, "bwd": {...}}``): the per-layer modes work over all of
+its tensors, the per-parameter modes over each tensor.
 """
 from __future__ import annotations
 
 import torch
 
 from ..nn.conf import GradientNormalization
+from ..utils.trees import leaves, tree_map
 
 __all__ = ["normalize_gradients", "NetworkUpdater"]
 
 
 def _l2(tensors):
     return torch.sqrt(sum((t.float() ** 2).sum() for t in tensors))
+
+
+def _layer_l2(g):
+    """The L2 norm over every tensor of one layer's (possibly nested) dict."""
+    return _l2([v for _, v in leaves(g)])
 
 
 def _clip_scale(norm, threshold):
@@ -36,17 +44,17 @@ def normalize_gradients(grads_per_layer, mode, threshold):
             out[lk] = g
             continue
         if mode == GradientNormalization.RenormalizeL2PerLayer:
-            norm = torch.clamp(_l2(g.values()), min=1e-8)
-            out[lk] = {k: v / norm for k, v in g.items()}
+            norm = torch.clamp(_layer_l2(g), min=1e-8)
+            out[lk] = tree_map(lambda v: v / norm, g)
         elif mode == GradientNormalization.RenormalizeL2PerParamType:
-            out[lk] = {k: v / torch.clamp(_l2([v]), min=1e-8) for k, v in g.items()}
+            out[lk] = tree_map(lambda v: v / torch.clamp(_l2([v]), min=1e-8), g)
         elif mode == GradientNormalization.ClipElementWiseAbsoluteValue:
-            out[lk] = {k: torch.clamp(v, -threshold, threshold) for k, v in g.items()}
+            out[lk] = tree_map(lambda v: torch.clamp(v, -threshold, threshold), g)
         elif mode == GradientNormalization.ClipL2PerLayer:
-            scale = _clip_scale(_l2(g.values()), threshold)
-            out[lk] = {k: v * scale for k, v in g.items()}
+            scale = _clip_scale(_layer_l2(g), threshold)
+            out[lk] = tree_map(lambda v: v * scale, g)
         elif mode == GradientNormalization.ClipL2PerParamType:
-            out[lk] = {k: v * _clip_scale(_l2([v]), threshold) for k, v in g.items()}
+            out[lk] = tree_map(lambda v: v * _clip_scale(_l2([v]), threshold), g)
         else:
             raise ValueError(f"Unknown gradient normalization mode {mode}")
     return out

@@ -11,7 +11,8 @@ keypath`` (``model_serializer.py:46-82``). ``updaterState.bin`` has the same
 layout at ``"<layer>/<param>/<slot>"`` (Adam's m at ``0/W/0`` and v at
 ``0/W/1``), ``states.bin`` the layers' state (``"<layer>/mean"``,
 ``"<layer>/var"`` of a BatchNormalization), and ``normalizer.bin`` a
-normalizer's JSON.
+normalizer's JSON. A wrapper layer's parameters nest (``utils/trees.py``):
+``"0/fwd/W"``, and Adam's m ``"0/fwd/W/0"``.
 
 :func:`write_model` writes every array in the dtype the network holds it,
 which is the JAX package's for the same config, so a zip written here
@@ -39,6 +40,7 @@ from ..nn.conf.layers import Layer
 from ..nn.conf.serde import decode, to_json
 from ..nn.graph import ComputationGraph
 from ..nn.multilayer import MultiLayerNetwork
+from .trees import leaves, nest
 
 __all__ = ["ModelSerializer", "write_model", "restore_model", "restore_multi_layer_network",
            "restore_computation_graph", "restore_normalizer", "params_from_numpy",
@@ -75,19 +77,31 @@ def _layer_keys(conf):
     return [str(i) for i in range(len(conf.layers))]
 
 
+def _split_layer(keys, path):
+    """(layer key, the rest) of a keypath: the longest layer key that,
+    followed by "/", starts it (a graph's vertex name may hold "/"), or
+    (None, path)."""
+    best = None
+    for k in keys:
+        if path.startswith(k + "/") and len(path) > len(k) + 1 and (
+                best is None or len(k) > len(best)):
+            best = k
+    return (None, path) if best is None else (best, path[len(best) + 1:])
+
+
 def _by_layer(conf, arrays: Mapping[str, np.ndarray], what: str
               ) -> Dict[str, Dict[str, torch.Tensor]]:
-    """{keypath: ndarray} -> {layer key: {name: tensor}}; a keypath splits
-    at its last "/"."""
+    """{keypath: ndarray} -> {layer key: {name: tensor}}, a nested keypath
+    ("0/fwd/W") nested ({"0": {"fwd": {"W": ...}}})."""
     keys = _layer_keys(conf)
-    out: Dict[str, Dict[str, torch.Tensor]] = {k: {} for k in keys}
+    flat: Dict[str, Dict[str, torch.Tensor]] = {k: {} for k in keys}
     for path, t in _decoded(arrays).items():
-        layer, _, name = path.rpartition("/")
-        if layer not in out or not name:
+        layer, rest = _split_layer(keys, path)
+        if layer is None:
             raise ValueError(f"{what} '{path}' does not name a {what} of "
                              f"one of the {len(keys)} layers")
-        out[layer][name] = t
-    return out
+        flat[layer][rest] = t
+    return {k: nest(v) for k, v in flat.items()}
 
 
 def params_from_numpy(conf, arrays: Mapping[str, np.ndarray]
@@ -127,29 +141,19 @@ def updater_state_from_numpy(net, arrays: Mapping[str, np.ndarray]):
         used.add(path)
         return t.to(device=like.device, dtype=like.dtype)
 
-    state = {}
-    for i, layer in net.updater_state.items():
-        state[i] = {}
-        for k, s in layer.items():
-            state[i][k] = (tuple(one(f"{i}/{k}/{j}", x) for j, x in enumerate(s))
-                           if isinstance(s, tuple) else one(f"{i}/{k}", s))
+    def tree(prefix, node):
+        if isinstance(node, dict):
+            return {k: tree(f"{prefix}/{k}", s) for k, s in node.items()}
+        if isinstance(node, tuple):
+            return tuple(one(f"{prefix}/{j}", x) for j, x in enumerate(node))
+        return one(prefix, node)
+
+    state = {i: tree(i, layer) for i, layer in net.updater_state.items()}
     extra = set(stored) - used
     if extra:
         raise ValueError(f"saved updater state has entries the model's updaters do not: "
                          f"{sorted(extra)}")
     return state
-
-
-def leaves(tree, prefix=""):
-    """(keypath, tensor) of each tensor in nested dicts and tuples, with
-    the JAX package's keypaths (dict keys and tuple indices joined by
-    "/")."""
-    if isinstance(tree, torch.Tensor):
-        yield prefix, tree
-        return
-    items = tree.items() if isinstance(tree, Mapping) else enumerate(tree)
-    for k, sub in items:
-        yield from leaves(sub, f"{prefix}/{k}" if prefix else str(k))
 
 
 def tree_to_npz_bytes(tree) -> bytes:

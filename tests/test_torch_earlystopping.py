@@ -10,11 +10,12 @@ epoch, and the validation score of every evaluated epoch within 1e-12
 relative; the best model's output as JAX's best model's (1e-12) where
 JAX's can be read (the trained net itself, or from the file saver: JAX's
 in-memory best model shares buffers that its next jitted step donates),
-else the port's best model re-scored to the best score exactly. The nets train with SGD: JAX's Adam
-takes its bias corrections in float32 (``jnp.power`` of a weak float and
-an f32 step) even for float64 parameters, the port's in float64, so one
-f64 Adam step parts by about 7e-6 relative (ROADMAP Queue C 6); the JAX
-cases' own Adam runs on the port alone here. Beside them: the savers on a
+else the port's best model re-scored to the best score exactly. The nets train with SGD, and
+the max-epochs case also with Adam: both packages take Adam's bias
+corrections as float32 scalars (``jnp.power`` of a weak float and an f32
+step; the port's ``updaters.bias_correction``) even for float64
+parameters, so the f64 Adam runs agree at the same 1e-12. The JAX cases'
+own Adam runs (f32) also run on the port alone here. Beside them: the savers on a
 ComputationGraph (``InMemoryModelSaver`` deep-copies it: the graph has no
 ``clone`` in either package), ``LocalFileModelSaver`` restoring onto the
 saved net's device, ``save_last_model``, and the time, best-score and
@@ -26,6 +27,7 @@ import numpy as np
 import pytest
 import torch
 
+from deeplearning4j_tpu import Adam as JAdam
 from deeplearning4j_tpu import Sgd as JSgd
 from deeplearning4j_tpu import earlystopping as jes
 from deeplearning4j_tpu.compat import enable_x64
@@ -56,8 +58,8 @@ def _one_torch_thread():
     torch.set_num_threads(old)
 
 
-def _jnet(seed=7, lr=0.1):
-    conf = (JConf.builder().seed(seed).updater(JSgd(learning_rate=lr)).activation("tanh")
+def _jnet(seed=7, lr=0.1, updater=JSgd):
+    conf = (JConf.builder().seed(seed).updater(updater(learning_rate=lr)).activation("tanh")
             .dtype("float64").compute_dtype("float64")
             .list()
             .layer(jlayers.DenseLayer(n_in=4, n_out=8))
@@ -149,6 +151,18 @@ def test_early_stopping_max_epochs(tmp_path):
     assert result.termination_reason == es.TerminationReason.EpochTerminationCondition
     assert result.total_epochs == 3 and len(result.score_vs_epoch) == 3
     assert isinstance(result.best_model, MultiLayerNetwork)
+
+
+def test_early_stopping_max_epochs_adam(tmp_path):
+    """The max-epochs case on the float64 net trained with Adam (1e-2)."""
+    def build(m, val):
+        return (m.EarlyStoppingConfiguration.builder()
+                .score_calculator(m.DataSetLossCalculator(val))
+                .epoch_termination_conditions(m.MaxEpochsTerminationCondition(3))
+                .model_saver(m.InMemoryModelSaver()))
+    result, jresult, outs = _run_both(tmp_path, build, lambda: _jnet(lr=1e-2, updater=JAdam))
+    _assert_same_result(result, jresult, outs)
+    assert result.total_epochs == 3 and len(result.score_vs_epoch) == 3
 
 
 def test_jax_cases_with_adam_on_the_port():
