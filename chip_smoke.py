@@ -190,13 +190,32 @@ and the CUDA toolkit; run from the root of the repository. It
    GravesLSTM(512) on K1/K2; every net's gradients, score and output held
    against the CPU masked and unmasked, each step timed by CUDA events in
    alternating turns;
-20. prints a ``{"cnn": ...}`` line with those numbers, a ``{"generate":
+20. (``cnn_family``) trains VGG16 at bench.py:195's shape (b=256,
+   3x224x224, 1000 classes, bf16, Adam; ``ModelSelector``) through
+   ``MultiLayerNetwork.fit`` under ``CacheMode.DEVICE``: 2 warm-up and 8
+   timed steps, ms a step, images/s, peak memory, finite losses, ``output``
+   rows summing to 1, one profiled step grouped into cuDNN conv, pooling,
+   the dense GEMMs, the updater and elementwise work (no NCHW/NHWC
+   transposition kernel); fits VGG19, AlexNet, GoogLeNet,
+   InceptionResNetV1 (5/10/5 blocks) and FaceNetNN4Small2 a few steps
+   each, ``ModelSelector.select(name).init()`` at their zoo input shapes and
+   full width (f32), checks their ``output`` and that FaceNet's centres
+   moved for exactly the classes in its batch; holds each new layer
+   (Deconvolution2D in both modes at strides 1-3 and dilations 1-2,
+   depthwise and separable at multipliers 1 and 2, SpaceToDepth, LRN at n
+   5 and 4, the 1-D layers, padding, cropping, upsampling) on the card in
+   f64 and bf16 against the CPU in f64 (output, input and parameter
+   gradients) at fixed limits; and profiles the grouped, transposed and
+   1-D convolutions at b=32, 56x56x64 for transposition kernels; no
+   K1-K7 launch in the phase;
+21. prints a ``{"cnn": ...}`` line with those numbers, a ``{"generate":
    ...}`` line with steps 6 and 10's, a ``{"moe_lm": ..., "graph_tbptt":
    ...}`` line with steps 15 and 16's, a ``{"regularized_char_rnn": ...,
    "lm_dropout": ..., "solvers": ...}`` line with step 17's, an
    ``{"evaluation": ...}`` line with step 18's and a
-   ``{"recurrent_family": ...}`` line with step 19's (the card's name and
-   power limit in both), a ``{"kernels": [...]}`` line (K1's and K3's entries with
+   ``{"recurrent_family": ...}`` line with step 19's and a ``{"cnn_family":
+   ...}`` line with step 20's (the card's name and power limit in those
+   three), a ``{"kernels": [...]}`` line (K1's and K3's entries with
    their decode rows; K1/K2's launches in step 16's fit, K5-K7's in step
    15's steps; K1-K4's in each regularised fit, K5-K7's in the dropout
    LM's steps and their times with dropout; K1, K3, K4 and K5's in step
@@ -413,6 +432,31 @@ R50_REF_BRANCH_GAMMA = 0.2
 R50_REF_LIMITS = {"float64": (1e-5, 1e-5, 1e-4, 1e-4), "float32": (1e-5, 1e-5, 1e-4, 1e-4),
                   "bfloat16": (3.5e-2, 1e-2, 0.4, 0.14)}
 
+# The CNN family (cnn_family). VGG16 of bench.py:195 (bench_vgg16 through
+# _cnn_throughput): b=256, 3x224x224, 1000 classes, bf16 compute, the zoo's
+# Adam 1e-3, N(0, 1) NCHW features; through MultiLayerNetwork.fit under
+# CacheMode.DEVICE, VGG_WARM warm-up steps then VGG_STEPS timed in one fit.
+VGG_B, VGG_IMG, VGG_CLASSES, VGG_WARM, VGG_STEPS = 256, (3, 224, 224), 1000, 2, 8
+# The other five zoo models of the family, each built by
+# ModelSelector.select(name).init() (f32, as the zoo builds them; TF32 is
+# off in this script) at its zoo input shape, 1000 classes and full width,
+# at the batch here: FAMILY_WARM then FAMILY_STEPS fit steps on one batch,
+# then ``output``, whose f32 rows sum to 1 within FAMILY_PROB_ATOL.
+FAMILY_BATCH = {"vgg19": 64, "alexnet": 128, "googlenet": 64, "inceptionresnetv1": 32,
+                "facenetnn4small2": 64}
+FAMILY_WARM, FAMILY_STEPS, FAMILY_PROB_ATOL = 1, 3, 1e-5
+# Each new layer on the card against the port on the CPU in f64, from the
+# same parameters and inputs (the card's bf16 input as the CPU's f64):
+# output, input and parameter gradients, max |card - cpu| over max |cpu|,
+# set before the first card run: f64 1e-10; bf16 3e-2 (a bf16 unit is
+# 2^-8 of a value; the tests hold the port's bf16 against JAX's at 3e-2).
+# Layers at b=SWEEP_B on SWEEP_HW x SWEEP_C images or SWEEP_T steps.
+SWEEP_LIMITS = {"float64": 1e-10, "bfloat16": 3e-2}
+SWEEP_B, SWEEP_HW, SWEEP_C, SWEEP_T = 4, 12, 8, 24
+# The grouped, transposed and 1-D convolutions at a main-path size
+# (b=32, 56x56x64, bf16): one forward and backward profiled each, to find
+# any NCHW/NHWC transposition kernel cuDNN adds around them.
+LAYOUT_B, LAYOUT_HW, LAYOUT_C = 32, 56, 64
 # The MoE TransformerLM: bench.py:1730's model (LM_*) with every block's
 # FFN up-projection a MoEDenseLayer of 8 experts, top 2, capacity factor
 # 1.25 in training (groups of 1024 tokens, 320 slots an expert), aux loss
@@ -2238,14 +2282,63 @@ def kernel_group(chain):
     return "other elementwise"
 
 
+def zoo_steps(label, net, f, l, warm, steps, sum_atol, group=None):
+    """A zoo model's main path on one batch (``f``, ``l``): ``fit`` of
+    ``warm`` warm-up steps, then of ``steps`` timed ones (each fit an
+    iterator of DataSet copies, so one pipeline a fit and, under
+    CacheMode.DEVICE, one H2D copy of the batch in all), finite losses,
+    peak memory; ``output`` on the batch (finite rows summing to 1 within
+    ``sum_atol``); with ``group``, one profiled step grouped by it (no
+    NCHW/NHWC transposition kernel). No kernel of K1-K7 lies on the path:
+    the counts, set to 0 before the first fit, must read 0 after."""
+    from deeplearning4j_torch import DataSet, ListDataSetIterator
+
+    ds = DataSet(f, l)
+    b, classes = l.shape
+    losses = record_losses(net)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    net.fit(ListDataSetIterator([ds] * warm))
+    net.score()
+    warm_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    net.fit(ListDataSetIterator([ds] * steps))
+    net.score()                                           # the value: a sync
+    step_ms = (time.perf_counter() - t0) * 1e3 / steps
+    peak = torch.cuda.max_memory_allocated()
+    del net._fit_batch                                    # stop recording
+    losses = [float(x) for x in losses]
+    if len(losses) != warm + steps or not np.isfinite(losses).all():
+        raise AssertionError(f"{label} losses: {losses}")
+    ips = b / step_ms * 1e3
+    log(f"{label} ({net.num_params()} parameters) training b={b} {'x'.join(map(str, f.shape[1:]))} "
+        f"{net.gc.compute_dtype} {type(net.gc.updater).__name__}: {warm} warm-up steps "
+        f"{warm_s:.1f} s, then smoke number, not a benchmark: {step_ms:.2f} ms a step, "
+        f"{ips:.1f} images/s over {steps} steps in one fit; peak memory "
+        f"{peak / 2 ** 30:.2f} GiB; loss per step " + " ".join(f"{x:.3f}" for x in losses))
+    probs = net.output(f)
+    sum_err = check_probabilities(label, probs, (b, classes), sum_atol)
+    del probs
+    log(f"{label} output b={b}: finite, rows sum to 1 within {sum_err:.2e}")
+    prof = None
+    if group is not None:
+        prof = profile_call(f"one {label} step", lambda: net.fit(ds), net.updater,
+                            forbid=("nchwtonhwc", "nhwctonchw"), group=group)
+    launches = read_counts()
+    if any(launches.values()):
+        raise AssertionError(f"the {label} path launched LSTM or flash kernels: {launches}")
+    return {"batch": b, "num_params": net.num_params(), "step_ms": step_ms,
+            "images_per_s": ips, "peak_gib": peak / 2 ** 30, "warmup_s": warm_s,
+            "losses": losses, "prob_sum_err": sum_err, "profile": prof}
+
+
 def resnet50():
     """ResNet50's main path at bench.py:187's shape: ComputationGraph.fit
-    under CacheMode.DEVICE, 3 warm-up then 25 timed steps (each an
-    iterator of DataSet copies, so one pipeline a fit and one H2D copy of
-    the batch in all), every BN layer's running mean and var moved, finite
-    losses; then ``output`` on the batch in inference and one profiled
-    step. No kernel of K1-K7 lies on the path: the counts must stay 0."""
-    from deeplearning4j_torch import DataSet, ListDataSetIterator
+    under CacheMode.DEVICE, 3 warm-up then 25 timed steps, ``output`` and
+    one profiled step (``zoo_steps``); every BN layer's running mean and
+    var moved."""
     from deeplearning4j_torch.models import ResNet50
     from deeplearning4j_torch.nn.conf import CacheMode
     from deeplearning4j_torch.nn.graph import ComputationGraph
@@ -2255,47 +2348,15 @@ def resnet50():
     conf.global_conf.cache_mode = CacheMode.DEVICE
     net = ComputationGraph(conf).init()                 # device defaults to the card
     f, l = zoo_data(np.random.default_rng(0), R50_B, R50_IMG, R50_CLASSES)
-    ds = DataSet(f, l)
     before = {n: {k: v.clone() for k, v in s.items()} for n, s in net.states.items() if s}
-    losses = record_losses(net)
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    reset_counts()
-    t0 = time.perf_counter()
-    net.fit(ListDataSetIterator([ds] * R50_WARM))
-    net.score()
-    warm_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    net.fit(ListDataSetIterator([ds] * R50_STEPS))
-    net.score()                                           # the value: a sync
-    step_ms = (time.perf_counter() - t0) * 1e3 / R50_STEPS
-    launches = read_counts()
-    peak = torch.cuda.max_memory_allocated()
-    del net._fit_batch                                    # stop recording
-    losses = [float(x) for x in losses]
-    if any(launches.values()):
-        raise AssertionError(f"the ResNet50 path launched LSTM or flash kernels: {launches}")
-    if len(losses) != R50_WARM + R50_STEPS or not np.isfinite(losses).all():
-        raise AssertionError(f"ResNet50 losses: {losses}")
+    res = zoo_steps("ResNet50", net, f, l, R50_WARM, R50_STEPS, PROB_SUM_ATOL, kernel_group)
     still = [f"{n}/{k}" for n, s in net.states.items() if s for k, v in s.items()
              if torch.equal(v, before[n][k])]
     if len(before) != 53 or still:
         raise AssertionError(f"{len(before)} BN layers; running statistics that did not move: "
                              f"{still}")
-    ips = R50_B / step_ms * 1e3
-    log(f"ResNet50 ({net.num_params() / 1e6:.2f}M parameters, 53 BN layers) training b={R50_B} "
-        f"{R50_IMG[0]}x{R50_IMG[1]}x{R50_IMG[2]} bf16 Adam: {R50_WARM} warm-up steps "
-        f"{warm_s:.1f} s, then smoke number, not a benchmark: {step_ms:.2f} ms a step, "
-        f"{ips:.1f} images/s over {R50_STEPS} steps in one fit; peak memory "
-        f"{peak / 2 ** 30:.2f} GiB; loss per step " + " ".join(f"{x:.3f}" for x in losses))
-    probs = net.output(f)
-    sum_err = check_probabilities("ResNet50", probs, (R50_B, R50_CLASSES), PROB_SUM_ATOL)
-    del probs
-    log(f"ResNet50 output b={R50_B} in inference: finite, rows sum to 1 within {sum_err:.2e}")
-    prof = profile_call("one ResNet50 step", lambda: net.fit(ds), net.updater,
-                        forbid=("nchwtonhwc", "nhwctonchw"))
-    return {"step_ms": step_ms, "images_per_s": ips, "peak_gib": peak / 2 ** 30,
-            "warmup_s": warm_s, "losses": losses, "prob_sum_err": sum_err, "profile": prof}
+    log(f"ResNet50: the running statistics of all {len(before)} BN layers moved")
+    return res
 
 
 def lenet():
@@ -4280,6 +4341,248 @@ def recurrent_family(smi):
     return res
 
 
+def vgg_kernel_group(chain):
+    """``kernel_group`` with the dense layers' matrix products (forward and
+    backward) as a group of their own."""
+    names = " ".join(chain).lower()
+    if "dl4j::updater" not in names and any(
+            k in names for k in ("aten::mm", "aten::addmm", "aten::matmul", "mmbackward")):
+        return "dense GEMMs"
+    return kernel_group([names])
+
+
+def vgg16_main():
+    """VGG16's main path at bench.py:195's shape: MultiLayerNetwork.fit under
+    CacheMode.DEVICE, VGG_WARM warm-up then VGG_STEPS timed steps,
+    ``output`` and one profiled step grouped into cuDNN conv, pooling, the
+    dense GEMMs, the updater and elementwise work (``zoo_steps``)."""
+    from deeplearning4j_torch.models import ModelSelector
+    from deeplearning4j_torch.nn.conf import CacheMode
+    from deeplearning4j_torch.nn.multilayer import MultiLayerNetwork
+
+    conf = ModelSelector.select("vgg16", num_classes=VGG_CLASSES, input_shape=VGG_IMG).conf()
+    conf.global_conf.compute_dtype = "bfloat16"
+    conf.global_conf.cache_mode = CacheMode.DEVICE
+    net = MultiLayerNetwork(conf).init()                 # device defaults to the card
+    f, l = zoo_data(np.random.default_rng(0), VGG_B, VGG_IMG, VGG_CLASSES)
+    return zoo_steps("VGG16", net, f, l, VGG_WARM, VGG_STEPS, PROB_SUM_ATOL, vgg_kernel_group)
+
+
+def family_models():
+    """VGG19, AlexNet, GoogLeNet, InceptionResNetV1 (5/10/5 blocks) and
+    FaceNetNN4Small2, each ``ModelSelector.select(name).init()`` on the card
+    (f32) at its zoo input and full width: FAMILY_WARM + FAMILY_STEPS fit
+    steps on one batch and ``output`` (``zoo_steps``); FaceNet's centres
+    moved for exactly the classes in its batch."""
+    from deeplearning4j_torch.models import ModelSelector
+
+    out = {}
+    rng = np.random.default_rng(18)
+    for name, b in FAMILY_BATCH.items():
+        model = ModelSelector.select(name)
+        torch.cuda.empty_cache()
+        net = model.init()                               # the card, f32
+        f, l = zoo_data(rng, b, tuple(model.input_shape), model.num_classes)
+        res = zoo_steps(name, net, f, l, FAMILY_WARM, FAMILY_STEPS, FAMILY_PROB_ATOL)
+        if name == "facenetnn4small2":
+            moved = net.states["output"]["centers"].abs().sum(1).cpu() > 0
+            present = torch.from_numpy(l.sum(0) > 0)
+            if not torch.equal(moved, present):
+                raise AssertionError(f"FaceNet centres moved for {int(moved.sum())} classes, "
+                                     f"{int(present.sum())} present in the batch, or others")
+            res["centres_moved"] = int(moved.sum())
+            log(f"{name}: centres moved for exactly the {res['centres_moved']} classes in "
+                f"the batch")
+        out[name] = res
+        del net
+    return out
+
+
+def sweep_cases():
+    """(label, layer config, input shape) of the card-vs-CPU layer sweep."""
+    from deeplearning4j_torch.nn.conf import layers as L
+
+    same, trunc = L.ConvolutionMode.Same, L.ConvolutionMode.Truncate
+    img = (SWEEP_B, SWEEP_HW, SWEEP_HW, SWEEP_C)
+    seq = (SWEEP_B, SWEEP_T, SWEEP_C)
+    cases = []
+    for mode, s, d, p, k in ((trunc, 1, 1, 0, 3), (trunc, 2, 1, 1, 3), (trunc, 3, 2, 2, 3),
+                             (same, 1, 1, 0, 3), (same, 2, 1, 0, 3), (same, 3, 1, 0, 3),
+                             (same, 2, 2, 0, 3), (same, 3, 2, 0, 2)):
+        cases.append((f"deconv {mode} s{s} d{d} k{k}", L.Deconvolution2D(
+            n_in=SWEEP_C, n_out=6, kernel_size=(k, k), stride=(s, s), dilation=(d, d),
+            padding=(p, p), convolution_mode=mode, activation="tanh"), img))
+    for m in (1, 2):
+        cases.append((f"depthwise m{m}", L.DepthwiseConvolution2D(
+            n_in=SWEEP_C, n_out=SWEEP_C * m, depth_multiplier=m, kernel_size=(3, 3),
+            stride=(2, 2), dilation=(2, 2), convolution_mode=same, activation="tanh"), img))
+        cases.append((f"separable m{m}", L.SeparableConvolution2D(
+            n_in=SWEEP_C, n_out=6, depth_multiplier=m, kernel_size=(3, 2), stride=(2, 1),
+            convolution_mode=same, activation="tanh"), img))
+    cases += [
+        ("spacetodepth 2", L.SpaceToDepthLayer(block_size=2), img),
+        ("lrn n5", L.LocalResponseNormalization(n=5), img),
+        ("lrn n4", L.LocalResponseNormalization(n=4, alpha=0.1), img),
+        ("conv1d same s2", L.Convolution1DLayer(n_in=SWEEP_C, n_out=6, kernel_size=4, stride=2,
+                                                convolution_mode=same, activation="tanh"), seq),
+        ("conv1d truncate d2", L.Convolution1DLayer(n_in=SWEEP_C, n_out=6, kernel_size=3,
+                                                    dilation=2, padding=1,
+                                                    activation="tanh"), seq),
+        ("subsampling1d avg", L.Subsampling1DLayer(pooling_type="avg", kernel_size=3,
+                                                   stride=2, convolution_mode=same), seq),
+        ("subsampling1d pnorm", L.Subsampling1DLayer(pooling_type="pnorm", pnorm=2,
+                                                     kernel_size=2, stride=2), seq),
+        ("subsampling1d max", L.Subsampling1DLayer(pooling_type="max", kernel_size=3,
+                                                   stride=2, padding=1), seq),
+        ("upsampling1d", L.Upsampling1D(size=3), seq),
+        ("upsampling2d", L.Upsampling2D(size=(2, 3)), img),
+        ("zeropadding", L.ZeroPaddingLayer(padding=(1, 2, 0, 3)), img),
+        ("zeropadding1d", L.ZeroPadding1DLayer(padding=(2, 1)), seq),
+        ("cropping2d", L.Cropping2D(cropping=(1, 0, 2, 3)), img),
+    ]
+    return cases
+
+
+def sweep_errors(conf, shape, dtype, device="cuda", seed=0):
+    """One layer on ``device`` in ``dtype`` (bf16 compute: f32 parameters,
+    bf16 input) against the same layer on the CPU in f64 from the same
+    parameters and the same input values: {"output", "input_grad",
+    <parameter>: max |dev - cpu| over max |cpu|}."""
+    from deeplearning4j_torch.nn.conf import GlobalConfig
+    from deeplearning4j_torch.nn.layers import impl_for
+
+    gen = torch.Generator().manual_seed(seed)
+    ref = impl_for(conf, GlobalConfig(dtype="float64", compute_dtype="float64"))
+    params = {k: v + 0.1 * torch.randn(v.shape, generator=gen, dtype=torch.float64)
+              for k, v in ref.init_params(gen).items()}
+    ref.set_params(params, "cpu")
+    pdt = "float64" if dtype == "float64" else "float32"
+    dev = impl_for(conf, GlobalConfig(dtype=pdt, compute_dtype=dtype))
+    dev.set_params(params, device)
+    x = torch.randn(shape, generator=gen, dtype=torch.float64).to(getattr(torch, dtype))
+    xr = x.double().clone().requires_grad_()
+    xd = x.to(device).clone().requires_grad_()
+    yr = ref(xr, ctx={"train": False})
+    yd = dev(xd, ctx={"train": False})
+    dy = torch.randn(yr.shape, generator=gen, dtype=torch.float64)
+    yr.backward(dy)
+    yd.backward(dy.to(device, yd.dtype))
+
+    def rel(got, want):
+        return ((got.detach().cpu().double() - want).abs().max()
+                / want.abs().max().clamp_min(1e-30)).item()
+    errs = {"output": rel(yd, yr.detach()), "input_grad": rel(xd.grad, xr.grad)}
+    for k, p in ref.param_dict().items():
+        errs[k] = rel(dev.param_dict()[k].grad, p.grad)
+    return errs
+
+
+def layer_sweep(device="cuda"):
+    """Every case of ``sweep_cases`` on ``device`` in f64 and in bf16 against
+    the CPU in f64, at SWEEP_LIMITS (max pooling in f64 only: bf16 input
+    rounding can tie a window, whose gradient then goes elsewhere). The
+    count of K1-K7 launches must stay 0."""
+    if torch.backends.cudnn.allow_tf32 or torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("the card-vs-CPU sweep needs TF32 off")
+    reset_counts()
+    worst, bad = {}, []
+    for label, conf, shape in sweep_cases():
+        for dtype, limit in SWEEP_LIMITS.items():
+            if dtype == "bfloat16" and label.endswith("max"):
+                continue
+            errs = sweep_errors(conf, shape, dtype, device)
+            q = max(errs, key=errs.get)
+            worst[f"{label} {dtype}"] = {"worst": q, "error": errs[q]}
+            if not errs[q] <= limit:
+                bad.append((label, dtype, q, errs[q]))
+    launches = read_counts()
+    for dtype, limit in SWEEP_LIMITS.items():
+        e = {k: v for k, v in worst.items() if k.endswith(dtype)}
+        k = max(e, key=lambda n: e[n]["error"])
+        log(f"card vs CPU f64, {len(e)} CNN-family layer cases in {dtype}: worst {k} "
+            f"({e[k]['worst']}) {e[k]['error']:.2e} (limit {limit:.0e})")
+    if bad or any(launches.values()):
+        raise AssertionError(f"card and CPU disagree: {bad}; launches {launches}")
+    return {"cases": worst, "limits": SWEEP_LIMITS, "launches": launches}
+
+
+def layout_profiles(device="cuda"):
+    """One bf16 forward and backward of Deconvolution2D (SAME, stride 2),
+    DepthwiseConvolution2D (m 2), SeparableConvolution2D (m 2) and
+    Convolution1DLayer at b=LAYOUT_B on LAYOUT_HW^2 x LAYOUT_C, each
+    profiled: its device ms and the device ms of any NCHW/NHWC
+    transposition kernel (the channels-last views should need none)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from deeplearning4j_torch.nn.conf import GlobalConfig
+    from deeplearning4j_torch.nn.conf import layers as L
+    from deeplearning4j_torch.nn.layers import impl_for
+
+    c, same = LAYOUT_C, L.ConvolutionMode.Same
+    img = (LAYOUT_B, LAYOUT_HW, LAYOUT_HW, c)
+    cases = {
+        "deconv same s2": (L.Deconvolution2D(n_in=c, n_out=c, kernel_size=(3, 3), stride=(2, 2),
+                                             convolution_mode=same), img),
+        "depthwise m2": (L.DepthwiseConvolution2D(n_in=c, n_out=2 * c, depth_multiplier=2,
+                                                  kernel_size=(3, 3), convolution_mode=same), img),
+        "separable m2": (L.SeparableConvolution2D(n_in=c, n_out=c, depth_multiplier=2,
+                                                  kernel_size=(3, 3), convolution_mode=same), img),
+        "conv1d": (L.Convolution1DLayer(n_in=c, n_out=c, kernel_size=5, convolution_mode=same),
+                   (LAYOUT_B, LAYOUT_HW * LAYOUT_HW, c)),
+    }
+    out = {}
+    gc = GlobalConfig(compute_dtype="bfloat16")
+    gen = torch.Generator().manual_seed(0)
+    for label, (conf, shape) in cases.items():
+        impl = impl_for(conf, gc)
+        impl.set_params(impl.init_params(gen), device)
+        x = torch.randn(shape, device=device, dtype=torch.bfloat16).requires_grad_()
+
+        def run():
+            impl(x).float().square().sum().backward()
+        run()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+        kernels = [(e.name, e.time_range.elapsed_us()) for e in prof.events()
+                   if e.device_type == DeviceType.CUDA
+                   and not getattr(e, "is_user_annotation", False)]
+        trans = [(n, us) for n, us in kernels
+                 if any(w in n.lower() for w in ("nchwtonhwc", "nhwctonchw"))]
+        out[label] = {"device_ms": sum(us for _, us in kernels) / 1e3,
+                      "kernels": len(kernels),
+                      "transposition_ms": sum(us for _, us in trans) / 1e3,
+                      "transposition_kernels": sorted({n[:100] for n, _ in trans})}
+        log(f"layout of {label} (b={LAYOUT_B}, {shape[1:]} bf16, forward + backward): "
+            f"{out[label]['device_ms']:.3f} device ms in {len(kernels)} kernels, of which "
+            f"NCHW/NHWC transpositions {out[label]['transposition_ms']:.3f} ms "
+            f"{out[label]['transposition_kernels'] or ''}")
+    return out
+
+
+def cnn_family(smi):
+    """The rest of the CNN family on the card: VGG16 at bench.py:195's
+    shape, the five other zoo models, the card-vs-CPU layer sweep and the
+    layout profiles, each driven with the counts set to 0 just before and
+    read just after (they must read 0)."""
+    t0 = time.perf_counter()
+    res = {"card": smi, "vgg16": vgg16_main()}
+    torch.cuda.empty_cache()
+    res["models"] = family_models()
+    torch.cuda.empty_cache()
+    res["sweep"] = layer_sweep()
+    reset_counts()
+    res["layouts"] = layout_profiles()
+    launches = read_counts()
+    if any(launches.values()):
+        raise AssertionError(f"the layout profiles launched LSTM or flash kernels: {launches}")
+    res["seconds"] = time.perf_counter() - t0
+    log(f"cnn_family took {res['seconds']:.1f} s")
+    return res
+
+
 def build():
     """Compile every kernel of the port, one nvcc per source, all at once,
     and print what ptxas reports of registers, shared memory and spills."""
@@ -4494,6 +4797,9 @@ def main() -> int:
     rf = recurrent_family(smi)
     torch.cuda.empty_cache()
     print(json.dumps({"recurrent_family": rf}))
+    cf = cnn_family(smi)
+    torch.cuda.empty_cache()
+    print(json.dumps({"cnn_family": cf}))
 
     print(json.dumps({"generate": generated}))
     print(json.dumps({"kernels": kernel_line(serving, training, served, streamed,

@@ -1,13 +1,15 @@
 """Model zoo: standard architectures as config builders.
 
 Counterpart of ``deeplearning4j_tpu/models/zoo.py``: the ``ZooModel`` base
-(``conf``, ``init``, ``_builder``), ``LeNet``, ``SimpleCNN``, ``ResNet50``,
+(``conf``, ``init``, ``_builder``, ``_inception``), ``LeNet``,
+``SimpleCNN``, ``AlexNet``, ``VGG16``, ``VGG19``, ``GoogLeNet``,
+``ResNet50``, ``InceptionResNetV1``, ``FaceNetNN4Small2``,
 ``TextGenerationLSTM`` and ``TransformerLM`` (dense or MoE), with the JAX
-package's layer and vertex names, so that the keypaths of its zips match;
-``generate_tokens``, the sampling loop over either container's
-``rnn_time_step``; and ``ModelSelector``, which knows every name the JAX
-package's does. The other zoo models (selecting one raises) and pretrained
-weights are not ported yet.
+package's layer and vertex names, widths, modes and updaters, so that its
+configuration JSON is written byte for byte and the keypaths of its zips
+match; ``generate_tokens``, the sampling loop over either container's
+``rnn_time_step``; and ``ModelSelector``, which selects every name the JAX
+package's does. Pretrained weights are not ported.
 """
 from __future__ import annotations
 
@@ -16,18 +18,26 @@ from typing import Optional, Tuple
 import numpy as np
 
 from ..nn.conf import InputType, MultiLayerConfiguration, NeuralNetConfiguration
-from ..nn.conf.graph import ElementWiseVertex
-from ..nn.conf.layers import (ActivationLayer, BatchNormalization, ConvolutionLayer,
-                              ConvolutionMode, DenseLayer, DropoutLayer, EmbeddingSequenceLayer,
-                              GlobalPoolingLayer, GravesLSTM, LayerNormalization, MoEDenseLayer,
+from ..nn.conf.graph import ElementWiseVertex, MergeVertex, ScaleVertex
+from ..nn.conf.layers import (ActivationLayer, BatchNormalization, CenterLossOutputLayer,
+                              ConvolutionLayer, ConvolutionMode, DenseLayer, DropoutLayer,
+                              EmbeddingSequenceLayer, GlobalPoolingLayer, GravesLSTM,
+                              LayerNormalization, LocalResponseNormalization, MoEDenseLayer,
                               OutputLayer, PoolingType, RnnOutputLayer, SelfAttentionLayer,
                               SubsamplingLayer)
 from ..nn.graph import ComputationGraph
 from ..nn.multilayer import MultiLayerNetwork
-from ..nn.updaters import Adam
+from ..nn.updaters import Adam, Nesterovs
 
-__all__ = ["ZooModel", "LeNet", "SimpleCNN", "ResNet50", "TextGenerationLSTM", "TransformerLM",
-           "generate_tokens", "ZOO", "ModelSelector"]
+__all__ = ["ZooModel", "LeNet", "SimpleCNN", "AlexNet", "VGG16", "VGG19", "GoogLeNet",
+           "ResNet50", "InceptionResNetV1", "FaceNetNN4Small2", "TextGenerationLSTM",
+           "TransformerLM", "generate_tokens", "ZOO", "ModelSelector"]
+
+
+def _max_pool_3_2(mode):
+    """The zoo's 3x3 stride-2 max pool (AlexNet's Truncate, the others' Same)."""
+    return SubsamplingLayer(pooling_type=PoolingType.MAX, kernel_size=(3, 3), stride=(2, 2),
+                            convolution_mode=mode)
 
 
 class ZooModel:
@@ -58,6 +68,30 @@ class ZooModel:
                 .updater(updater or Adam(learning_rate=1e-3))
                 .activation(activation)
                 .weight_init(weight_init))
+
+    def _inception(self, g, name, inp, c1, r3, c3, r5, c5, pp):
+        """A GoogLeNet inception module (GoogLeNet's and FaceNetNN4Small2's):
+        1x1, 1x1 -> 3x3, 1x1 -> 5x5 and max pool 3/1 -> 1x1 branches, all
+        SAME, merged on the channel axis."""
+        same = ConvolutionMode.Same
+        g.add_layer(f"{name}-1x1", ConvolutionLayer(n_out=c1, kernel_size=(1, 1),
+                                                    convolution_mode=same), inp)
+        g.add_layer(f"{name}-3x3r", ConvolutionLayer(n_out=r3, kernel_size=(1, 1),
+                                                     convolution_mode=same), inp)
+        g.add_layer(f"{name}-3x3", ConvolutionLayer(n_out=c3, kernel_size=(3, 3),
+                                                    convolution_mode=same), f"{name}-3x3r")
+        g.add_layer(f"{name}-5x5r", ConvolutionLayer(n_out=r5, kernel_size=(1, 1),
+                                                     convolution_mode=same), inp)
+        g.add_layer(f"{name}-5x5", ConvolutionLayer(n_out=c5, kernel_size=(5, 5),
+                                                    convolution_mode=same), f"{name}-5x5r")
+        g.add_layer(f"{name}-pool", SubsamplingLayer(
+            pooling_type=PoolingType.MAX, kernel_size=(3, 3), stride=(1, 1),
+            convolution_mode=same), inp)
+        g.add_layer(f"{name}-poolproj", ConvolutionLayer(
+            n_out=pp, kernel_size=(1, 1), convolution_mode=same), f"{name}-pool")
+        g.add_vertex(name, MergeVertex(), f"{name}-1x1", f"{name}-3x3", f"{name}-5x5",
+                     f"{name}-poolproj")
+        return name
 
 
 class LeNet(ZooModel):
@@ -127,6 +161,127 @@ class SimpleCNN(ZooModel):
                 .build())
 
 
+class AlexNet(ZooModel):
+    """Reference ``zoo/model/AlexNet.java`` (one tower; a MultiLayerNetwork):
+    224x224x3 -> conv96-11/4 -> LRN -> max 3/2 -> conv256-5 -> LRN -> max
+    3/2 -> conv384-3 x 2 -> conv256-3 -> max 3/2 -> dense4096 (dropout 0.5)
+    x 2 -> softmax, under Nesterovs(1e-2, 0.9)."""
+
+    name = "alexnet"
+    input_shape = (3, 224, 224)
+
+    def conf(self):
+        c, h, w = self.input_shape
+        return (self._builder(updater=Nesterovs(learning_rate=1e-2, momentum=0.9))
+                .list()
+                .layer(ConvolutionLayer(n_out=96, kernel_size=(11, 11), stride=(4, 4),
+                                        padding=(3, 3)))
+                .layer(LocalResponseNormalization())
+                .layer(_max_pool_3_2(ConvolutionMode.Truncate))
+                .layer(ConvolutionLayer(n_out=256, kernel_size=(5, 5), stride=(1, 1),
+                                        padding=(2, 2)))
+                .layer(LocalResponseNormalization())
+                .layer(_max_pool_3_2(ConvolutionMode.Truncate))
+                .layer(ConvolutionLayer(n_out=384, kernel_size=(3, 3), padding=(1, 1)))
+                .layer(ConvolutionLayer(n_out=384, kernel_size=(3, 3), padding=(1, 1)))
+                .layer(ConvolutionLayer(n_out=256, kernel_size=(3, 3), padding=(1, 1)))
+                .layer(_max_pool_3_2(ConvolutionMode.Truncate))
+                .layer(DenseLayer(n_out=4096, dropout=0.5))
+                .layer(DenseLayer(n_out=4096, dropout=0.5))
+                .layer(OutputLayer(n_out=self.num_classes, activation="softmax",
+                                   loss="mcxent"))
+                .set_input_type(InputType.convolutional(h, w, c))
+                .build())
+
+
+class VGG16(ZooModel):
+    """Reference ``zoo/model/VGG16.java`` (a MultiLayerNetwork): SAME 3x3
+    convolution stacks of (2, 2, 3, 3, 3) layers, 64-128-256-512-512 wide,
+    each followed by max 2/2, then dense4096 x 2 -> softmax: 138,357,544
+    parameters at 224x224x3 and 1000 classes."""
+
+    name = "vgg16"
+    input_shape = (3, 224, 224)
+    block_convs = (2, 2, 3, 3, 3)
+
+    def conf(self):
+        c, h, w = self.input_shape
+        b = self._builder().list()
+        for width, n_convs in zip((64, 128, 256, 512, 512), self.block_convs):
+            for _ in range(n_convs):
+                b.layer(ConvolutionLayer(n_out=width, kernel_size=(3, 3),
+                                         convolution_mode=ConvolutionMode.Same))
+            b.layer(SubsamplingLayer(pooling_type=PoolingType.MAX, kernel_size=(2, 2),
+                                     stride=(2, 2)))
+        return (b.layer(DenseLayer(n_out=4096))
+                .layer(DenseLayer(n_out=4096))
+                .layer(OutputLayer(n_out=self.num_classes, activation="softmax",
+                                   loss="mcxent"))
+                .set_input_type(InputType.convolutional(h, w, c))
+                .build())
+
+
+class VGG19(VGG16):
+    """Reference ``zoo/model/VGG19.java``: stacks of (2, 2, 4, 4, 4)
+    convolutions (143,667,240 parameters)."""
+
+    name = "vgg19"
+    block_convs = (2, 2, 4, 4, 4)
+
+
+class GoogLeNet(ZooModel):
+    """Reference ``zoo/model/GoogLeNet.java`` (Inception v1; a
+    ComputationGraph): stem (conv7/2, max 3/2, LRN, conv1, conv3, LRN, max
+    3/2), nine inception modules with max 3/2 after 3b and 4e, global
+    average pool, DropoutLayer(0.6), softmax; every convolution and pool
+    SAME."""
+
+    name = "googlenet"
+    input_shape = (3, 224, 224)
+    # (name, 1x1, 3x3 reduce, 3x3, 5x5 reduce, 5x5, pool projection)
+    MODULES = [
+        ("3a", 64, 96, 128, 16, 32, 32),
+        ("3b", 128, 128, 192, 32, 96, 64),
+        ("4a", 192, 96, 208, 16, 48, 64),
+        ("4b", 160, 112, 224, 24, 64, 64),
+        ("4c", 128, 128, 256, 24, 64, 64),
+        ("4d", 112, 144, 288, 32, 64, 64),
+        ("4e", 256, 160, 320, 32, 128, 128),
+        ("5a", 256, 160, 320, 32, 128, 128),
+        ("5b", 384, 192, 384, 48, 128, 128),
+    ]
+    POOL_AFTER = {"3b", "4e"}
+
+    def conf(self):
+        c, h, w = self.input_shape
+        same = ConvolutionMode.Same
+        g = (self._builder().graph_builder()
+             .add_inputs("input")
+             .add_layer("stem-conv", ConvolutionLayer(
+                 n_out=64, kernel_size=(7, 7), stride=(2, 2), convolution_mode=same), "input")
+             .add_layer("stem-pool", _max_pool_3_2(same), "stem-conv")
+             .add_layer("stem-lrn", LocalResponseNormalization(), "stem-pool")
+             .add_layer("stem-conv2", ConvolutionLayer(
+                 n_out=64, kernel_size=(1, 1), convolution_mode=same), "stem-lrn")
+             .add_layer("stem-conv3", ConvolutionLayer(
+                 n_out=192, kernel_size=(3, 3), convolution_mode=same), "stem-conv2")
+             .add_layer("stem-lrn2", LocalResponseNormalization(), "stem-conv3")
+             .add_layer("stem-pool2", _max_pool_3_2(same), "stem-lrn2"))
+        prev = "stem-pool2"
+        for name, c1, r3, c3, r5, c5, pp in self.MODULES:
+            prev = self._inception(g, f"inc{name}", prev, c1, r3, c3, r5, c5, pp)
+            if name in self.POOL_AFTER:
+                g.add_layer(f"pool-{name}", _max_pool_3_2(same), prev)
+                prev = f"pool-{name}"
+        g.add_layer("gap", GlobalPoolingLayer(pooling_type=PoolingType.AVG), prev)
+        g.add_layer("dropout", DropoutLayer(dropout=0.6), "gap")
+        g.add_layer("output", OutputLayer(n_out=self.num_classes, activation="softmax",
+                                          loss="mcxent"), "dropout")
+        g.set_outputs("output")
+        g.set_input_types(InputType.convolutional(h, w, c))
+        return g.build()
+
+
 class ResNet50(ZooModel):
     """Reference ``zoo/model/ResNet50.java`` (conv/identity blocks): stem
     conv7/2 -> max pool 3/2 -> [3, 4, 6, 3] bottleneck stages -> global
@@ -180,6 +335,126 @@ class ResNet50(ZooModel):
         g.add_layer("gap", GlobalPoolingLayer(pooling_type=PoolingType.AVG), prev)
         g.add_layer("output", OutputLayer(n_out=self.num_classes, activation="softmax",
                                           loss="mcxent"), "gap")
+        g.set_outputs("output")
+        g.set_input_types(InputType.convolutional(h, w, c))
+        return g.build()
+
+
+class InceptionResNetV1(ZooModel):
+    """Reference ``zoo/model/InceptionResNetV1.java`` (a ComputationGraph):
+    stem (conv32-3/2, conv64-3, max 3/2, conv80-1, conv192-3, conv256-3/2),
+    ``blocks_a`` residual inception blocks A (256 wide, scale 0.17), max 3/2
+    and conv896-1, ``blocks_b`` blocks B (896, the 1x7 and 7x1 kernels,
+    0.10), max 3/2 and conv1792-1, ``blocks_c`` blocks C (1792, 1x3 and
+    3x1, 0.20), global average pool, softmax; every convolution and pool
+    SAME. A block: its branches merged, a 1x1 identity projection back to
+    the block's width, a ScaleVertex, the add to the block's input, relu."""
+
+    name = "inceptionresnetv1"
+    input_shape = (3, 160, 160)
+
+    def __init__(self, num_classes: int = 1000, seed: int = 123, blocks_a: int = 5,
+                 blocks_b: int = 10, blocks_c: int = 5, **kw):
+        super().__init__(num_classes, seed, **kw)
+        self.blocks = (blocks_a, blocks_b, blocks_c)
+
+    def _conv(self, g, name, inp, n_out, k, stride=(1, 1)):
+        g.add_layer(name, ConvolutionLayer(n_out=n_out, kernel_size=k, stride=stride,
+                                           convolution_mode=ConvolutionMode.Same), inp)
+        return name
+
+    def _res_block(self, g, name, inp, branches, n_channels, scale):
+        outs = []
+        for i, branch in enumerate(branches):
+            prev = inp
+            for j, (n_out, k) in enumerate(branch):
+                prev = self._conv(g, f"{name}-br{i}-{j}", prev, n_out, k)
+            outs.append(prev)
+        g.add_vertex(f"{name}-merge", MergeVertex(), *outs)
+        g.add_layer(f"{name}-proj", ConvolutionLayer(
+            n_out=n_channels, kernel_size=(1, 1), activation="identity",
+            convolution_mode=ConvolutionMode.Same), f"{name}-merge")
+        g.add_vertex(f"{name}-scale", ScaleVertex(scale=scale), f"{name}-proj")
+        g.add_vertex(f"{name}-add", ElementWiseVertex(op="add"), inp, f"{name}-scale")
+        g.add_layer(name, ActivationLayer(activation="relu"), f"{name}-add")
+        return name
+
+    def conf(self):
+        c, h, w = self.input_shape
+        same = ConvolutionMode.Same
+        g = self._builder().graph_builder().add_inputs("input")
+        prev = self._conv(g, "stem1", "input", 32, (3, 3), (2, 2))
+        prev = self._conv(g, "stem2", prev, 64, (3, 3))
+        g.add_layer("stem-pool", _max_pool_3_2(same), prev)
+        prev = self._conv(g, "stem3", "stem-pool", 80, (1, 1))
+        prev = self._conv(g, "stem4", prev, 192, (3, 3))
+        prev = self._conv(g, "stem5", prev, 256, (3, 3), (2, 2))
+        a, b, cc = self.blocks
+        for i in range(a):
+            prev = self._res_block(g, f"A{i}", prev,
+                                   [[(32, (1, 1))],
+                                    [(32, (1, 1)), (32, (3, 3))],
+                                    [(32, (1, 1)), (32, (3, 3)), (32, (3, 3))]], 256, 0.17)
+        g.add_layer("redA-pool", _max_pool_3_2(same), prev)
+        prev = self._conv(g, "redA-conv", "redA-pool", 896, (1, 1))
+        for i in range(b):
+            prev = self._res_block(g, f"B{i}", prev,
+                                   [[(128, (1, 1))],
+                                    [(128, (1, 1)), (128, (1, 7)), (128, (7, 1))]], 896, 0.10)
+        g.add_layer("redB-pool", _max_pool_3_2(same), prev)
+        prev = self._conv(g, "redB-conv", "redB-pool", 1792, (1, 1))
+        for i in range(cc):
+            prev = self._res_block(g, f"C{i}", prev,
+                                   [[(192, (1, 1))],
+                                    [(192, (1, 1)), (192, (1, 3)), (192, (3, 1))]], 1792, 0.20)
+        g.add_layer("gap", GlobalPoolingLayer(pooling_type=PoolingType.AVG), prev)
+        g.add_layer("output", OutputLayer(n_out=self.num_classes, activation="softmax",
+                                          loss="mcxent"), "gap")
+        g.set_outputs("output")
+        g.set_input_types(InputType.convolutional(h, w, c))
+        return g.build()
+
+
+class FaceNetNN4Small2(ZooModel):
+    """Reference ``zoo/model/FaceNetNN4Small2.java`` (a ComputationGraph),
+    trained by center loss: stem (conv64-7/2, max 3/2, LRN, conv64-1,
+    conv192-3, LRN, max 3/2; all SAME), two inception modules, global
+    average pool, an identity dense ``embedding_size`` embedding, and a
+    CenterLossOutputLayer softmax."""
+
+    name = "facenetnn4small2"
+    input_shape = (3, 96, 96)
+
+    def __init__(self, num_classes: int = 1000, embedding_size: int = 128, seed: int = 123,
+                 **kw):
+        super().__init__(num_classes, seed, **kw)
+        self.embedding_size = embedding_size
+
+    def conf(self):
+        c, h, w = self.input_shape
+        same = ConvolutionMode.Same
+        g = (self._builder().graph_builder()
+             .add_inputs("input")
+             .add_layer("conv1", ConvolutionLayer(
+                 n_out=64, kernel_size=(7, 7), stride=(2, 2), convolution_mode=same), "input")
+             .add_layer("pool1", _max_pool_3_2(same), "conv1")
+             .add_layer("lrn1", LocalResponseNormalization(), "pool1")
+             .add_layer("conv2", ConvolutionLayer(
+                 n_out=64, kernel_size=(1, 1), convolution_mode=same), "lrn1")
+             .add_layer("conv3", ConvolutionLayer(
+                 n_out=192, kernel_size=(3, 3), convolution_mode=same), "conv2")
+             .add_layer("lrn2", LocalResponseNormalization(), "conv3")
+             .add_layer("pool2", _max_pool_3_2(same), "lrn2"))
+        prev = "pool2"
+        for name, (c1, r3, c3, r5, c5, pp) in (("inc1", (64, 96, 128, 16, 32, 32)),
+                                                ("inc2", (64, 96, 128, 32, 64, 64))):
+            prev = self._inception(g, name, prev, c1, r3, c3, r5, c5, pp)
+        g.add_layer("gap", GlobalPoolingLayer(pooling_type=PoolingType.AVG), prev)
+        g.add_layer("embedding", DenseLayer(n_out=self.embedding_size, activation="identity"),
+                    "gap")
+        g.add_layer("output", CenterLossOutputLayer(
+            n_in=self.embedding_size, n_out=self.num_classes, activation="softmax",
+            loss="mcxent"), "embedding")
         g.set_outputs("output")
         g.set_input_types(InputType.convolutional(h, w, c))
         return g.build()
@@ -354,20 +629,9 @@ def generate_tokens(net, prompt_ids, n_tokens, temperature=1.0, seed=0,
     return np.stack(out, axis=1)
 
 
-class _NotPorted:
-    """A zoo model the JAX package has and the port does not yet."""
-
-    def __init__(self, name):
-        self.name = name
-
-    def __call__(self, **kwargs):
-        raise NotImplementedError(f"zoo model '{self.name}' is not ported to "
-                                  f"deeplearning4j_torch yet")
-
-
-ZOO = {m.name: m for m in (LeNet, SimpleCNN, ResNet50, TextGenerationLSTM, TransformerLM)}
-ZOO.update({n: _NotPorted(n) for n in ("alexnet", "vgg16", "vgg19", "googlenet",
-                                        "inceptionresnetv1", "facenetnn4small2")})
+ZOO = {m.name: m for m in (LeNet, SimpleCNN, AlexNet, VGG16, VGG19, GoogLeNet, ResNet50,
+                           InceptionResNetV1, FaceNetNN4Small2, TextGenerationLSTM,
+                           TransformerLM)}
 
 
 class ModelSelector:

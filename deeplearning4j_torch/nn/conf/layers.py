@@ -2,12 +2,17 @@
 
 Counterpart of ``deeplearning4j_tpu/nn/conf/layers.py``, holding only the
 classes the ported slices run (the char-RNN's, the TransformerLM's and its
-MoE variant's, LeNet's and ResNet50's, DropoutLayer, and the rest of the
-recurrent family: GravesBidirectionalLSTM, SimpleRnn and the Bidirectional
-and LastTimeStep wrappers, whose ``inner`` layer encodes as a nested
-object). Field names and order are unchanged so JSON written by the
-JAX package decodes here and re-encodes byte for byte; any other layer
-``@class`` fails to decode with the "Unknown config class" error.
+MoE variant's, the CNN family's and the zoo's, DropoutLayer,
+CenterLossOutputLayer, and the rest of the recurrent family:
+GravesBidirectionalLSTM, SimpleRnn and the Bidirectional and LastTimeStep
+wrappers, whose ``inner`` layer encodes as a nested object). Field names
+and order are unchanged so JSON written by the JAX package decodes here
+and re-encodes byte for byte; any other layer ``@class`` fails to decode
+with the "Unknown config class" error.
+
+Convolutional activations are NHWC ``[b, h, w, c]``; the 1-D layers
+(Convolution1DLayer, Subsampling1DLayer, Upsampling1D, ZeroPadding1DLayer)
+take recurrent input ``[b, T, c]`` and ask for no preprocessor.
 
 Note on dropout: following the reference's 0.9.x semantics, ``dropout`` is
 the **retain probability** (1.0 = keep everything / disabled), or a dropout
@@ -28,12 +33,16 @@ from .preprocessors import (CnnToFeedForwardPreProcessor, CnnToRnnPreProcessor,
                             RnnToFeedForwardPreProcessor)
 
 __all__ = ["Layer", "BaseLayer", "FeedForwardLayer", "DenseLayer", "MoEDenseLayer",
-           "ConvolutionLayer",
-           "SubsamplingLayer", "PoolingType", "BatchNormalization", "LayerNormalization",
+           "ConvolutionLayer", "Convolution1DLayer", "DepthwiseConvolution2D",
+           "SeparableConvolution2D", "Deconvolution2D",
+           "SubsamplingLayer", "Subsampling1DLayer", "Upsampling2D", "Upsampling1D",
+           "ZeroPaddingLayer", "ZeroPadding1DLayer", "Cropping2D", "SpaceToDepthLayer",
+           "PoolingType", "BatchNormalization", "LayerNormalization",
+           "LocalResponseNormalization",
            "ActivationLayer", "DropoutLayer", "EmbeddingSequenceLayer", "LSTM", "GravesLSTM",
            "GravesBidirectionalLSTM", "SimpleRnn", "Bidirectional", "LastTimeStep",
-           "SelfAttentionLayer", "OutputLayer", "RnnOutputLayer", "GlobalPoolingLayer",
-           "ConvolutionMode"]
+           "SelfAttentionLayer", "OutputLayer", "RnnOutputLayer", "CenterLossOutputLayer",
+           "GlobalPoolingLayer", "ConvolutionMode"]
 
 
 class ConvolutionMode:
@@ -194,6 +203,77 @@ class ConvolutionLayer(FeedForwardLayer):
         return None
 
 
+def _recurrent_length(layer, input_type):
+    """The output length of a 1-D window (kernel, stride, padding and
+    dilation's first entries) over a recurrent input; None for an unknown
+    length."""
+    t = input_type.timeseries_length
+    if t is None:
+        return None
+    k, s, p, d = (_pair(layer.kernel_size)[0], _pair(layer.stride)[0], _pair(layer.padding)[0],
+                  _pair(layer.dilation)[0])
+    return conv_out_size(t, k, s, p, d, layer.convolution_mode)
+
+
+@register
+@dataclasses.dataclass
+class Convolution1DLayer(ConvolutionLayer):
+    """1-D convolution over recurrent input [b, T, nIn] -> [b, T', nOut];
+    ``W`` is HIO [k, nIn, nOut] (the first entries of the 2-D fields)."""
+
+    def get_output_type(self, index, input_type):
+        if not isinstance(input_type, InputTypeRecurrent):
+            raise ValueError("Convolution1DLayer needs recurrent input")
+        return InputTypeRecurrent(self.n_out, _recurrent_length(self, input_type))
+
+    def set_n_in(self, input_type, override=False):
+        if self.n_in is None or override:
+            self.n_in = input_type.size
+
+    def preprocessor_for(self, input_type):
+        return None
+
+
+@register
+@dataclasses.dataclass
+class DepthwiseConvolution2D(ConvolutionLayer):
+    """Each input channel convolved with ``depth_multiplier`` kernels of
+    its own: nOut = nIn x depth_multiplier, output channel j from input
+    channel j // depth_multiplier; ``W`` is [kh, kw, 1, nOut]."""
+    depth_multiplier: int = 1
+
+    def set_n_in(self, input_type, override=False):
+        super().set_n_in(input_type, override)
+        if self.n_out is None and self.n_in is not None:
+            self.n_out = self.n_in * int(self.depth_multiplier)
+
+
+@register
+@dataclasses.dataclass
+class SeparableConvolution2D(ConvolutionLayer):
+    """A depthwise convolution (``dW`` [kh, kw, 1, nIn x depth_multiplier],
+    the layer's stride, padding and dilation) then a pointwise 1x1 one
+    (``pW`` [1, 1, nIn x depth_multiplier, nOut]), the bias after it."""
+    depth_multiplier: int = 1
+
+
+@register
+@dataclasses.dataclass
+class Deconvolution2D(ConvolutionLayer):
+    """Transposed convolution: out = s (i - 1) + (k - 1) d + 1 - 2p under
+    Truncate, i x s under Same; ``W`` is HWIO [kh, kw, nIn, nOut]."""
+
+    def get_output_type(self, index, input_type):
+        k, s, p, d = (_pair(self.kernel_size), _pair(self.stride), _pair(self.padding),
+                      _pair(self.dilation))
+        if self.convolution_mode == ConvolutionMode.Same:
+            h, w = input_type.height * s[0], input_type.width * s[1]
+        else:
+            h = s[0] * (input_type.height - 1) + (k[0] - 1) * d[0] + 1 - 2 * p[0]
+            w = s[1] * (input_type.width - 1) + (k[1] - 1) * d[1] + 1 - 2 * p[1]
+        return InputTypeConvolutional(h, w, self.n_out)
+
+
 @register
 @dataclasses.dataclass
 class SubsamplingLayer(Layer):
@@ -213,6 +293,105 @@ class SubsamplingLayer(Layer):
         if not isinstance(input_type, InputTypeConvolutional):
             raise ValueError("SubsamplingLayer needs convolutional input")
         return _conv_output_type(self, input_type, input_type.channels)
+
+
+@register
+@dataclasses.dataclass
+class Subsampling1DLayer(SubsamplingLayer):
+    """Pooling over the time axis of recurrent input [b, T, c] (the first
+    entries of the 2-D fields)."""
+
+    def get_output_type(self, index, input_type):
+        if not isinstance(input_type, InputTypeRecurrent):
+            raise ValueError("Subsampling1DLayer needs recurrent input")
+        return InputTypeRecurrent(input_type.size, _recurrent_length(self, input_type))
+
+
+@register
+@dataclasses.dataclass
+class Upsampling2D(Layer):
+    """Nearest-neighbour upsampling by ``size`` (rows, columns)."""
+    size: Tuple[int, int] = (2, 2)
+
+    def get_output_type(self, index, input_type):
+        s = _pair(self.size)
+        return InputTypeConvolutional(input_type.height * s[0], input_type.width * s[1],
+                                      input_type.channels)
+
+
+@register
+@dataclasses.dataclass
+class Upsampling1D(Layer):
+    """Nearest-neighbour upsampling of the time axis by ``size``."""
+    size: int = 2
+
+    def get_output_type(self, index, input_type):
+        t = input_type.timeseries_length
+        return InputTypeRecurrent(input_type.size, None if t is None else t * int(self.size))
+
+
+@register
+@dataclasses.dataclass
+class ZeroPaddingLayer(Layer):
+    """Zero padding [top, bottom, left, right] (two entries: (rows,
+    columns) on both sides)."""
+    padding: Tuple[int, int, int, int] = (0, 0, 0, 0)
+
+    def _pads(self):
+        p = list(self.padding)
+        if len(p) == 2:
+            p = [p[0], p[0], p[1], p[1]]
+        return p
+
+    def get_output_type(self, index, input_type):
+        p = self._pads()
+        return InputTypeConvolutional(input_type.height + p[0] + p[1],
+                                      input_type.width + p[2] + p[3], input_type.channels)
+
+
+@register
+@dataclasses.dataclass
+class ZeroPadding1DLayer(Layer):
+    """Zero padding (before, after) of the time axis."""
+    padding: Tuple[int, int] = (0, 0)
+
+    def get_output_type(self, index, input_type):
+        p = _pair(self.padding)
+        t = input_type.timeseries_length
+        return InputTypeRecurrent(input_type.size, None if t is None else t + p[0] + p[1])
+
+
+@register
+@dataclasses.dataclass
+class Cropping2D(Layer):
+    """Cropping [top, bottom, left, right] (two entries: (rows, columns)
+    on both sides)."""
+    cropping: Tuple[int, int, int, int] = (0, 0, 0, 0)
+
+    def _crops(self):
+        c = list(self.cropping)
+        if len(c) == 2:
+            c = [c[0], c[0], c[1], c[1]]
+        return c
+
+    def get_output_type(self, index, input_type):
+        c = self._crops()
+        return InputTypeConvolutional(input_type.height - c[0] - c[1],
+                                      input_type.width - c[2] - c[3], input_type.channels)
+
+
+@register
+@dataclasses.dataclass
+class SpaceToDepthLayer(Layer):
+    """Each ``block_size`` x ``block_size`` block of cells to one cell of
+    block_size^2 x c channels, channel (i * block_size + j) * c + ch for
+    the block's cell (i, j)."""
+    block_size: int = 2
+
+    def get_output_type(self, index, input_type):
+        b = int(self.block_size)
+        return InputTypeConvolutional(input_type.height // b, input_type.width // b,
+                                      input_type.channels * b * b)
 
 
 @register
@@ -257,6 +436,17 @@ class LayerNormalization(FeedForwardLayer):
 
     def preprocessor_for(self, input_type):
         return None
+
+
+@register
+@dataclasses.dataclass
+class LocalResponseNormalization(Layer):
+    """Across-channel LRN: x / (k + alpha * sum of x^2 over the 2 (n // 2)
+    + 1 channels centred on each)^beta (alpha not divided by n)."""
+    k: float = 2.0
+    n: float = 5.0
+    alpha: float = 1e-4
+    beta: float = 0.75
 
 
 @register
@@ -426,6 +616,18 @@ class RnnOutputLayer(OutputLayer):
         if isinstance(input_type, InputTypeFeedForward):
             return FeedForwardToRnnPreProcessor()
         return None
+
+
+@register
+@dataclasses.dataclass
+class CenterLossOutputLayer(OutputLayer):
+    """Softmax loss + ``lambda_`` x the center loss 0.5 mean ||x - c_y||^2,
+    with per-class centres c (layer state, f32) moved by an EMA of rate
+    ``alpha`` toward each class's batch mean after every fit step.
+    ``gradient_check`` is carried as configuration only."""
+    alpha: float = 0.05
+    lambda_: float = 2e-4
+    gradient_check: bool = False
 
 
 @register

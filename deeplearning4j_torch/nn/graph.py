@@ -256,7 +256,8 @@ class ComputationGraph(nn.Module):
         """Sum of the output layers' losses + L1/L2 + the auxiliary losses
         the forward left in ``ctx["aux_loss"]`` (``_loss_fn`` of the JAX
         package). A training forward's new layer state goes into
-        ``new_states`` when it is given; ``rnn_state_in`` continues the
+        ``new_states`` when it is given (an output layer's ``update_state``
+        too, as in ``MultiLayerNetwork._loss_fn``); ``rnn_state_in`` continues the
         vertices' carries, and their new carries go into ``rnn_state_out``
         when it is given."""
         conf = self.conf
@@ -278,6 +279,8 @@ class ComputationGraph(nn.Module):
                 x = pre(x, ctx)
             mask = lm if lm is not None else (masks.get(in_name) if x.dim() == 3 else None)
             total = total + impl.loss_on(x, lbl, mask=mask, train=train, gen=rng)
+            if new_states is not None and hasattr(impl, "update_state"):
+                new_states[out_name] = impl.update_state(x, lbl)    # CenterLoss
         reg = 0.0
         for impl in self.impls.values():
             reg = reg + impl.regularization()

@@ -1,12 +1,13 @@
 """Normalization layer implementations: BatchNormalization,
-LayerNormalization.
+LayerNormalization, LocalResponseNormalization.
 
 Counterpart of ``deeplearning4j_tpu/nn/layers/normalization.py``
-(``BatchNormImpl``, ``LayerNormImpl``).
+(``BatchNormImpl``, ``LayerNormImpl``, ``LRNImpl``).
 """
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from .base import LayerImpl, acc_dtype, implements
 
@@ -108,3 +109,26 @@ class LayerNormImpl(LayerImpl):
 
     def regularization(self):
         return 0.0
+
+
+@implements("LocalResponseNormalization")
+class LRNImpl(LayerImpl):
+    """Across-channel LRN on NHWC (reference
+    ``LocalResponseNormalization.java``): y = x / (k + alpha * s)^beta, s
+    the sum of x^2 over the channels c - n // 2 ... c + n // 2 that exist
+    (2 (n // 2) + 1 of them: n + 1 for an even n), alpha undivided. Not
+    ``F.local_response_norm``, which divides alpha by n and takes a window
+    of n. The sum is one windowed pool over the channel axis of the [N, 1,
+    1, c] view (``avg_pool2d`` with ``divisor_override=1``, zero padded),
+    and the arithmetic runs in f32 (f64 for f64 x), rounded once to x's
+    dtype (the JAX package rounds each step to it). No parameters."""
+
+    def forward(self, x, mask=None, ctx=None):
+        c = self.conf
+        half = int(c.n) // 2
+        sd = torch.promote_types(x.dtype, torch.float32)
+        xs = x.to(sd)
+        ch = x.shape[-1]
+        sq = (xs * xs).reshape(-1, 1, 1, ch)
+        acc = F.avg_pool2d(sq, (1, 2 * half + 1), 1, (0, half), divisor_override=1)
+        return (xs / (c.k + c.alpha * acc.view(x.shape)).pow(c.beta)).to(x.dtype)

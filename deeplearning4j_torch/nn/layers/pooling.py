@@ -1,4 +1,5 @@
-"""Pooling implementations: SubsamplingLayer (spatial) and GlobalPoolingLayer.
+"""Pooling implementations: SubsamplingLayer (spatial), Subsampling1DLayer
+(time) and GlobalPoolingLayer.
 
 Counterpart of ``deeplearning4j_tpu/nn/layers/pooling.py``. Windowed pools
 run as ``F.max_pool2d``/``F.avg_pool2d`` on the NCHW view of NHWC
@@ -53,6 +54,22 @@ class SubsamplingImpl(LayerImpl):
         else:
             pads = [(pi, pi) for pi in p]
         return _pool2d(x, c.pooling_type, k, s, pads, c.pnorm, c.eps)
+
+
+@implements("Subsampling1DLayer")
+class Subsampling1DImpl(LayerImpl):
+    """``_pool2d`` on the [b, T, 1, c] view of [b, T, c] with window (k, 1):
+    the first entries of the layer's kernel, stride and padding."""
+
+    def forward(self, x, mask=None, ctx=None):
+        c = self.conf
+        k, s, p = _pair(c.kernel_size)[0], _pair(c.stride)[0], _pair(c.padding)[0]
+        if c.convolution_mode == ConvolutionMode.Same:
+            pads = same_pads(x.shape[1:2], (k,), (s,)) + [(0, 0)]
+        else:
+            pads = [(p, p), (0, 0)]
+        return _pool2d(x[:, :, None, :], c.pooling_type, (k, 1), (s, 1), pads, c.pnorm,
+                       c.eps)[:, :, 0, :]
 
 
 @implements("GlobalPoolingLayer")

@@ -358,7 +358,9 @@ class MultiLayerNetwork(nn.Module):
         """Loss + L1/L2 penalty + the auxiliary losses the forward left in
         ``ctx["aux_loss"]`` (MoE load balancing), as ``_loss_fn`` of the
         JAX package. Returns (loss, rnn_state_out); a training forward's
-        new layer state goes into ``new_states`` when it is given. ``rng``
+        new layer state goes into ``new_states`` when it is given, the
+        output layer's too where it has an ``update_state`` (the centres
+        of a CenterLossOutputLayer, from its detached input). ``rng``
         (training only) draws dropout and weight noise."""
         rng = rng if train else None
         n = len(self.impls)
@@ -372,6 +374,8 @@ class MultiLayerNetwork(nn.Module):
             raise ValueError(f"Last layer {type(out).__name__} is not an output layer")
         mask = lm if lm is not None else (fm if x.dim() == 3 else None)
         loss = out.loss_on(x, l, mask=mask, train=train, gen=rng)
+        if new_states is not None and hasattr(out, "update_state"):
+            new_states[n - 1] = out.update_state(x, l)    # CenterLoss's centres
         reg = 0.0
         for impl in self.impls:
             reg = reg + impl.regularization()

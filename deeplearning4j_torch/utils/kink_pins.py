@@ -35,7 +35,9 @@ class KinkPins:
         self.relu, self.pool, self.record = {}, {}, True
 
     def attach(self, net):
-        for name, impl in net.impls.items():
+        """Wrap ``net``'s ReLUs and max pools (either container: a
+        MultiLayerNetwork's layers are named by index)."""
+        for name, impl in net._layers().items():
             if getattr(impl, "activation", None) is torch.relu:
                 impl.activation = self._relu(name)
             c = impl.conf

@@ -309,15 +309,13 @@ def test_generate_tokens_advances_state_past_last_token():
 
 
 def test_model_selector_knows_every_jax_name():
-    """Every JAX zoo name selects: the ported models build, the others
-    raise NotImplementedError naming the model."""
+    """Every JAX zoo name selects its model, which builds the JAX model's
+    configuration (its JSON, byte for byte)."""
     assert set(ZOO) == set(JZOO)
     for name in JZOO:
-        if name in ("lenet", "simplecnn", "resnet50", "textgenlstm", "transformerlm"):
-            assert ModelSelector.select(name).name == name
-        else:
-            with pytest.raises(NotImplementedError, match=name):
-                ModelSelector.select(name)
+        model = ModelSelector.select(name)
+        assert model.name == name
+        assert model.conf().to_json() == JZOO[name]().conf().to_json(), name
     with pytest.raises(ValueError, match="Unknown zoo model"):
         ModelSelector.select("nosuchmodel")
     m = ModelSelector.select("TextGenLSTM")

@@ -187,8 +187,8 @@ def test_bf16_stored_parameters_decode():
 
 def test_unknown_config_class_fails_loudly():
     doc = json.loads(_jax_net().conf.to_json())
-    doc["layers"][0]["@class"] = "Deconvolution2D"
-    with pytest.raises(ValueError, match="Unknown config class 'Deconvolution2D'"):
+    doc["layers"][0]["@class"] = "Yolo2OutputLayer"
+    with pytest.raises(ValueError, match="Unknown config class 'Yolo2OutputLayer'"):
         serde.decode(doc)
 
 

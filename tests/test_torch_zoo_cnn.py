@@ -80,11 +80,11 @@ from deeplearning4j_tpu.utils.model_serializer import ModelSerializer
 from deeplearning4j_torch import DataSet
 from deeplearning4j_torch.models import LeNet, ResNet50
 from deeplearning4j_torch.nn.conf import ComputationGraphConfiguration, MultiLayerConfiguration
-from deeplearning4j_torch.nn.conf.layers import _pair
-from deeplearning4j_torch.nn.layers.convolution import same_pads
 from deeplearning4j_torch.utils.kink_pins import KinkPins
 from deeplearning4j_torch.utils.model_serializer import (restore_computation_graph,
                                                          restore_multi_layer_network)
+
+from test_torch_zoo_family import _JaxReplay
 
 LR, STEPS = 1e-3, 3
 OUT_ATOL = {"float32": 1e-5, "bfloat16": 3e-2}
@@ -255,48 +255,6 @@ def _jax_resnet50(compute, tmp_path_factory):
     ModelSerializer.write_model(jnet, str(path))
     f, l = _batch(2, R50_B, R50_SHAPE, R50_CLASSES)
     return jnet, path, f, l
-
-
-class _JaxReplay:
-    """Replays a port net's recorded kinks (``KinkPins``) in a JAX net:
-    ReLU as ``x * mask`` and max pooling as a gather at the recorded cells.
-    Masks and cells reach the compiled function through a host callback
-    at each execution, so one compiled step replays every step's kinks."""
-
-    def __init__(self, pins):
-        self.pins = pins
-
-    def attach(self, jnet):
-        for name, impl in jnet.impls.items():
-            if getattr(impl, "activation_name", None) == "relu":
-                impl.activation = self._relu(name)
-            c = impl.conf
-            if type(c).__name__ == "SubsamplingLayer" and c.pooling_type == "max":
-                impl.forward = self._max_pool(name, c)
-        return jnet
-
-    def _fetch(self, table, name, shape, dtype):
-        return jax.pure_callback(lambda: np.asarray(table[name].numpy(), dtype),
-                                 jax.ShapeDtypeStruct(shape, dtype))
-
-    def _relu(self, name):
-        def relu(x):
-            return x * self._fetch(self.pins.relu, name, x.shape, np.bool_).astype(x.dtype)
-        return relu
-
-    def _max_pool(self, name, c):
-        k, s = _pair(c.kernel_size), _pair(c.stride)
-
-        def forward(params, state, x, train=False, rng=None, mask=None, ctx=None):
-            (t, b), (lo, hi) = same_pads(x.shape[1:3], k, s)
-            xp = jnp.pad(x, ((0, 0), (t, b), (lo, hi), (0, 0)), constant_values=-jnp.inf)
-            n, hp, wp, ch = xp.shape
-            shape = (n, ch, -(-x.shape[1] // s[0]), -(-x.shape[2] // s[1]))
-            idx = self._fetch(self.pins.pool, name, shape, np.int32)
-            y = jnp.take_along_axis(xp.transpose(0, 3, 1, 2).reshape(n, ch, hp * wp),
-                                    idx.reshape(n, ch, -1), axis=2)
-            return y.reshape(shape).transpose(0, 2, 3, 1), state
-        return forward
 
 
 def _flat(tree):
