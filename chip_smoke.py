@@ -208,19 +208,42 @@ and the CUDA toolkit; run from the root of the repository. It
    gradients) at fixed limits; and profiles the grouped, transposed and
    1-D convolutions at b=32, 56x56x64 for transposition kernels; no
    K1-K7 launch in the phase;
-21. prints a ``{"cnn": ...}`` line with those numbers, a ``{"generate":
+21. (``transfer_pretrain``) fine-tunes VGG16 at step 20's shape through
+   ``TransferLearning.Builder``: layers 0-19 (through fc2) frozen, a 5-way
+   head (``n_out_replace(20, 5, "xavier")``); its fit steps timed against
+   the full VGG16 step in alternating turns, one step profiled (no
+   backward convolution, no max-pool backward, the updater given layer 20
+   only), layers 0-19 bit-equal after every step, peak memory against the
+   full step's; ``TransferLearningHelper`` at fc2 (``featurize``,
+   ``output_from_featurized`` against the transferred net's output within
+   bf16 rounding, ``fit_featurized``); ResNet50 at step 12's shape frozen
+   at "gap" with a 10-way head (``GraphBuilder``): fit steps, frozen
+   parameters bit-equal, every frozen BN layer's running statistics moved;
+   the char-RNN of step 4 with layer 0 frozen, fitted (per TBPTT segment
+   one K1 without the reserve for the frozen layer, one K1 with it and one
+   K2 for layer 1, no K3/K4; layer 0 bit-equal); pretraining at the
+   dl4j-examples' MNIST widths (b=128): stacked RBMs 784-1000-500-250-100-30
+   (binary, CD-1), an AutoEncoder 784-250 (corruption 0.3) and the VAE of
+   VaeMNISTAnomaly (encoder and decoder 256-256, latent 32, Bernoulli;
+   ``reconstruction_log_probability``), ms a pretrain iteration, one step's
+   loss and gradients held against the CPU in f64 on the card's draws; and
+   Yolo2OutputLayer at TinyYOLO's head (13x13, 5 VOC anchors, 20 classes,
+   b=32): loss and input gradient against the CPU in f64, and fit steps of
+   a small convolutional trunk ending in it;
+22. prints a ``{"cnn": ...}`` line with those numbers, a ``{"generate":
    ...}`` line with steps 6 and 10's, a ``{"moe_lm": ..., "graph_tbptt":
    ...}`` line with steps 15 and 16's, a ``{"regularized_char_rnn": ...,
    "lm_dropout": ..., "solvers": ...}`` line with step 17's, an
    ``{"evaluation": ...}`` line with step 18's and a
-   ``{"recurrent_family": ...}`` line with step 19's and a ``{"cnn_family":
-   ...}`` line with step 20's (the card's name and power limit in those
-   three), a ``{"kernels": [...]}`` line (K1's and K3's entries with
-   their decode rows; K1/K2's launches in step 16's fit, K5-K7's in step
-   15's steps; K1-K4's in each regularised fit, K5-K7's in the dropout
-   LM's steps and their times with dropout; K1, K3, K4 and K5's in step
-   18; K1-K4's in each path of step 19) and, last, the ``{"ok": true,
-   "device": ...}`` line.
+   ``{"recurrent_family": ...}`` line with step 19's, a ``{"cnn_family":
+   ...}`` line with step 20's and a ``{"transfer_pretrain": ...}`` line
+   with step 21's (the card's name and power limit in those four), a
+   ``{"kernels": [...]}`` line (K1's and K3's entries with their decode
+   rows; K1/K2's launches in step 16's fit, K5-K7's in step 15's steps;
+   K1-K4's in each regularised fit, K5-K7's in the dropout LM's steps and
+   their times with dropout; K1, K3, K4 and K5's in step 18; K1-K4's in
+   each path of step 19 and in step 21's frozen char-RNN) and, last, the
+   ``{"ok": true, "device": ...}`` line.
 
 Any failure raises, and the script exits nonzero without the last line.
 """
@@ -229,6 +252,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import json
+import math
 import os
 import shutil
 import subprocess
@@ -577,6 +601,32 @@ RF_REF_B, RF_REF_T = 4, 30
 # these are held at two bf16 steps at 1 (PROB_SUM_ATOL's reasoning).
 RF_OUT_ATOL = 2.0 ** -7
 
+# Transfer learning and pretraining (transfer_pretrain). VGG16 at VGG_B,
+# VGG_IMG frozen through layer TL_FROZEN (fc2) with a TL_CLASSES-way head:
+# TL_TURNS alternating turns of TL_STEPS fit steps against the full
+# network's; ResNet50 at R50_B, R50_IMG frozen at "gap" with an
+# R50_TL_CLASSES-way head, TL_STEPS steps; the char-RNN frozen at layer 0,
+# TL_CHAR_FITS fits of TRAIN_B x TRAIN_SEQ. Pretraining at the MNIST widths
+# of the dl4j-examples (DeepAutoEncoderExample's RBM stack PRE_RBM, an
+# AutoEncoder PRE_AE, VaeMNISTAnomaly's VAE) at b=PRE_B: one warm-up and
+# PRE_ITERS timed iterations a layer, and one step's loss and gradients on
+# the card (f32, TF32 off) against the CPU in f64 on the card's draws at
+# PRE_REF_RTOL (f32 rounding of sums over 784 inputs and 128 examples).
+# Yolo2OutputLayer at TinyYOLO's head (YOLO_GRID^2 cells, the 5 VOC
+# anchors of DL4J's TinyYOLO, YOLO_CLASSES classes, b=YOLO_B): loss and
+# input gradient against the CPU in f64 at YOLO_REF_RTOL, then YOLO_STEPS
+# fit steps of a 3 x (4 YOLO_GRID)^2 convolutional trunk.
+TL_FROZEN, TL_CLASSES, TL_TURNS, TL_STEPS, TL_CHAR_FITS = 19, 5, 3, 4, 3
+R50_TL_CLASSES = 10
+PRE_B, PRE_ITERS = 128, 10
+PRE_RBM = (784, 1000, 500, 250, 100, 30)
+PRE_AE = (784, 250)
+PRE_VAE_HIDDEN, PRE_VAE_LATENT, PRE_VAE_SAMPLES = (256, 256), 32, 5
+PRE_REF_RTOL = 1e-4
+YOLO_B, YOLO_GRID, YOLO_CLASSES, YOLO_STEPS = 32, 13, 20, 5
+YOLO_ANCHORS = [[1.08, 1.19], [3.42, 4.41], [6.63, 11.38], [9.42, 5.11], [16.62, 10.52]]
+YOLO_REF_RTOL = 1e-4
+
 
 def log(msg):
     print(msg, flush=True)
@@ -744,6 +794,29 @@ def check_training_kernels():
         log(f"K1 lstm_fwd train {label} b={b} T={t}: max_abs_err={e_f:.3e} kernel_ms={ms:.4f} "
             f"plain_ms={plain_ms:.3f} bound_ms={bms:.5f} ({by}; {1e3 * ms / t:.2f} us a step); "
             f"two launches bitwise equal: {bitwise_f}; route: {route}")
+
+        # K1 without the reserve at this shape: a frozen layer's forward in
+        # a fit (transfer_char_rnn)
+        got = lstm_cell.lstm_fwd(*fargs)
+        torch.cuda.synchronize()
+        e_n = err(got, lstm_cell.lstm_fwd_plain(*fargs))
+        bitwise_n = same_bits(got, lstm_cell.lstm_fwd(*fargs))
+        ms = cuda_ms(lambda: lstm_cell.lstm_fwd(*fargs), 20)
+        plain_ms = cuda_ms(lambda: lstm_cell.lstm_fwd_plain(*fargs), 3)
+        bms, by = bound(seq4 + w_bytes + 3 * H * 4 + 4 * st + seq + mbytes,
+                        t * mm, t * b * H * (CELL_OPS + (6 if m is not None else 0)))
+        route = lstm_design("K1", rw1.dtype, b, H)
+        results[f"lstm_fwd_frozen/{label}"] = dict(max_abs_err=e_n, ms=ms, plain_ms=plain_ms,
+                                                   bound_ms=bms, bound_by=by, design=route)
+        log(f"K1 lstm_fwd without the reserve {label} b={b} T={t}: max_abs_err={e_n:.3e} "
+            f"kernel_ms={ms:.4f} plain_ms={plain_ms:.3f} bound_ms={bms:.5f} ({by}); two "
+            f"launches bitwise equal: {bitwise_n}; route: {route}")
+        if not bitwise_n:
+            raise AssertionError(f"K1 without the reserve ({label}) at the training shape gave "
+                                 f"different results in two launches")
+        if not e_n <= KERNEL_ATOL:
+            raise AssertionError(f"K1 without the reserve ({label}) at the training shape "
+                                 f"disagrees with its plain version: {e_n} > {KERNEL_ATOL}")
 
         _, _, _, gates, cseq = ref
         bargs = (dy, gates, cseq, rw1, peep3, m, c0, dhT, dcT)
@@ -1271,10 +1344,11 @@ def profile_call(label, fn, updater=None, forbid=(), group=None):
     kernel, and the card's busy share of the call's wall time (profiler
     on, so slightly slower than an unprofiled call). With ``updater``, its
     ``apply`` is marked by a range, and device time and launches are also
-    summed by ``kernel_group``. Raises if a kernel's name holds a word of
-    ``forbid`` (any case). None when the profiler recorded no device
-    events, unless ``forbid`` is given: then that raises, since nothing
-    was checked. ``group`` replaces ``kernel_group``."""
+    summed by ``kernel_group``. Raises if the name of a kernel or of a host
+    op holds a word of ``forbid`` (any case). None
+    when the profiler recorded no device events, unless ``forbid`` is
+    given: then that raises, since nothing was checked. ``group`` replaces
+    ``kernel_group``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
 
@@ -1308,6 +1382,8 @@ def profile_call(label, fn, updater=None, forbid=(), group=None):
         log(f"profile of {label}: the profiler recorded no device events")
         return None
     bad = [n for n in by_name if any(w in n.lower() for w in forbid)]
+    bad += sorted({e.name for e in events if e.device_type == DeviceType.CPU
+                   and any(w in e.name.lower() for w in forbid)})
     if bad:
         raise AssertionError(f"{label} launched kernels it must not: {bad}")
     spans.sort()
@@ -1322,7 +1398,7 @@ def profile_call(label, fn, updater=None, forbid=(), group=None):
     log(f"profile of {label}: wall {wall_us / 1e3:.3f} ms, device busy "
         f"{busy / 1e3:.3f} ms ({100 * busy / wall_us:.1f}%), "
         f"{sum(n for n, _ in by_name.values())} device events"
-        + (f", no kernel named {' or '.join(forbid)}" if forbid else "")
+        + (f", no kernel or op named {' or '.join(forbid)}" if forbid else "")
         + "; device time by kernel (launches):")
     for name, (n, us) in top:
         log(f"  {us / 1e3:9.3f} ms ({n:5d})  {name[:100]}")
@@ -3298,13 +3374,13 @@ def regularized_conf(variant):
 
 @contextlib.contextmanager
 def recorded_draws(draws, replay=False):
-    """Every dropout and weight-noise draw (``nn/conf/dropout.bernoulli``
-    and ``normal``) appended to ``draws``; with ``replay``, taken from
-    ``draws`` in order instead (moved to the caller's device, shapes
-    checked)."""
+    """Every draw of ``nn/conf/dropout.bernoulli``, ``normal`` and
+    ``exponential`` (dropout, weight noise, the pretrain layers' draws)
+    appended to ``draws``; with ``replay``, taken from ``draws`` in order
+    instead (moved to the caller's device, shapes checked)."""
     from deeplearning4j_torch.nn.conf import dropout as pdrop
 
-    real = {n: getattr(pdrop, n) for n in ("bernoulli", "normal")}
+    real = {n: getattr(pdrop, n) for n in ("bernoulli", "normal", "exponential")}
 
     def make(name):
         def draw(gen, *args):
@@ -4066,7 +4142,8 @@ def launches_of(fn, want, label):
 def card_vs_cpu(label, conf, net, f, l, m):
     """compute_gradient_and_score (and output) on the card against the
     same net on the CPU, where every kernel is its plain version and
-    every step loop runs on the CPU, unmasked and masked."""
+    every step loop runs on the CPU, unmasked and masked. A gradient that
+    is 0 on the CPU (a frozen layer's) must be 0 on the card."""
     from deeplearning4j_torch import DataSet, MultiLayerNetwork
     from deeplearning4j_torch.utils.trees import leaves, tree_map
 
@@ -4080,9 +4157,11 @@ def card_vs_cpu(label, conf, net, f, l, m):
         g_card, s_card = net.compute_gradient_and_score(ds)
         g_cpu, s_cpu = cpu.compute_gradient_and_score(ds)
         s_err = abs(s_card - s_cpu) / abs(s_cpu)
-        card = dict(leaves(g_card))
-        g_err = {k: ((card[k].cpu() - g).abs().max() / g.abs().max()).item()
-                 for k, g in leaves(g_cpu)}
+        card, g_err = dict(leaves(g_card)), {}
+        for k, g in leaves(g_cpu):
+            d, top = (card[k].cpu() - g).abs().max().item(), g.abs().max().item()
+            # a frozen layer's gradient is 0 on both sides, bit for bit
+            g_err[k] = d / top if top else (0.0 if d == 0 else math.inf)
         key = max(g_err, key=g_err.get)
         o_err = (net.output(f, mask=mask).cpu() - cpu.output(f, mask=mask)).abs().max().item()
         log(f"{label} card vs CPU ({tag}): score {s_card:.4f} vs {s_cpu:.4f} (rel "
@@ -4583,6 +4662,443 @@ def cnn_family(smi):
     return res
 
 
+def frozen_params(net, keys):
+    """Copies of the parameters of the layers ``keys`` (for bit-equality)."""
+    return {k: {n: t.clone() for n, t in net.params[k].items()} for k in keys}
+
+
+def moved_params(net, saved):
+    """The saved parameters that are no longer bit-equal."""
+    return [f"{k}/{n}" for k, ps in saved.items() for n, t in ps.items()
+            if not torch.equal(net.params[k][n], t)]
+
+
+def fit_steps(net, ds, steps):
+    """``steps`` fit steps on ``ds`` in one fit, ended by a sync."""
+    from deeplearning4j_torch import ListDataSetIterator
+
+    def run():
+        net.fit(ListDataSetIterator([ds] * steps))
+        net.score()
+    return run
+
+
+def transfer_vgg16():
+    """VGG16 at bench.py:195's shape (bf16, Adam, CacheMode.DEVICE),
+    ``TransferLearning.Builder(net).set_feature_extractor(TL_FROZEN)
+    .n_out_replace(TL_FROZEN + 1, TL_CLASSES, "xavier")`` (the dl4j-examples'
+    EditLastLayerOthersFrozen): its fit steps against the full network's in
+    TL_TURNS alternating turns, one profiled step (no backward convolution
+    or max-pool backward, the updater given the head only), the frozen
+    layers bit-equal after every step, peak memory of each net alone; then
+    ``TransferLearningHelper`` at fc2 (FitFromFeaturized)."""
+    from deeplearning4j_torch import DataSet, TransferLearning, TransferLearningHelper
+    from deeplearning4j_torch.models import ModelSelector
+    from deeplearning4j_torch.nn.conf import CacheMode
+    from deeplearning4j_torch.nn.multilayer import MultiLayerNetwork
+
+    conf = ModelSelector.select("vgg16", num_classes=VGG_CLASSES, input_shape=VGG_IMG).conf()
+    conf.global_conf.compute_dtype = "bfloat16"
+    conf.global_conf.cache_mode = CacheMode.DEVICE
+    full = MultiLayerNetwork(conf).init()                # device defaults to the card
+    rng = np.random.default_rng(19)
+    f, l = zoo_data(rng, VGG_B, VGG_IMG, VGG_CLASSES)
+    ds = DataSet(f, l)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    fit_steps(full, ds, 2)()
+    full_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    tl = (TransferLearning.Builder(full).set_feature_extractor(TL_FROZEN)
+          .n_out_replace(TL_FROZEN + 1, TL_CLASSES, "xavier").build())
+    frozen = [str(i) for i in range(TL_FROZEN + 1)]
+    saved = frozen_params(tl, frozen)
+    tds = DataSet(f, np.eye(TL_CLASSES, dtype=np.float32)[rng.integers(0, TL_CLASSES, VGG_B)])
+    losses = record_losses(tl)
+    fit_steps(tl, tds, 2)()
+    med, turns = alternating_ms({"full": fit_steps(full, ds, TL_STEPS),
+                                 "transfer": fit_steps(tl, tds, TL_STEPS)}, TL_TURNS)
+    step_ms = {k: v / TL_STEPS for k, v in med.items()}
+    log(f"VGG16 b={VGG_B} frozen through layer {TL_FROZEN} (fc2), {TL_CLASSES}-way head: "
+        f"{step_ms['transfer']:.2f} ms a step against the full step's {step_ms['full']:.2f} "
+        f"(medians of {TL_TURNS} alternating turns of {TL_STEPS} steps: "
+        + ", ".join(f"{k} " + " ".join(f"{t / TL_STEPS:.2f}" for t in v) for k, v in turns.items())
+        + ")")
+    given = []
+    real_apply = tl.updater.apply
+
+    def spy(state, grads, iteration):
+        given.append(sorted(k for k, g in grads.items() if g))
+        return real_apply(state, grads, iteration)
+    tl.updater.apply = spy                # profile_call tags it, then removes both
+    prof = profile_call("one transferred VGG16 step", lambda: tl.fit(tds), tl.updater,
+                        forbid=("dgrad", "wgrad", "nchwtonhwc", "nhwctonchw",
+                                "convolution_backward", "max_pool2d_with_indices_backward"),
+                        group=vgg_kernel_group)
+    if given != [[str(TL_FROZEN + 1)]]:
+        raise AssertionError(f"the updater was given layers {given}, not the head alone")
+    moved = moved_params(tl, saved)
+    losses = [float(x) for x in losses]
+    if moved or not np.isfinite(losses).all():
+        raise AssertionError(f"frozen VGG16 parameters moved: {moved}; losses {losses}")
+    log(f"transferred VGG16: layers 0-{TL_FROZEN} bit-equal after {len(losses)} steps; "
+        f"the profiled step ran no backward convolution or pooling and gave the updater "
+        f"layer {TL_FROZEN + 1} only; losses " + " ".join(f"{x:.3f}" for x in losses))
+    del full
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    fit_steps(tl, tds, 2)()
+    tl_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"peak memory: transferred VGG16 {tl_peak:.2f} GiB, the full VGG16 {full_peak:.2f} GiB")
+    if not tl_peak < full_peak:
+        raise AssertionError(f"the transferred step's peak {tl_peak:.2f} GiB is not below the "
+                             f"full step's {full_peak:.2f}")
+    helper = TransferLearningHelper(tl, TL_FROZEN)
+    t0 = time.perf_counter()
+    feat = helper.featurize(tds)
+    featurize_s = time.perf_counter() - t0
+    want = tl.output(f)
+    got = helper.output_from_featurized(feat.features)
+    out_err = ((got - want).abs().max() / want.abs().max()).item()
+    if feat.features.shape != (VGG_B, 4096) or not out_err <= PROB_SUM_ATOL:
+        raise AssertionError(f"featurized {feat.features.shape}; output_from_featurized vs "
+                             f"the transferred net's output {out_err:.2e}")
+    helper.fit_featurized(feat)                           # warm-up
+    feat_ms = event_ms(lambda: [helper.fit_featurized(feat) for _ in range(TL_STEPS)]) / TL_STEPS
+    check_probabilities("output_from_featurized", helper.output_from_featurized(feat.features),
+                        (VGG_B, TL_CLASSES), PROB_SUM_ATOL)
+    log(f"TransferLearningHelper at fc2: featurize {featurize_s:.2f} s ({VGG_B} x 4096), "
+        f"output_from_featurized vs the transferred net {out_err:.2e} of the largest "
+        f"probability, fit_featurized {feat_ms:.3f} ms a step")
+    return {"step_ms": step_ms, "turns_ms": turns, "steps": TL_STEPS, "profile": prof,
+            "updater_layers": given, "peak_gib": {"transfer": tl_peak, "full": full_peak},
+            "losses": losses, "featurize_s": featurize_s, "fit_featurized_ms": feat_ms,
+            "featurized_output_err": out_err}
+
+
+def transfer_resnet50():
+    """ResNet50 at bench.py:187's shape through ``TransferLearning.GraphBuilder
+    (net).set_feature_extractor("gap").n_out_replace("output", R50_TL_CLASSES)``:
+    one warm-up and TL_STEPS timed steps; every frozen parameter bit-equal,
+    every frozen BN layer's running statistics moved (the training forward
+    normalises by the batch, as in the JAX package), the head moved; peak
+    memory of a step of each net, the full one first."""
+    from deeplearning4j_torch import DataSet, TransferLearning
+    from deeplearning4j_torch.models import ResNet50
+    from deeplearning4j_torch.nn.conf import CacheMode
+    from deeplearning4j_torch.nn.graph import ComputationGraph
+    from deeplearning4j_torch.nn.layers.wrapper import FrozenImpl
+
+    conf = ResNet50(num_classes=R50_CLASSES, input_shape=R50_IMG).conf()
+    conf.global_conf.compute_dtype = "bfloat16"
+    conf.global_conf.cache_mode = CacheMode.DEVICE
+    net = ComputationGraph(conf).init()
+    full_ds = DataSet(*zoo_data(np.random.default_rng(25), R50_B, R50_IMG, R50_CLASSES))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    fit_steps(net, full_ds, 1)()
+    full_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    tl = (TransferLearning.GraphBuilder(net).set_feature_extractor("gap")
+          .n_out_replace("output", R50_TL_CLASSES).build())
+    del net, full_ds
+    torch.cuda.empty_cache()
+    frozen = [n for n, impl in tl.impls.items() if isinstance(impl, FrozenImpl)]
+    saved = frozen_params(tl, frozen)
+    stats = {n: {k: v.clone() for k, v in tl.states[n].items()} for n in frozen if tl.states[n]}
+    head = tl.params["output"]["W"].clone()
+    f, l = zoo_data(np.random.default_rng(20), R50_B, R50_IMG, R50_TL_CLASSES)
+    ds = DataSet(f, l)
+    losses = record_losses(tl)
+    torch.cuda.reset_peak_memory_stats()
+    fit_steps(tl, ds, 1)()
+    step_ms = event_ms(fit_steps(tl, ds, TL_STEPS)) / TL_STEPS
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    losses = [float(x) for x in losses]
+    still = [n for n, s in stats.items() for k, v in s.items() if torch.equal(tl.states[n][k], v)]
+    moved = moved_params(tl, saved)
+    if (set(tl.impls) - set(frozen) != {"output"} or len(stats) != 53 or still or moved
+            or torch.equal(tl.params["output"]["W"], head) or not np.isfinite(losses).all()):
+        raise AssertionError(f"transferred ResNet50: frozen {len(frozen)}, BN layers "
+                             f"{len(stats)}, statistics that did not move {still}, frozen "
+                             f"parameters that moved {moved}, losses {losses}")
+    log(f"ResNet50 b={R50_B} frozen at gap ({len(frozen)} layer vertices), "
+        f"{R50_TL_CLASSES}-way head: {step_ms:.2f} ms a step over {TL_STEPS}, peak "
+        f"{peak:.2f} GiB against the full step's {full_peak:.2f}; frozen parameters "
+        f"bit-equal, the running statistics of all {len(stats)} frozen BN layers moved; "
+        f"losses " + " ".join(f"{x:.3f}" for x in losses))
+    return {"step_ms": step_ms, "steps": TL_STEPS,
+            "peak_gib": {"transfer": peak, "full": full_peak}, "frozen": len(frozen),
+            "bn_moved": len(stats), "losses": losses}
+
+
+def transfer_char_rnn():
+    """The char-RNN of bench.py:230 with layer 0 frozen
+    (``set_feature_extractor(0)``), TL_CHAR_FITS fits of TRAIN_B x
+    TRAIN_SEQ (TBPTT segments of TRAIN_T): per segment one K1 without the
+    reserve (the frozen layer: no gradient needs its forward), one K1 with
+    it and one K2 for layer 1, no K3 or K4 (a frozen layer is no LSTM pair);
+    layer 0 bit-equal; the fit timed against the unfrozen net's (K3 + K4);
+    then the frozen net's score, gradients and output on the card against
+    the CPU at one segment's shape (``card_vs_cpu``)."""
+    from deeplearning4j_torch import DataSet, TransferLearning
+
+    net = build_net(char_rnn_conf())
+    tl = TransferLearning.Builder(net).set_feature_extractor(0).build()
+    ds = DataSet(*periodic_text(np.random.default_rng(21), TRAIN_B, TRAIN_SEQ))
+    saved = frozen_params(tl, ["0"])
+    tl.fit(ds)
+    net.fit(ds)
+    per_fit = -(-TRAIN_SEQ // TRAIN_T)
+    segs = per_fit * TL_CHAR_FITS
+    launches = launches_of(lambda: [tl.fit(ds) for _ in range(TL_CHAR_FITS)],
+                           {"lstm_fwd": segs, "lstm_fwd_train": segs, "lstm_bwd": segs},
+                           f"char-RNN frozen at layer 0, {TL_CHAR_FITS} fits")
+    med, turns = alternating_ms({"frozen": lambda: tl.fit(ds), "unfrozen": lambda: net.fit(ds)},
+                                RF_TURNS)
+    moved = moved_params(tl, saved)
+    if moved or not np.isfinite(float(tl.score())):
+        raise AssertionError(f"the frozen char-RNN layer moved ({moved}) or its loss is not "
+                             f"finite")
+    log(f"char-RNN frozen at layer 0: {med['frozen']:.2f} ms a fit against the unfrozen "
+        f"{med['unfrozen']:.2f} (K3 + K4), medians of {RF_TURNS} alternating turns; the "
+        f"frozen layer's K1 writes no reserve; layer 0 bit-equal")
+    # one TBPTT segment's shape: the frozen layer's K1 runs without the reserve
+    ref = card_vs_cpu("char-RNN frozen at layer 0", tl.conf, tl,
+                      *masked_text(np.random.default_rng(24), TRAIN_B, TRAIN_T))
+    return {"launches": launches, "fit_ms": med, "turns_ms": turns, "fits": TL_CHAR_FITS,
+            "segments_a_fit": per_fit, "reference": ref}
+
+
+def binary_images(rng, b, n=784):
+    """MNIST-like binary rows: strokes of a few random prototypes with
+    pixels flipped (data with something to model)."""
+    protos = rng.random((10, n)) < 0.2
+    rows = protos[rng.integers(0, 10, b)] ^ (rng.random((b, n)) < 0.03)
+    return rows.astype(np.float32)
+
+
+def pretrain_reference(label, impl, x):
+    """One pretrain loss and its gradients on the card (``impl``, f32)
+    against the same layer on the CPU in f64 from the same parameters and
+    input, replaying the card's draws: (loss rel err, worst gradient rel
+    err), each at most PRE_REF_RTOL."""
+    from deeplearning4j_torch.nn.layers import impl_for
+
+    def loss_and_grads(layer, p, xin, replay):
+        p = {k: v.detach().clone().requires_grad_() for k, v in p.items()}
+        with recorded_draws(draws, replay=replay):
+            loss = layer.pretrain_loss(xin, torch.Generator().manual_seed(5), p=p)
+        return loss, dict(zip(p, torch.autograd.grad(loss, list(p.values()))))
+
+    draws = []
+    loss, grads = loss_and_grads(impl, impl.param_dict(), x, False)
+    gc = copy.deepcopy(impl.gc)
+    gc.dtype = gc.compute_dtype = "float64"
+    cpu = impl_for(impl.conf, gc)
+    ref, rgrads = loss_and_grads(cpu, {k: v.detach().double().cpu()
+                                       for k, v in impl.param_dict().items()},
+                                 x.double().cpu(), True)
+    if draws:
+        raise AssertionError(f"{label}: {len(draws)} draws not replayed")
+    l_err = abs(loss.item() - ref.item()) / abs(ref.item())
+    g_err = {k: ((grads[k].cpu().double() - g).abs().max() / g.abs().max()).item()
+             for k, g in rgrads.items()}
+    worst = max(g_err, key=g_err.get)
+    log(f"{label} pretrain loss card (f32) vs CPU (f64): {loss.item():.6f} vs {ref.item():.6f} "
+        f"(rel {l_err:.2e}), worst gradient {worst} rel {g_err[worst]:.2e}")
+    if not (l_err <= PRE_REF_RTOL and g_err[worst] <= PRE_REF_RTOL):
+        raise AssertionError(f"{label}: card and CPU disagree: loss {l_err}, {worst} "
+                             f"{g_err[worst]}")
+    return {"loss_rel": l_err, "grad_rel": g_err[worst], "worst": worst}
+
+
+def pretrain_ms(net, i, ds):
+    """ms a ``pretrain_layer(i)`` iteration: one warm-up, then PRE_ITERS."""
+    from deeplearning4j_torch import ListDataSetIterator
+
+    net.pretrain_layer(i, ListDataSetIterator([ds]))
+    net.score()
+    return event_ms(lambda: (net.pretrain_layer(i, ListDataSetIterator([ds] * PRE_ITERS)),
+                             net.score())) / PRE_ITERS
+
+
+def pretrain_mnist():
+    """Pretraining at the MNIST widths of the dl4j-examples, b=PRE_B, f32:
+    the stacked RBMs of DeepAutoEncoderExample (binary units, CD-1, each
+    on the activations of the ones below), an AutoEncoder (corruption 0.3)
+    and the VAE of VaeMNISTAnomaly (Bernoulli reconstruction; its
+    ``reconstruction_log_probability`` over PRE_VAE_SAMPLES samples): ms an
+    iteration of each layer, finite losses, one step of the first RBM, the
+    last RBM (on its input), the AutoEncoder and the VAE against the CPU
+    in f64."""
+    from deeplearning4j_torch import DataSet, NeuralNetConfiguration, Sgd, Adam
+    from deeplearning4j_torch.nn.conf import layers as L
+    from deeplearning4j_torch.nn.conf.reconstruction import BernoulliReconstructionDistribution
+    from deeplearning4j_torch.nn.multilayer import MultiLayerNetwork
+
+    rng = np.random.default_rng(22)
+    x = binary_images(rng, PRE_B)
+    ds = DataSet(x, np.eye(10, dtype=np.float32)[rng.integers(0, 10, PRE_B)])
+    res = {}
+    b = NeuralNetConfiguration.builder().seed(123).updater(Sgd(learning_rate=0.1)).list()
+    for n_in, n_out in zip(PRE_RBM[:-1], PRE_RBM[1:]):
+        b.layer(L.RBM(n_in=n_in, n_out=n_out, activation="sigmoid"))
+    rbms = MultiLayerNetwork(b.layer(L.OutputLayer(n_in=PRE_RBM[-1], n_out=10,
+                                                   activation="softmax")).build()).init()
+    xd = torch.from_numpy(x).to(rbms.device)
+    n = len(PRE_RBM) - 1
+    res["rbm_reference"] = {"0": pretrain_reference("RBM 784-1000", rbms.impls[0], xd)}
+    res["rbm_ms"] = [pretrain_ms(rbms, i, ds) for i in range(n)]
+    last = rbms.feed_forward_to_layer(n - 2, xd)
+    res["rbm_reference"][str(n - 1)] = pretrain_reference(f"RBM {PRE_RBM[-2]}-{PRE_RBM[-1]}",
+                                                          rbms.impls[n - 1], last)
+    res["rbm_score"] = rbms.score()
+    ae = MultiLayerNetwork(NeuralNetConfiguration.builder().seed(123)
+                           .updater(Adam(learning_rate=1e-3)).activation("sigmoid").list()
+                           .layer(L.AutoEncoder(n_in=PRE_AE[0], n_out=PRE_AE[1],
+                                                corruption_level=0.3))
+                           .layer(L.OutputLayer(n_in=PRE_AE[1], n_out=10, activation="softmax"))
+                           .build()).init()
+    res["autoencoder_reference"] = pretrain_reference("AutoEncoder", ae.impls[0], xd)
+    res["autoencoder_ms"] = pretrain_ms(ae, 0, ds)
+    res["autoencoder_score"] = ae.score()
+    vae = MultiLayerNetwork(NeuralNetConfiguration.builder().seed(123)
+                            .updater(Adam(learning_rate=1e-3)).list()
+                            .layer(L.VariationalAutoencoder(
+                                n_in=784, n_out=PRE_VAE_LATENT, activation="leakyrelu",
+                                encoder_layer_sizes=PRE_VAE_HIDDEN,
+                                decoder_layer_sizes=PRE_VAE_HIDDEN, pzx_activation="identity",
+                                reconstruction_distribution=BernoulliReconstructionDistribution()))
+                            .pretrain(True).backprop(False).build()).init()
+    res["vae_reference"] = pretrain_reference("VAE", vae.impls[0], xd)
+    res["vae_ms"] = pretrain_ms(vae, 0, ds)
+    res["vae_score"] = vae.score()
+    gen = torch.Generator().manual_seed(6)
+    with torch.no_grad():
+        vae.impls[0].reconstruction_log_probability(xd, gen, PRE_VAE_SAMPLES)
+        res["vae_log_prob_ms"] = event_ms(lambda: vae.impls[0].reconstruction_log_probability(
+            xd, gen, PRE_VAE_SAMPLES))
+        lp = vae.impls[0].reconstruction_log_probability(xd, gen, PRE_VAE_SAMPLES)
+    scores = [res["rbm_score"], res["autoencoder_score"], res["vae_score"]]
+    if tuple(lp.shape) != (PRE_B,) or not torch.isfinite(lp).all() or not np.isfinite(scores).all():
+        raise AssertionError(f"pretraining: scores {scores}, log p(x) {tuple(lp.shape)}")
+    res["vae_log_prob_mean"] = lp.mean().item()
+    log(f"pretraining b={PRE_B} (f32), ms an iteration: RBMs "
+        + " ".join(f"{a}-{c} {m:.3f}" for a, c, m in zip(PRE_RBM, PRE_RBM[1:], res["rbm_ms"]))
+        + f"; AutoEncoder {res['autoencoder_ms']:.3f}; VAE {res['vae_ms']:.3f}; the VAE's "
+        f"reconstruction_log_probability ({PRE_VAE_SAMPLES} samples) "
+        f"{res['vae_log_prob_ms']:.3f} ms, mean {res['vae_log_prob_mean']:.2f}")
+    return res
+
+
+def yolo_labels(rng, b, grid, classes, per_image=3):
+    """[b, 4 + classes, grid, grid]: ``per_image`` boxes of 0.5-4 cells, each
+    in the cell of its centre, with a one-hot class."""
+    labels = np.zeros((b, 4 + classes, grid, grid), np.float32)
+    for m in range(b):
+        for _ in range(per_image):
+            i, j = rng.integers(0, grid, 2)
+            w, h = rng.uniform(0.5, 4.0, 2)
+            cx, cy = j + rng.uniform(0.05, 0.95), i + rng.uniform(0.05, 0.95)
+            labels[m, :, i, j] = 0
+            labels[m, :4, i, j] = [cx - w / 2, cy - h / 2, cx + w / 2, cy + h / 2]
+            labels[m, 4 + rng.integers(0, classes), i, j] = 1.0
+    return labels
+
+
+def yolo2_head():
+    """Yolo2OutputLayer at TinyYOLO's head: the loss and its input gradient
+    at [YOLO_B, 13, 13, 5B + C] = [YOLO_B, 13, 13, 45] (the JAX layer's
+    layout: classes shared by the B anchors, not DL4J's B(5 + C) = 125;
+    ROADMAP Queue C) on the card (f32) against the CPU in f64, the
+    loss and backward timed; then YOLO_STEPS Adam fit steps of a small
+    convolutional trunk ending in it (finite losses, ``output``'s class
+    rows summing to 1) and one profiled step."""
+    from deeplearning4j_torch import DataSet, NeuralNetConfiguration, Adam
+    from deeplearning4j_torch.nn.conf import GlobalConfig
+    from deeplearning4j_torch.nn.conf import layers as L
+    from deeplearning4j_torch.nn.conf.inputs import InputType
+    from deeplearning4j_torch.nn.layers import impl_for
+    from deeplearning4j_torch.nn.multilayer import MultiLayerNetwork
+
+    rng = np.random.default_rng(23)
+    n_box, g = len(YOLO_ANCHORS), YOLO_GRID
+    width = 5 * n_box + YOLO_CLASSES
+    same = L.ConvolutionMode.Same
+    trunk = MultiLayerNetwork(
+        NeuralNetConfiguration.builder().seed(7).updater(Adam(learning_rate=1e-3))
+        .activation("leakyrelu").list()
+        .layer(L.ConvolutionLayer(n_out=16, kernel_size=(3, 3), convolution_mode=same))
+        .layer(L.SubsamplingLayer(kernel_size=(2, 2), stride=(2, 2)))
+        .layer(L.ConvolutionLayer(n_out=32, kernel_size=(3, 3), convolution_mode=same))
+        .layer(L.SubsamplingLayer(kernel_size=(2, 2), stride=(2, 2)))
+        .layer(L.ConvolutionLayer(n_out=width, kernel_size=(1, 1), activation="identity"))
+        .layer(L.Yolo2OutputLayer(boxes=YOLO_ANCHORS))
+        .set_input_type(InputType.convolutional(4 * g, 4 * g, 3)).build()).init()
+    card = trunk.device
+    conf = L.Yolo2OutputLayer(boxes=YOLO_ANCHORS)
+    x = rng.normal(scale=0.8, size=(YOLO_B, g, g, width)).astype(np.float32)
+    labels = yolo_labels(rng, YOLO_B, g, YOLO_CLASSES)
+    out = {}
+    for dev, dtype in ((card, "float32"), (torch.device("cpu"), "float64")):
+        impl = impl_for(conf, GlobalConfig(dtype=dtype, compute_dtype=dtype))
+        xt = torch.from_numpy(x).to(dev, getattr(torch, dtype)).requires_grad_()
+        lt = torch.from_numpy(labels).to(dev, getattr(torch, dtype))
+        loss = impl.loss_on(xt, lt)
+        out[dtype] = (loss, torch.autograd.grad(loss, xt)[0])
+    (loss, grad), (ref, rgrad) = out["float32"], out["float64"]
+    l_err = abs(loss.item() - ref.item()) / abs(ref.item())
+    g_err = ((grad.cpu().double() - rgrad).abs().max() / rgrad.abs().max()).item()
+    log(f"Yolo2 loss at [{YOLO_B}, {g}, {g}, {width}] card (f32) vs CPU (f64): "
+        f"{loss.item():.5f} vs {ref.item():.5f} (rel {l_err:.2e}), input gradient rel "
+        f"{g_err:.2e}")
+    if not (l_err <= YOLO_REF_RTOL and g_err <= YOLO_REF_RTOL):
+        raise AssertionError(f"Yolo2 card and CPU disagree: loss {l_err}, gradient {g_err}")
+    impl = impl_for(conf, GlobalConfig())
+    xt = torch.from_numpy(x).to(card).requires_grad_()
+    lt = torch.from_numpy(labels).to(card)
+    loss_ms = cuda_ms(lambda: torch.autograd.grad(impl.loss_on(xt, lt), xt), 10)
+    f = rng.normal(size=(YOLO_B, 3, 4 * g, 4 * g)).astype(np.float32)
+    ds = DataSet(f, labels)
+    losses = record_losses(trunk)
+    fit_steps(trunk, ds, 1)()
+    step_ms = event_ms(fit_steps(trunk, ds, YOLO_STEPS)) / YOLO_STEPS
+    prof = profile_call("one Yolo2 trunk step", lambda: trunk.fit(ds), trunk.updater)
+    losses = [float(v) for v in losses]
+    y = trunk.output(f)
+    probs = y[..., 5 * n_box:]
+    check_probabilities("Yolo2 trunk class", probs.reshape(-1, YOLO_CLASSES),
+                        (YOLO_B * g * g, YOLO_CLASSES), 1e-5)
+    if tuple(y.shape) != (YOLO_B, g, g, width) or not np.isfinite(losses).all():
+        raise AssertionError(f"Yolo2 trunk: output {tuple(y.shape)}, losses {losses}")
+    log(f"Yolo2 loss + input gradient {loss_ms:.3f} ms on the card; trunk b={YOLO_B} "
+        f"{4 * g}x{4 * g}: {step_ms:.2f} ms a fit step, losses "
+        + " ".join(f"{v:.3f}" for v in losses))
+    return {"loss_rel": l_err, "grad_rel": g_err, "loss_grad_ms": loss_ms,
+            "trunk_step_ms": step_ms, "trunk_losses": losses, "trunk_profile": prof}
+
+
+def transfer_pretrain(smi):
+    """Transfer learning and pretraining on the card (VGG16, ResNet50, the
+    char-RNN frozen at layer 0, the MNIST-width pretrain layers, Yolo2),
+    each path driven with the counts set to 0 just before and read just
+    after: the char-RNN launches K1 and K2 only, the others none."""
+    t0 = time.perf_counter()
+    res = {"card": smi}
+    for name, fn in (("vgg16", transfer_vgg16), ("resnet50", transfer_resnet50),
+                     ("pretrain", pretrain_mnist), ("yolo2", yolo2_head)):
+        reset_counts()
+        res[name] = fn()
+        launches = read_counts()
+        if any(launches.values()):
+            raise AssertionError(f"transfer_pretrain {name} launched LSTM or flash kernels: "
+                                 f"{launches}")
+        torch.cuda.empty_cache()
+    res["char_rnn"] = transfer_char_rnn()
+    res["seconds"] = time.perf_counter() - t0
+    log(f"transfer_pretrain took {res['seconds']:.1f} s")
+    return res
+
+
 def build():
     """Compile every kernel of the port, one nvcc per source, all at once,
     and print what ptxas reports of registers, shared memory and spills."""
@@ -4613,7 +5129,7 @@ def build():
 
 
 def kernel_line(serving, training, served, streamed, trained, flash, lm, decode, moe, graph,
-                reg, lmd, ev, rf):
+                reg, lmd, ev, rf, tp):
     """The {"kernels": [...]} entries: for K1-K4 numbers at the char-RNN's
     training shape, the launches of its training main path, and K1/K3's
     serving numbers and their decode rows (T=1, b=GEN_B, one a
@@ -4631,7 +5147,11 @@ def kernel_line(serving, training, served, streamed, trained, flash, lm, decode,
     of the recurrent-family phase (``recurrent_family_launches``: the
     bidirectional char-RNN's fits and output, the classifier's fits and
     evaluate, SimpleRnn's fits and stream, and the step-loop nets' fits and
-    outputs, which must be 0)."""
+    outputs, which must be 0), and their launches in the fits of the
+    char-RNN frozen at layer 0 (``transfer_pretrain_launches``: K1 without
+    and with the reserve, K2; K3 and K4 0), with K1's numbers without the
+    reserve at the training shape, the frozen layer's (``no_reserve_train_shape``;
+    its ``max_abs_err`` counts in the entry's)."""
     shape = {"b": TRAIN_B, "T": TRAIN_T, "H": H, "w": "bf16", "peepholes": True}
     phases = {"early_stopping": ev["early_stopping"]["launches"],
               "evaluate_masked": ev["char_rnn"]["masked"]["launches"],
@@ -4653,6 +5173,7 @@ def kernel_line(serving, training, served, streamed, trained, flash, lm, decode,
     def family_launches(*names):
         return {p: sum(c[n] for c in cs for n in names) for p, cs in family_phases.items()}
     sshape = {"b": B, "T": T, "H": H, "w": "bf16", "peepholes": True}
+    frozen = tp["char_rnn"]["launches"]
 
     def entry(name, counter, source, replaces, res, extra=None):
         e = {"name": name, "route": "cuda", "source": f"deeplearning4j_torch/csrc/{source}",
@@ -4682,29 +5203,37 @@ def kernel_line(serving, training, served, streamed, trained, flash, lm, decode,
 
     return [
         entry("lstm_fwd", "lstm_fwd_train", "lstm_cell.cu", "deeplearning4j_tpu/ops/lstm_cell.py:99",
-              [training["lstm_fwd_train/masked"], training["lstm_fwd_train/unmasked"]],
+              [training["lstm_fwd_train/masked"], training["lstm_fwd_train/unmasked"],
+               training["lstm_fwd_frozen/masked"], training["lstm_fwd_frozen/unmasked"]],
               {**serving_of("lstm_fwd", ["lstm_fwd/masked", "lstm_fwd/unmasked"]),
+               "no_reserve_train_shape": {k.split("/")[1]: v for k, v in training.items()
+                                          if k.startswith("lstm_fwd_frozen/")},
                "decode": decode["lstm_fwd"],
                "design": training["lstm_fwd_train/masked"]["design"],
                "graph_tbptt_launches": graph["launches"]["lstm_fwd_train"],
                **evaluate_launches("lstm_fwd", "lstm_fwd_train"),
-               "recurrent_family_launches": family_launches("lstm_fwd", "lstm_fwd_train")}),
+               "recurrent_family_launches": family_launches("lstm_fwd", "lstm_fwd_train"),
+               "transfer_pretrain_launches": {k: frozen[k] for k in ("lstm_fwd",
+                                                                     "lstm_fwd_train")}}),
         entry("lstm_bwd", "lstm_bwd", "lstm_cell_bwd.cu", "deeplearning4j_tpu/ops/lstm_cell.py:235",
               [training["lstm_bwd/masked"], training["lstm_bwd/unmasked"]],
               {"design": training["lstm_bwd/masked"]["design"],
                "graph_tbptt_launches": graph["launches"]["lstm_bwd"],
-               "recurrent_family_launches": family_launches("lstm_bwd")}),
+               "recurrent_family_launches": family_launches("lstm_bwd"),
+               "transfer_pretrain_launches": frozen["lstm_bwd"]}),
         entry("lstm2_fwd", "lstm2_fwd_train", "lstm_fused.cu", "deeplearning4j_tpu/ops/lstm_fused.py:111",
               [training["lstm2_fwd_train"]],
               {**serving_of("lstm2_fwd", ["lstm2_fwd"]), "decode": decode["lstm2_fwd"],
                "design": training["lstm2_fwd_train"]["design"],
                **evaluate_launches("lstm2_fwd", "lstm2_fwd_train"),
-               "recurrent_family_launches": family_launches("lstm2_fwd", "lstm2_fwd_train")}),
+               "recurrent_family_launches": family_launches("lstm2_fwd", "lstm2_fwd_train"),
+               "transfer_pretrain_launches": frozen["lstm2_fwd"] + frozen["lstm2_fwd_train"]}),
         entry("lstm2_bwd", "lstm2_bwd", "lstm_fused_bwd.cu", "deeplearning4j_tpu/ops/lstm_fused.py:249",
               [training["lstm2_bwd"]], {"design": training["lstm2_bwd"]["design"],
                                         **evaluate_launches("lstm2_bwd"),
                                         "recurrent_family_launches":
-                                            family_launches("lstm2_bwd")}),
+                                            family_launches("lstm2_bwd"),
+                                        "transfer_pretrain_launches": frozen["lstm2_bwd"]}),
         *(flash_entry(name, src, line, flash[name], lm, moe, lmd,
                       evaluate_launches(name) if name == "flash_fwd" else {})
           for name, src, line in (
@@ -4800,11 +5329,14 @@ def main() -> int:
     cf = cnn_family(smi)
     torch.cuda.empty_cache()
     print(json.dumps({"cnn_family": cf}))
+    tp = transfer_pretrain(smi)
+    torch.cuda.empty_cache()
+    print(json.dumps({"transfer_pretrain": tp}))
 
     print(json.dumps({"generate": generated}))
     print(json.dumps({"kernels": kernel_line(serving, training, served, streamed,
                                              trained["launches"], flash, lm, decode, moe,
-                                             graph, reg, lmd, ev, rf)}))
+                                             graph, reg, lmd, ev, rf, tp)}))
     log(f"chip_smoke took {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -16,7 +16,7 @@ import torch
 
 __version__ = "0.1.0"
 
-# every name of the JAX package's top level but the TransferLearning three
+# every name of the JAX package's top level
 __all__ = ["resolve_device", "NeuralNetConfiguration", "MultiLayerConfiguration",
            "OptimizationAlgorithm", "GradientNormalization", "BackpropType", "WorkspaceMode",
            "CacheMode", "GlobalConfig", "InputType", "Activation", "LossFunction",
@@ -26,7 +26,8 @@ __all__ = ["resolve_device", "NeuralNetConfiguration", "MultiLayerConfiguration"
            "MultiDataSet", "DataSetIterator", "ListDataSetIterator", "PrefetchDataSetIterator",
            "ShapeBucketingDataSetIterator", "NormalizerStandardize", "NormalizerMinMaxScaler",
            "ImagePreProcessingScaler", "ModelSerializer", "Sgd", "Adam", "AdaMax", "Nadam",
-           "Nesterovs", "RmsProp", "AdaGrad", "AdaDelta", "NoOp", "AMSGrad"]
+           "Nesterovs", "RmsProp", "AdaGrad", "AdaDelta", "NoOp", "AMSGrad", "TransferLearning",
+           "FineTuneConfiguration", "TransferLearningHelper"]
 
 
 def resolve_device(device="cuda") -> torch.device:
@@ -63,6 +64,8 @@ from .nn.updaters import (AdaDelta, AdaGrad, AdaMax, Adam, AMSGrad, Nadam,  # no
                           Nesterovs, NoOp, RmsProp, Sgd)
 from .nn.multilayer import MultiLayerNetwork  # noqa: E402
 from .nn.graph import ComputationGraph  # noqa: E402
+from .nn.transferlearning import (FineTuneConfiguration, TransferLearning,  # noqa: E402
+                                  TransferLearningHelper)
 from .utils.model_serializer import ModelSerializer  # noqa: E402
 from .serving import (ContinuousBatcher, DeadlineExceededError, InferenceServer,  # noqa: E402
                       ModelRegistry, OverloadedError, ServedModel)

@@ -14,7 +14,10 @@ Some knobs are carried as configuration only, so that a JAX
 (the port has no workspaces; PyTorch's caching allocator reuses memory
 whatever they say), ``remat`` (there is no compiler to rematerialise
 under; autograd keeps what the backward needs), ``mini_batch`` and
-``backprop``/``pretrain`` (no layer of the port pretrains).
+``backprop``. ``pretrain`` makes ``MultiLayerNetwork.fit`` pretrain its
+pretrain layers (AutoEncoder, RBM, VariationalAutoencoder) first. The
+VAE's reconstruction distributions are the classes of
+``nn/conf/reconstruction.py``.
 """
 from __future__ import annotations
 
@@ -23,6 +26,11 @@ import dataclasses
 from typing import Any, Dict, List, Optional
 
 from . import dropout as _dropout  # noqa: F401  (registers its @class names)
+from .reconstruction import (BernoulliReconstructionDistribution,  # noqa: F401
+                             CompositeReconstructionDistribution,
+                             ExponentialReconstructionDistribution,
+                             GaussianReconstructionDistribution, LossFunctionWrapper,
+                             ReconstructionDistribution)
 from . import serde
 from .serde import register, to_json, from_json
 from .inputs import InputType
@@ -35,7 +43,9 @@ from ..updaters import SCHEDULES, UPDATERS, Sgd
 __all__ = ["GlobalConfig", "MultiLayerConfiguration", "ComputationGraphConfiguration",
            "ListBuilder", "GraphBuilder", "Builder", "NeuralNetConfiguration", "InputType",
            "GradientNormalization", "BackpropType", "CacheMode", "OptimizationAlgorithm",
-           "WorkspaceMode"]
+           "WorkspaceMode", "ReconstructionDistribution", "GaussianReconstructionDistribution",
+           "BernoulliReconstructionDistribution", "ExponentialReconstructionDistribution",
+           "CompositeReconstructionDistribution", "LossFunctionWrapper"]
 
 for _cls in (*UPDATERS.values(), *SCHEDULES.values()):
     register(_cls)
@@ -196,7 +206,8 @@ class ListBuilder:
         return self
 
     def pretrain(self, flag: bool) -> "ListBuilder":
-        """Carried as configuration: no layer of the port pretrains."""
+        """Whether the network's first ``fit`` pretrains its pretrain
+        layers (``MultiLayerNetwork.pretrain``) before it trains."""
         self._pretrain = bool(flag)
         return self
 

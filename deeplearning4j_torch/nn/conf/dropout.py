@@ -10,8 +10,9 @@ is the retain probability (reference 0.9.x semantics).
 
 Where the JAX package takes a ``jax.random`` key these take a
 ``torch.Generator`` on the CPU (``gen``); every draw goes through
-:func:`bernoulli` or :func:`normal`, which draw on the tensor's device (a
-device generator seeded from ``gen`` on a card). The streams differ from
+:func:`bernoulli`, :func:`normal` or :func:`exponential` (the last for the
+VAE's exponential reconstruction samples), which draw on the tensor's
+device (a device generator seeded from ``gen`` on a card). The streams differ from
 JAX's threefry; the semantics are the same. Scalars meet a tensor in its
 dtype, as JAX's weakly typed Python scalars do: under bf16, ``x / p``
 divides by ``p`` rounded to bf16.
@@ -28,7 +29,7 @@ from .serde import register
 __all__ = ["Dropout", "AlphaDropout", "GaussianDropout", "GaussianNoise", "resolve_dropout",
            "DropConnect", "WeightNoise", "BaseConstraint", "MaxNormConstraint",
            "MinMaxNormConstraint", "NonNegativeConstraint", "UnitNormConstraint",
-           "apply_constraints", "draw_seed", "bernoulli", "normal"]
+           "apply_constraints", "draw_seed", "bernoulli", "normal", "exponential"]
 
 _INT32_MAX = 2 ** 31 - 1
 
@@ -55,6 +56,13 @@ def normal(gen, shape, dtype, device) -> torch.Tensor:
     (``jax.random.normal``)."""
     return torch.randn(shape, generator=_device_generator(gen, device), dtype=dtype,
                        device=device)
+
+
+def exponential(gen, shape, dtype, device) -> torch.Tensor:
+    """Standard exponential draws (rate 1) of ``shape`` in ``dtype`` on
+    ``device`` (``jax.random.exponential``)."""
+    return torch.empty(shape, dtype=dtype, device=device).exponential_(
+        generator=_device_generator(gen, device))
 
 
 def _in(v, dtype) -> float:

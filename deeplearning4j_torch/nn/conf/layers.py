@@ -3,9 +3,12 @@
 Counterpart of ``deeplearning4j_tpu/nn/conf/layers.py``, holding only the
 classes the ported slices run (the char-RNN's, the TransformerLM's and its
 MoE variant's, the CNN family's and the zoo's, DropoutLayer,
-CenterLossOutputLayer, and the rest of the recurrent family:
+CenterLossOutputLayer, the rest of the recurrent family:
 GravesBidirectionalLSTM, SimpleRnn and the Bidirectional and LastTimeStep
-wrappers, whose ``inner`` layer encodes as a nested object). Field names
+wrappers, and the pretraining and transfer layers: EmbeddingLayer,
+LossLayer, AutoEncoder, RBM, VariationalAutoencoder, Yolo2OutputLayer and
+the FrozenLayer wrapper; a wrapper's ``inner`` layer encodes as a nested
+object). Field names
 and order are unchanged so JSON written by the JAX package decodes here
 and re-encodes byte for byte; any other layer ``@class`` fails to decode
 with the "Unknown config class" error.
@@ -42,7 +45,9 @@ __all__ = ["Layer", "BaseLayer", "FeedForwardLayer", "DenseLayer", "MoEDenseLaye
            "ActivationLayer", "DropoutLayer", "EmbeddingSequenceLayer", "LSTM", "GravesLSTM",
            "GravesBidirectionalLSTM", "SimpleRnn", "Bidirectional", "LastTimeStep",
            "SelfAttentionLayer", "OutputLayer", "RnnOutputLayer", "CenterLossOutputLayer",
-           "GlobalPoolingLayer", "ConvolutionMode"]
+           "GlobalPoolingLayer", "ConvolutionMode", "EmbeddingLayer", "LossLayer",
+           "AutoEncoder", "RBM", "VariationalAutoencoder", "PoolingDimension",
+           "Yolo2OutputLayer", "FrozenLayer"]
 
 
 class ConvolutionMode:
@@ -99,6 +104,11 @@ class Layer:
 
     def preprocessor_for(self, input_type):
         return None
+
+    def is_pretrain_layer(self):
+        """Whether ``MultiLayerNetwork.pretrain`` trains this layer on its
+        own unsupervised loss."""
+        return False
 
 
 @register
@@ -474,6 +484,15 @@ class DropoutLayer(FeedForwardLayer):
 
 @register
 @dataclasses.dataclass
+class EmbeddingLayer(FeedForwardLayer):
+    """Index -> vector, one index per example: [b] or [b, 1] indices, or a
+    one-hot [b, nIn] (its argmax), -> [b, nOut] (reference
+    ``EmbeddingLayer.java``)."""
+    has_bias: bool = True
+
+
+@register
+@dataclasses.dataclass
 class EmbeddingSequenceLayer(FeedForwardLayer):
     """Index sequence [b, T] -> vector sequence [b, T, nOut]."""
     has_bias: bool = False
@@ -581,8 +600,8 @@ class LastTimeStep(Layer):
 class SelfAttentionLayer(BaseRecurrentLayer):
     """Multi-head self-attention over a sequence [b, T, nIn] -> [b, T, nOut];
     long sequences take the flash-attention kernels (``ops/flash_attention``).
-    ``stream_max_length`` is the KV-cache capacity of streaming inference,
-    which is not ported yet."""
+    ``stream_max_length`` is the KV-cache capacity of streaming inference
+    (``rnn_time_step``); longer streams roll over the tail."""
     num_heads: int = 4
     head_dim: Optional[int] = None
     causal: bool = True
@@ -620,6 +639,20 @@ class RnnOutputLayer(OutputLayer):
 
 @register
 @dataclasses.dataclass
+class LossLayer(FeedForwardLayer):
+    """A loss on its input, without weights (reference ``LossLayer.java``):
+    the activation of the input in inference, the loss on it in training."""
+    loss: str = "mcxent"
+
+    def get_output_type(self, index, input_type):
+        return input_type
+
+    def set_n_in(self, input_type, override=False):
+        pass
+
+
+@register
+@dataclasses.dataclass
 class CenterLossOutputLayer(OutputLayer):
     """Softmax loss + ``lambda_`` x the center loss 0.5 mean ||x - c_y||^2,
     with per-class centres c (layer state, f32) moved by an EMA of rate
@@ -628,6 +661,62 @@ class CenterLossOutputLayer(OutputLayer):
     alpha: float = 0.05
     lambda_: float = 2e-4
     gradient_check: bool = False
+
+
+@register
+@dataclasses.dataclass
+class AutoEncoder(FeedForwardLayer):
+    """Denoising autoencoder, a pretrain layer (reference ``AutoEncoder.java``):
+    the encoder in a forward; ``pretrain`` fits the reconstruction of the
+    input, a share ``corruption_level`` of it zeroed, through the tied
+    weights. ``sparsity`` is carried as configuration."""
+    corruption_level: float = 0.3
+    sparsity: float = 0.0
+    loss: str = "mse"
+
+    def is_pretrain_layer(self):
+        return True
+
+
+@register
+@dataclasses.dataclass
+class RBM(FeedForwardLayer):
+    """Restricted Boltzmann Machine, a pretrain layer (reference ``RBM.java``):
+    a forward is ``propUp``, the mean hidden activation; ``pretrain`` runs
+    CD-k as the free-energy surrogate ``mean(F(v0) - F(v_k))`` over a
+    k-step Gibbs chain that carries no gradient. ``hidden_unit``: binary |
+    rectified | gaussian | identity; ``visible_unit``: binary | gaussian |
+    linear | identity."""
+    hidden_unit: str = "binary"
+    visible_unit: str = "binary"
+    k: int = 1
+    sparsity: float = 0.0
+
+    def is_pretrain_layer(self):
+        return True
+
+
+@register
+@dataclasses.dataclass
+class VariationalAutoencoder(FeedForwardLayer):
+    """Variational autoencoder, a pretrain layer (reference
+    ``VariationalAutoencoder.java``): ``n_out`` is the latent size; a
+    forward gives the mean of q(z|x), ``pretrain`` minimises the negative
+    ELBO over ``num_samples`` draws. ``reconstruction_distribution`` is an
+    object of ``conf/reconstruction.py`` or a name: gaussian | bernoulli |
+    exponential."""
+    encoder_layer_sizes: Tuple[int, ...] = (100,)
+    decoder_layer_sizes: Tuple[int, ...] = (100,)
+    pzx_activation: str = "identity"
+    reconstruction_distribution: Any = "gaussian"
+    num_samples: int = 1
+
+    def is_pretrain_layer(self):
+        return True
+
+
+class PoolingDimension:
+    pass
 
 
 @register
@@ -646,3 +735,37 @@ class GlobalPoolingLayer(Layer):
         if isinstance(input_type, InputTypeRecurrent):
             return InputTypeFeedForward(input_type.size)
         return input_type
+
+
+@register
+@dataclasses.dataclass
+class Yolo2OutputLayer(Layer):
+    """YOLOv2 detection loss (reference ``Yolo2OutputLayer.java``): input
+    [b, gh, gw, 5B + C] (B anchor blocks of x, y, w, h, confidence, then
+    C class logits a cell), labels [b, 4 + C, gh, gw] (corners x1, y1, x2,
+    y2 in grid units, then a one-hot class map). ``boxes``: the B anchors'
+    [w, h] in grid units."""
+    boxes: Optional[List[List[float]]] = None
+    lambda_coord: float = 5.0
+    lambda_no_obj: float = 0.5
+
+    def get_output_type(self, index, input_type):
+        return input_type
+
+
+@register
+@dataclasses.dataclass
+class FrozenLayer(Layer):
+    """The inner layer with its parameters held fixed (reference
+    ``FrozenLayer.java``): it runs as it is, and no gradient reaches its
+    parameters."""
+    inner: Optional[Any] = None
+
+    def get_output_type(self, index, input_type):
+        return self.inner.get_output_type(index, input_type)
+
+    def set_n_in(self, input_type, override=False):
+        self.inner.set_n_in(input_type, override)
+
+    def preprocessor_for(self, input_type):
+        return self.inner.preprocessor_for(input_type)

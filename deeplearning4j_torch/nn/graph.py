@@ -11,8 +11,11 @@ their loss on the preoutput (``fused_softmax_skip_set``). An update is the
 JAX step core: loss -> autograd gradients -> minimize flip ->
 ``normalize_gradients`` -> each layer vertex's updater -> ``p - u`` in
 place, then the layers' new state (BatchNormalization's running
-statistics) is committed. The loss adds the auxiliary losses layers leave
-in ``ctx["aux_loss"]`` (MoE load balancing). Truncated BPTT is the loop
+statistics) is committed. Frozen vertices (``FrozenLayer``) train as in
+``MultiLayerNetwork`` (its docstring): no gradient, and no updater work
+while their updater state is zero; a LossLayer may be an output vertex.
+The loss adds the auxiliary losses layers leave in ``ctx["aux_loss"]``
+(MoE load balancing). Truncated BPTT is the loop
 both containers share (``multilayer._run_tbptt``): every input stream and
 3-D label sliced per segment, the carries detached by vertex name. Each
 layer vertex's input preprocessor runs just before it, and convolutional
@@ -81,6 +84,7 @@ class ComputationGraph(nn.Module):
         self._gen = None             # the training step's stream (dropout, noise)
         self._rnn_state = None       # streaming state for rnn_time_step, by vertex
         self._warned_tbptt = False
+        self._idle_seen = {}         # frozen vertex -> (updater state, all zero?)
 
     # ------------------------------------------------------------------ init
     def init(self, params: Optional[Dict[str, Dict]] = None, device="cuda",
@@ -143,6 +147,7 @@ class ComputationGraph(nn.Module):
     _to_device = MultiLayerNetwork._to_device
     _trainable = MultiLayerNetwork._trainable
     _grads = MultiLayerNetwork._grads
+    _idle_frozen = MultiLayerNetwork._idle_frozen
     _update = MultiLayerNetwork._update
     _apply_gradients = MultiLayerNetwork._apply_gradients
     _apply_constraints = MultiLayerNetwork._apply_constraints
@@ -355,7 +360,8 @@ class ComputationGraph(nn.Module):
         eps = [self._to_device(e) for e in _as_list(epsilons)]
         acts, _, _ = self._apply_graph(xs, None, True)
         outs = [acts[n] for n in self.conf.network_outputs]
-        grads = self._grads(outs, [e.to(o.dtype) for o, e in zip(outs, eps)])
+        grads = self._grads(outs, [e.to(o.dtype) for o, e in zip(outs, eps)],
+                            skip=self._idle_frozen())
         self._apply_gradients(grads, self.iteration_count)
         self.iteration_count += 1
         return self

@@ -1,4 +1,4 @@
-"""Output layer implementations: OutputLayer, RnnOutputLayer,
+"""Output layer implementations: OutputLayer, RnnOutputLayer, LossLayer,
 CenterLossOutputLayer.
 
 Counterpart of ``deeplearning4j_tpu/nn/layers/output.py``: a dense
@@ -13,7 +13,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from .base import implements, train_rng
+from .base import LayerImpl, implements, train_rng
 from .feedforward import DenseImpl
 from ..losses import get_loss
 
@@ -31,6 +31,19 @@ class OutputLayerImpl(DenseImpl):
     def loss_on(self, x, labels, mask=None, train=False, gen=None):
         x = self.maybe_dropout(x, train, gen)
         return get_loss(self.conf.loss)(labels, self.preout(x), self.activation_name, mask)
+
+
+@implements("LossLayer")
+class LossLayerImpl(LayerImpl):
+    """A loss without weights (reference ``LossLayer.java``): the
+    activation of the input in inference (in the input's dtype), the loss
+    of the input as the preoutput in training; no input dropout."""
+
+    def forward(self, x, mask=None, ctx=None):
+        return self.activation(x)
+
+    def loss_on(self, x, labels, mask=None, train=False, gen=None):
+        return get_loss(self.conf.loss)(labels, x, self.activation_name, mask)
 
 
 @implements("CenterLossOutputLayer")

@@ -22,6 +22,22 @@ layer's updater -> ``p - u``, applied in place -> the layers' constraints;
 then the layers' new state (BatchNormalization's running statistics) is
 committed.
 
+Frozen layers (``FrozenLayer``, ``nn/layers/wrapper.py``) hold parameters
+with ``requires_grad`` off: autograd records nothing of them, and their
+gradient is 0, as ``stop_gradient``'s in the JAX package, whose step then
+runs each frozen layer's updater on that zero gradient. The step here skips
+a frozen layer whose updater state is all zero (``_idle_frozen``): every
+updater of ``nn/updaters.py`` leaves such state at zero and updates by
+exactly 0, so skipping gives the same bits; a frozen layer with moments
+(from a JAX zip) runs its updater on the zero gradient, as in JAX.
+
+Pretraining (``pretrain``, ``pretrain_layer``, and ``fit``'s one-time
+hook when the configuration says ``pretrain``): each pretrain layer
+(AutoEncoder, RBM, VariationalAutoencoder) fits its own ``pretrain_loss``
+on the activations of the layer before it, with its updater from a fresh
+state and no gradient normalization or penalty, as in the JAX package;
+the draws come from the network's generator.
+
 Regularisation in training (``nn/conf/dropout.py``): the network's own
 ``torch.Generator`` (``_gen``) is the step's stream; each training forward
 splits it per layer (``layers.base.StepGenerators``, the JAX package's
@@ -68,10 +84,11 @@ from .. import resolve_device
 from .conf import BackpropType, CacheMode, MultiLayerConfiguration
 from .conf.dropout import apply_constraints
 from .conf.inputs import InputTypeConvolutional
-from .conf.layers import DropoutLayer, FeedForwardLayer
+from .conf.layers import DropoutLayer, FeedForwardLayer, LossLayer
 from .layers import impl_for
 from .layers.base import StepGenerators
 from .layers.recurrent import GravesBidirectionalLSTMImpl, _BaseLSTMImpl
+from .layers.wrapper import FrozenImpl
 from .updaters import Sgd
 from ..datasets.dataset import DataSet, ListDataSetIterator, MultiDataSet, to_tensor
 from ..datasets.prefetch import wrap_for_training
@@ -133,6 +150,8 @@ class MultiLayerNetwork(nn.Module):
         self._gen = None            # the training step's stream (dropout, noise)
         self._rnn_state = None      # streaming state for rnn_time_step
         self._warned_tbptt = False
+        self._idle_seen = {}        # frozen layer -> (updater state, all zero?)
+        self._pretrained = False    # fit's one-time pretrain hook
 
     # ------------------------------------------------------------------ init
     def init(self, params: Optional[Dict[str, Dict]] = None, device="cuda",
@@ -157,7 +176,8 @@ class MultiLayerNetwork(nn.Module):
                 it = lc.get_output_type(i, it)
         for i, lc in enumerate(layers):
             inner = getattr(lc, "inner", None) or lc
-            if isinstance(inner, FeedForwardLayer) and not isinstance(inner, DropoutLayer):
+            if (isinstance(inner, FeedForwardLayer)
+                    and not isinstance(inner, (DropoutLayer, LossLayer))):
                 if inner.n_out is None or inner.n_in is None:
                     raise ValueError(f"Layer {i} ({type(inner).__name__}): n_in and "
                                      f"n_out must be set (or set_input_type)")
@@ -381,35 +401,67 @@ class MultiLayerNetwork(nn.Module):
             reg = reg + impl.regularization()
         return loss + reg + ctx.get("aux_loss", 0.0), ctx.get("rnn_state_out")
 
-    def _grads(self, outputs, grad_outputs=None) -> Dict[str, Dict[str, torch.Tensor]]:
+    def _grads(self, outputs, grad_outputs=None, skip=()) -> Dict[str, Dict[str, torch.Tensor]]:
         """{layer: {param: gradient}} of ``outputs`` (a loss, or tensors
         weighted by ``grad_outputs``: a vector-Jacobian product); zeros for
-        a parameter that does not reach them."""
+        a parameter that does not reach them or that is frozen
+        (``requires_grad`` off). The layers in ``skip`` get {}: no tensor
+        at all. Only a net frozen whole, with no parameter to differentiate,
+        takes no autograd call; otherwise outputs that autograd did not
+        record raise as autograd does."""
         params = self._trainable()
-        flat = list(leaves(params))
-        gs = torch.autograd.grad(outputs, [p for _, p in flat], grad_outputs=grad_outputs,
-                                 allow_unused=True)
-        grads = nest({path: torch.zeros_like(p) if g is None else g
-                      for (path, p), g in zip(flat, gs)})
+        flat = list(leaves({k: v for k, v in params.items() if k not in skip}))
+        want = [p for _, p in flat if p.requires_grad]
+        gs = (torch.autograd.grad(outputs, want, grad_outputs=grad_outputs, allow_unused=True)
+              if want else [])
+        got = {id(p): g for p, g in zip(want, gs)}
+        grads = nest({path: torch.zeros_like(p) if got.get(id(p)) is None else got[id(p)]
+                      for path, p in flat})
         return {i: grads.get(i, {}) for i in params}
+
+    def _idle_frozen(self):
+        """The keys of the frozen layers whose updater state is all zero,
+        which a step skips (the module docstring). The verdict is kept
+        beside the state object it was read from: a step passes a skipped
+        layer's state on as it is, and records an updated frozen layer's as
+        not zero, so only a state put in place from outside (init, a
+        restore) is read, once (a device sync)."""
+        idle = set()
+        for k, impl in self._layers().items():
+            if not isinstance(impl, FrozenImpl):
+                continue
+            st = self.updater_state.get(k)
+            seen = self._idle_seen.get(k)
+            if seen is None or seen[0] is not st:
+                seen = (st, not any(bool(t.any()) for _, t in leaves(st or {})))
+                self._idle_seen[k] = seen
+            if seen[1]:
+                idle.add(k)
+        return idle
 
     def _update(self, loss, iteration) -> None:
         """Gradients of ``loss`` -> minimize flip -> :meth:`_apply_gradients`
         -> :meth:`_apply_constraints`."""
-        grads = self._grads(loss)
+        grads = self._grads(loss, skip=self._idle_frozen())
         if not self.gc.minimize:
             grads = {i: tree_map(torch.neg, gs) for i, gs in grads.items()}
         self._apply_gradients(grads, iteration)
         self._apply_constraints()
 
     def _apply_gradients(self, grads, iteration) -> None:
-        """Normalization -> the layers' updaters -> ``p - u`` in place."""
+        """Normalization -> the layers' updaters -> ``p - u`` in place; a
+        layer whose gradient dict is empty (no parameters, or skipped)
+        keeps its parameters and updater state."""
         grads = normalize_gradients(grads, self.gc.gradient_normalization,
                                     self.gc.gradient_normalization_threshold)
         updates, self.updater_state = self.updater.apply(self.updater_state, grads, iteration)
         with torch.no_grad():
             for i, ps in self._trainable().items():
-                tree_map(lambda p, u: p.sub_(u.to(p.dtype)), ps, updates[i])
+                if updates[i]:
+                    tree_map(lambda p, u: p.sub_(u.to(p.dtype)), ps, updates[i])
+        for k, impl in self._layers().items():
+            if isinstance(impl, FrozenImpl) and grads[k]:
+                self._idle_seen[k] = (self.updater_state[k], False)
 
     def _apply_constraints(self) -> None:
         """Each layer's constraints projected onto its parameters in place,
@@ -449,8 +501,57 @@ class MultiLayerNetwork(nn.Module):
         DataSetIterator (or any iterable of DataSets), or (features, labels)
         arrays. A DataSetIterator goes through the prefetch pipeline
         (``datasets/prefetch.py::wrap_for_training``: workers, put-ahead to
-        the device, ``CacheMode.DEVICE``), shut down when fit ends."""
+        the device, ``CacheMode.DEVICE``), shut down when fit ends. When the
+        configuration says ``pretrain``, the first fit pretrains on the
+        same data first (the JAX package's ``fit``)."""
+        if self.conf.pretrain and not self._pretrained:
+            if labels is not None:
+                data, labels = DataSet(np.asarray(data), np.asarray(labels)), None
+            if isinstance(data, DataSet):
+                data = ListDataSetIterator([data])
+            self.pretrain(data)
+            self._pretrained = True
         return _fit_epochs(self, data, labels, epochs)
+
+    # ------------------------------------------------------------- pretrain
+    def pretrain(self, iterator, epochs=1):
+        """Layerwise unsupervised pretraining (reference ``pretrain(iter)``):
+        :meth:`pretrain_layer` on each layer whose config
+        ``is_pretrain_layer``, in order."""
+        for i, lc in enumerate(self.conf.layers):
+            if lc.is_pretrain_layer():
+                self.pretrain_layer(i, iterator, epochs=epochs)
+        return self
+
+    def pretrain_layer(self, layer_idx, iterator, epochs=1):
+        """Reference ``pretrainLayer(int, DataSetIterator)``: ``epochs``
+        passes over ``iterator``, one update a minibatch of the layer's
+        ``pretrain_loss`` on ``feed_forward_to_layer(layer_idx - 1)`` of
+        the features (the adapted features for layer 0), by the layer's
+        updater from a fresh state at iterations 0, 1, ...; ``score_`` is
+        the last loss."""
+        impl = self.impls[layer_idx]
+        if not hasattr(impl, "pretrain_loss"):
+            raise ValueError(f"Layer {layer_idx} ({type(impl).__name__}) is not a "
+                             f"pretrainable layer")
+        updater = self.updater.layer_updaters[str(layer_idx)]
+        params = impl.param_dict()
+        state = updater.init_state(params)
+        it = 0
+        for _ in range(epochs):
+            for ds in iterator:
+                f = self._to_device(ds.features)
+                x = (self.feed_forward_to_layer(layer_idx - 1, f) if layer_idx > 0
+                     else nchw_to_nhwc(f, self.conf.input_type))
+                loss = impl.pretrain_loss(x, self._gen)
+                grads = dict(zip(params, torch.autograd.grad(loss, list(params.values()))))
+                updates, state = updater.apply(state, grads, it)
+                with torch.no_grad():
+                    for k, p in params.items():
+                        p.sub_(updates[k].to(p.dtype))
+                it += 1
+        self.score_ = loss.detach()
+        return self
 
     def set_listeners(self, *listeners):
         """Replace the listeners (``optimize/listeners.py``)."""

@@ -280,8 +280,8 @@ def test_simplecnn_matches_jax_and_trains(tmp_path):
 # ---------------------------------------------------------------- the exports
 def test_top_level_exports_and_weight_distributions(tmp_path):
     """``deeplearning4j_torch`` exports every name of the JAX package's top
-    level but the three TransferLearning names (a script switches packages
-    by its import line), each the same kind of thing; ``WeightInit`` and
+    level (a script switches packages by its import line), each the same
+    kind of thing; ``WeightInit`` and
     the Distribution classes write the JAX package's configuration.json
     data, and a JAX configuration with a distribution initialises in the
     port from it."""
@@ -295,7 +295,7 @@ def test_top_level_exports_and_weight_distributions(tmp_path):
 
     names = {n for n in dir(jax_pkg) if not n.startswith("_") and n[0].isupper()}
     missing = names - set(port.__all__)
-    assert missing == {"TransferLearning", "FineTuneConfiguration", "TransferLearningHelper"}
+    assert missing == set()
     assert all(hasattr(port, n) for n in port.__all__)
     assert port.__version__ == jax_pkg.__version__
     for n in names - missing:
