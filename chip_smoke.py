@@ -230,19 +230,42 @@ and the CUDA toolkit; run from the root of the repository. It
    Yolo2OutputLayer at TinyYOLO's head (13x13, 5 VOC anchors, 20 classes,
    b=32): loss and input gradient against the CPU in f64, and fit steps of
    a small convolutional trunk ending in it;
-22. prints a ``{"cnn": ...}`` line with those numbers, a ``{"generate":
+22. (``keras_embeddings``) imports Keras models through the HDF5 entry
+   points' core (the parsed model_config and weight arrays): Keras
+   applications.VGG16 with its top as a Functional config (224x224x3, 1000
+   classes, weights from a seed) as a ComputationGraph, its f32 output at
+   b=8 against a plain NHWC forward written from the Keras arrays (the
+   Flatten -> Dense kernel permutation at 25088 rows), then bf16 Adam fits
+   at b=256 in alternating turns with the zoo VGG16 (ms a step, peak
+   memory); a Keras LSTM(512) -> LSTM(512) -> TimeDistributed(Dense(80,
+   softmax)) at b=64, T=200: its f32 output (two K1 launches) against a
+   numpy Keras LSTM in Keras's gate order, its bf16 twin's output (one K3)
+   and fits (each one K3 with the reserve and one K4, peepholes off), the
+   first launch of each kernel held against its plain version and timed,
+   card vs CPU gradients; then Word2Vec (HS, negative sampling, CBOW) at
+   bench.py:1645-1661's corpus (20,000 x 40 zipf words, vector 128, window
+   5, batch 8192): words/s, a profiled refit's busy share, one batch's
+   step against the CPU in f64, and the HS fit of 1,000 sentences against
+   the CPU's; ParagraphVectors (DBOW, 100 labels, batch 512) with
+   ``predict``; GloVe
+   on 5,000 sentences; DeepWalk on a BlogCatalog-sized graph with 39
+   planted communities (nearest neighbours in the own community); no K1-K7
+   launch outside the char-LSTM;
+23. prints a ``{"cnn": ...}`` line with those numbers, a ``{"generate":
    ...}`` line with steps 6 and 10's, a ``{"moe_lm": ..., "graph_tbptt":
    ...}`` line with steps 15 and 16's, a ``{"regularized_char_rnn": ...,
    "lm_dropout": ..., "solvers": ...}`` line with step 17's, an
    ``{"evaluation": ...}`` line with step 18's and a
    ``{"recurrent_family": ...}`` line with step 19's, a ``{"cnn_family":
-   ...}`` line with step 20's and a ``{"transfer_pretrain": ...}`` line
-   with step 21's (the card's name and power limit in those four), a
+   ...}`` line with step 20's, a ``{"transfer_pretrain": ...}`` line
+   with step 21's and a ``{"keras_embeddings": ...}`` line with step 22's
+   (the card's name and power limit in those five), a
    ``{"kernels": [...]}`` line (K1's and K3's entries with their decode
    rows; K1/K2's launches in step 16's fit, K5-K7's in step 15's steps;
    K1-K4's in each regularised fit, K5-K7's in the dropout LM's steps and
    their times with dropout; K1, K3, K4 and K5's in step 18; K1-K4's in
-   each path of step 19 and in step 21's frozen char-RNN) and, last, the
+   each path of step 19, in step 21's frozen char-RNN and on step 22's
+   imported char-LSTM) and, last, the
    ``{"ok": true, "device": ...}`` line.
 
 Any failure raises, and the script exits nonzero without the last line.
@@ -627,6 +650,56 @@ YOLO_B, YOLO_GRID, YOLO_CLASSES, YOLO_STEPS = 32, 13, 20, 5
 YOLO_ANCHORS = [[1.08, 1.19], [3.42, 4.41], [6.63, 11.38], [9.42, 5.11], [16.62, 10.52]]
 YOLO_REF_RTOL = 1e-4
 
+# Keras import and the embeddings (keras_embeddings). Keras applications.
+# VGG16 with its top as a Functional model_config (KV_BLOCKS, KV_IMG HWC,
+# KV_CLASSES), weights from KV_SEED, imported on the card: its f32 output at
+# b=KV_B held against a plain NHWC forward from the Keras arrays at
+# KV_OUT_RTOL of the largest entry (both f32 with TF32 off, but cuDNN may
+# take another algorithm, a Winograd one among them, for each side's
+# convolutions; a wrong Flatten -> Dense permutation moves the output by
+# O(1)); then bf16 Adam fits at VGG_B against the zoo VGG16 in KV_TURNS
+# alternating turns of KV_STEPS steps. A Keras char-LSTM (2 x LSTM(KL_H) +
+# TimeDistributed(Dense(KL_VOCAB, softmax)), weights from KL_SEED) at b=KL_B,
+# T=KL_T: its f32 output against a numpy f64 Keras LSTM on KL_ORACLE_ROWS
+# rows at KL_F32_ATOL (probabilities near 1/80; accurate expf/tanhf in
+# K1), its bf16 twin against the f32 output at REF_ATOL, KL_FITS bf16 fits.
+# The embeddings at bench.py:1645-1661's shape (EMB_SENTENCES x EMB_LEN
+# words of zipf(1.3) % EMB_VOCAB from seed 0, vector EMB_DIM, window
+# EMB_WINDOW, batch EMB_BATCH, one epoch): one batch's step on the card in
+# f32 against the CPU in f64 from one random state at EMB_STEP_RTOL of the
+# CPU step's largest update (f32 sums of up to thousands of duplicates in
+# another order: about 1e-6 of it; a dropped duplicate moves it by O(1)).
+# At these settings the fitted vectors go to NaN within a few dozen
+# batches, in the JAX package too (batch 8192 sums every duplicate's
+# update, and w1 is a quarter of the corpus), so the NaN share is reported;
+# the HS fit of the first EMB_CPU_SENTENCES sentences at batch EMB_CPU_BATCH
+# (the JAX package's default, which stays finite) on the card against the
+# CPU (a CPU fit of the whole corpus takes about a minute) at a least cosine
+# of EMB_FIT_COS; a profiled refit of EMB_PROFILE_SENTENCES sentences.
+# ParagraphVectors with PV_GROUPS labels at batch PV_BATCH (finite vectors),
+# predict on PV_HELD_OUT sentences;
+# GloVe on GLOVE_SENTENCES sentences (vector GLOVE_DIM, batch GLOVE_BATCH);
+# DeepWalk on a graph of BlogCatalog's size (DW_VERTICES, DW_EDGES,
+# DW_COMMUNITIES planted communities with DW_WITHIN of the edges inside),
+# d=DW_DIM, window DW_WINDOW, walk length DW_WALK, DW_WALKS walks a vertex
+# (the paper's 80, cut to keep the phase in its time): of each vertex's
+# DW_NEIGHBOURS nearest neighbours at least DW_MIN_SHARE in its community
+# (chance 1/39; a table of random rows reads about that, the fitted one all
+# but 1).
+KV_BLOCKS = ((64, 64), (128, 128), (256, 256, 256), (512, 512, 512), (512, 512, 512))
+KV_IMG, KV_CLASSES, KV_B, KV_SEED = (224, 224, 3), 1000, 8, 40
+KV_OUT_RTOL, KV_TURNS, KV_STEPS = 1e-3, 3, 4
+KL_B, KL_T, KL_H, KL_VOCAB, KL_SEED = 64, 200, 512, 80, 41
+KL_ORACLE_ROWS, KL_F32_ATOL, KL_FITS = 8, 1e-5, 3
+EMB_SENTENCES, EMB_LEN, EMB_VOCAB = 20000, 40, 5000
+EMB_DIM, EMB_WINDOW, EMB_BATCH = 128, 5, 8192
+EMB_PROFILE_SENTENCES, EMB_CPU_SENTENCES, EMB_CPU_BATCH = 1000, 1000, 512
+EMB_STEP_RTOL, EMB_FIT_COS = 1e-3, 0.999
+PV_GROUPS, PV_HELD_OUT, PV_SEED, PV_BATCH = 100, 100, 42, 512
+GLOVE_SENTENCES, GLOVE_DIM, GLOVE_BATCH, GLOVE_SEED = 5000, 100, 4096, 43
+DW_VERTICES, DW_EDGES, DW_COMMUNITIES, DW_WITHIN, DW_SEED = 10312, 333983, 39, 0.8, 44
+DW_DIM, DW_WINDOW, DW_WALK, DW_WALKS, DW_NEIGHBOURS, DW_MIN_SHARE = 128, 10, 40, 2, 10, 0.8
+
 
 def log(msg):
     print(msg, flush=True)
@@ -654,6 +727,45 @@ def bound(bytes_moved, bf16_flops, f32_ops):
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
+def lstm_launch_bound(name, args, reserve):
+    """(bound_ms, bound_by) of one launch of K1-K4 from its arguments, the
+    one count of every K1-K4 bound in this script: each input read and each
+    output written once, the recurrent products in the weights' type (f32
+    ones on the CUDA cores), the peephole and mask terms only when given."""
+    if name in ("lstm_fwd", "lstm2_fwd"):
+        t, b, h4 = args[0].shape
+    else:
+        t, b, h4 = args[1].shape
+    H = h4 // 4
+    w = args[1] if name in ("lstm_fwd", "lstm2_fwd") else args[3 if name == "lstm_bwd" else 5]
+    peep = args[2] if name == "lstm_fwd" else args[4 if name == "lstm_bwd" else
+                                                    5 if name == "lstm2_fwd" else 8]
+    mask = args[3] if name == "lstm_fwd" else args[5] if name == "lstm_bwd" else None
+    w_bytes, seq, seq4, st = H * h4 * w.element_size(), t * b * H * 4, t * b * h4 * 4, b * H * 4
+    mm = 2 * b * H * h4
+    mbytes = t * b * 4 if mask is not None else 0
+    p = 0 if peep is None else 1
+    cell = CELL_OPS - 6 * (1 - p) + (6 if mask is not None else 0)
+    if name == "lstm_fwd":
+        nbytes = (seq4 + w_bytes + 3 * H * 4 * p + 4 * st + seq + mbytes
+                  + (seq4 + seq if reserve else 0))
+        flops, ops = t * mm, t * b * H * cell
+    elif name == "lstm_bwd":
+        nbytes = seq + seq4 + seq + mbytes + w_bytes + 3 * H * 4 * p + 5 * st + seq4 + 3 * H * 4 * p
+        flops, ops = t * mm, t * b * H * (CELL_BWD_OPS + 4)
+    elif name == "lstm2_fwd":
+        nbytes = (seq4 + 3 * w_bytes + 4 * H * 4 + 6 * H * 4 * p + 8 * st + seq
+                  + (3 * seq + 2 * seq4 if reserve else 0))
+        flops, ops = 3 * t * mm, 2 * t * b * H * cell
+    else:
+        nbytes = seq + 2 * seq4 + 2 * seq + 3 * w_bytes + 6 * H * 4 * p + 10 * st + 2 * seq4
+        nbytes += 6 * H * 4 * p
+        flops, ops = 3 * t * mm, 2 * t * b * H * CELL_BWD_OPS
+    if w.dtype == torch.bfloat16:
+        return bound(nbytes, flops, ops)
+    return bound(nbytes, 0, flops + ops)
+
+
 def check_kernels():
     from deeplearning4j_torch.ops import lstm_cell, lstm_fused
 
@@ -678,9 +790,6 @@ def check_kernels():
     mask = torch.clamp((lengths[None, :].float() - steps) / 3.0, 0.0, 1.0).to(dev)
 
     results = {}
-    mm = 2 * B * H * 4 * H  # one [b, H] x [H, 4H] product
-    k1_bytes = (T * B * 4 * H * 4 + H * 4 * H * 2 + 3 * H * 4 + 4 * B * H * 4
-                + T * B * H * 4)
     for label, m in (("masked", mask), ("unmasked", None)):
         args = (xp, rw1, peep3, m, h0, c0)
         ys, hT, cT = lstm_cell.lstm_fwd(*args)
@@ -690,8 +799,7 @@ def check_kernels():
         bitwise = same_bits((ys, hT, cT), lstm_cell.lstm_fwd(*args))
         ms = cuda_ms(lambda: lstm_cell.lstm_fwd(*args), 20)
         plain_ms = cuda_ms(lambda: lstm_cell.lstm_fwd_plain(*args), 3)
-        nbytes = k1_bytes + (T * B * 4 if m is not None else 0)
-        bms, by = bound(nbytes, T * mm, T * B * H * (CELL_OPS + (6 if m is not None else 0)))
+        bms, by = lstm_launch_bound("lstm_fwd", args, reserve=False)
         route = lstm_design("K1", rw1.dtype, B, H)
         results[f"lstm_fwd/{label}"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                                             bound_ms=bms, bound_by=by, design=route)
@@ -713,9 +821,7 @@ def check_kernels():
     bitwise = same_bits(got, lstm_fused.lstm2_fwd(*args))
     ms = cuda_ms(lambda: lstm_fused.lstm2_fwd(*args), 20)
     plain_ms = cuda_ms(lambda: lstm_fused.lstm2_fwd_plain(*args), 3)
-    nbytes = (T * B * 4 * H * 4 + 3 * H * 4 * H * 2 + 4 * H * 4 + 6 * H * 4
-              + 8 * B * H * 4 + T * B * H * 4)
-    bms, by = bound(nbytes, 3 * T * mm, 2 * T * B * H * CELL_OPS)
+    bms, by = lstm_launch_bound("lstm2_fwd", args, reserve=False)
     route = k3_design(rw1.dtype, B, H)
     results["lstm2_fwd"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                                 bound_ms=bms, bound_by=by, design=route)
@@ -773,9 +879,6 @@ def check_training_kernels():
         return max((a - r).abs().max().item() for a, r in zip(got, want) if a is not None)
 
     results = {}
-    mm = 2 * b * H * 4 * H          # one [b, H] x [H, 4H] product
-    seq, seq4 = t * b * H * 4, t * b * 4 * H * 4   # f32 [T, b, H] and [T, b, 4H]
-    w_bytes, st = H * 4 * H * 2, b * H * 4
     for label, m in (("masked", mask), ("unmasked", None)):
         fargs = (xp, rw1, peep3, m, h0, c0)
         got = lstm_cell.lstm_fwd(*fargs, save_reserve=True)
@@ -785,9 +888,7 @@ def check_training_kernels():
         bitwise_f = same_bits(got, lstm_cell.lstm_fwd(*fargs, save_reserve=True))
         ms = cuda_ms(lambda: lstm_cell.lstm_fwd(*fargs, save_reserve=True), 20)
         plain_ms = cuda_ms(lambda: lstm_cell.lstm_fwd_plain(*fargs, save_reserve=True), 3)
-        mbytes = t * b * 4 if m is not None else 0
-        bms, by = bound(seq4 + w_bytes + 3 * H * 4 + 4 * st + seq + mbytes + seq4 + seq,
-                        t * mm, t * b * H * (CELL_OPS + (6 if m is not None else 0)))
+        bms, by = lstm_launch_bound("lstm_fwd", fargs, reserve=True)
         route = lstm_design("K1", rw1.dtype, b, H, reserve=True)
         results[f"lstm_fwd_train/{label}"] = dict(max_abs_err=e_f, ms=ms, plain_ms=plain_ms,
                                                   bound_ms=bms, bound_by=by, design=route)
@@ -803,8 +904,7 @@ def check_training_kernels():
         bitwise_n = same_bits(got, lstm_cell.lstm_fwd(*fargs))
         ms = cuda_ms(lambda: lstm_cell.lstm_fwd(*fargs), 20)
         plain_ms = cuda_ms(lambda: lstm_cell.lstm_fwd_plain(*fargs), 3)
-        bms, by = bound(seq4 + w_bytes + 3 * H * 4 + 4 * st + seq + mbytes,
-                        t * mm, t * b * H * (CELL_OPS + (6 if m is not None else 0)))
+        bms, by = lstm_launch_bound("lstm_fwd", fargs, reserve=False)
         route = lstm_design("K1", rw1.dtype, b, H)
         results[f"lstm_fwd_frozen/{label}"] = dict(max_abs_err=e_n, ms=ms, plain_ms=plain_ms,
                                                    bound_ms=bms, bound_by=by, design=route)
@@ -826,8 +926,7 @@ def check_training_kernels():
         bitwise_b = same_bits(got, lstm_cell.lstm_bwd(*bargs))
         ms = cuda_ms(lambda: lstm_cell.lstm_bwd(*bargs), 20)
         plain_ms = cuda_ms(lambda: lstm_cell.lstm_bwd_plain(*bargs), 3)
-        bms, by = bound(seq + seq4 + seq + mbytes + w_bytes + 3 * H * 4 + 5 * st + seq4
-                        + 3 * H * 4, t * mm, t * b * H * (CELL_BWD_OPS + 4))
+        bms, by = lstm_launch_bound("lstm_bwd", bargs, reserve=False)
         route = lstm_design("K2", rw1.dtype, b, H)
         results[f"lstm_bwd/{label}"] = dict(max_abs_err=e_b, ms=ms, plain_ms=plain_ms,
                                             bound_ms=bms, bound_by=by, design=route)
@@ -852,8 +951,7 @@ def check_training_kernels():
     bitwise_f = same_bits(got, lstm_fused.lstm2_fwd(*fargs, save_reserve=True))
     ms = cuda_ms(lambda: lstm_fused.lstm2_fwd(*fargs, save_reserve=True), 20)
     plain_ms = cuda_ms(lambda: lstm_fused.lstm2_fwd_plain(*fargs, save_reserve=True), 3)
-    bms, by = bound(seq4 + 3 * w_bytes + 4 * H * 4 + 6 * H * 4 + 8 * st + seq
-                    + 3 * seq + 2 * seq4, 3 * t * mm, 2 * t * b * H * CELL_OPS)
+    bms, by = lstm_launch_bound("lstm2_fwd", fargs, reserve=True)
     route = k3_design(rw1.dtype, b, H, reserve=True)
     results["lstm2_fwd_train"] = dict(max_abs_err=e_f, ms=ms, plain_ms=plain_ms,
                                       bound_ms=bms, bound_by=by, design=route)
@@ -873,8 +971,7 @@ def check_training_kernels():
     e_b = err(got, lstm_fused.lstm2_bwd_plain(*bargs))
     ms = cuda_ms(lambda: lstm_fused.lstm2_bwd(*bargs), 20)
     plain_ms = cuda_ms(lambda: lstm_fused.lstm2_bwd_plain(*bargs), 3)
-    bms, by = bound(seq + 2 * seq4 + 2 * seq + 3 * w_bytes + 6 * H * 4 + 10 * st
-                    + 2 * seq4 + 6 * H * 4, 3 * t * mm, 2 * t * b * H * CELL_BWD_OPS)
+    bms, by = lstm_launch_bound("lstm2_bwd", bargs, reserve=False)
     bitwise = same_bits(got, lstm_fused.lstm2_bwd(*bargs))
     route = k4_design(rw1.dtype, b, H)
     results["lstm2_bwd"] = dict(max_abs_err=e_b, ms=ms, plain_ms=plain_ms,
@@ -2055,13 +2152,16 @@ def record_losses(net):
     return losses
 
 
-def trace_call(label, fn):
+def trace_call(label, fn, step_mark=None):
     """One call of ``fn`` under torch.profiler, its Chrome trace written to
     ``build/traces/`` and read back: the device events with their streams,
     the compute stream (the one with the most kernel time), each H2D copy
-    (stream, bytes, pinned or pageable) and the share of its duration that
-    kernels on other streams overlap. None when the profiler recorded no
-    device events."""
+    (stream, bytes, pinned or pageable), the share of its duration that
+    kernels on other streams overlap, and whether it began once the steps
+    had (``under_steps``: after the first compute-stream kernel, or, with
+    ``step_mark``, after the first kernel launched inside the first
+    ``record_function(step_mark)`` range). None when the profiler recorded
+    no device events."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -2074,10 +2174,11 @@ def trace_call(label, fn):
     out.mkdir(parents=True, exist_ok=True)
     path = out / (label.replace(" ", "_") + ".json")
     prof.export_chrome_trace(str(path))
-    return trace_summary(label, json.loads(path.read_text())["traceEvents"], wall_ms)
+    return trace_summary(label, json.loads(path.read_text())["traceEvents"], wall_ms,
+                         step_mark)
 
 
-def trace_summary(label, events, wall_ms):
+def trace_summary(label, events, wall_ms, step_mark=None):
     """The device side of a Chrome trace (see :func:`trace_call`)."""
     dev = [e for e in events if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")
            and "dur" in e]
@@ -2090,8 +2191,20 @@ def trace_summary(label, events, wall_ms):
             st = e.get("args", {}).get("stream")
             kernel_us[st] = kernel_us.get(st, 0.0) + e["dur"]
     compute = max(kernel_us, key=kernel_us.get)
-    first_kernel = min(e["ts"] for e in dev
-                       if e["cat"] == "kernel" and e.get("args", {}).get("stream") == compute)
+    steps_from = min(e["ts"] for e in dev
+                     if e["cat"] == "kernel" and e.get("args", {}).get("stream") == compute)
+    marks = sorted((e for e in events if step_mark and e.get("cat") == "user_annotation"
+                    and e.get("name") == step_mark and "dur" in e), key=lambda e: e["ts"])
+    if marks:
+        lo, hi = marks[0]["ts"], marks[0]["ts"] + marks[0]["dur"]
+        launched = {e["args"]["correlation"] for e in events
+                    if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                    and lo <= e["ts"] <= hi and "correlation" in e.get("args", {})}
+        step = [e["ts"] for e in dev if e["cat"] == "kernel"
+                and e.get("args", {}).get("stream") == compute
+                and e.get("args", {}).get("correlation") in launched]
+        steps_from = min(step, default=steps_from)
+    marked = bool(marks and step)
     copies = []
     for e in dev:
         if e["cat"] != "gpu_memcpy" or "HtoD" not in e["name"]:
@@ -2108,7 +2221,7 @@ def trace_summary(label, events, wall_ms):
                 covered, end = covered + b - a, b
         copies.append({"name": e["name"], "stream": st, "bytes": e.get("args", {}).get("bytes"),
                        "ms": e["dur"] / 1e3, "overlap": covered / e["dur"] if e["dur"] else 0.0,
-                       "after_first_kernel": lo > first_kernel})
+                       "under_steps": lo > steps_from})
     big = [c for c in copies if (c["bytes"] or 0) >= BATCH_COPY_BYTES
            or (c["bytes"] is None and c["ms"] >= 1.0)]
     busy_ms = sum(kernel_us.values()) / 1e3
@@ -2128,7 +2241,7 @@ def trace_summary(label, events, wall_ms):
         log(f"  {c['ms']:8.3f} ms  {c['name']} stream {c['stream']} bytes {c['bytes']} "
             f"overlapped {100 * c['overlap']:.1f}% by kernels on other streams")
     return {"wall_ms": wall_ms, "kernel_ms": busy_ms, "compute_stream": compute,
-            "copies": copies, "batch_copies": big, "memcpy_calls": calls,
+            "steps_marked": marked, "copies": copies, "batch_copies": big, "memcpy_calls": calls,
             "top_ms": {name[:100]: us / 1e3 for name, (_, us) in top}}
 
 
@@ -2208,24 +2321,36 @@ def lm_pipeline():
     if cached is not None and cached["batch_copies"]:
         raise AssertionError(f"a cached step copied a batch to the card: "
                              f"{cached['batch_copies']}")
+    net, fit_batch = nets["put_ahead"], nets["put_ahead"]._fit_batch
+
+    def marked(ds):
+        with torch.profiler.record_function("lm_pipeline_step"):
+            fit_batch(ds)
+
+    net._fit_batch = marked
     with prefetch_workers(2):
         ahead = trace_call("a put-ahead TransformerLM fit of 3 batches",
-                           lambda: nets["put_ahead"].fit(ListDataSetIterator(batches)))
+                           lambda: net.fit(ListDataSetIterator(batches)),
+                           step_mark="lm_pipeline_step")
+    net._fit_batch = fit_batch
     if ahead is not None:
         # the profiler records only some of the worker threads' copies (in
         # one run 3 of the 6 cudaMemcpyAsync calls it logged on the two
         # workers had a device record, the first two missing): every one
         # it records must be pinned and off the compute stream, and those
-        # made once the steps had begun mostly overlapped by their kernels
+        # made once the first step had begun mostly overlapped by their
+        # kernels. The first batch's copy comes before that: the step waits
+        # for it, and only the fit's set-up kernels can run beside it.
         got = ahead["batch_copies"]
         bad = [c for c in got if c["stream"] == ahead["compute_stream"]
                or "Pinned" not in c["name"]
-               or (c["after_first_kernel"] and c["overlap"] < 0.5)]
+               or (c["under_steps"] and c["overlap"] < 0.5)]
         if not got or bad:
             raise AssertionError(f"the put-ahead copies are not pinned, off the compute "
                                  f"stream {ahead['compute_stream']} and overlapped: {got}")
         log(f"  the profiler recorded {len(got)} of the {LM_PIPE_BATCHES} labels copies, "
-            f"{sum(c['after_first_kernel'] for c in got)} of them made under the steps")
+            f"{sum(c['under_steps'] for c in got)} of them made under the steps (from "
+            f"{'the first marked step' if ahead['steps_marked'] else 'the first kernel'})")
     return {"losses": losses, "bit_equal": bit_equal, "times_ms": times, "median_ms": med,
             "cached_trace": cached, "put_ahead_trace": ahead}
 
@@ -5099,6 +5224,814 @@ def transfer_pretrain(smi):
     return res
 
 
+def keras_vgg16_model(rng):
+    """Keras ``applications.VGG16`` with its top (include_top: 13 Conv2D 3x3
+    SAME relu in five blocks, each ending in MaxPooling2D 2x2, Flatten,
+    fc1/fc2 Dense(4096, relu), predictions Dense(1000, softmax)) at a
+    224x224x3 input, as a Keras 3 Functional ``model_config`` (the inbound-
+    node layout of tests/resources/keras/functional_inception.h5), its
+    ``training_config`` and random weights from ``rng`` in Keras's layouts
+    (HWIO kernels, He-scaled; dense kernels [in, out] with the Flatten's
+    rows in (h, w, c) order)."""
+    def inbound(src, shape):
+        return [{"args": [{"class_name": "__keras_tensor__",
+                           "config": {"shape": [None, *shape], "dtype": "float32",
+                                      "keras_history": [src, 0, 0]}}], "kwargs": {}}]
+
+    def normal(shape, scale):
+        return rng.standard_normal(shape, dtype=np.float32) * np.float32(scale)
+
+    h, w, c = KV_IMG
+    layers = [{"class_name": "InputLayer", "name": "input_layer", "inbound_nodes": [],
+               "config": {"batch_shape": [None, h, w, c], "dtype": "float32",
+                          "name": "input_layer"}}]
+    weights, prev = {}, "input_layer"
+    for bi, widths in enumerate(KV_BLOCKS, 1):
+        for ci, n in enumerate(widths, 1):
+            name = f"block{bi}_conv{ci}"
+            layers.append({"class_name": "Conv2D", "name": name,
+                           "inbound_nodes": inbound(prev, (h, w, c)),
+                           "config": {"name": name, "filters": n, "kernel_size": [3, 3],
+                                      "strides": [1, 1], "padding": "same",
+                                      "data_format": "channels_last", "dilation_rate": [1, 1],
+                                      "groups": 1, "activation": "relu", "use_bias": True}})
+            weights[name] = {"kernel": normal((3, 3, c, n), math.sqrt(2 / (9 * c))),
+                             "bias": normal((n,), 0.01)}
+            prev, c = name, n
+        name = f"block{bi}_pool"
+        layers.append({"class_name": "MaxPooling2D", "name": name,
+                       "inbound_nodes": inbound(prev, (h, w, c)),
+                       "config": {"name": name, "pool_size": [2, 2], "padding": "valid",
+                                  "strides": [2, 2], "data_format": "channels_last"}})
+        prev, h, w = name, h // 2, w // 2
+    layers.append({"class_name": "Flatten", "name": "flatten",
+                   "inbound_nodes": inbound(prev, (h, w, c)),
+                   "config": {"name": "flatten", "data_format": "channels_last"}})
+    prev, n_in = "flatten", h * w * c
+    for name, units, act in (("fc1", 4096, "relu"), ("fc2", 4096, "relu"),
+                             ("predictions", KV_CLASSES, "softmax")):
+        layers.append({"class_name": "Dense", "name": name, "inbound_nodes": inbound(prev, (n_in,)),
+                       "config": {"name": name, "units": units, "activation": act,
+                                  "use_bias": True}})
+        scale = math.sqrt((2 if act == "relu" else 1) / n_in)
+        weights[name] = {"kernel": normal((n_in, units), scale), "bias": normal((units,), 0.01)}
+        prev, n_in = name, units
+    model = {"class_name": "Functional",
+             "config": {"name": "vgg16", "layers": layers, "input_layers": ["input_layer", 0, 0],
+                        "output_layers": ["predictions", 0, 0]}}
+    return model, {"loss": "categorical_crossentropy"}, weights
+
+
+def vgg16_plain_forward(x_nchw, weights):
+    """VGG16 written straight from the Keras arrays, none of the importer:
+    ``F.conv2d`` on each HWIO kernel permuted to OIHW (SAME 3x3: pad 1),
+    relu, ``max_pool2d``, the map flattened in Keras's (h, w, c) order, then
+    the dense products; on the card in f32."""
+    import torch.nn.functional as F
+
+    from deeplearning4j_torch import resolve_device
+
+    def dev(a):
+        return torch.from_numpy(a).to(resolve_device("cuda"))
+    a = dev(x_nchw)
+    for bi, widths in enumerate(KV_BLOCKS, 1):
+        for ci in range(1, len(widths) + 1):
+            wk = weights[f"block{bi}_conv{ci}"]
+            a = F.relu(F.conv2d(a, dev(wk["kernel"]).permute(3, 2, 0, 1), dev(wk["bias"]),
+                                padding=1))
+        a = F.max_pool2d(a, 2)
+    a = a.permute(0, 2, 3, 1).reshape(a.shape[0], -1)
+    for name in ("fc1", "fc2"):
+        a = F.relu(a @ dev(weights[name]["kernel"]) + dev(weights[name]["bias"]))
+    return torch.softmax(a @ dev(weights["predictions"]["kernel"])
+                         + dev(weights["predictions"]["bias"]), -1)
+
+
+def keras_vgg16():
+    """Keras VGG16 imported through the HDF5 entry points' core
+    (``_import_functional``: the parsed model_config and the weight map; the
+    card's machine has no h5py) as a ComputationGraph on the card: (a) its
+    f32 ``output`` at b=KV_B against ``vgg16_plain_forward`` (the
+    Flatten -> Dense kernel permutation at 25088 rows); (b) the import made
+    bf16 with Adam 1e-3 under CacheMode.DEVICE, fit at bench.py:195's b=256
+    in KV_TURNS alternating turns of KV_STEPS steps with the zoo VGG16 of
+    ``vgg16_main``, each net's peak memory alone. No K1-K7 launch."""
+    from deeplearning4j_torch import Adam, DataSet, resolve_device
+    from deeplearning4j_torch.keras import model_import
+    from deeplearning4j_torch.models import ModelSelector
+    from deeplearning4j_torch.nn.conf import CacheMode
+    from deeplearning4j_torch.nn.graph import ComputationGraph
+    from deeplearning4j_torch.nn.multilayer import MultiLayerNetwork
+
+    t0 = time.perf_counter()
+    model, training, weights = keras_vgg16_model(np.random.default_rng(KV_SEED))
+    made_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    net = model_import._import_functional(model, training, weights,
+                                          device=resolve_device("cuda"))
+    torch.cuda.synchronize()
+    import_s = time.perf_counter() - t0
+    n_params = net.num_params()
+    pre = net.conf.input_preprocessors.get("fc1")
+    if type(pre).__name__ != "CnnToFeedForwardPreProcessor" or net.conf.vertices[
+            "predictions"].__class__.__name__ != "OutputLayer":
+        raise AssertionError(f"imported VGG16: fc1's preprocessor {pre}, predictions "
+                             f"{type(net.conf.vertices['predictions']).__name__}")
+    x = np.random.default_rng(KV_SEED + 1).normal(size=(KV_B, 3, *KV_IMG[:2])).astype(np.float32)
+    got = net.output(x)
+    want = vgg16_plain_forward(x, weights)
+    err = ((got - want).abs().max() / want.abs().max()).item()
+    log(f"Keras VGG16 ({n_params} parameters) imported in {import_s:.2f} s (weights "
+        f"made in {made_s:.2f} s); f32 output b={KV_B} vs the plain NHWC forward from the Keras "
+        f"arrays: max |diff| {err:.2e} of the largest entry (limit {KV_OUT_RTOL})")
+    if not (torch.isfinite(got).all() and err <= KV_OUT_RTOL):
+        raise AssertionError(f"imported VGG16 disagrees with the plain forward: {err}")
+    del got, want
+    conf = net.conf
+    conf.global_conf.compute_dtype = "bfloat16"
+    conf.global_conf.updater = Adam(learning_rate=1e-3)
+    conf.global_conf.cache_mode = CacheMode.DEVICE
+    imp = ComputationGraph(conf).init(params=net.params, states=net.states)
+    del net, weights
+    torch.cuda.empty_cache()
+    f, l = zoo_data(np.random.default_rng(KV_SEED + 2), VGG_B, VGG_IMG, VGG_CLASSES)
+    ds = DataSet(f, l)
+    torch.cuda.reset_peak_memory_stats()
+    fit_steps(imp, ds, 2)()
+    imp_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    zconf = ModelSelector.select("vgg16", num_classes=VGG_CLASSES, input_shape=VGG_IMG).conf()
+    zconf.global_conf.compute_dtype = "bfloat16"
+    zconf.global_conf.cache_mode = CacheMode.DEVICE
+    zoo = MultiLayerNetwork(zconf).init()                 # device defaults to the card
+    fit_steps(zoo, ds, 2)()
+    losses = record_losses(imp)
+    med, turns = alternating_ms({"imported": fit_steps(imp, ds, KV_STEPS),
+                                 "zoo": fit_steps(zoo, ds, KV_STEPS)}, KV_TURNS)
+    step_ms = {k: v / KV_STEPS for k, v in med.items()}
+    losses = [float(v) for v in losses]
+    probs = imp.output(f[:KV_B])
+    sum_err = check_probabilities("imported VGG16 (bf16, trained)", probs, (KV_B, VGG_CLASSES),
+                                  PROB_SUM_ATOL)
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"imported VGG16 losses {losses}")
+    del imp, probs
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    fit_steps(zoo, ds, 2)()
+    zoo_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    ratio = step_ms["imported"] / step_ms["zoo"]
+    log(f"imported VGG16 (ComputationGraph) vs the zoo's (MultiLayerNetwork), b={VGG_B} bf16 "
+        f"Adam: {step_ms['imported']:.2f} vs {step_ms['zoo']:.2f} ms a step (ratio {ratio:.3f}; "
+        f"medians of {KV_TURNS} alternating turns of {KV_STEPS} steps), peak "
+        f"{imp_peak:.2f} vs {zoo_peak:.2f} GiB, each alone; losses "
+        + " ".join(f"{v:.3f}" for v in losses))
+    del zoo
+    torch.cuda.empty_cache()
+    return {"num_params": n_params, "import_s": import_s, "weights_made_s": made_s,
+            "output_rel_err": err, "output_b": KV_B, "step_ms": step_ms, "turns_ms": turns,
+            "steps": KV_STEPS, "ratio": ratio, "peak_gib": {"imported": imp_peak, "zoo": zoo_peak},
+            "losses": losses, "prob_sum_err": sum_err}
+
+
+def keras_char_lstm_model(rng):
+    """A Keras Sequential ``LSTM(KL_H, return_sequences) -> LSTM(KL_H,
+    return_sequences) -> TimeDistributed(Dense(KL_VOCAB, softmax))`` on
+    [b, KL_T, KL_VOCAB] (Keras's default recurrent_activation sigmoid), with
+    Keras-initialised weights from ``rng``: glorot-uniform kernels,
+    orthogonal recurrent kernels, biases 0 but the forget gate's 1
+    (unit_forget_bias), in Keras's gate order (i, f, c, o)."""
+    H = KL_H
+
+    def glorot(n_in, n_out):
+        lim = math.sqrt(6 / (n_in + n_out))
+        return rng.uniform(-lim, lim, (n_in, n_out)).astype(np.float32)
+
+    def lstm(n_in):
+        q, _ = np.linalg.qr(rng.standard_normal((4 * H, H)))
+        bias = np.zeros(4 * H, np.float32)
+        bias[H:2 * H] = 1.0
+        return {"kernel": glorot(n_in, 4 * H), "recurrent_kernel": q.T.astype(np.float32),
+                "bias": bias}
+
+    def lstm_cfg(name):
+        return {"class_name": "LSTM", "config": {
+            "name": name, "units": H, "activation": "tanh", "recurrent_activation": "sigmoid",
+            "use_bias": True, "unit_forget_bias": True, "return_sequences": True}}
+    model = {"class_name": "Sequential", "config": {"name": "char_lstm", "layers": [
+        {"class_name": "InputLayer", "config": {"batch_shape": [None, KL_T, KL_VOCAB],
+                                                "dtype": "float32", "name": "input_layer"}},
+        lstm_cfg("lstm_1"), lstm_cfg("lstm_2"),
+        {"class_name": "TimeDistributed", "config": {"name": "td", "layer": {
+            "class_name": "Dense", "config": {"name": "dense", "units": KL_VOCAB,
+                                              "activation": "softmax", "use_bias": True}}}}]}}
+    weights = {"lstm_1": lstm(KL_VOCAB), "lstm_2": lstm(H),
+               "td": {"kernel": glorot(H, KL_VOCAB), "bias": np.zeros(KL_VOCAB, np.float32)}}
+    return model, {"loss": "categorical_crossentropy"}, weights
+
+
+def keras_lstm_oracle(x, weights):
+    """The model's output in numpy f64 from Keras's LSTM equations in its
+    own gate order (i, f, c, o), read from the unreordered Keras arrays."""
+    def sig(v):
+        return 1.0 / (1.0 + np.exp(-v))
+    a = x.astype(np.float64)
+    for name in ("lstm_1", "lstm_2"):
+        w = {k: v.astype(np.float64) for k, v in weights[name].items()}
+        b, T, _ = a.shape
+        H = w["recurrent_kernel"].shape[0]
+        h, c, out = np.zeros((b, H)), np.zeros((b, H)), np.zeros((b, T, H))
+        for t in range(T):
+            z = a[:, t] @ w["kernel"] + h @ w["recurrent_kernel"] + w["bias"]
+            i, f, g, o = sig(z[:, :H]), sig(z[:, H:2 * H]), np.tanh(z[:, 2 * H:3 * H]), \
+                sig(z[:, 3 * H:])
+            c = f * c + i * g
+            h = o * np.tanh(c)
+            out[:, t] = h
+        a = out
+    z = a @ weights["td"]["kernel"].astype(np.float64) + weights["td"]["bias"]
+    e = np.exp(z - z.max(-1, keepdims=True))
+    return e / e.sum(-1, keepdims=True)
+
+
+LSTM_KERNELS = {"lstm_fwd": ("lstm_cell", "lstm_fwd_plain"),
+                "lstm_bwd": ("lstm_cell", "lstm_bwd_plain"),
+                "lstm2_fwd": ("lstm_fused", "lstm2_fwd_plain"),
+                "lstm2_bwd": ("lstm_fused", "lstm2_bwd_plain")}
+
+
+@contextlib.contextmanager
+def first_launches_held():
+    """While active, the first launch of each LSTM kernel wrapper (K1, K2,
+    K3, K4; K1 and K3 with and without the reserve apart) is also computed by
+    its plain version on the same inputs (the plain loops count no launch).
+    Yields {wrapper, "_train" with the reserve: {"name", "args", "kw",
+    "reserve", "max_abs_err"}} (``kernel_err``) for what launched."""
+    from deeplearning4j_torch.ops import lstm_cell, lstm_fused
+
+    mods = {"lstm_cell": lstm_cell, "lstm_fused": lstm_fused}
+    seen, real = {}, {n: getattr(mods[m], n) for n, (m, _) in LSTM_KERNELS.items()}
+
+    def tap(name):
+        def launched(*args, **kw):
+            out = real[name](*args, **kw)
+            key = name + ("_train" if kw.get("save_reserve") else "")
+            if key not in seen:
+                m, plain = LSTM_KERNELS[name]
+                ref = getattr(mods[m], plain)(*args, **kw)
+                seen[key] = {"name": name, "args": args, "kw": kw,
+                             "reserve": bool(kw.get("save_reserve")),
+                             "max_abs_err": kernel_err([o for o in out if o is not None],
+                                                       [r for r in ref if r is not None])}
+            return out
+        return launched
+
+    for n, (m, _) in LSTM_KERNELS.items():
+        setattr(mods[m], n, tap(n))
+    try:
+        yield seen
+    finally:
+        for n, (m, _) in LSTM_KERNELS.items():
+            setattr(mods[m], n, real[n])
+
+
+def cudnn_lstm_ms(name, args, reserve):
+    """ms of cuDNN's LSTM (``torch.nn.LSTM``: one PyTorch call, no
+    peepholes, sigmoid/tanh, the same recurrence up to its gate order) at a
+    held launch's T, b, H and weight type: one layer for K1/K2, two for
+    K3/K4. A forward without the reserve runs under inference mode, one with
+    it in training mode with autograd recording (cuDNN writes its own
+    reserve); K2/K4 are timed as the backward of such a forward
+    (``retain_graph``). cuDNN also does the input projection and, backward,
+    its gradients, which the port runs as GEMMs outside K1-K4."""
+    x = args[0] if name in ("lstm_fwd", "lstm2_fwd") else args[1]
+    w = args[1] if name in ("lstm_fwd", "lstm2_fwd") else args[3 if name == "lstm_bwd" else 5]
+    t, b, h4 = x.shape
+    lstm = torch.nn.LSTM(h4 // 4, h4 // 4, num_layers=2 if name.startswith("lstm2") else 1)
+    lstm = lstm.to(x.device, w.dtype)
+    lstm.flatten_parameters()
+    gen = torch.Generator(x.device).manual_seed(0)
+    inp = torch.randn(t, b, h4 // 4, device=x.device, dtype=w.dtype, generator=gen)
+    if name in ("lstm_fwd", "lstm2_fwd") and not reserve:
+        with torch.inference_mode():
+            return cuda_ms(lambda: lstm(inp), 5)
+    inp.requires_grad_(True)
+    if name in ("lstm_fwd", "lstm2_fwd"):
+        return cuda_ms(lambda: lstm(inp), 5)
+    out, _ = lstm(inp)
+    dy = torch.randn(out.shape, device=x.device, dtype=w.dtype, generator=gen)
+    return cuda_ms(lambda: out.backward(dy, retain_graph=True), 5)
+
+
+def timed_launches(seen):
+    """Each held launch timed by CUDA events beside its plain version on
+    its own arguments (``cuda_ms``: one warm-up call first), with its bound
+    and cuDNN's LSTM at its shape (``cudnn_lstm_ms``) as ``library_ms``."""
+    from deeplearning4j_torch.ops import lstm_cell, lstm_fused
+
+    mods = {"lstm_cell": lstm_cell, "lstm_fused": lstm_fused}
+    rows = {}
+    for key, s in seen.items():
+        name = s["name"]
+        m, plain = LSTM_KERNELS[name]
+        fn, ref = getattr(mods[m], name), getattr(mods[m], plain)
+        args, kw = s["args"], s["kw"]
+        with torch.inference_mode():      # some arguments were made under it
+            ms = cuda_ms(lambda: fn(*args, **kw), 5)
+            plain_ms = cuda_ms(lambda: ref(*args, **kw), 1)
+        bms, by = lstm_launch_bound(name, args, s["reserve"])
+        library_ms = cudnn_lstm_ms(name, args, s["reserve"])
+        x = args[0] if name in ("lstm_fwd", "lstm2_fwd") else args[1]
+        w = args[1] if name in ("lstm_fwd", "lstm2_fwd") else args[3 if name == "lstm_bwd" else 5]
+        rows[key] = {
+            "max_abs_err": s["max_abs_err"], "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
+            "bound_by": by, "library_ms": library_ms,
+            "library_note": f"cuDNN nn.LSTM, {2 if name.startswith('lstm2') else 1} layer(s), "
+                            f"{'backward' if name.endswith('bwd') else 'forward'}",
+            "shape": {"T": int(x.shape[0]), "b": int(x.shape[1]), "H": int(x.shape[2]) // 4,
+                      "w": str(w.dtype)[6:], "peepholes": False}}
+        log(f"  {name}{' with reserve' if s['reserve'] else ''} T={x.shape[0]} b={x.shape[1]} "
+            f"{str(w.dtype)[6:]} without peepholes: max_abs_err {s['max_abs_err']:.2e}, "
+            f"{ms:.4f} ms (plain {plain_ms:.2f}, bound {bms:.5f}, {by}; cuDNN's LSTM "
+            f"{library_ms:.4f})")
+    return rows
+
+
+def keras_char_lstm():
+    """The Keras char-LSTM (``keras_char_lstm_model``) imported through the
+    Sequential core on the card at b=KL_B, T=KL_T: (a) its f32 ``output``
+    (two K1 launches: f32 at H=512 b=64 has no K3 grid) against
+    ``keras_lstm_oracle`` on KL_ORACLE_ROWS rows; its bf16 twin's ``output``
+    (one K3 launch) against the f32 output; (b) KL_FITS bf16 Adam fits of
+    one b x T batch (each one K3 with the reserve and one K4; K1 + K2 where
+    ``_lstm_pair_fusable`` declines, with the routes logged), the first
+    launch of each kernel held against its plain version and then timed
+    beside it; (c) a fit's ms (alternating with itself over RF_TURNS turns)
+    and the bf16 net's score, gradients and output on the card against the
+    CPU (``card_vs_cpu``) at one TBPTT segment's shape."""
+    from deeplearning4j_torch import Adam, DataSet, MultiLayerNetwork, resolve_device
+    from deeplearning4j_torch.keras import model_import
+    from deeplearning4j_torch.ops import lstm_fused
+
+    model, training, weights = keras_char_lstm_model(np.random.default_rng(KL_SEED))
+    net = model_import._import_sequential(model, training, weights,
+                                          device=resolve_device("cuda"))
+    kinds = [type(lc).__name__ for lc in net.conf.layers]
+    if kinds != ["LSTM", "LSTM", "RnnOutputLayer"] or any(im.peepholes for im in
+                                                          list(net.impls)[:2]):
+        raise AssertionError(f"imported char-LSTM layers {kinds}")
+    f, l = periodic_text(np.random.default_rng(KL_SEED + 1), KL_B, KL_T)
+    if net._lstm_pair_fusable(0, net._to_device(f), None, False):
+        raise AssertionError(f"the f32 pair at b={KL_B} was admitted to K3")
+    launches = {}
+    with first_launches_held() as seen:
+        reset_counts()
+        out32 = net.output(f)
+        torch.cuda.synchronize()
+        launches["f32_output"] = read_counts()
+        want = keras_lstm_oracle(f[:KL_ORACLE_ROWS], weights)
+        err32 = np.abs(out32[:KL_ORACLE_ROWS].double().cpu().numpy() - want).max()
+        log(f"Keras char-LSTM ({net.num_params()} parameters) f32 output b={KL_B} T={KL_T} vs "
+            f"the numpy Keras LSTM (rows 0-{KL_ORACLE_ROWS - 1}): max_abs_err {err32:.2e} "
+            f"(limit {KL_F32_ATOL}; largest probability {want.max():.3f})")
+        if not err32 <= KL_F32_ATOL:
+            raise AssertionError(f"imported char-LSTM f32 output vs Keras's equations: {err32}")
+        conf = copy.deepcopy(net.conf)
+        conf.global_conf.compute_dtype = "bfloat16"
+        conf.global_conf.updater = Adam(learning_rate=1e-3)
+        twin = MultiLayerNetwork(conf).init(params=net.params)
+        del net
+        reset_counts()
+        out16 = twin.output(f)
+        torch.cuda.synchronize()
+        launches["bf16_output"] = read_counts()
+        err16 = (out16.float() - out32).abs().max().item()
+        log(f"its bf16 twin's output vs the f32 output: max_abs_err {err16:.2e} (limit "
+            f"{REF_ATOL})")
+        if not err16 <= REF_ATOL:
+            raise AssertionError(f"bf16 imported char-LSTM vs f32: {err16}")
+        x = twin._to_device(f)
+        fused = twin._lstm_pair_fusable(0, x, None, True)
+        if not fused:
+            log(f"the bf16 pair is not fused in training: K3 route "
+                f"{lstm_fused.fwd_route(torch.bfloat16, KL_B, KL_H, reserve=True, device=x.device)}"
+                f", K4 route {lstm_fused.bwd_route(torch.bfloat16, KL_B, KL_H, device=x.device)}")
+        ds = DataSet(f, l)
+        losses = record_losses(twin)
+        reset_counts()
+        for _ in range(KL_FITS):
+            twin.fit(ds)
+        torch.cuda.synchronize()
+        launches["bf16_fits"] = read_counts()
+    expect = {"f32_output": {"lstm_fwd": 2}, "bf16_output": {"lstm2_fwd": 1},
+              "bf16_fits": ({"lstm2_fwd_train": KL_FITS, "lstm2_bwd": KL_FITS} if fused
+                            else {"lstm_fwd_train": 2 * KL_FITS, "lstm_bwd": 2 * KL_FITS})}
+    for path, want_counts in expect.items():
+        got = {n: c for n, c in launches[path].items() if c}
+        if got != want_counts:
+            raise AssertionError(f"imported char-LSTM {path} launched {got}, expected "
+                                 f"{want_counts}")
+    log(f"imported char-LSTM launches: {({p: {n: c for n, c in v.items() if c} for p, v in launches.items()})}")
+    losses = [float(v) for v in losses]
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"imported char-LSTM losses {losses}")
+    rows = timed_launches(seen)
+    for name, r in rows.items():
+        limit = BWD_ATOL if name.endswith("bwd") else KERNEL_ATOL
+        if not r["max_abs_err"] <= limit:
+            raise AssertionError(f"{name} on the imported char-LSTM disagrees with its plain "
+                                 f"version: {r['max_abs_err']} > {limit}")
+    del seen
+    med, turns = alternating_ms({"fit": lambda: twin.fit(ds)}, RF_TURNS)
+    log(f"imported char-LSTM bf16 fit b={KL_B} T={KL_T} (standard backprop): {med['fit']:.2f} "
+        f"ms (median of {RF_TURNS}); losses " + " ".join(f"{v:.3f}" for v in losses))
+    ref = card_vs_cpu("imported Keras char-LSTM (bf16)", twin.conf, twin,
+                      *masked_text(np.random.default_rng(KL_SEED + 2), TRAIN_B, TRAIN_T))
+    return {"output_f32_abs_err": float(err32), "output_bf16_vs_f32": err16,
+            "launches": {p: {n: c for n, c in v.items() if c} for p, v in launches.items()},
+            "fused_in_training": fused, "kernels": rows, "fit_ms": med["fit"],
+            "fit_turns_ms": turns["fit"], "losses": losses, "reference": ref}
+
+
+def timed_calls(obj, name):
+    """Wrap ``obj.name`` (an instance's method) so that each call's seconds
+    are appended to the returned list."""
+    secs, real = [], getattr(obj, name)
+
+    def timed(*a, **k):
+        t0 = time.perf_counter()
+        out = real(*a, **k)
+        secs.append(time.perf_counter() - t0)
+        return out
+    setattr(obj, name, timed)
+    return secs
+
+
+def emb_sentences(rng, n):
+    """bench.py:1645-1661's corpus: n sentences of EMB_LEN words drawn as
+    ``rng.zipf(1.3) % EMB_VOCAB``."""
+    ids = (rng.zipf(1.3, size=n * EMB_LEN) % EMB_VOCAB).reshape(n, EMB_LEN)
+    return [" ".join(f"w{t}" for t in row) for row in ids]
+
+
+def emb_step_check(label, model, tokens, seed):
+    """One full batch of ``model``'s pairs (its own pair draw over
+    ``tokens``, EMB_BATCH of them, with the corpus's duplicates) through its
+    steps from one random state of its tables' shapes (N(0, 0.1^2) from
+    ``seed``), on the card in f32 and on the CPU in f64: the largest |card -
+    CPU| over the updated tables over the CPU step's largest update, which
+    must be at most EMB_STEP_RTOL. (The fitted tables can hold NaN at
+    bench.py's settings, as the JAX package's do, so they are not the
+    state.)"""
+    from deeplearning4j_torch import resolve_device
+    from deeplearning4j_torch.nlp.sequencevectors import _hs_step, _ns_step
+
+    rng = np.random.default_rng(seed)
+    cs, ts, n = [], [], 0
+    for seq in tokens:
+        c, t = model._sequence_pairs_arrays(model._subsampled_indices(seq, rng), rng)
+        cs.append(c)
+        ts.append(t)
+        n += c.size
+        if n >= EMB_BATCH:
+            break
+    rows = torch.from_numpy(np.concatenate(cs)[:EMB_BATCH].astype(np.int64))
+    targets = torch.from_numpy(np.concatenate(ts)[:EMB_BATCH].astype(np.int64))
+    lt, lr = model.lookup_table, float(np.float32(model.learning_rate))
+    names = ["syn0"] + (["syn1"] if model.use_hs else []) + (["syn1neg"] if model.negative else [])
+    before = {k: torch.from_numpy(rng.normal(0, 0.1, tuple(getattr(lt, k).shape))
+                                  .astype(np.float32)) for k in names}
+    card = resolve_device("cuda")
+    card_tabs = {k: v.to(card, copy=True) for k, v in before.items()}
+    cpu_tabs = {k: v.double() for k, v in before.items()}
+    negs = None
+    if model.negative:
+        negs = torch.from_numpy(model._neg_table[rng.integers(0, len(model._neg_table),
+                                                              (EMB_BATCH, model.negative))]
+                                .astype(np.int64))
+    for tabs, dev in ((card_tabs, card), (cpu_tabs, torch.device("cpu"))):
+        r, t = rows.to(dev), targets.to(dev)
+        if model.use_hs:
+            _hs_step(tabs["syn0"], tabs["syn1"], r, t,
+                     *(a.to(dev) for a in model._hs_tables), lr)
+        if model.negative:
+            _ns_step(tabs["syn0"], tabs["syn1neg"], r,
+                     torch.cat([t[:, None], negs.to(dev)], 1), lr)
+    upd = max((cpu_tabs[k] - before[k].double()).abs().max().item() for k in names)
+    diff = max((card_tabs[k].double().cpu() - cpu_tabs[k]).abs().max().item() for k in names)
+    rel = diff / upd
+    dup = EMB_BATCH - int(torch.unique(rows).numel())
+    log(f"{label}: one batch of {EMB_BATCH} pairs ({dup} repeated rows) card f32 vs CPU f64 "
+        f"from one random state: max |diff| {diff:.2e} = {rel:.2e} of the largest update "
+        f"{upd:.2e} (limit {EMB_STEP_RTOL})")
+    if not (upd > 0 and rel <= EMB_STEP_RTOL):
+        raise AssertionError(f"{label}: the card's step disagrees with the CPU's: {rel}")
+    return {"rel_err": rel, "max_abs_diff": diff, "largest_update": upd, "repeated_rows": dup}
+
+
+def word2vec_kind(kind, sentences, tokens):
+    """Word2Vec of ``kind`` (``hs``: hierarchical softmax, the default;
+    ``ns``: negative sampling, 5 negatives; ``cbow``: CBOW with HS) at
+    bench.py:1645-1661's settings, fit on the card: words/s over the
+    whole ``fit`` (vocab, host pairs and device steps, as bench.py counts
+    it), a profiled refit of EMB_PROFILE_SENTENCES sentences (the card's
+    busy share), and one batch's step against the CPU in f64."""
+    from deeplearning4j_torch.nlp import CBOW, Word2Vec
+
+    kw = dict(vector_length=EMB_DIM, window=EMB_WINDOW, epochs=1, batch_size=EMB_BATCH,
+              min_word_frequency=1)
+    if kind == "ns":
+        kw["negative"] = 5
+    model = (CBOW if kind == "cbow" else Word2Vec)(**kw)   # device defaults to the card
+    vocab_s = timed_calls(model, "build_vocab")
+    t0 = time.perf_counter()
+    model.fit(sentences)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    words = len(sentences) * EMB_LEN
+    prof = profile_call(f"Word2Vec {kind}: {EMB_PROFILE_SENTENCES} sentences",
+                        lambda: model.fit_tokenized(tokens[:EMB_PROFILE_SENTENCES]))
+    step = emb_step_check(f"Word2Vec {kind}", model, tokens, 1)
+    nan = torch.isnan(model.lookup_table.syn0).float().mean().item()
+    res = {"fit_s": fit_s, "vocab_s": vocab_s[0], "words_per_s": words / fit_s, "words": words,
+           "vocab": model.vocab.num_words(), "profile": prof, "step": step, "nan_share": nan}
+    log(f"Word2Vec {kind}: {res['words_per_s']:.0f} words/s ({words} words in {fit_s:.2f} s, "
+        f"{vocab_s[0]:.2f} s of it the vocab, {res['vocab']} words); profiled refit busy "
+        + (f"{100 * prof['busy_ms'] / prof['wall_ms']:.1f}%" if prof else "not measured")
+        + f"; NaN share of the vectors {nan:.3f} (batch {EMB_BATCH} at lr "
+        f"{model.learning_rate} sums thousands of duplicate updates, as the JAX package does)")
+    return model, res
+
+
+def paragraph_vectors(sentences):
+    """ParagraphVectors (DBOW, ``dm=False``) on the corpus labelled in
+    PV_GROUPS groups (sentence i labelled ``g{i % PV_GROUPS}``) at Word2Vec's
+    settings but batch PV_BATCH, where its vectors stay finite: words/s, one
+    batch's step against the CPU in f64, and ``predict`` on PV_HELD_OUT
+    held-out sentences (ms a call; every answer one of the labels)."""
+    from deeplearning4j_torch.nlp import ParagraphVectors
+
+    docs = [(f"g{i % PV_GROUPS}", s) for i, s in enumerate(sentences)]
+    pv = ParagraphVectors(dm=False, vector_length=EMB_DIM, window=EMB_WINDOW, epochs=1,
+                          batch_size=PV_BATCH, min_word_frequency=1)
+    vocab_s = timed_calls(pv, "build_vocab")
+    t0 = time.perf_counter()
+    pv.fit_labelled(docs)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    tokens = [[pv._label_token(lbl)] + s.split() for lbl, s in docs[:EMB_PROFILE_SENTENCES]]
+    step = emb_step_check("ParagraphVectors (DBOW)", pv, tokens, 2)
+    held = emb_sentences(np.random.default_rng(PV_SEED), PV_HELD_OUT)
+    t0 = time.perf_counter()
+    preds = [pv.predict(s) for s in held]
+    predict_ms = (time.perf_counter() - t0) * 1e3 / len(held)
+    labels = {f"g{i}" for i in range(PV_GROUPS)}
+    if not all(p in labels for p in preds):
+        raise AssertionError(f"ParagraphVectors predicted labels outside the groups: "
+                             f"{sorted(set(preds) - labels)[:5]}")
+    words = len(sentences) * EMB_LEN
+    nan = torch.isnan(pv.lookup_table.syn0).float().mean().item()
+    if not torch.isfinite(pv.lookup_table.syn0).all():
+        raise AssertionError(f"ParagraphVectors at batch {PV_BATCH}: NaN share {nan}")
+    log(f"ParagraphVectors DBOW, {PV_GROUPS} labels, batch {PV_BATCH}: {words / fit_s:.0f} words/s "
+        f"({fit_s:.2f} s, {vocab_s[0]:.2f} s of it the vocab); predict {predict_ms:.2f} ms a "
+        f"sentence over {len(held)} held-out sentences ({len(set(preds))} distinct labels); "
+        f"NaN share of the vectors {nan:.3f}")
+    return {"fit_s": fit_s, "vocab_s": vocab_s[0], "batch": PV_BATCH,
+            "words_per_s": words / fit_s, "step": step, "predict_ms": predict_ms,
+            "distinct_predictions": len(set(preds)), "nan_share": nan}
+
+
+def glove_fit(sentences):
+    """GloVe on GLOVE_SENTENCES sentences (vector GLOVE_DIM, batch
+    GLOVE_BATCH, its default 5 epochs): s to count the co-occurrences (host
+    dict loop), ms an AdaGrad batch (host clock, synced: the five epochs
+    less a one-epoch refit, which leaves out the fit's set-up), and one
+    batch from a fresh state on the card against the CPU in f64."""
+    from deeplearning4j_torch import resolve_device
+    from deeplearning4j_torch.nlp import Glove
+    from deeplearning4j_torch.nlp.glove import _glove_step
+
+    g = Glove(vector_length=GLOVE_DIM, window=EMB_WINDOW, batch_size=GLOVE_BATCH,
+              min_word_frequency=1)
+    seen = {}
+    fit_cooc = g.fit_cooccurrences
+
+    def timed(cooc):
+        seen["cooc"], seen["t"] = cooc, time.perf_counter()
+        out = fit_cooc(cooc)
+        torch.cuda.synchronize()
+        seen["train_s"] = time.perf_counter() - seen["t"]
+        return out
+    g.fit_cooccurrences = timed
+    t0 = time.perf_counter()
+    g.fit(sentences)
+    count_s = seen["t"] - t0
+    n_pairs = len(seen["cooc"])
+    batches = g.epochs * -(-n_pairs // GLOVE_BATCH)
+    if not np.isfinite(g.syn0).all():
+        raise AssertionError("GloVe vectors are not finite")
+    # a one-epoch refit from the same counts: the fit's set-up (sorting and
+    # packing the pairs, the tables) apart from its batches
+    g.epochs, per_epoch = 1, -(-n_pairs // GLOVE_BATCH)
+    t0 = time.perf_counter()
+    fit_cooc(seen["cooc"])
+    torch.cuda.synchronize()
+    one_s = time.perf_counter() - t0
+    batch_ms = (seen["train_s"] - one_s) * 1e3 / (batches - per_epoch)
+    setup_s = one_s - batch_ms * per_epoch / 1e3
+    # one batch from a fresh state: card f32 against CPU f64
+    rng = np.random.default_rng(GLOVE_SEED)
+    n, d = g.vocab.num_words(), GLOVE_DIM
+    items = sorted(seen["cooc"].items())[:GLOVE_BATCH]
+    pairs = torch.tensor([ij for ij, _ in items])
+    counts = np.asarray([v for _, v in items], np.float32)
+    logx = torch.from_numpy(np.log(counts))
+    fx = torch.from_numpy(np.minimum((counts / g.x_max) ** g.alpha, 1.0).astype(np.float32))
+    tabs = [torch.from_numpy(((rng.random(s) - 0.5) / d).astype(np.float32))
+            for s in ((n, d), (n, d))] + [torch.zeros(n), torch.zeros(n)]
+    tabs += [torch.from_numpy(rng.uniform(1, 2, s).astype(np.float32))
+             for s in ((n, d), (n, d), (n,), (n,))]
+    out = {}
+    for tag, dev, dt in (("card", resolve_device("cuda"), torch.float32),
+                         ("cpu", torch.device("cpu"), torch.float64)):
+        out[tag] = _glove_step(*(t.to(dev, dt, copy=True) for t in tabs), pairs[:, 0].to(dev),
+                               pairs[:, 1].to(dev), logx.to(dev, dt), fx.to(dev, dt),
+                               float(np.float32(g.learning_rate)))
+    upd = max((c - t.double()).abs().max().item() for c, t in zip(out["cpu"][:8], tabs))
+    diff = max((a.double().cpu() - c).abs().max().item()
+               for a, c in zip(out["card"][:8], out["cpu"][:8]))
+    loss_rel = abs(out["card"][8].item() - out["cpu"][8].item()) / abs(out["cpu"][8].item())
+    log(f"GloVe on {len(sentences)} sentences: counted {n_pairs} pairs in {count_s:.2f} s, "
+        f"{batch_ms:.3f} ms an AdaGrad batch of {GLOVE_BATCH} ({batches} batches in "
+        f"{seen['train_s']:.2f} s, {setup_s:.2f} s of it the set-up); one batch card f32 vs "
+        f"CPU f64: {diff:.2e} = "
+        f"{diff / upd:.2e} of the largest update, loss rel {loss_rel:.2e}")
+    if not (diff / upd <= EMB_STEP_RTOL and loss_rel <= EMB_STEP_RTOL):
+        raise AssertionError(f"GloVe's card step disagrees with the CPU's: {diff / upd}, "
+                             f"{loss_rel}")
+    return {"count_s": count_s, "pairs": n_pairs, "batch_ms": batch_ms, "batches": batches,
+            "train_s": seen["train_s"], "setup_s": setup_s,
+            "step": {"rel_err": diff / upd, "loss_rel": loss_rel}}
+
+
+def blogcatalog_graph(rng):
+    """A graph of BlogCatalog's size (DeepWalk paper, Perozzi et al., KDD
+    2014, section 5.1: DW_VERTICES vertices, DW_EDGES edges, DW_COMMUNITIES
+    labels) with DW_COMMUNITIES planted communities: each vertex in one
+    community drawn uniformly, DW_WITHIN of the edges inside a community,
+    the rest across; no self-loops or repeated edges. (Graph, community of
+    each vertex)."""
+    from deeplearning4j_torch.graph import Graph
+
+    N = DW_VERTICES
+    comm = rng.integers(0, DW_COMMUNITIES, N)
+    order = np.argsort(comm, kind="stable")
+    starts = np.searchsorted(comm[order], np.arange(DW_COMMUNITIES))
+    sizes = np.bincount(comm, minlength=DW_COMMUNITIES)
+    keys = np.empty(0, np.int64)
+    while keys.size < DW_EDGES:
+        m = 2 * (DW_EDGES - keys.size)
+        u = rng.integers(0, N, m)
+        inside = rng.random(m) < DW_WITHIN
+        v = np.where(inside, order[starts[comm[u]] + (rng.random(m) * sizes[comm[u]]).astype(
+            np.int64)], rng.integers(0, N, m))
+        ok = u != v
+        a, b = np.minimum(u, v)[ok], np.maximum(u, v)[ok]
+        keys = np.unique(np.concatenate([keys, a * N + b]))
+    keys = rng.permutation(keys)[:DW_EDGES]
+    g = Graph(N)
+    for a, b in zip((keys // N).tolist(), (keys % N).tolist()):
+        g.add_edge(a, b)
+    return g, comm
+
+
+def deepwalk_blogcatalog():
+    """DeepWalk (d=DW_DIM, window DW_WINDOW, walk length DW_WALK,
+    DW_WALKS walks a vertex: the paper's 80 cut to keep the phase in its
+    time; batch EMB_BATCH) on ``blogcatalog_graph``: words/s over the fit
+    (walks on the host included), one batch's step against the CPU in f64,
+    and the share of each vertex's DW_NEIGHBOURS nearest neighbours (cosine,
+    on the card) in its own community, beside that share for a table of
+    random rows of the same shape (what an untrained table reads)."""
+    from deeplearning4j_torch import resolve_device
+    from deeplearning4j_torch.graph import DeepWalk, RandomWalkIterator
+
+    t0 = time.perf_counter()
+    g, comm = blogcatalog_graph(np.random.default_rng(DW_SEED))
+    graph_s = time.perf_counter() - t0
+    dw = DeepWalk(walk_length=DW_WALK, walks_per_vertex=DW_WALKS, vector_length=DW_DIM,
+                  window=DW_WINDOW, batch_size=EMB_BATCH, seed=DW_SEED)
+    vocab_s = timed_calls(dw._sv, "build_vocab")       # a pass over the walks
+    t0 = time.perf_counter()
+    gv = dw.fit(g)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    sv = gv._sv
+    walks = [[str(v) for v in w] for w, _ in zip(
+        RandomWalkIterator(g, DW_WALK, seed=DW_SEED + 1), range(EMB_PROFILE_SENTENCES))]
+    step = emb_step_check("DeepWalk", sv, walks, 3)
+    card = resolve_device("cuda")
+    idx = torch.tensor([sv.vocab.index_of(str(i)) for i in range(DW_VERTICES)], device=card)
+    if int((idx < 0).sum()):
+        raise AssertionError("DeepWalk left vertices out of its vocabulary")
+    comm_d = torch.from_numpy(comm).to(card)
+
+    def neighbour_share(table):
+        emb = torch.nn.functional.normalize(table, dim=1)
+        same = 0
+        for s in range(0, DW_VERTICES, 2048):
+            sims = emb[s:s + 2048] @ emb.T
+            sims[torch.arange(sims.shape[0]), torch.arange(s, s + sims.shape[0])] = -2.0
+            nb = sims.topk(DW_NEIGHBOURS, dim=1).indices
+            same += (comm_d[nb] == comm_d[s:s + 2048, None]).sum().item()
+        return same / (DW_VERTICES * DW_NEIGHBOURS)
+
+    share = neighbour_share(sv.lookup_table.syn0.index_select(0, idx))
+    random_share = neighbour_share(torch.randn(
+        DW_VERTICES, DW_DIM, device=card, generator=torch.Generator(card).manual_seed(DW_SEED)))
+    words = DW_VERTICES * DW_WALKS * DW_WALK
+    log(f"DeepWalk on a {DW_VERTICES}-vertex, {DW_EDGES}-edge graph ({DW_COMMUNITIES} planted "
+        f"communities, made in {graph_s:.2f} s), {DW_WALKS} walks a vertex: {words / fit_s:.0f} "
+        f"words/s ({fit_s:.2f} s, {vocab_s[0]:.2f} s of it the vocab's pass over the walks); "
+        f"{100 * share:.1f}% of each vertex's {DW_NEIGHBOURS} nearest "
+        f"neighbours share its community (chance {100 / DW_COMMUNITIES:.1f}%, a random table "
+        f"{100 * random_share:.1f}%, limit {100 * DW_MIN_SHARE:.0f}%)")
+    if not share >= DW_MIN_SHARE:
+        raise AssertionError(f"DeepWalk neighbours in the own community: {share}")
+    return {"graph_s": graph_s, "fit_s": fit_s, "vocab_s": vocab_s[0],
+            "words_per_s": words / fit_s, "words": words,
+            "walks_per_vertex": DW_WALKS, "walks_per_vertex_paper": 80,
+            "neighbour_share": share, "random_table_share": random_share,
+            "min_share": DW_MIN_SHARE, "chance": 1 / DW_COMMUNITIES, "step": step}
+
+
+def embeddings():
+    """Word2Vec HS, NS and CBOW, ParagraphVectors, GloVe and DeepWalk on the
+    card (``word2vec_kind``, ``paragraph_vectors``, ``glove_fit``,
+    ``deepwalk_blogcatalog``), and the HS fit of the corpus's first
+    EMB_CPU_SENTENCES sentences on the card against the same fit on the CPU
+    (the same host draws; only the atomics' summing order differs): the
+    least cosine over words at least EMB_FIT_COS, and the largest |diff|."""
+    from deeplearning4j_torch import resolve_device
+    from deeplearning4j_torch.nlp import Word2Vec
+
+    sentences = emb_sentences(np.random.default_rng(0), EMB_SENTENCES)
+    tokens = [s.split() for s in sentences]
+    res = {}
+    for kind in ("hs", "ns", "cbow"):
+        _, res[f"word2vec_{kind}"] = word2vec_kind(kind, sentences, tokens)
+        torch.cuda.empty_cache()
+    prefix = sentences[:EMB_CPU_SENTENCES]
+    vecs, secs = {}, {}
+    for tag, dev in (("card", resolve_device("cuda")), ("cpu", torch.device("cpu"))):
+        m = Word2Vec(vector_length=EMB_DIM, window=EMB_WINDOW, epochs=1,
+                     batch_size=EMB_CPU_BATCH, min_word_frequency=1, device=dev)
+        t0 = time.perf_counter()
+        m.fit(prefix)
+        vecs[tag] = m.lookup_table.syn0.double().cpu()
+        secs[tag] = time.perf_counter() - t0
+    cos = torch.nn.functional.cosine_similarity(vecs["card"], vecs["cpu"], dim=1)
+    least, diff = cos.min().item(), (vecs["card"] - vecs["cpu"]).abs().max().item()
+    log(f"Word2Vec HS on the first {EMB_CPU_SENTENCES} sentences at batch {EMB_CPU_BATCH}, card "
+        f"vs CPU: least cosine over {cos.numel()} words {least:.8f} (limit {EMB_FIT_COS}), max "
+        f"|diff| {diff:.2e} (fits {secs['card']:.2f} s and {secs['cpu']:.2f} s)")
+    if not least >= EMB_FIT_COS:
+        raise AssertionError(f"Word2Vec HS card and CPU fits part: least cosine {least}")
+    res["word2vec_hs"]["card_vs_cpu_fit"] = {"sentences": EMB_CPU_SENTENCES,
+                                             "batch": EMB_CPU_BATCH, "least_cos": least,
+                                             "max_abs_diff": diff, "fit_s": secs}
+    res["paragraph_vectors"] = paragraph_vectors(sentences)
+    torch.cuda.empty_cache()
+    res["glove"] = glove_fit(sentences[:GLOVE_SENTENCES])
+    torch.cuda.empty_cache()
+    res["deepwalk"] = deepwalk_blogcatalog()
+    torch.cuda.empty_cache()
+    return res
+
+
+def keras_embeddings(smi):
+    """Keras import and the embeddings on the card: ``keras_vgg16``,
+    ``keras_char_lstm`` and ``embeddings``, each driven with the counts set
+    to 0 just before and read just after: VGG16 and the embeddings launch
+    none of K1-K7, the char-LSTM K1 (f32), K3 (bf16 inference) and K3 + K4
+    (bf16 fits), checked inside ``keras_char_lstm``."""
+    t0 = time.perf_counter()
+    res = {"card": smi, "part_s": {}}
+    for name, fn, quiet in (("keras_vgg16", keras_vgg16, True),
+                            ("keras_char_lstm", keras_char_lstm, False),
+                            ("embeddings", embeddings, True)):
+        t1 = time.perf_counter()
+        reset_counts()
+        res[name] = fn()
+        if quiet and any(read_counts().values()):
+            raise AssertionError(f"{name} launched LSTM or flash kernels: {read_counts()}")
+        torch.cuda.empty_cache()
+        res["part_s"][name] = time.perf_counter() - t1
+    res["seconds"] = time.perf_counter() - t0
+    log(f"keras_embeddings took {res['seconds']:.1f} s")
+    return res
+
+
 def build():
     """Compile every kernel of the port, one nvcc per source, all at once,
     and print what ptxas reports of registers, shared memory and spills."""
@@ -5129,7 +6062,7 @@ def build():
 
 
 def kernel_line(serving, training, served, streamed, trained, flash, lm, decode, moe, graph,
-                reg, lmd, ev, rf, tp):
+                reg, lmd, ev, rf, tp, ke):
     """The {"kernels": [...]} entries: for K1-K4 numbers at the char-RNN's
     training shape, the launches of its training main path, and K1/K3's
     serving numbers and their decode rows (T=1, b=GEN_B, one a
@@ -5151,7 +6084,10 @@ def kernel_line(serving, training, served, streamed, trained, flash, lm, decode,
     char-RNN frozen at layer 0 (``transfer_pretrain_launches``: K1 without
     and with the reserve, K2; K3 and K4 0), with K1's numbers without the
     reserve at the training shape, the frozen layer's (``no_reserve_train_shape``;
-    its ``max_abs_err`` counts in the entry's)."""
+    its ``max_abs_err`` counts in the entry's). K1-K4 carry their launches on
+    the imported Keras char-LSTM (``keras_char_lstm``: its f32 ``output``, its
+    bf16 twin's ``output`` and bf16 fits, peepholes off) with the first launch
+    of each held against its plain version and timed (``held``)."""
     shape = {"b": TRAIN_B, "T": TRAIN_T, "H": H, "w": "bf16", "peepholes": True}
     phases = {"early_stopping": ev["early_stopping"]["launches"],
               "evaluate_masked": ev["char_rnn"]["masked"]["launches"],
@@ -5174,6 +6110,12 @@ def kernel_line(serving, training, served, streamed, trained, flash, lm, decode,
         return {p: sum(c[n] for c in cs for n in names) for p, cs in family_phases.items()}
     sshape = {"b": B, "T": T, "H": H, "w": "bf16", "peepholes": True}
     frozen = tp["char_rnn"]["launches"]
+    kl = ke["keras_char_lstm"]
+
+    def keras_lstm(*names):
+        return {"keras_char_lstm": {
+            "launches": {p: sum(c.get(n, 0) for n in names) for p, c in kl["launches"].items()},
+            "held": {k: v for k, v in kl["kernels"].items() if k in names}}}
 
     def entry(name, counter, source, replaces, res, extra=None):
         e = {"name": name, "route": "cuda", "source": f"deeplearning4j_torch/csrc/{source}",
@@ -5214,26 +6156,29 @@ def kernel_line(serving, training, served, streamed, trained, flash, lm, decode,
                **evaluate_launches("lstm_fwd", "lstm_fwd_train"),
                "recurrent_family_launches": family_launches("lstm_fwd", "lstm_fwd_train"),
                "transfer_pretrain_launches": {k: frozen[k] for k in ("lstm_fwd",
-                                                                     "lstm_fwd_train")}}),
+                                                                     "lstm_fwd_train")},
+               **keras_lstm("lstm_fwd", "lstm_fwd_train")}),
         entry("lstm_bwd", "lstm_bwd", "lstm_cell_bwd.cu", "deeplearning4j_tpu/ops/lstm_cell.py:235",
               [training["lstm_bwd/masked"], training["lstm_bwd/unmasked"]],
               {"design": training["lstm_bwd/masked"]["design"],
                "graph_tbptt_launches": graph["launches"]["lstm_bwd"],
                "recurrent_family_launches": family_launches("lstm_bwd"),
-               "transfer_pretrain_launches": frozen["lstm_bwd"]}),
+               "transfer_pretrain_launches": frozen["lstm_bwd"], **keras_lstm("lstm_bwd")}),
         entry("lstm2_fwd", "lstm2_fwd_train", "lstm_fused.cu", "deeplearning4j_tpu/ops/lstm_fused.py:111",
               [training["lstm2_fwd_train"]],
               {**serving_of("lstm2_fwd", ["lstm2_fwd"]), "decode": decode["lstm2_fwd"],
                "design": training["lstm2_fwd_train"]["design"],
                **evaluate_launches("lstm2_fwd", "lstm2_fwd_train"),
                "recurrent_family_launches": family_launches("lstm2_fwd", "lstm2_fwd_train"),
-               "transfer_pretrain_launches": frozen["lstm2_fwd"] + frozen["lstm2_fwd_train"]}),
+               "transfer_pretrain_launches": frozen["lstm2_fwd"] + frozen["lstm2_fwd_train"],
+               **keras_lstm("lstm2_fwd", "lstm2_fwd_train")}),
         entry("lstm2_bwd", "lstm2_bwd", "lstm_fused_bwd.cu", "deeplearning4j_tpu/ops/lstm_fused.py:249",
               [training["lstm2_bwd"]], {"design": training["lstm2_bwd"]["design"],
                                         **evaluate_launches("lstm2_bwd"),
                                         "recurrent_family_launches":
                                             family_launches("lstm2_bwd"),
-                                        "transfer_pretrain_launches": frozen["lstm2_bwd"]}),
+                                        "transfer_pretrain_launches": frozen["lstm2_bwd"],
+                                        **keras_lstm("lstm2_bwd")}),
         *(flash_entry(name, src, line, flash[name], lm, moe, lmd,
                       evaluate_launches(name) if name == "flash_fwd" else {})
           for name, src, line in (
@@ -5332,11 +6277,14 @@ def main() -> int:
     tp = transfer_pretrain(smi)
     torch.cuda.empty_cache()
     print(json.dumps({"transfer_pretrain": tp}))
+    ke = keras_embeddings(smi)
+    torch.cuda.empty_cache()
+    print(json.dumps({"keras_embeddings": ke}))
 
     print(json.dumps({"generate": generated}))
     print(json.dumps({"kernels": kernel_line(serving, training, served, streamed,
                                              trained["launches"], flash, lm, decode, moe,
-                                             graph, reg, lmd, ev, rf, tp)}))
+                                             graph, reg, lmd, ev, rf, tp, ke)}))
     log(f"chip_smoke took {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

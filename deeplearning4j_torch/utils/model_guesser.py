@@ -3,10 +3,10 @@
 Counterpart of ``deeplearning4j_tpu/utils/model_guesser.py`` (reference
 ``ModelGuesser.java``). The format is sniffed from the file's magic bytes
 first: a zip (``PK``) is a model zip of either container, restored by
-``model_serializer.restore_model``; anything else but HDF5 is read as a
-bare configuration JSON and becomes a freshly initialised network. Keras
-HDF5 import is not ported: an HDF5 file raises rather than being guessed
-at.
+``model_serializer.restore_model``; an HDF5 file is a Keras full-model
+save, imported by ``keras.KerasModelImport.import_keras_model_and_weights``
+(h5py reads it); anything else is read as a bare configuration JSON and
+becomes a freshly initialised network.
 """
 from __future__ import annotations
 
@@ -32,15 +32,16 @@ def _magic(path, n: int = 8) -> bytes:
 def load_model_guess(path, load_updater: bool = True, device="cuda"):
     """A network from ``path`` on ``device`` (the card unless
     ``device="cpu"``): a model zip of either container (with its updater
-    state when ``load_updater``), or a bare configuration JSON (a fresh
-    ``init()`` from the config's seed)."""
+    state when ``load_updater``), a Keras HDF5 model (Sequential or
+    functional), or a bare configuration JSON (a fresh ``init()`` from the
+    config's seed)."""
     dev = resolve_device(device)
     head = _magic(path)
     if head.startswith(_ZIP_MAGIC):
         return model_serializer.restore_model(path, dev, load_updater)
     if head.startswith(_HDF5_MAGIC):
-        raise NotImplementedError(f"{path} is HDF5: Keras model import is not ported to "
-                                  f"deeplearning4j_torch yet")
+        from ..keras import KerasModelImport
+        return KerasModelImport.import_keras_model_and_weights(path, device=dev)
     conf = load_config_guess(path)
     if isinstance(conf, MultiLayerConfiguration):
         return MultiLayerNetwork(conf).init(device=dev)
