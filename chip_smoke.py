@@ -251,21 +251,43 @@ and the CUDA toolkit; run from the root of the repository. It
    on 5,000 sentences; DeepWalk on a BlogCatalog-sized graph with 39
    planted communities (nearest neighbours in the own community); no K1-K7
    launch outside the char-LSTM;
-23. prints a ``{"cnn": ...}`` line with those numbers, a ``{"generate":
+23. (``remat_clustering``) runs VGG16 and ResNet50 at steps 20's and 12's
+   shapes and the TransformerLM of step 9, without and with attention
+   dropout 0.1, with remat off and on in alternating turns (median ms a
+   step with the spread, peak memory, the loss after 3 steps, the largest
+   parameter difference; the TransformerLM step launches 16 K5, 8 K6 and
+   8 K7 under remat, 8 of each without, and its losses agree); the
+   char-RNN of step 4 under remat "on" (K3 with the reserve twice a TBPTT
+   segment, K4 once; masked K1 with the reserve four times, K2 twice) and
+   "auto" (the counts of step 5), bit-equal; k-means on 1,000,000 x 128
+   points with k=256 (init s, ms a Lloyd iteration, inertia, peak; one
+   Lloyd step against the CPU's on 100,000 points); exact t-SNE on 6,000 x
+   784 points at perplexity 30 and 500 iterations (host P s, ms a step,
+   kl; one step against the CPU's); Barnes-Hut t-SNE on 1,000 points (s an
+   iteration, no launch); the nearest-neighbours server over 100,000 x 128
+   points (build s, ms a /knnnew query over HTTP, answers against a
+   ``torch.cdist`` top-k); and ``utils/profiling.py``: a ``trace`` of a
+   TransformerLM step that names K5's kernel, ``step_cost`` of VGG16 beside
+   the smoke's count of its convolutions' FLOPs and of the TransformerLM
+   beside K5-K7's FLOPs, which the dispatcher cannot see, and
+   ``StepTimerListener`` over 6 VGG16 fits;
+24. prints a ``{"cnn": ...}`` line with those numbers, a ``{"generate":
    ...}`` line with steps 6 and 10's, a ``{"moe_lm": ..., "graph_tbptt":
    ...}`` line with steps 15 and 16's, a ``{"regularized_char_rnn": ...,
    "lm_dropout": ..., "solvers": ...}`` line with step 17's, an
    ``{"evaluation": ...}`` line with step 18's and a
    ``{"recurrent_family": ...}`` line with step 19's, a ``{"cnn_family":
    ...}`` line with step 20's, a ``{"transfer_pretrain": ...}`` line
-   with step 21's and a ``{"keras_embeddings": ...}`` line with step 22's
-   (the card's name and power limit in those five), a
+   with step 21's, a ``{"keras_embeddings": ...}`` line with step 22's
+   and a ``{"remat_clustering": ...}`` line with step 23's (the card's name
+   and power limit in those six), a
    ``{"kernels": [...]}`` line (K1's and K3's entries with their decode
    rows; K1/K2's launches in step 16's fit, K5-K7's in step 15's steps;
    K1-K4's in each regularised fit, K5-K7's in the dropout LM's steps and
    their times with dropout; K1, K3, K4 and K5's in step 18; K1-K4's in
-   each path of step 19, in step 21's frozen char-RNN and on step 22's
-   imported char-LSTM) and, last, the
+   each path of step 19, in step 21's frozen char-RNN, on step 22's
+   imported char-LSTM and under step 23's remat; K5-K7's in step 23's
+   TransformerLM steps) and, last, the
    ``{"ok": true, "device": ...}`` line.
 
 Any failure raises, and the script exits nonzero without the last line.
@@ -699,6 +721,24 @@ PV_GROUPS, PV_HELD_OUT, PV_SEED, PV_BATCH = 100, 100, 42, 512
 GLOVE_SENTENCES, GLOVE_DIM, GLOVE_BATCH, GLOVE_SEED = 5000, 100, 4096, 43
 DW_VERTICES, DW_EDGES, DW_COMMUNITIES, DW_WITHIN, DW_SEED = 10312, 333983, 39, 0.8, 44
 DW_DIM, DW_WINDOW, DW_WALK, DW_WALKS, DW_NEIGHBOURS, DW_MIN_SHARE = 128, 10, 40, 2, 10, 0.8
+# remat_clustering: each model's remat arms take REMAT_LOSS_STEPS steps (the
+# loss after them) and REMAT_TURNS timed turns, alternating; the
+# TransformerLM's losses on and off within REMAT_LM_LOSS_RTOL (K1-K7 and the
+# GEMMs are deterministic), VGG16's and ResNet50's within REMAT_CNN_LOSS_RTOL
+# (cuDNN's backward need not be). k-means on KM_N x KM_D f32 points (a large
+# vocabulary's word vectors), k=KM_K, KM_ITERS iterations at most; the card's
+# Lloyd step against the CPU's on KM_HOLD_N points within KM_RTOL. Exact
+# t-SNE at MNIST's size (TS_N x TS_D), the card's step against the CPU's
+# within TS_RTOL; Barnes-Hut at BH_N points, BH_ITERS iterations (cut from
+# 50: a host iteration takes seconds). The kNN server over KNN_N x KNN_D
+# points, KNN_QUERIES /knnnew queries (cut from 100 for the same reason).
+REMAT_LOSS_STEPS, REMAT_TURNS, REMAT_RNN_SEED = 3, 4, 50
+REMAT_LM_LOSS_RTOL, REMAT_CNN_LOSS_RTOL = 1e-5, 1e-3
+KM_N, KM_D, KM_K, KM_ITERS, KM_HOLD_N, KM_RTOL, KM_SEED = 1_000_000, 128, 256, 50, 100_000, 1e-5, 51
+TS_N, TS_D, TS_RTOL, TS_SEED = 6000, 784, 1e-5, 52
+BH_N, BH_D, BH_ITERS = 1000, 50, 4
+KNN_N, KNN_D, KNN_K, KNN_QUERIES, KNN_SEED = 100_000, 128, 10, 20, 53
+PROF_FITS = 6
 
 
 def log(msg):
@@ -6032,6 +6072,457 @@ def keras_embeddings(smi):
     return res
 
 
+def remat_arms(label, make, ds, loss_steps=REMAT_LOSS_STEPS, turns=REMAT_TURNS, per_step=None):
+    """Remat off and on for one model (``make(mode)`` builds it from its
+    seed): ``loss_steps`` fit steps of each arm in alternating turns (the
+    loss after them, the largest parameter difference on against off), then
+    ``turns`` more timed steps of each in alternating turns (median ms and
+    the spread), the peak memory of each arm's steps
+    (``max_memory_allocated``, reset before each arm's step; also above
+    what was allocated before it), then one profiled step of each (device
+    busy time and launches beside the wall time: the recompute's device
+    work and its host work). With ``per_step`` ({mode: launches}) each
+    step's launches are checked."""
+    from deeplearning4j_torch import ListDataSetIterator
+
+    nets = {mode: make(mode) for mode in ("off", "on")}
+    times = {m: [] for m in nets}
+    peaks = {m: 0.0 for m in nets}
+    above = {m: 0.0 for m in nets}
+    for turn in range(loss_steps + turns):
+        for mode in (("off", "on") if turn % 2 == 0 else ("on", "off")):
+            net = nets[mode]
+            torch.cuda.synchronize()
+            base_bytes = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts()
+            t0 = time.perf_counter()
+            net.fit(ListDataSetIterator([ds]))
+            net.score()                                   # the value: a sync
+            ms = (time.perf_counter() - t0) * 1e3
+            got = read_counts()
+            peak = torch.cuda.max_memory_allocated()
+            peaks[mode] = max(peaks[mode], peak / 2 ** 30)
+            above[mode] = max(above[mode], (peak - base_bytes) / 2 ** 30)
+            if per_step is not None:
+                want = {n: per_step[mode].get(n, 0) for n in got}
+                if got != want:
+                    raise AssertionError(f"{label} remat {mode}: a step launched {got}, "
+                                         f"expected {want}")
+            if turn >= loss_steps:
+                times[mode].append(ms)
+        if turn == loss_steps - 1:
+            losses = {m: float(nets[m].score()) for m in nets}
+            pdiff = max((a.float() - b.float()).abs().max().item() for a, b in
+                        zip(nets["off"].parameters(), nets["on"].parameters()))
+    if not all(np.isfinite(list(losses.values()))):
+        raise AssertionError(f"{label} remat: losses {losses}")
+    loss_rel = abs(losses["on"] - losses["off"]) / abs(losses["off"])
+    res = {"loss_after": losses, "loss_rel_diff": loss_rel, "max_param_diff": pdiff,
+           "step_ms": {m: float(np.median(v)) for m, v in times.items()},
+           "step_ms_turns": times, "peak_gib": peaks, "peak_above_start_gib": above}
+    log(f"{label} remat off / on ({turns} alternating turns, smoke numbers, not a "
+        f"benchmark): {res['step_ms']['off']:.2f} / {res['step_ms']['on']:.2f} ms a step "
+        f"(spread {min(times['off']):.2f}-{max(times['off']):.2f} / "
+        f"{min(times['on']):.2f}-{max(times['on']):.2f}); peak {peaks['off']:.2f} / "
+        f"{peaks['on']:.2f} GiB ({above['off']:.2f} / {above['on']:.2f} above the step's "
+        f"start); loss after {loss_steps} steps {losses['off']:.6f} / {losses['on']:.6f} "
+        f"(relative difference {loss_rel:.2e}), largest parameter difference {pdiff:.3e}")
+    res["profile"] = {}
+    for mode, net in nets.items():
+        prof = profile_call(f"one {label} step, remat {mode}",
+                            lambda: (net.fit(ListDataSetIterator([ds])), net.score()))
+        res["profile"][mode] = None if prof is None else {
+            k: prof[k] for k in ("wall_ms", "busy_ms", "launches")}
+    del nets
+    torch.cuda.empty_cache()
+    return res
+
+
+def remat_models():
+    """VGG16 and ResNet50 at b=256, 224x224, bf16, Adam (``vgg16_main``'s and
+    ``resnet50``'s nets), and the TransformerLM of bench.py:1730 with and
+    without attention dropout, each with remat off and on
+    (``remat_arms``): the TransformerLM's step launches 16 K5, 8 K6 and 8
+    K7 under remat (the forward again in each attention region's
+    recompute) and 8 of each without; the card's K1-K7 and GEMMs are
+    deterministic, so its losses on and off agree within
+    REMAT_LM_LOSS_RTOL, with dropout too (K5's keep bits recomputed). The
+    convolutions' backward in cuDNN need not be deterministic, so VGG16 and
+    ResNet50 agree within REMAT_CNN_LOSS_RTOL."""
+    from deeplearning4j_torch import DataSet
+    from deeplearning4j_torch.models import ModelSelector, ResNet50
+    from deeplearning4j_torch.nn.conf import CacheMode
+    from deeplearning4j_torch.nn.graph import ComputationGraph
+    from deeplearning4j_torch.nn.multilayer import MultiLayerNetwork
+
+    def cnn(build, container):
+        def make(mode):
+            conf = build().conf()
+            conf.global_conf.compute_dtype = "bfloat16"
+            conf.global_conf.cache_mode = CacheMode.DEVICE
+            conf.global_conf.remat = mode
+            return container(conf).init()              # device defaults to the card
+        return make
+
+    res = {}
+    f, l = zoo_data(np.random.default_rng(0), VGG_B, VGG_IMG, VGG_CLASSES)
+    res["vgg16"] = remat_arms("VGG16", cnn(lambda: ModelSelector.select(
+        "vgg16", num_classes=VGG_CLASSES, input_shape=VGG_IMG), MultiLayerNetwork),
+        DataSet(f, l))
+    f, l = zoo_data(np.random.default_rng(0), R50_B, R50_IMG, R50_CLASSES)
+    res["resnet50"] = remat_arms("ResNet50", cnn(lambda: ResNet50(
+        num_classes=R50_CLASSES, input_shape=R50_IMG), ComputationGraph), DataSet(f, l))
+    del f, l
+    for name in ("vgg16", "resnet50"):
+        if res[name]["loss_rel_diff"] > REMAT_CNN_LOSS_RTOL:
+            raise AssertionError(f"{name}: remat on and off part by {res[name]['loss_rel_diff']}")
+
+    f, l = periodic_tokens(np.random.default_rng(8), LM_B, LM_T, LM_VOCAB)
+    lm_ds = DataSet(f, l)
+    per_step = {"off": {"flash_fwd": LM_BLOCKS, "flash_dq": LM_BLOCKS, "flash_dkv": LM_BLOCKS},
+                "on": {"flash_fwd": 2 * LM_BLOCKS, "flash_dq": LM_BLOCKS,
+                       "flash_dkv": LM_BLOCKS}}
+    for name, rate in (("transformer_lm", 0.0), ("transformer_lm_dropout", LM_DROPOUT_RATE)):
+        def make(mode, rate=rate):
+            from deeplearning4j_torch.models import TransformerLM
+
+            conf = TransformerLM(vocab_size=LM_VOCAB, embed_dim=LM_E, num_heads=LM_HEADS,
+                                 num_blocks=LM_BLOCKS, seed=1, dropout_rate=rate).conf()
+            conf.global_conf.compute_dtype = "bfloat16"
+            conf.global_conf.cache_mode = CacheMode.DEVICE
+            conf.global_conf.remat = mode
+            return ComputationGraph(conf).init()
+        res[name] = remat_arms(f"TransformerLM{' dropout ' + str(rate) if rate else ''}", make,
+                               lm_ds, per_step=per_step)
+        res[name]["launches_per_step"] = per_step
+        if res[name]["loss_rel_diff"] > REMAT_LM_LOSS_RTOL:
+            raise AssertionError(f"{name}: remat on and off part by "
+                                 f"{res[name]['loss_rel_diff']} (limit {REMAT_LM_LOSS_RTOL})")
+    return res
+
+
+def remat_char_rnn():
+    """The char-RNN of step 4 at b=64, T=200 (4 TBPTT segments) under remat
+    "on" and "auto", one unmasked and one masked fit each, the counts set
+    to 0 just before each fit: "on" launches K3 with the reserve twice a
+    segment (once more in each recompute) and K4 once, masked K1 with the
+    reserve four times a segment and K2 twice; "auto" (no convolution)
+    launches what a fit always has. The card's K1-K4 are deterministic, so
+    "on" and "auto" end bit-equal."""
+    from deeplearning4j_torch import DataSet
+
+    rng = np.random.default_rng(REMAT_RNN_SEED)
+    f, l = periodic_text(rng, TRAIN_B, TRAIN_SEQ)
+    mf, ml, m = masked_text(rng, TRAIN_B, TRAIN_SEQ)
+    segs = TRAIN_SEQ // TRAIN_T
+    want = {("unmasked", "on"): {"lstm2_fwd_train": 2 * segs, "lstm2_bwd": segs},
+            ("unmasked", "auto"): {"lstm2_fwd_train": segs, "lstm2_bwd": segs},
+            ("masked", "on"): {"lstm_fwd_train": 4 * segs, "lstm_bwd": 2 * segs},
+            ("masked", "auto"): {"lstm_fwd_train": 2 * segs, "lstm_bwd": 2 * segs}}
+    res = {"launches": {}, "bitwise": {}}
+    for kind, ds in (("unmasked", DataSet(f, l)), ("masked", DataSet(mf, ml, m, m))):
+        nets = {}
+        for mode in ("on", "auto"):
+            conf = char_rnn_conf()
+            conf.global_conf.remat = mode
+            nets[mode] = build_net(conf)
+            got = launches_of(lambda: (nets[mode].fit(ds), nets[mode].score()),
+                              want[(kind, mode)], f"char-RNN {kind} fit, remat {mode}")
+            res["launches"][f"{kind}_{mode}"] = {k: v for k, v in got.items() if v}
+        same = float(nets["on"].score()) == float(nets["auto"].score()) and all(
+            torch.equal(a, b) for a, b in zip(nets["on"].parameters(), nets["auto"].parameters()))
+        res["bitwise"][kind] = same
+        log(f"char-RNN {kind} fit: remat on and auto bit-equal: {same}")
+        if not same:
+            raise AssertionError(f"char-RNN {kind}: remat on and auto are not bit-equal")
+        del nets
+    return res
+
+
+def remat_clustering_kmeans():
+    """k-means at a word-vector table's size: ``apply_to`` on KM_N points of
+    d=KM_D (f32, from a seed), k=KM_K, at most KM_ITERS Lloyd iterations:
+    init s, ms a Lloyd iteration, iterations, inertia, peak GiB; then one
+    Lloyd step on the card against the CPU route from the fitted centroids
+    on a KM_HOLD_N-point slice: assignments equal but for exact ties (the
+    CPU's own distances equal at both picks), centroids and inertia within
+    KM_RTOL relative."""
+    from deeplearning4j_torch.clustering import KMeansClustering
+    from deeplearning4j_torch.clustering import kmeans as km
+
+    x = np.random.default_rng(KM_SEED).standard_normal((KM_N, KM_D), dtype=np.float32)
+    model = KMeansClustering.setup(KM_K, KM_ITERS, seed=KM_SEED)   # the card
+    init_s = {}
+    pp = model._kmeans_pp_init
+
+    def timed_init(*a):
+        t0 = time.perf_counter()
+        c = pp(*a)
+        torch.cuda.synchronize()
+        init_s["s"] = time.perf_counter() - t0
+        return c
+    model._kmeans_pp_init = timed_init
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cs = model.apply_to(x)
+    total_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    iters = model.iterations_
+    lloyd_ms = (total_s - init_s["s"]) * 1e3 / iters
+    xt, ct = torch.as_tensor(x).cuda(), torch.as_tensor(cs.centroids).cuda()
+    step_ms = cuda_ms(lambda: km._assign_update(xt, ct), 5)
+    del xt, ct
+    log(f"k-means n={KM_N} d={KM_D} k={KM_K}: init {init_s['s']:.2f} s, {lloyd_ms:.2f} ms a "
+        f"Lloyd iteration of apply_to (smoke number: the points' 512 MB H2D copy, each "
+        f"iteration's inertia sync and the results' copy back included) over {iters} "
+        f"iterations, {step_ms:.3f} ms a Lloyd step by CUDA events on the resident points; "
+        f"inertia {cs.inertia:.6e}, peak {peak:.2f} GiB")
+    if not (np.isfinite(cs.inertia) and cs.centroids.shape == (KM_K, KM_D)
+            and np.isfinite(cs.centroids).all()):
+        raise AssertionError("k-means: non-finite centroids or inertia")
+
+    xs = x[:KM_HOLD_N]
+    c = torch.as_tensor(cs.centroids)
+    a_card, c_card, in_card = (t.cpu() for t in km._assign_update(
+        torch.as_tensor(xs).cuda(), c.cuda()))
+    a_cpu, c_cpu, in_cpu = km._assign_update(torch.as_tensor(xs), c)
+    differ = (a_card != a_cpu).nonzero().flatten()
+    xt = torch.as_tensor(xs[differ.numpy()])
+    d2 = ((xt ** 2).sum(1)[:, None] - 2.0 * xt @ c.T + (c ** 2).sum(1)[None, :])
+    ties = bool(torch.equal(d2.gather(1, a_card[differ, None]), d2.gather(1, a_cpu[differ, None])))
+    cen_err = ((c_card - c_cpu).abs().max() / c_cpu.abs().max()).item()
+    in_err = abs(float(in_card) - float(in_cpu)) / abs(float(in_cpu))
+    log(f"k-means Lloyd step card vs CPU on {KM_HOLD_N} points: {len(differ)} assignments "
+        f"differ (all exact ties: {ties}), centroids {cen_err:.2e}, inertia {in_err:.2e} relative")
+    if not ties or cen_err > KM_RTOL or in_err > KM_RTOL:
+        raise AssertionError("k-means: the card's Lloyd step disagrees with the CPU's")
+    return {"n": KM_N, "d": KM_D, "k": KM_K, "init_s": init_s["s"], "lloyd_ms": lloyd_ms,
+            "lloyd_step_event_ms": step_ms,
+            "iterations": iters, "inertia": cs.inertia, "peak_gib": peak,
+            "hold": {"n": KM_HOLD_N, "assign_differ": len(differ), "centroid_rel": cen_err,
+                     "inertia_rel": in_err}}
+
+
+def remat_clustering_tsne():
+    """Exact t-SNE at MNIST's size in van der Maaten & Hinton 2008 (TS_N
+    points of d=TS_D from a seed, perplexity 30, 500 iterations): host P s,
+    card ms a step, ``kl_``; one ``_tsne_step`` on the card against the CPU
+    route from the same state within TS_RTOL of each output's largest entry;
+    then Barnes-Hut t-SNE at BH_N points (host only: no launch on the card),
+    s an iteration."""
+    from deeplearning4j_torch.clustering import BarnesHutTsne, Tsne
+    from deeplearning4j_torch.clustering import tsne as ts
+
+    x = np.random.default_rng(TS_SEED).standard_normal((TS_N, TS_D))
+    t = Tsne(seed=TS_SEED)                                         # the card
+    held = {}
+    affinities = t._affinities
+
+    def timed_p(xx):
+        t0 = time.perf_counter()
+        held["P"] = affinities(xx)
+        held["s"] = time.perf_counter() - t0
+        return held["P"]
+    t._affinities = timed_p
+    t0 = time.perf_counter()
+    y = t.fit_transform(x)
+    step_ms = (time.perf_counter() - t0 - held["s"]) * 1e3 / t.n_iter
+    log(f"exact t-SNE n={TS_N} d={TS_D} perplexity {t.perplexity} {t.n_iter} iterations: host P "
+        f"{held['s']:.2f} s, {step_ms:.3f} ms a step on the card (smoke number, P's H2D copy "
+        f"included), kl {t.kl_:.6f}")
+    if y.shape != (TS_N, 2) or not np.isfinite(y).all() or not np.isfinite(t.kl_):
+        raise AssertionError("exact t-SNE: non-finite embedding or kl")
+    rng = np.random.default_rng(TS_SEED + 1)
+    state = (y, held["P"].astype(np.float32), rng.uniform(0.5, 2.0, y.shape).astype(np.float32),
+             rng.normal(scale=0.1, size=y.shape).astype(np.float32))
+    card = [a.cpu() for a in ts._tsne_step(*(torch.as_tensor(a).cuda() for a in state),
+                                           t.learning_rate, t.momentum)]
+    cpu = ts._tsne_step(*(torch.as_tensor(a) for a in state), t.learning_rate, t.momentum)
+    # a gain flips where the sign of a near-zero gradient rounds the other
+    # way; such points are counted, the rest of the step is held
+    same = (card[1] == cpu[1]).all(1)
+    errs = [((a[same] - b[same]).abs().max() / b[same].abs().max()).item()
+            for a, b in ((card[0], cpu[0]), (card[2], cpu[2]))]
+    errs.append(abs(float(card[3]) - float(cpu[3])) / abs(float(cpu[3])))
+    kinks = int((~same).sum())
+    log(f"t-SNE step card vs CPU: y, velocity, kl relative errors "
+        + ", ".join(f"{e:.2e}" for e in errs) + f"; {kinks} of {TS_N} points with a flipped gain")
+    if max(errs) > TS_RTOL or kinks > TS_N // 1000:
+        raise AssertionError(f"t-SNE: the card's step disagrees with the CPU's: {errs}, "
+                             f"{kinks} flipped gains")
+    res = {"n": TS_N, "d": TS_D, "host_p_s": held["s"], "step_ms": step_ms, "kl": t.kl_,
+           "step_rel_errs": errs, "flipped_gains": kinks}
+
+    xb = np.random.default_rng(TS_SEED + 2).standard_normal((BH_N, BH_D))
+    secs = {}
+    reset_counts()
+    for iters in (0, BH_ITERS):
+        t0 = time.perf_counter()
+        emb = BarnesHutTsne(n_iter=iters, seed=TS_SEED).fit_transform(xb)
+        secs[iters] = time.perf_counter() - t0
+    if any(read_counts().values()) or not np.isfinite(emb).all():
+        raise AssertionError("Barnes-Hut t-SNE: launched a kernel or gave non-finite values")
+    bh_s = (secs[BH_ITERS] - secs[0]) / BH_ITERS
+    log(f"Barnes-Hut t-SNE n={BH_N} d={BH_D}: {bh_s:.3f} s an iteration on the host over "
+        f"{BH_ITERS} iterations, {secs[0]:.2f} s of kNN and P first")
+    res["barnes_hut"] = {"n": BH_N, "iterations": BH_ITERS, "s_an_iteration": bh_s,
+                         "setup_s": secs[0]}
+    return res
+
+
+def remat_clustering_knn():
+    """The nearest-neighbours server over KNN_N points of d=KNN_D: build s,
+    KNN_QUERIES ``/knnnew`` queries of k=KNN_K over HTTP (ms a query), each
+    answer's indices and distances against a brute-force ``torch.cdist``
+    top-k on the card."""
+    from deeplearning4j_torch.clustering import NearestNeighborsClient, NearestNeighborsServer
+
+    rng = np.random.default_rng(KNN_SEED)
+    pts = rng.standard_normal((KNN_N, KNN_D))
+    queries = rng.standard_normal((KNN_QUERIES, KNN_D))
+    t0 = time.perf_counter()
+    server = NearestNeighborsServer(pts)
+    build_s = time.perf_counter() - t0
+    port = server.start(0)
+    try:
+        client = NearestNeighborsClient(f"http://127.0.0.1:{port}")
+        t0 = time.perf_counter()
+        answers = [client.knn_new(q, KNN_K)["results"] for q in queries]
+        query_ms = (time.perf_counter() - t0) * 1e3 / KNN_QUERIES
+    finally:
+        server.stop()
+    d = torch.cdist(torch.as_tensor(queries).cuda(), torch.as_tensor(pts).cuda())
+    dist, idx = d.topk(KNN_K, largest=False)
+    idx, dist = idx.cpu().numpy(), dist.cpu().numpy()
+    bad = [i for i, a in enumerate(answers)
+           if [r["index"] for r in a] != idx[i].tolist()
+           or not np.allclose([r["distance"] for r in a], dist[i], rtol=1e-9, atol=1e-9)]
+    log(f"kNN server n={KNN_N} d={KNN_D}: VPTree built in {build_s:.2f} s, {query_ms:.1f} ms a "
+        f"/knnnew query (k={KNN_K}, {KNN_QUERIES} over HTTP); answers against torch.cdist "
+        f"top-k on the card: {KNN_QUERIES - len(bad)} of {KNN_QUERIES} equal")
+    if bad:
+        raise AssertionError(f"kNN server: queries {bad[:5]} differ from the brute force")
+    return {"n": KNN_N, "d": KNN_D, "k": KNN_K, "queries": KNN_QUERIES, "build_s": build_s,
+            "query_ms": query_ms}
+
+
+def conv_step_flops(net, img):
+    """The convolutions' FLOPs of one fit step of ``net`` at batch 1 on
+    ``img``: 2 · Ho·Wo·Cout · kh·kw·Cin a convolution forward, as much again
+    for its weight gradient and for its input gradient (not for the first
+    layer's input), read from one forward's shapes."""
+    from deeplearning4j_torch.nn.layers.convolution import Conv2DImpl
+
+    seen = []
+    hooks = [m.register_forward_hook(lambda mod, a, out: seen.append(
+        (2 * out[0].numel() * mod.W.shape[0] * mod.W.shape[1] * mod.W.shape[2])))
+        for m in net.modules() if type(m) is Conv2DImpl]
+    try:
+        net.output(np.zeros((1, *img), np.float32))
+    finally:
+        for h in hooks:
+            h.remove()
+    return 3 * sum(seen) - seen[0]
+
+
+def remat_clustering_profiler():
+    """``utils/profiling.py`` on the card: ``trace`` around one TransformerLM
+    step (its Chrome trace must name K5's kernel); ``step_cost`` of VGG16
+    at b=256 beside the smoke's own count of its convolutions' FLOPs, and
+    of the TransformerLM beside K5-K7's FLOPs by the bound formulas (the
+    kernels launch through ctypes, so the dispatcher counts none of it);
+    ``StepTimerListener`` over PROF_FITS VGG16 fits (p50/p95)."""
+    from deeplearning4j_torch import DataSet
+    from deeplearning4j_torch.models import ModelSelector
+    from deeplearning4j_torch.nn.conf import CacheMode
+    from deeplearning4j_torch.nn.graph import ComputationGraph
+    from deeplearning4j_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_torch.utils.profiling import StepTimerListener, step_cost, trace
+
+    res = {}
+    lm = ComputationGraph(lm_conf()).init()
+    f, l = periodic_tokens(np.random.default_rng(9), LM_B, LM_T, LM_VOCAB)
+    ds = DataSet(f, l)
+    lm.fit(ds)
+    out_dir = Path("build") / "remat_clustering_trace"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    with trace(str(out_dir)) as prof:
+        lm.fit(ds)
+        lm.score()
+    files = sorted(out_dir.glob("*.json"))
+    text = files[-1].read_text() if files else ""
+    k5 = "flash_fwd_wgmma" in text
+    log(f"trace around one TransformerLM step: {files[-1] if files else None}, "
+        f"{len(text) / 1e6:.1f} MB, K5's kernel (flash_fwd_wgmma) named: {k5}")
+    if not k5:
+        raise AssertionError("the profiler's trace of a TransformerLM step does not name K5")
+    del prof
+    cost = step_cost(lm, ds)
+    bh, t, d = LM_B * LM_HEADS, LM_T, LM_D
+    cells = bh * t * (t + 1) // 2
+    kernel_flops = LM_BLOCKS * (2 + 3 + 4) * 2 * d * cells
+    log(f"step_cost of a TransformerLM step: {cost['flops'] / 1e12:.3f} TFLOP counted by the "
+        f"dispatcher, {cost['bytes_accessed'] / 1e9:.1f} GB; K5-K7 add {kernel_flops / 1e12:.3f} "
+        f"TFLOP it cannot see (bound formulas: 2, 3 and 4 products of 2·d a visible cell)")
+    res["transformer_lm"] = {"flops": cost["flops"], "bytes": cost["bytes_accessed"],
+                             "k5_k7_flops_unseen": kernel_flops}
+    del lm, ds
+    torch.cuda.empty_cache()
+
+    conf = ModelSelector.select("vgg16", num_classes=VGG_CLASSES, input_shape=VGG_IMG).conf()
+    conf.global_conf.compute_dtype = "bfloat16"
+    conf.global_conf.cache_mode = CacheMode.DEVICE
+    net = MultiLayerNetwork(conf).init()
+    f, l = zoo_data(np.random.default_rng(0), VGG_B, VGG_IMG, VGG_CLASSES)
+    ds = DataSet(f, l)
+    cost = step_cost(net, ds)
+    conv = conv_step_flops(net, VGG_IMG) * VGG_B
+    log(f"step_cost of a VGG16 step b={VGG_B}: {cost['flops'] / 1e12:.3f} TFLOP, "
+        f"{cost['bytes_accessed'] / 1e9:.1f} GB; the smoke's count of its convolutions "
+        f"{conv / 1e12:.3f} TFLOP (ratio {cost['flops'] / conv:.4f})")
+    res["vgg16"] = {"flops": cost["flops"], "bytes": cost["bytes_accessed"], "conv_flops": conv}
+    timer = StepTimerListener()
+    net.set_listeners(timer)
+    for _ in range(PROF_FITS):
+        net.fit(ds)
+    s = timer.summary()
+    log(f"StepTimerListener over {PROF_FITS} VGG16 fits: p50 {s['p50_ms']:.2f} ms, p95 "
+        f"{s['p95_ms']:.2f} ms ({int(s['n'])} intervals)")
+    res["vgg16"]["step_timer"] = s
+    del net, ds
+    torch.cuda.empty_cache()
+    return res
+
+
+def remat_clustering(smi):
+    """Remat, clustering and the profiler on the card (step 23 of the module
+    docstring): ``remat_models``, ``remat_char_rnn``,
+    ``remat_clustering_kmeans``, ``remat_clustering_tsne``,
+    ``remat_clustering_knn`` and ``remat_clustering_profiler``, the counts
+    set to 0 just before each and read just after: only the TransformerLM
+    and char-RNN parts launch K1-K7."""
+    t0 = time.perf_counter()
+    res = {"card": smi, "part_s": {}}
+    for name, fn, quiet in (("models", remat_models, False),
+                            ("char_rnn", remat_char_rnn, False),
+                            ("kmeans", remat_clustering_kmeans, True),
+                            ("tsne", remat_clustering_tsne, True),
+                            ("knn", remat_clustering_knn, True),
+                            ("profiler", remat_clustering_profiler, False)):
+        t1 = time.perf_counter()
+        reset_counts()
+        res[name] = fn()
+        if quiet and any(read_counts().values()):
+            raise AssertionError(f"{name} launched LSTM or flash kernels: {read_counts()}")
+        torch.cuda.empty_cache()
+        res["part_s"][name] = time.perf_counter() - t1
+        log(f"remat_clustering {name}: {res['part_s'][name]:.1f} s ({smi})")
+    res["seconds"] = time.perf_counter() - t0
+    log(f"remat_clustering took {res['seconds']:.1f} s")
+    return res
+
+
 def build():
     """Compile every kernel of the port, one nvcc per source, all at once,
     and print what ptxas reports of registers, shared memory and spills."""
@@ -6062,7 +6553,7 @@ def build():
 
 
 def kernel_line(serving, training, served, streamed, trained, flash, lm, decode, moe, graph,
-                reg, lmd, ev, rf, tp, ke):
+                reg, lmd, ev, rf, tp, ke, rc):
     """The {"kernels": [...]} entries: for K1-K4 numbers at the char-RNN's
     training shape, the launches of its training main path, and K1/K3's
     serving numbers and their decode rows (T=1, b=GEN_B, one a
@@ -6087,7 +6578,10 @@ def kernel_line(serving, training, served, streamed, trained, flash, lm, decode,
     its ``max_abs_err`` counts in the entry's). K1-K4 carry their launches on
     the imported Keras char-LSTM (``keras_char_lstm``: its f32 ``output``, its
     bf16 twin's ``output`` and bf16 fits, peepholes off) with the first launch
-    of each held against its plain version and timed (``held``)."""
+    of each held against its plain version and timed (``held``). K1-K4
+    carry their launches in the char-RNN's fits under remat "on" and
+    "auto" (``remat_launches``), K5-K7 theirs in a TransformerLM step
+    with remat off and on, without and with attention dropout."""
     shape = {"b": TRAIN_B, "T": TRAIN_T, "H": H, "w": "bf16", "peepholes": True}
     phases = {"early_stopping": ev["early_stopping"]["launches"],
               "evaluate_masked": ev["char_rnn"]["masked"]["launches"],
@@ -6111,6 +6605,11 @@ def kernel_line(serving, training, served, streamed, trained, flash, lm, decode,
     sshape = {"b": B, "T": T, "H": H, "w": "bf16", "peepholes": True}
     frozen = tp["char_rnn"]["launches"]
     kl = ke["keras_char_lstm"]
+    rnn_remat = rc["char_rnn"]["launches"]
+
+    def remat_launches(*names):
+        return {"remat_launches": {p: sum(c.get(n, 0) for n in names)
+                                   for p, c in rnn_remat.items()}}
 
     def keras_lstm(*names):
         return {"keras_char_lstm": {
@@ -6157,13 +6656,15 @@ def kernel_line(serving, training, served, streamed, trained, flash, lm, decode,
                "recurrent_family_launches": family_launches("lstm_fwd", "lstm_fwd_train"),
                "transfer_pretrain_launches": {k: frozen[k] for k in ("lstm_fwd",
                                                                      "lstm_fwd_train")},
-               **keras_lstm("lstm_fwd", "lstm_fwd_train")}),
+               **keras_lstm("lstm_fwd", "lstm_fwd_train"),
+               **remat_launches("lstm_fwd", "lstm_fwd_train")}),
         entry("lstm_bwd", "lstm_bwd", "lstm_cell_bwd.cu", "deeplearning4j_tpu/ops/lstm_cell.py:235",
               [training["lstm_bwd/masked"], training["lstm_bwd/unmasked"]],
               {"design": training["lstm_bwd/masked"]["design"],
                "graph_tbptt_launches": graph["launches"]["lstm_bwd"],
                "recurrent_family_launches": family_launches("lstm_bwd"),
-               "transfer_pretrain_launches": frozen["lstm_bwd"], **keras_lstm("lstm_bwd")}),
+               "transfer_pretrain_launches": frozen["lstm_bwd"], **keras_lstm("lstm_bwd"),
+               **remat_launches("lstm_bwd")}),
         entry("lstm2_fwd", "lstm2_fwd_train", "lstm_fused.cu", "deeplearning4j_tpu/ops/lstm_fused.py:111",
               [training["lstm2_fwd_train"]],
               {**serving_of("lstm2_fwd", ["lstm2_fwd"]), "decode": decode["lstm2_fwd"],
@@ -6171,16 +6672,23 @@ def kernel_line(serving, training, served, streamed, trained, flash, lm, decode,
                **evaluate_launches("lstm2_fwd", "lstm2_fwd_train"),
                "recurrent_family_launches": family_launches("lstm2_fwd", "lstm2_fwd_train"),
                "transfer_pretrain_launches": frozen["lstm2_fwd"] + frozen["lstm2_fwd_train"],
-               **keras_lstm("lstm2_fwd", "lstm2_fwd_train")}),
+               **keras_lstm("lstm2_fwd", "lstm2_fwd_train"),
+               **remat_launches("lstm2_fwd", "lstm2_fwd_train")}),
         entry("lstm2_bwd", "lstm2_bwd", "lstm_fused_bwd.cu", "deeplearning4j_tpu/ops/lstm_fused.py:249",
               [training["lstm2_bwd"]], {"design": training["lstm2_bwd"]["design"],
                                         **evaluate_launches("lstm2_bwd"),
                                         "recurrent_family_launches":
                                             family_launches("lstm2_bwd"),
                                         "transfer_pretrain_launches": frozen["lstm2_bwd"],
-                                        **keras_lstm("lstm2_bwd")}),
+                                        **keras_lstm("lstm2_bwd"),
+                                        **remat_launches("lstm2_bwd")}),
         *(flash_entry(name, src, line, flash[name], lm, moe, lmd,
-                      evaluate_launches(name) if name == "flash_fwd" else {})
+                      {**(evaluate_launches(name) if name == "flash_fwd" else {}),
+                       "remat_launches_per_step": {
+                           f"{m}{' dropout' if k.endswith('dropout') else ''}":
+                           rc["models"][k]["launches_per_step"][m][name]
+                           for k in ("transformer_lm", "transformer_lm_dropout")
+                           for m in ("off", "on")}})
           for name, src, line in (
             ("flash_fwd", "flash_attn_fwd.cu", 202), ("flash_dq", "flash_attn_dq.cu", 311),
             ("flash_dkv", "flash_attn_dkv.cu", 361))),
@@ -6280,11 +6788,14 @@ def main() -> int:
     ke = keras_embeddings(smi)
     torch.cuda.empty_cache()
     print(json.dumps({"keras_embeddings": ke}))
+    rc = remat_clustering(smi)
+    torch.cuda.empty_cache()
+    print(json.dumps({"remat_clustering": rc}))
 
     print(json.dumps({"generate": generated}))
     print(json.dumps({"kernels": kernel_line(serving, training, served, streamed,
                                              trained["launches"], flash, lm, decode, moe,
-                                             graph, reg, lmd, ev, rf, tp, ke)}))
+                                             graph, reg, lmd, ev, rf, tp, ke, rc)}))
     log(f"chip_smoke took {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -2,10 +2,9 @@
 
 Counterpart of ``deeplearning4j_tpu/nlp/``: the SequenceVectors engine,
 Word2Vec/CBOW, ParagraphVectors, GloVe, vocab and Huffman, the tokenization
-pipeline, word-vector serialization and the bag-of-words vectorizers. Not
-ported yet: ``nlp/lang.py``'s CJK and UIMA tokenizers (``Lexicon``, the
-Chinese/Japanese/Korean/UIMA factories, ``AnnotationPipeline``), ROADMAP
-A 13b; and ``nlp/distributed.py`` (``DistributedWord2Vec``,
+pipeline, word-vector serialization, the bag-of-words vectorizers and the
+CJK and UIMA language modules (``lang.py``). Not ported yet:
+``nlp/distributed.py`` (``DistributedWord2Vec``,
 ``DistributedGlove``, ``SparkWord2Vec``, ``SparkGlove``,
 ``partition_sentences``), ROADMAP A 14 with the rest of the parallel layer.
 """
@@ -20,6 +19,10 @@ from .word2vec import Word2Vec, CBOW, ParagraphVectors
 from .glove import Glove
 from .bagofwords import InvertedIndex, BagOfWordsVectorizer, TfidfVectorizer
 from .serializer import WordVectorSerializer, StaticWordVectors
+from .lang import (Lexicon,
+                   ChineseTokenizerFactory, JapaneseTokenizerFactory,
+                   KoreanTokenizerFactory, UimaTokenizerFactory,
+                   AnnotationPipeline)
 
 __all__ = ["SentenceIterator", "CollectionSentenceIterator", "BasicLineIterator",
            "Tokenizer", "TokenizerFactory", "DefaultTokenizerFactory",
@@ -28,4 +31,6 @@ __all__ = ["SentenceIterator", "CollectionSentenceIterator", "BasicLineIterator"
            "SequenceElement", "Huffman", "build_vocab", "SequenceVectors",
            "InMemoryLookupTable", "lookup_table_from_numpy", "Word2Vec", "CBOW",
            "ParagraphVectors", "Glove", "InvertedIndex", "BagOfWordsVectorizer",
-           "TfidfVectorizer", "WordVectorSerializer", "StaticWordVectors"]
+           "TfidfVectorizer", "WordVectorSerializer", "StaticWordVectors",
+           "Lexicon", "ChineseTokenizerFactory", "JapaneseTokenizerFactory",
+           "KoreanTokenizerFactory", "UimaTokenizerFactory", "AnnotationPipeline"]

@@ -6,8 +6,8 @@ Counterpart of ``deeplearning4j_tpu/nlp/text.py`` (reference
 ``Tokenizer`` (DefaultTokenizerFactory: whitespace, an optional
 preprocessor), ``NGramTokenizerFactory``, ``TokenPreProcess``
 (CommonPreprocessor) and ``StopWords``. Host Python, the same tokens as the
-JAX package's. The CJK and UIMA factories of ``nlp/lang.py`` are not ported
-yet; the factory seam accepts any ``TokenizerFactory``.
+JAX package's. The CJK and UIMA factories are in ``nlp/lang.py``; the
+factory seam accepts any ``TokenizerFactory``.
 """
 from __future__ import annotations
 

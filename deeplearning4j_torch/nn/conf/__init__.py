@@ -12,10 +12,13 @@ and constraint objects decode to the classes of ``nn/conf/dropout.py``.
 Some knobs are carried as configuration only, so that a JAX
 ``configuration.json`` that sets them round-trips: the workspace modes
 (the port has no workspaces; PyTorch's caching allocator reuses memory
-whatever they say), ``remat`` (there is no compiler to rematerialise
-under; autograd keeps what the backward needs), ``mini_batch`` and
-``backprop``. ``pretrain`` makes ``MultiLayerNetwork.fit`` pretrain its
-pretrain layers (AutoEncoder, RBM, VariationalAutoencoder) first. The
+whatever they say), ``mini_batch`` and ``backprop``. ``remat`` ("off",
+"on", or "auto": on for convolutional nets without a recurrent layer)
+makes both containers' fit steps keep only the outputs of layers with
+``save_output`` (and every graph vertex's) and recompute the rest in the
+backward (``nn/layers/base.remat_enabled``, ``checkpointed``).
+``pretrain`` makes ``MultiLayerNetwork.fit`` pretrain its pretrain layers
+(AutoEncoder, RBM, VariationalAutoencoder) first. The
 VAE's reconstruction distributions are the classes of
 ``nn/conf/reconstruction.py``.
 """
@@ -307,9 +310,8 @@ class Builder:
     miniBatch = mini_batch
 
     def remat(self, mode):
-        """"auto" | "on" | "off": carried as configuration only (autograd
-        keeps what the backward needs; there is no compiler to
-        rematerialise under)."""
+        """Activation rematerialisation in fit steps: "auto" | "on" |
+        "off" (``nn/layers/base.remat_enabled``)."""
         return self._set("remat", str(mode))
 
     def training_workspace_mode(self, m):

@@ -27,12 +27,19 @@ call. Dropout, weight noise, constraints, listeners and the health halt
 work as in ``MultiLayerNetwork`` (its docstring): each training forward
 splits the graph's generator per layer vertex in topological order, and
 the output layers' loss is taken on unnoised parameters with their input
-dropout from the step's stream (JAX ``graph.py:201``). ``evaluate``
+dropout from the step's stream (JAX ``graph.py:201``). Remat works as in
+``MultiLayerNetwork`` (its docstring) over the DAG (``_remat_loss``): a
+fit step keeps every vertex's output except those of layers without
+``save_output`` that feed one vertex, which are recomputed in that
+vertex's region (the TransformerLM's attention regions run K5 again in
+the backward). ``evaluate``
 ranks the output on the device (``eval/evaluation.py``); ``param_table``
 and ``summary`` walk the topological order.
 """
 from __future__ import annotations
 
+from collections import Counter
+from functools import partial
 from typing import Dict, Optional
 
 import torch
@@ -43,7 +50,8 @@ from .conf import BackpropType, CacheMode
 from .conf.graph import ComputationGraphConfiguration
 from .conf.layers import Layer
 from .layers import impl_for
-from .layers.base import StepGenerators
+from .layers.base import (StepGenerators, checkpointed, generator_state, remat_enabled,
+                          replay_generator)
 from .multilayer import _detached, _fit_epochs, _observe, _run_tbptt, nchw_to_nhwc
 from .multilayer import MultiLayerNetwork
 from .updaters import Sgd
@@ -171,36 +179,51 @@ class ComputationGraph(nn.Module):
         carry}) continues a stream; each carrying vertex leaves its new
         carry in ``ctx["rnn_state_out"]``."""
         conf = self.conf
-        its = conf.input_types or [None] * len(inputs)
-        acts = dict(zip(conf.network_inputs,
-                        [nchw_to_nhwc(x, it) for x, it in zip(inputs, its)]))
-        masks = dict(zip(conf.network_inputs, input_masks or [None] * len(conf.network_inputs)))
-        ctx = {"inputs": acts, "input_masks": masks, "train": train}
+        acts, masks, ctx = self._forward_context(inputs, input_masks, train, new_states,
+                                                 rnn_state_in)
         gens = StepGenerators(rng if train else None)
-        if new_states is not None:
-            ctx["new_states"] = new_states
-        if rnn_state_in is not None:
-            ctx["rnn_state_in"] = rnn_state_in
         for name in self.topo:
             if name in skip:
                 continue
             v = conf.vertices[name]
             in_names = conf.vertex_inputs[name]
-            xs = [acts[i] for i in in_names]
             if isinstance(v, Layer):
-                x = xs[0]
-                pre = conf.input_preprocessors.get(name)
-                if pre is not None:
-                    x = pre(x, ctx)
-                m = masks.get(in_names[0])
                 ctx["rng"] = gens.next(self.impls[name])
-                acts[name] = self.impls[name].noised_forward(x, m, ctx)
-                masks[name] = m
+                masks[name] = masks.get(in_names[0])
             else:
-                acts[name] = v.forward(xs, ctx)
                 masks[name] = v.propagate_mask([masks.get(i) for i in in_names])
+            acts[name] = self._vertex_forward(name, acts, masks, ctx)
         ctx.pop("rng", None)
         return acts, masks, ctx
+
+    def _forward_context(self, inputs, input_masks, train, new_states, rnn_state_in):
+        """(activations, masks, ctx) of a forward before its first vertex:
+        the inputs (convolutional ones NHWC) and their masks by name."""
+        conf = self.conf
+        its = conf.input_types or [None] * len(inputs)
+        acts = dict(zip(conf.network_inputs,
+                        [nchw_to_nhwc(x, it) for x, it in zip(inputs, its)]))
+        masks = dict(zip(conf.network_inputs, input_masks or [None] * len(conf.network_inputs)))
+        ctx = {"inputs": acts, "input_masks": masks, "train": train}
+        if new_states is not None:
+            ctx["new_states"] = new_states
+        if rnn_state_in is not None:
+            ctx["rnn_state_in"] = rnn_state_in
+        return acts, masks, ctx
+
+    def _vertex_forward(self, name, acts, masks, ctx):
+        """Vertex ``name``'s output from its inputs' entries of ``acts``: a
+        layer after its input preprocessor, on its first input's mask, with
+        ``ctx["rng"]`` as its generator."""
+        in_names = self.conf.vertex_inputs[name]
+        v = self.conf.vertices[name]
+        if not isinstance(v, Layer):
+            return v.forward([acts[i] for i in in_names], ctx)
+        x = acts[in_names[0]]
+        pre = self.conf.input_preprocessors.get(name)
+        if pre is not None:
+            x = pre(x, ctx)
+        return self.impls[name].noised_forward(x, masks.get(in_names[0]), ctx)
 
     def output(self, *inputs, masks=None):
         """Activations of the output vertices; one tensor (on the network's
@@ -257,35 +280,27 @@ class ComputationGraph(nn.Module):
 
     # -------------------------------------------------------------- training
     def _loss_fn(self, inputs, labels, input_masks, label_masks, train, rng=None,
-                 new_states=None, rnn_state_in=None, rnn_state_out=None):
+                 new_states=None, rnn_state_in=None, rnn_state_out=None, remat=False):
         """Sum of the output layers' losses + L1/L2 + the auxiliary losses
         the forward left in ``ctx["aux_loss"]`` (``_loss_fn`` of the JAX
         package). A training forward's new layer state goes into
         ``new_states`` when it is given (an output layer's ``update_state``
         too, as in ``MultiLayerNetwork._loss_fn``); ``rnn_state_in`` continues the
         vertices' carries, and their new carries go into ``rnn_state_out``
-        when it is given."""
-        conf = self.conf
+        when it is given. ``remat`` (a training step's) runs the forward in
+        checkpointed regions."""
         rng = rng if train else None
-        out_set = fused_softmax_skip_set(conf, self.impls)
-        acts, masks, ctx = self._apply_graph(inputs, input_masks, train, rng, skip=out_set,
-                                             new_states=new_states, rnn_state_in=rnn_state_in)
-        total = 0.0
-        for out_name, lbl, lm in zip(conf.network_outputs, labels,
-                                     label_masks or [None] * len(labels)):
-            impl = self.impls[out_name] if out_name in self.impls else None
-            if not hasattr(impl, "loss_on"):
-                raise ValueError(f"Output vertex '{out_name}' is not an output "
-                                 f"layer: cannot compute the training loss")
-            in_name = conf.vertex_inputs[out_name][0]
-            x = acts[in_name]
-            pre = conf.input_preprocessors.get(out_name)
-            if pre is not None:
-                x = pre(x, ctx)
-            mask = lm if lm is not None else (masks.get(in_name) if x.dim() == 3 else None)
-            total = total + impl.loss_on(x, lbl, mask=mask, train=train, gen=rng)
-            if new_states is not None and hasattr(impl, "update_state"):
-                new_states[out_name] = impl.update_state(x, lbl)    # CenterLoss
+        if remat and train:
+            total, ctx = self._remat_loss(inputs, labels, input_masks, label_masks, rng,
+                                          new_states, rnn_state_in)
+        else:
+            out_set = fused_softmax_skip_set(self.conf, self.impls)
+            acts, masks, ctx = self._apply_graph(inputs, input_masks, train, rng,
+                                                 skip=out_set, new_states=new_states,
+                                                 rnn_state_in=rnn_state_in)
+            total = self._output_losses(
+                [acts[self.conf.vertex_inputs[o][0]] for o in self.conf.network_outputs],
+                labels, label_masks, masks, ctx, train, rng, new_states)
         reg = 0.0
         for impl in self.impls.values():
             reg = reg + impl.regularization()
@@ -293,12 +308,103 @@ class ComputationGraph(nn.Module):
             rnn_state_out.update(ctx.get("rnn_state_out") or {})
         return total + reg + ctx.get("aux_loss", 0.0)
 
+    def _output_losses(self, xs, labels, label_masks, masks, ctx, train, gen, new_states):
+        """The sum of the output layers' losses, each on its input vertex's
+        activations ``xs[k]`` after its preprocessor, their input dropout
+        drawn from ``gen`` in turn."""
+        conf = self.conf
+        total = 0.0
+        for out_name, x, lbl, lm in zip(conf.network_outputs, xs, labels,
+                                        label_masks or [None] * len(labels)):
+            impl = self.impls[out_name] if out_name in self.impls else None
+            if not hasattr(impl, "loss_on"):
+                raise ValueError(f"Output vertex '{out_name}' is not an output "
+                                 f"layer: cannot compute the training loss")
+            in_name = conf.vertex_inputs[out_name][0]
+            pre = conf.input_preprocessors.get(out_name)
+            if pre is not None:
+                x = pre(x, ctx)
+            mask = lm if lm is not None else (masks.get(in_name) if x.dim() == 3 else None)
+            total = total + impl.loss_on(x, lbl, mask=mask, train=train, gen=gen)
+            if new_states is not None and hasattr(impl, "update_state"):
+                new_states[out_name] = impl.update_state(x, lbl)    # CenterLoss
+        return total
+
+    def _remat_loss(self, inputs, labels, input_masks, label_masks, rng, new_states,
+                    rnn_state_in):
+        """The output layers' losses under remat (``MultiLayerNetwork.
+        _remat_loss`` over the DAG). A layer vertex without ``save_output``
+        that feeds exactly one vertex (and no loss) is recomputed: it runs
+        in the region of the vertex it feeds, or of that vertex's consumer
+        when it too is recomputed; every other vertex roots a region of its
+        own, whose output is kept. Regions run in the topological order of
+        their roots, the losses in one last region. Masks, which need no
+        activation, are propagated first. Returns (loss, ctx)."""
+        conf = self.conf
+        out_set = fused_softmax_skip_set(conf, self.impls)
+        run = [n for n in self.topo if n not in out_set]
+        acts, masks, ctx = self._forward_context(inputs, input_masks, True, new_states,
+                                                 rnn_state_in)
+        gens = StepGenerators(rng)
+        states, uses = {}, Counter()
+        for name in run:
+            in_names = conf.vertex_inputs[name]
+            uses.update(in_names)
+            if isinstance(conf.vertices[name], Layer):
+                states[name] = generator_state(gens.next(self.impls[name]))
+                masks[name] = masks.get(in_names[0])
+            else:
+                masks[name] = conf.vertices[name].propagate_mask(
+                    [masks.get(i) for i in in_names])
+        out_ins = [conf.vertex_inputs[o][0] for o in conf.network_outputs]
+        uses.update({i: 2 for i in out_ins})
+        out_state = generator_state(rng)
+
+        def recomputed(name):
+            return (name in states and not self.impls[name].save_output
+                    and uses[name] == 1)
+
+        def members(name, acc):
+            for i in conf.vertex_inputs[name]:
+                if recomputed(i):
+                    members(i, acc)
+            acc.append(name)
+            return acc
+
+        def region(names, boundary, c, first, *xs):
+            local = dict(zip(boundary, xs))
+            for name in names:
+                c["rng"] = replay_generator(states.get(name))
+                local[name] = self._vertex_forward(name, local, masks, c)
+            return local[names[-1]]
+
+        for name in run:
+            if recomputed(name):
+                continue
+            names = sorted(members(name, []), key=run.index)
+            inside = set(names)
+            boundary = list(dict.fromkeys(i for n in names for i in conf.vertex_inputs[n]
+                                          if i not in inside))
+            acts[name] = checkpointed(partial(region, names, boundary), ctx,
+                                      *[acts[i] for i in boundary])
+
+        def losses(c, first, *xs):
+            gen = replay_generator(out_state)
+            total = self._output_losses(list(xs), labels, label_masks, masks, c, True, gen,
+                                        c.get("new_states"))
+            if first and rng is not None:
+                rng.set_state(gen.get_state())
+            return total
+
+        return checkpointed(losses, ctx, *[acts[i] for i in out_ins]), ctx
+
     def _step(self, inputs, labels, fms, lms, iteration, rnn_state_in=None):
         """One update, then the layers' new state. Returns (detached loss,
         detached carries by vertex name), as ``MultiLayerNetwork._step``."""
         new_states, rnn_out = {}, {}
         loss = self._loss_fn(inputs, labels, fms, lms, True, self._gen, new_states,
-                             rnn_state_in, rnn_out)
+                             rnn_state_in, rnn_out,
+                             remat=remat_enabled(self.gc, self.impls.values()))
         self._update(loss, iteration)
         self._commit_states(new_states)
         return loss.detach(), _detached(rnn_out)

@@ -77,6 +77,10 @@ class SelfAttentionImpl(LayerImpl):
     ``b`` [nOut]: q/k/v projections in the activations' type, ``mha``, the
     output projection plus bias, the activation, cast to ``out_dtype``."""
 
+    #: the training forward carries no state from step to step (the KV
+    #: cache is inference's), so it does not turn "auto" remat off
+    scan_free_training = True
+
     def draws(self) -> bool:
         return super().draws() or self.conf.dropout_rate > 0.0
 

@@ -27,6 +27,15 @@ reaches the parameters through the noise), and the containers project
 container); with none (inference, ``score``, the gradient check) every
 one of them is the identity, as with ``rng=None`` in the JAX package.
 
+Remat (``GlobalConfig.remat``, :func:`remat_enabled`): a training step
+runs the forward in checkpointed regions (:func:`checkpointed`), each from
+the outputs of layers with ``save_output`` (convolutions, GEMMs, pooling,
+recurrent and attention layers; JAX's ``"dl4j_act"`` names) up to the next
+such output, so the backward keeps only those outputs (and every graph
+vertex's) and recomputes the rest, the kernels' reserves and flash o/lse
+included. A region's draws replay from the generators' states taken
+before its first run (:func:`generator_state`, :func:`replay_generator`).
+
 Dtype policy (``base.py:78-86``, ``:211-226`` of the JAX package):
 parameters live in ``dtype`` (f32 masters); matmul operands are cast to
 ``compute_dtype`` (bf16 under the mixed-precision policy); activations
@@ -40,6 +49,7 @@ from typing import Dict, Tuple, Type
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..activations import get_activation
 from ..conf.dropout import draw_seed, resolve_dropout
@@ -107,6 +117,83 @@ def split_generator(gen):
     return tuple(torch.Generator().manual_seed(draw_seed(gen)) for _ in range(2))
 
 
+def remat_enabled(gc, impls) -> bool:
+    """Whether a training step runs under remat (``GlobalConfig.remat``,
+    the JAX package's ``remat_enabled``): always on "on"; on "auto" only for
+    a convolutional net without a layer that carries a recurrent state
+    through its training forward (an attention layer's KV cache does not
+    count, ``scan_free_training``). Wrappers are looked through (``inner``,
+    a Bidirectional's ``fwd``), so a wrapped LSTM still counts."""
+    mode = getattr(gc, "remat", "off")
+    if mode == "on":
+        return True
+    if mode != "auto":
+        return False
+    flat = []
+    for impl in impls:
+        while impl is not None:
+            flat.append(impl)
+            impl = getattr(impl, "inner", None) or getattr(impl, "fwd", None)
+    has_conv = any(getattr(j.conf, "kernel_size", None) is not None for j in flat)
+    has_rnn = any(hasattr(j, "init_stream_state")
+                  and not getattr(j, "scan_free_training", False) for j in flat)
+    return has_conv and not has_rnn
+
+
+def generator_state(gen):
+    """The state of a CPU generator (None for None), to replay its draws."""
+    return None if gen is None else gen.get_state()
+
+
+def replay_generator(state):
+    """A fresh generator at ``state`` (None for None): the same draws each
+    time a checkpointed region runs."""
+    if state is None:
+        return None
+    gen = torch.Generator()
+    gen.set_state(state)
+    return gen
+
+
+#: forward-context entries that a region hands out on its first run only
+_REGION_OUTPUTS = ("new_states", "rnn_state_out", "aux_loss")
+
+
+def checkpointed(fn, ctx, *args):
+    """``fn(c, first, *args)`` under ``torch.utils.checkpoint``
+    (non-reentrant): autograd keeps ``args`` and what ``fn`` returns, and
+    the backward runs ``fn`` again for everything else it needs. ``c`` is
+    a copy of the forward context ``ctx`` as it stood before the first run,
+    so a recompute sees the same context; what the first run (``first``)
+    leaves in it goes back to ``ctx``: new layer state, recurrent carries,
+    auxiliary losses and the preprocessors' notes. A recompute's go
+    nowhere, so state is committed once, from the first forward."""
+    start = {k: v for k, v in ctx.items() if k not in _REGION_OUTPUTS}
+    runs = []
+
+    def region(*a):
+        first = not runs
+        runs.append(1)
+        c = dict(start)
+        if "new_states" in ctx:
+            c["new_states"] = {}
+        out = fn(c, first, *a)
+        if first:
+            c.pop("rng", None)
+            for k, v in c.items():
+                if k == "new_states":
+                    ctx[k].update(v)
+                elif k == "rnn_state_out":
+                    ctx.setdefault(k, {}).update(v)
+                elif k == "aux_loss":
+                    ctx[k] = ctx.get(k, 0.0) + v
+                else:
+                    ctx[k] = v
+        return out
+
+    return checkpoint(region, *args, use_reentrant=False)
+
+
 def train_rng(ctx):
     """(training?, the layer's generator) from a forward's ``ctx``."""
     ctx = ctx or {}
@@ -126,6 +213,11 @@ def _resolved(conf, gc, field, default=None):
 
 class LayerImpl(nn.Module):
     """Base implementation; resolves per-layer vs global config fields."""
+
+    #: under remat the step keeps this layer's output (convolutions, GEMMs,
+    #: pooling ...); layers that set it False (elementwise ones, the
+    #: normalizations, padding and cropping) are recomputed in the backward
+    save_output = True
 
     def __init__(self, conf, gc):
         super().__init__()

@@ -268,6 +268,8 @@ class SeparableConv2DImpl(Conv2DImpl):
 
 @implements("ZeroPaddingLayer")
 class ZeroPaddingImpl(LayerImpl):
+    save_output = False  # recomputed under remat (GlobalConfig.remat)
+
     def forward(self, x, mask=None, ctx=None):
         t, b, l, r = self.conf._pads()
         return F.pad(x, (0, 0, l, r, t, b))
@@ -275,6 +277,8 @@ class ZeroPaddingImpl(LayerImpl):
 
 @implements("ZeroPadding1DLayer")
 class ZeroPadding1DImpl(LayerImpl):
+    save_output = False  # recomputed under remat (GlobalConfig.remat)
+
     def forward(self, x, mask=None, ctx=None):
         lo, hi = _pair(self.conf.padding)
         return F.pad(x, (0, 0, lo, hi))
@@ -283,6 +287,8 @@ class ZeroPadding1DImpl(LayerImpl):
 @implements("Cropping2D")
 class Cropping2DImpl(LayerImpl):
     """The JAX package's slice ``x[:, t:h - b or None, l:w - r or None]``."""
+
+    save_output = False  # recomputed under remat (GlobalConfig.remat)
 
     def forward(self, x, mask=None, ctx=None):
         t, b, l, r = self.conf._crops()
@@ -296,6 +302,8 @@ class SpaceToDepthImpl(LayerImpl):
     + ch holding cell (i, j) of the block (not ``F.pixel_unshuffle``'s
     NCHW order ch * bs^2 + i * bs + j)."""
 
+    save_output = False  # recomputed under remat (GlobalConfig.remat)
+
     def forward(self, x, mask=None, ctx=None):
         bs = int(self.conf.block_size)
         b, h, w, c = x.shape
@@ -307,6 +315,8 @@ class SpaceToDepthImpl(LayerImpl):
 class Upsampling2DImpl(LayerImpl):
     """Nearest-neighbour upsampling (``jnp.repeat`` on both spatial axes)."""
 
+    save_output = False  # recomputed under remat (GlobalConfig.remat)
+
     def forward(self, x, mask=None, ctx=None):
         sh, sw = _pair(self.conf.size)
         return x.repeat_interleave(sh, dim=1).repeat_interleave(sw, dim=2)
@@ -314,5 +324,7 @@ class Upsampling2DImpl(LayerImpl):
 
 @implements("Upsampling1D")
 class Upsampling1DImpl(LayerImpl):
+    save_output = False  # recomputed under remat (GlobalConfig.remat)
+
     def forward(self, x, mask=None, ctx=None):
         return x.repeat_interleave(int(self.conf.size), dim=1)

@@ -56,6 +56,8 @@ class DenseImpl(LayerImpl):
 class ActivationImpl(LayerImpl):
     """The activation alone; the output keeps the input's dtype."""
 
+    save_output = False  # recomputed under remat (GlobalConfig.remat)
+
     def forward(self, x, mask=None, ctx=None):
         return self.activation(x)
 
@@ -63,6 +65,8 @@ class ActivationImpl(LayerImpl):
 @implements("DropoutLayer")
 class DropoutImpl(LayerImpl):
     """The layer's dropout on its input in training, else the identity."""
+
+    save_output = False  # recomputed under remat (GlobalConfig.remat)
 
     def forward(self, x, mask=None, ctx=None):
         return self.maybe_dropout(x, *train_rng(ctx))

@@ -48,6 +48,8 @@ class BatchNormImpl(LayerImpl):
     decay) * batch, the variance biased, as the new state; inference uses
     the running ones. No L1/L2 on its parameters."""
 
+    save_output = False  # recomputed under remat (GlobalConfig.remat)
+
     def param_shapes(self):
         n = self.conf.n_out
         return {} if self.conf.lock_gamma_beta else {"gamma": (n,), "beta": (n,)}
@@ -91,6 +93,8 @@ class LayerNormImpl(LayerImpl):
     E[x^2] - E[x]^2), ``rsqrt(var + eps)``, and the result cast back to the
     input's type. No L1/L2 on its parameters."""
 
+    save_output = False  # recomputed under remat (GlobalConfig.remat)
+
     def param_shapes(self):
         n = self.conf.n_out
         return {"gain": (n,), "bias": (n,)}
@@ -122,6 +126,8 @@ class LRNImpl(LayerImpl):
     1, c] view (``avg_pool2d`` with ``divisor_override=1``, zero padded),
     and the arithmetic runs in f32 (f64 for f64 x), rounded once to x's
     dtype (the JAX package rounds each step to it). No parameters."""
+
+    save_output = False  # recomputed under remat (GlobalConfig.remat)
 
     def forward(self, x, mask=None, ctx=None):
         c = self.conf

@@ -56,6 +56,17 @@ loss's value, a device-to-host sync, is read only when a listener is set.
 starts and checked between minibatches; an exception out of ``fit`` goes
 to every listener's ``on_training_error`` first.
 
+Remat (``GlobalConfig.remat`` "on", or "auto" on a convolutional net
+without a recurrent layer: ``layers.base.remat_enabled``) changes what a
+fit step keeps: ``_remat_loss`` runs the forward in checkpointed regions
+that end at each layer with ``save_output`` (the fused LSTM pair ends at
+its second layer), the output layer's loss in the last one, so the
+backward keeps those outputs and recomputes the rest (K1/K3 run again to
+rebuild their reserve). Each region's draws replay from the generators'
+states taken before its first run, and new layer state, carries and the
+auxiliary loss come from the first run only, so the step's bits are those
+of the step without remat.
+
 Each layer's input preprocessor (``conf.input_preprocessors``) runs just
 before it, and convolutional inputs arrive NCHW at the user boundary and
 flow NHWC inside (``nchw_to_nhwc``).
@@ -86,7 +97,8 @@ from .conf.dropout import apply_constraints
 from .conf.inputs import InputTypeConvolutional
 from .conf.layers import DropoutLayer, FeedForwardLayer, LossLayer
 from .layers import impl_for
-from .layers.base import StepGenerators
+from .layers.base import (StepGenerators, checkpointed, generator_state, remat_enabled,
+                          replay_generator)
 from .layers.recurrent import GravesBidirectionalLSTMImpl, _BaseLSTMImpl
 from .layers.wrapper import FrozenImpl
 from .updaters import Sgd
@@ -264,20 +276,25 @@ class MultiLayerNetwork(nn.Module):
         n = len(self.impls) if upto is None else upto
         i = 0
         while i < n:
-            pre = self.conf.preprocessor(i)
-            if pre is not None:
-                x = pre(x, ctx)
             ctx["rng"] = gens.next(self.impls[i])
-            if (i + 1 < n and self.conf.preprocessor(i + 1) is None
-                    and self._lstm_pair_fusable(i, x, fmask, train)):
-                x = self._fused_lstm_forward(x, ctx, i, ctx["rng"])
+            x, j = self._layer_unit(x, i, n, fmask, ctx, train)
+            if j == i + 2:
                 gens.next(self.impls[i + 1])
-                i += 2
-                continue
-            x = self.impls[i].noised_forward(x, fmask, ctx)
-            i += 1
+            i = j
         ctx.pop("rng", None)
         return x, ctx
+
+    def _layer_unit(self, x, i, n, fmask, ctx, train):
+        """Layer i after its input preprocessor, or layers (i, i+1) as one
+        fused LSTM launch when the pair is fusable and i + 1 < n; ``ctx["rng"]``
+        is layer i's generator. Returns (x, the next layer's index)."""
+        pre = self.conf.preprocessor(i)
+        if pre is not None:
+            x = pre(x, ctx)
+        if (i + 1 < n and self.conf.preprocessor(i + 1) is None
+                and self._lstm_pair_fusable(i, x, fmask, train)):
+            return self._fused_lstm_forward(x, ctx, i, ctx["rng"]), i + 2
+        return self.impls[i].noised_forward(x, fmask, ctx), i + 1
 
     def _lstm_pair_fusable(self, i, x, fmask, train=False) -> bool:
         """Whether layers (i, i+1) run as one fused launch (K3, and K4 in
@@ -374,18 +391,33 @@ class MultiLayerNetwork(nn.Module):
     rnnClearPreviousState = rnn_clear_previous_state
 
     # -------------------------------------------------------------- training
-    def _loss_fn(self, f, l, fm, lm, train, rnn_state_in=None, new_states=None, rng=None):
+    def _loss_fn(self, f, l, fm, lm, train, rnn_state_in=None, new_states=None, rng=None,
+                 remat=False):
         """Loss + L1/L2 penalty + the auxiliary losses the forward left in
         ``ctx["aux_loss"]`` (MoE load balancing), as ``_loss_fn`` of the
         JAX package. Returns (loss, rnn_state_out); a training forward's
         new layer state goes into ``new_states`` when it is given, the
         output layer's too where it has an ``update_state`` (the centres
         of a CenterLossOutputLayer, from its detached input). ``rng``
-        (training only) draws dropout and weight noise."""
+        (training only) draws dropout and weight noise. ``remat`` (a
+        training step's) runs the forward in checkpointed regions."""
         rng = rng if train else None
         n = len(self.impls)
-        x, ctx = self._apply_layers(f, fm, rnn_state_in, train, upto=n - 1,
-                                    new_states=new_states, rng=rng)
+        if remat and train:
+            loss, ctx = self._remat_loss(f, l, fm, lm, rnn_state_in, new_states, rng)
+        else:
+            x, ctx = self._apply_layers(f, fm, rnn_state_in, train, upto=n - 1,
+                                        new_states=new_states, rng=rng)
+            loss = self._output_loss(x, l, fm, lm, ctx, train, rng, new_states)
+        reg = 0.0
+        for impl in self.impls:
+            reg = reg + impl.regularization()
+        return loss + reg + ctx.get("aux_loss", 0.0), ctx.get("rnn_state_out")
+
+    def _output_loss(self, x, l, fm, lm, ctx, train, gen, new_states):
+        """The output layer's loss on the last hidden activations ``x``,
+        after its preprocessor; its input dropout draws from ``gen``."""
+        n = len(self.impls)
         pre = self.conf.preprocessor(n - 1)
         if pre is not None:
             x = pre(x, ctx)
@@ -393,13 +425,46 @@ class MultiLayerNetwork(nn.Module):
         if not hasattr(out, "loss_on"):
             raise ValueError(f"Last layer {type(out).__name__} is not an output layer")
         mask = lm if lm is not None else (fm if x.dim() == 3 else None)
-        loss = out.loss_on(x, l, mask=mask, train=train, gen=rng)
+        loss = out.loss_on(x, l, mask=mask, train=train, gen=gen)
         if new_states is not None and hasattr(out, "update_state"):
             new_states[n - 1] = out.update_state(x, l)    # CenterLoss's centres
-        reg = 0.0
-        for impl in self.impls:
-            reg = reg + impl.regularization()
-        return loss + reg + ctx.get("aux_loss", 0.0), ctx.get("rnn_state_out")
+        return loss
+
+    def _remat_loss(self, f, l, fm, lm, rnn_state_in, new_states, rng):
+        """The training loss under remat: the forward of ``_apply_layers``
+        in checkpointed regions (``layers.base.checkpointed``), each ending
+        at a layer with ``save_output`` (a fused pair at its second), the
+        output layer's loss in the last. Each layer's generator is drawn
+        first, as ``_apply_layers`` draws them, and replayed from its state
+        in every run of its region; the output layer's draws replay from
+        the step stream's state, which the first run then advances as the
+        step without remat does. Returns (loss, ctx)."""
+        n = len(self.impls)
+        ctx = {"train": True}
+        if rnn_state_in is not None:
+            ctx["rnn_state_in"] = rnn_state_in
+        if new_states is not None:
+            ctx["new_states"] = new_states
+        gens = StepGenerators(rng)
+        states = [generator_state(gens.next(impl)) for impl in self.impls[:n - 1]]
+        out_state = generator_state(rng)
+
+        def region(c, first, x, i):
+            while i < n - 1:
+                c["rng"] = replay_generator(states[i])
+                x, i = self._layer_unit(x, i, n - 1, fm, c, True)
+                if self.impls[i - 1].save_output:
+                    return x, i
+            gen = replay_generator(out_state)
+            loss = self._output_loss(x, l, fm, lm, c, True, gen, c.get("new_states"))
+            if first and rng is not None:
+                rng.set_state(gen.get_state())
+            return loss, n
+
+        x, i = nchw_to_nhwc(f, self.conf.input_type), 0
+        while i < n:
+            x, i = checkpointed(region, ctx, x, i)
+        return x, ctx
 
     def _grads(self, outputs, grad_outputs=None, skip=()) -> Dict[str, Dict[str, torch.Tensor]]:
         """{layer: {param: gradient}} of ``outputs`` (a loss, or tensors
@@ -479,7 +544,7 @@ class MultiLayerNetwork(nn.Module):
         detached rnn state out)."""
         new_states = {}
         loss, rnn_out = self._loss_fn(f, l, fm, lm, True, rnn_state_in, new_states,
-                                      rng=self._gen)
+                                      rng=self._gen, remat=remat_enabled(self.gc, self.impls))
         self._update(loss, iteration)
         self._commit_states(new_states)
         return loss.detach(), _detached(rnn_out)
