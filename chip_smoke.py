@@ -739,6 +739,42 @@ TS_N, TS_D, TS_RTOL, TS_SEED = 6000, 784, 1e-5, 52
 BH_N, BH_D, BH_ITERS = 1000, 50, 4
 KNN_N, KNN_D, KNN_K, KNN_QUERIES, KNN_SEED = 100_000, 128, 10, 20, 53
 PROF_FITS = 6
+# parallel: ParallelWrapper over the char-RNN on PW_SLOTS slots of the one
+# card (global b=TRAIN_B, each slot TRAIN_B / PW_SLOTS = 32). The Adam fits
+# (AVERAGING, unmasked and masked) count launches and are timed beside the
+# single net's in PW_TURNS alternating turns. Correctness is held on the
+# gradients: with SGD at PW_SGD_LR (parameters move by at most about
+# 1e-6, so every TBPTT segment's gradients are taken at the same point in
+# both runs) each update's reduced gradients are recorded and held against
+# one net's fit on the same global batch, segment by segment, within
+# PW_GRAD_RTOL of each tensor's largest entry (the slots' two b=32
+# gradients are summed where the single net sums b=64 at once, so bf16
+# rounding parts them); the losses within PW_LOSS_RTOL. A control run
+# applies only slot 0's gradients and must read above PW_GRAD_RTOL. Local
+# SGD (frequency PW_LOCAL_FREQ) and SHARED_GRADIENTS take PW_ROUNDS fits
+# each: losses finite and falling, launches counted exactly.
+# ParallelInference (BATCHED, PW_SLOTS slots) serves PI_REQUESTS requests
+# of PI_ROWS rows, masked and unmasked; answers within PI_ATOL of the
+# net's own output on the same rows (the same kernels on fewer rows), the
+# launches PW_SLOTS (K3) or 2 PW_SLOTS (K1) a batch the requests formed.
+# Ring and Ulysses at the TransformerLM's attention shape over SP_SLOTS
+# slots against the single kernel on the whole T, o and dq/dk/dv within
+# FLASH_RTOL of the largest entry; the causal ring launches
+# SP_SLOTS (SP_SLOTS + 1) / 2 of SP_SLOTS^2 blocks. The sp step over the
+# full TransformerLM (Ulysses without dropout, the ring with attention
+# dropout LM_DROPOUT_RATE) against the unsharded step: losses within
+# LM_REF_SCORE_RTOL; with SGD at learning rate 1 a step moves each
+# parameter by its gradient, so the parameters after one step are the
+# gradients, held within LM_REF_GRAD_RTOL of each tensor's largest entry.
+# Expert parallelism over EP_SLOTS slots on the MoE TransformerLM cut to
+# EP_BLOCKS blocks runs in f32 and computes what the unsharded step does,
+# so it is held at EP_SCORE_RTOL and EP_GRAD_RTOL (the CPU test's 1e-6); a
+# control, the same step in bf16, must read above EP_GRAD_RTOL.
+PW_SLOTS, PW_LOCAL_FREQ, PW_ROUNDS, PW_TURNS, PW_SEED = 2, 3, 4, 3, 60
+PW_SGD_LR, PW_GRAD_RTOL, PW_LOSS_RTOL = 1e-6, 1e-2, 1e-3
+PI_REQUESTS, PI_ROWS, PI_ATOL = 8, 8, 1e-3
+SP_SLOTS, SP_SEED, SP_TURNS = 4, 61, 3
+EP_SLOTS, EP_BLOCKS, EP_SCORE_RTOL, EP_GRAD_RTOL = 4, 2, 1e-6, 1e-6
 
 
 def log(msg):
@@ -6523,6 +6559,501 @@ def remat_clustering(smi):
     return res
 
 
+def launches_of_run(fn):
+    """``fn()``'s kernel launches: counts set to 0 just before, read just
+    after (a sync between)."""
+    reset_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {n: c for n, c in read_counts().items() if c}
+
+
+def masked_batch(rng, b, t):
+    """Periodic text with a features and labels mask of random lengths in
+    the last quarter of the sequence (so the last TBPTT segment has steps
+    that count)."""
+    f, l = periodic_text(rng, b, t)
+    lengths = rng.integers(t - t // 4 + 1, t + 1, b)
+    m = (np.arange(t)[None, :] < lengths[:, None]).astype(np.float32)
+    return f, l, m
+
+
+def param_diff(a, b):
+    """Largest |a - b| over every parameter of two networks."""
+    return max((pa.float() - pb.float()).abs().max().item()
+               for (_, pa), (_, pb) in zip(leaves_of(a.params), leaves_of(b.params)))
+
+
+def leaves_of(tree):
+    from deeplearning4j_torch.utils.trees import leaves
+    return list(leaves(tree))
+
+
+def grad_rel(after, before, ref_after):
+    """With SGD at learning rate 1, ``before - after`` is a step's
+    gradient: the largest error of one run's against the reference's,
+    relative to each tensor's largest entry, over every tensor."""
+    worst = 0.0
+    for (_, b0), (_, a), (_, r) in zip(before, leaves_of(after.params),
+                                       leaves_of(ref_after.params)):
+        g, gr = (b0 - a.float()), (b0 - r.float())
+        worst = max(worst, ((g - gr).abs().max() / gr.abs().max().clamp_min(1e-30)).item())
+    return worst
+
+
+def recording_updates(net):
+    """Record the gradients of every update ``net`` applies (float copies,
+    one {path: tensor} a TBPTT segment)."""
+    rec = []
+    apply = net._apply_update
+
+    def hook(grads, iteration):
+        rec.append({p: t.detach().float().clone() for p, t in leaves_of(grads)})
+        return apply(grads, iteration)
+    net._apply_update = hook
+    return rec
+
+
+def updates_rel(got, ref):
+    """The largest error of recorded gradients against the reference's,
+    relative to each tensor's largest entry, over every update and tensor."""
+    if len(got) != len(ref) or any(g.keys() != r.keys() for g, r in zip(got, ref)):
+        raise AssertionError(f"{len(got)} recorded updates against {len(ref)}")
+    return max(((g[p] - r[p]).abs().max() / r[p].abs().max().clamp_min(1e-30)).item()
+               for g, r in zip(got, ref) for p in r)
+
+
+def wrapper_gradients(ds, slots, control=False):
+    """One AVERAGING fit of the char-RNN at SGD PW_SGD_LR on ``slots``
+    against one net's: (gradients' error, loss rel error). ``control``
+    reduces only slot 0's gradients."""
+    from deeplearning4j_torch import Sgd
+    from deeplearning4j_torch.parallel import ParallelWrapper
+
+    conf = char_rnn_conf()
+    conf.global_conf.updater = Sgd(learning_rate=PW_SGD_LR)
+    single, dp = build_net(conf), build_net(conf)
+    ref, got = recording_updates(single), recording_updates(dp)
+    pw = ParallelWrapper(dp, devices=slots, prefetch_workers=0)
+    if control:
+        step = pw._ensure_sync_step()
+        reduce = step.reduce
+        step.reduce = lambda per_slot: reduce(per_slot[:1])
+    pw.fit(ds)
+    single.fit(ds)
+    err = updates_rel(got, ref)
+    loss_err = abs(pw.last_score - single.score()) / abs(single.score())
+    del single, dp, pw
+    return err, loss_err
+
+
+def parallel_wrapper_char_rnn():
+    """ParallelWrapper over the char-RNN on PW_SLOTS slots of the card:
+    AVERAGING (frequency 1) unmasked, K3 + K4 a slot a segment, and
+    masked, 2 K1 + 2 K2 a slot a segment, each held on its gradients
+    against one net's fit on the same global batch (with a control that
+    must fail the check); local SGD and SHARED_GRADIENTS (losses finite
+    and falling, launches exact); fits timed beside the single net's."""
+    from deeplearning4j_torch import DataSet
+    from deeplearning4j_torch.parallel import ParallelWrapper, TrainingMode
+
+    conf = char_rnn_conf()
+    rng = np.random.default_rng(PW_SEED)
+    slots = ["cuda:0"] * PW_SLOTS
+    segs = TRAIN_SEQ // TRAIN_T
+    out = {"slots": PW_SLOTS, "global_b": TRAIN_B, "T": TRAIN_SEQ}
+    f, l = periodic_text(rng, TRAIN_B, TRAIN_SEQ)
+    fm, lm, m = masked_batch(rng, TRAIN_B, TRAIN_SEQ)
+    for label, ds, want in (
+            ("unmasked", DataSet(f, l), {"lstm2_fwd_train": segs * PW_SLOTS,
+                                         "lstm2_bwd": segs * PW_SLOTS}),
+            ("masked", DataSet(fm, lm, m, m), {"lstm_fwd_train": 2 * segs * PW_SLOTS,
+                                               "lstm_bwd": 2 * segs * PW_SLOTS})):
+        g_err, loss_err = wrapper_gradients(ds, slots)
+        g_ctl, _ = wrapper_gradients(ds, slots, control=True)
+        log(f"ParallelWrapper AVERAGING {label} on {PW_SLOTS} slots of the card (b={TRAIN_B} "
+            f"T={TRAIN_SEQ}, {segs} TBPTT segments, SGD {PW_SGD_LR}): each segment's reduced "
+            f"gradients within {g_err:.2e} of one net's, relative to each tensor's largest "
+            f"entry (limit {PW_GRAD_RTOL}; the control reducing slot 0's alone reads "
+            f"{g_ctl:.2e}); loss rel {loss_err:.2e} (limit {PW_LOSS_RTOL})")
+        if not (g_err <= PW_GRAD_RTOL and loss_err <= PW_LOSS_RTOL and g_ctl > PW_GRAD_RTOL):
+            raise AssertionError(f"ParallelWrapper {label}: gradients rel {g_err}, loss rel "
+                                 f"{loss_err}, control {g_ctl}")
+        single, dp = build_net(conf), build_net(conf)
+        pw = ParallelWrapper(dp, devices=slots, prefetch_workers=0)
+        _, got = launches_of_run(lambda: pw.fit(ds))
+        if got != want:
+            raise AssertionError(f"ParallelWrapper {label} fit launched {got}, expected {want}")
+        single.fit(ds)
+        turns = {"wrapper": [], "single": []}
+        for t in range(PW_TURNS):
+            for arm in (("wrapper", "single") if t % 2 == 0 else ("single", "wrapper")):
+                fn = (lambda: pw.fit(ds)) if arm == "wrapper" else (lambda: single.fit(ds))
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                turns[arm].append((time.perf_counter() - t0) * 1e3)
+        ms = {k: float(np.median(v)) for k, v in turns.items()}
+        log(f"  Adam fits: launches {got}; a fit: wrapper {ms['wrapper']:.1f} ms, one net "
+            f"{ms['single']:.1f} ms (medians of {PW_TURNS} alternating turns: {turns})")
+        out[label] = {"launches": got, "grad_rel_err": g_err, "control_grad_rel_err": g_ctl,
+                      "loss_rel_err": loss_err, "fit_ms": ms["wrapper"],
+                      "single_fit_ms": ms["single"]}
+        del single, dp, pw
+    # a fit of PW_LOCAL_FREQ batches: local SGD runs each batch on every
+    # slot; SHARED_GRADIENTS groups PW_SLOTS batches into one global batch
+    # (the last group's TRAIN_B rows divide the slots), one sharded step
+    groups = -(-PW_LOCAL_FREQ // PW_SLOTS)
+    for label, kw, steps in (
+            ("local_sgd", {"averaging_frequency": PW_LOCAL_FREQ}, PW_LOCAL_FREQ),
+            ("shared_gradients", {"training_mode": TrainingMode.SHARED_GRADIENTS}, groups)):
+        net = build_net(conf)
+        pw = ParallelWrapper(net, devices=slots, prefetch_workers=0, **kw)
+        sets = [DataSet(*periodic_text(rng, TRAIN_B, TRAIN_SEQ))
+                for _ in range(PW_LOCAL_FREQ)]
+        losses = []
+        reset_counts()
+        for _ in range(PW_ROUNDS):
+            pw.fit(sets)
+            losses.append(pw.last_score)
+        torch.cuda.synchronize()
+        got = {n: c for n, c in read_counts().items() if c}
+        k = segs * PW_SLOTS * steps * PW_ROUNDS
+        want = {"lstm2_fwd_train": k, "lstm2_bwd": k}
+        log(f"ParallelWrapper {label} on {PW_SLOTS} slots: {PW_ROUNDS} fits of "
+            f"{len(sets)} batches, losses {' '.join(f'{x:.4f}' for x in losses)}; "
+            f"launches {got} (expected {want})")
+        if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+            raise AssertionError(f"ParallelWrapper {label}: losses {losses}")
+        if got != want:
+            raise AssertionError(f"ParallelWrapper {label} launched {got}, expected {want}")
+        if label == "shared_gradients":
+            acc = pw.accumulator
+            log(f"  encoded update {acc.encoded_bytes()} bytes a round, threshold "
+                f"{acc._handler.threshold:.2e}")
+        out[label] = {"launches": got, "losses": losses}
+        del net, pw
+    torch.cuda.empty_cache()
+    return out
+
+
+def parallel_inference_char_rnn():
+    """ParallelInference (BATCHED, PW_SLOTS slots) serving the char-RNN:
+    PI_REQUESTS concurrent requests unmasked (K3 a slot a batch) and
+    masked (2 K1 a slot a batch), each answer against ``output`` on the
+    same rows."""
+    from deeplearning4j_torch.parallel import InferenceMode, ParallelInference
+
+    net = build_net(char_rnn_conf())
+    rng = np.random.default_rng(PW_SEED + 1)
+    pi = ParallelInference(net, mode=InferenceMode.BATCHED, devices=["cuda:0"] * PW_SLOTS,
+                           batch_limit=PI_REQUESTS * PI_ROWS, queue_limit=PI_REQUESTS,
+                           flush_after_ms=50.0)
+    batches = []
+    forward = pi._forward
+    pi._forward = lambda x, m=None: batches.append(len(x)) or forward(x, m)
+    out = {}
+    try:
+        for label, masked in (("unmasked", False), ("masked", True)):
+            batches.clear()
+            xs = [one_hot(rng, PI_ROWS, T) for _ in range(PI_REQUESTS)]
+            ms = ([(np.arange(T)[None, :] < rng.integers(T // 2, T + 1, (PI_ROWS, 1)))
+                   .astype(np.float32) for _ in range(PI_REQUESTS)] if masked
+                  else [None] * PI_REQUESTS)
+            t0 = time.perf_counter()
+            answers, got = launches_of_run(lambda: [f.result(timeout=60) for f in [
+                pi.submit(x, mask=m) for x, m in zip(xs, ms)]])
+            wall = (time.perf_counter() - t0) * 1e3
+            err = 0.0
+            for x, m, a in zip(xs, ms, answers):
+                ref = net.output(x, mask=m).float().cpu().numpy()
+                err = max(err, float(np.abs(a - ref).max()))
+            # each batch runs every slot's output: 2 K1 (masked) or one K3
+            want = ({"lstm_fwd": 2 * PW_SLOTS * len(batches)} if masked
+                    else {"lstm2_fwd": PW_SLOTS * len(batches)})
+            log(f"ParallelInference {label}: {PI_REQUESTS} requests of {PI_ROWS} rows (T={T}) "
+                f"on {PW_SLOTS} slots in {wall:.1f} ms, as batches of {batches} rows; "
+                f"launches {got} (expected {want}); largest difference from output on the "
+                f"same rows {err:.2e} (limit {PI_ATOL})")
+            if got != want or err > PI_ATOL or any(a.shape != (PI_ROWS, T, VOCAB)
+                                                   for a in answers):
+                raise AssertionError(f"ParallelInference {label}: launches {got} (want {want}), "
+                                     f"err {err}")
+            out[label] = {"launches": got, "batches": list(batches), "max_abs_err": err,
+                          "ms": wall}
+    finally:
+        pi.close()
+    return out
+
+
+def sdpa_ms(b, h, tq, d, causal, reps=10):
+    """scaled_dot_product_attention at [b, h, tq, d] bf16: (forward ms,
+    backward ms)."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    g = torch.Generator(device="cuda").manual_seed(5)
+    q, k, v, do = (torch.randn((b, h, tq, d), generator=g, device="cuda",
+                               dtype=torch.bfloat16) for _ in range(4))
+    q, k, v = (x.requires_grad_() for x in (q, k, v))
+    fwd = cuda_ms(lambda: sdpa(q, k, v, is_causal=causal), reps)
+    o = sdpa(q, k, v, is_causal=causal)
+    bwd = cuda_ms(lambda: torch.autograd.grad(o, (q, k, v), do, retain_graph=True), reps)
+    return fwd, bwd
+
+
+def flash_shape_row(label, bh, tq, d, causal):
+    """K5, K6 and K7 at one shape of the sequence-parallel paths: times,
+    largest error against the plain versions, bound, SDPA's times."""
+    from deeplearning4j_torch.ops import flash_attention as fa
+
+    g = torch.Generator().manual_seed(7)
+    q, k, v, do = (torch.randn((bh, tq, d), generator=g).to("cuda", torch.bfloat16)
+                   for _ in range(4))
+    scale = d ** -0.5
+    o, lse = fa.flash_fwd(q, k, v, None, causal, scale)
+    delta = fa.rowwise_delta(do, o)
+    args = (q, k, v, None, do, delta, lse, causal, scale)
+    dq = fa.dq_block(*args)
+    dk, dv = fa.dkv_block(*args)
+    o_p, lse_p = fa.flash_fwd_plain(q, k, v, None, causal, scale)
+    dq_p = fa.flash_dq_plain(*args)
+    dk_p, dv_p = fa.flash_dkv_plain(*args)
+    errs = {"flash_fwd": max((o.float() - o_p.float()).abs().max().item(),
+                             (lse - lse_p).abs().max().item()),
+            "flash_dq": (dq.float() - dq_p.float()).abs().max().item(),
+            "flash_dkv": max((dk.float() - dk_p.float()).abs().max().item(),
+                             (dv.float() - dv_p.float()).abs().max().item())}
+    ms = {"flash_fwd": cuda_ms(lambda: fa.flash_fwd(q, k, v, None, causal, scale), 10),
+          "flash_dq": cuda_ms(lambda: fa.dq_block(*args), 10),
+          "flash_dkv": cuda_ms(lambda: fa.dkv_block(*args), 10)}
+    plain = {"flash_fwd": cuda_ms(lambda: fa.flash_fwd_plain(q, k, v, None, causal, scale), 1),
+             "flash_dq": cuda_ms(lambda: fa.flash_dq_plain(*args), 1),
+             "flash_dkv": cuda_ms(lambda: fa.flash_dkv_plain(*args), 1)}
+    b = bh // LM_HEADS if bh % LM_HEADS == 0 and bh >= LM_HEADS else 1
+    sd_fwd, sd_bwd = sdpa_ms(b, bh // b, tq, d, causal)
+    cells = bh * (tq * (tq + 1) // 2 if causal else tq * tq)
+    x, rows = bh * tq * d * 2, bh * tq * 4
+    work = {"flash_fwd": (4 * x + rows, 2 * 2 * d * cells),
+            "flash_dq": (5 * x + 2 * rows, 3 * 2 * d * cells),
+            "flash_dkv": (6 * x + 2 * rows, 4 * 2 * d * cells)}
+    out = {}
+    for name, (nbytes, flops) in work.items():
+        bms, by = bound(nbytes, flops, 0)
+        out[name] = {"ms": ms[name], "plain_ms": plain[name], "bound_ms": bms, "bound_by": by,
+                     "library_ms": sd_fwd if name == "flash_fwd" else sd_bwd,
+                     "max_abs_err": errs[name],
+                     "shape": {"bh": bh, "T": tq, "d": d, "causal": causal}}
+    log(f"K5/K6/K7 at the {label} shape bh={bh} T={tq} d={d} causal={causal}: ms "
+        f"{ms['flash_fwd']:.3f} / {ms['flash_dq']:.3f} / {ms['flash_dkv']:.3f}, bounds "
+        f"{out['flash_fwd']['bound_ms']:.4f} / {out['flash_dq']['bound_ms']:.4f} / "
+        f"{out['flash_dkv']['bound_ms']:.4f}, SDPA forward {sd_fwd:.3f} backward {sd_bwd:.3f}; "
+        f"errors vs plain {errs}")
+    return out
+
+
+def sp_attention_kernels():
+    """ring_flash_attention and ulysses_flash_attention at b=LM_B, h=LM_HEADS,
+    T=LM_T, d=LM_D bf16 over SP_SLOTS slots of the card against the port's
+    single-kernel flash_attention on the whole T (causal and not; the ring
+    also with dropout LM_DROPOUT_RATE at a seed): o and dq/dk/dv, with the
+    blocks each route launches; then the kernels timed at the ring's shard
+    shapes and Ulysses' shape."""
+    from deeplearning4j_torch.ops import flash_attention as fa
+    from deeplearning4j_torch.parallel import (make_mesh, ring_flash_attention,
+                                               ulysses_flash_attention)
+
+    mesh = make_mesh(["cuda:0"] * SP_SLOTS, axes=("sequence",))
+    g = torch.Generator().manual_seed(SP_SEED)
+    shape = (LM_B, LM_T, LM_HEADS, LM_D)
+    base = [torch.randn(shape, generator=g).to("cuda", torch.bfloat16) for _ in range(4)]
+    do = base[3]
+    n = SP_SLOTS
+    results = {}
+
+    def run(fn):
+        q, k, v = (x.clone().requires_grad_() for x in base[:3])
+        o = fn(q, k, v)
+        grads = torch.autograd.grad(o, (q, k, v), do)
+        return o.detach(), grads
+
+    def rel(a, b):
+        return ((a.float() - b.float()).abs().max() / b.float().abs().max()).item()
+
+    seed = 987654321
+    cases = (("ring causal", True, 0.0, "ring", n * (n + 1) // 2),
+             ("ring non-causal", False, 0.0, "ring", n * n),
+             ("ring causal dropout", True, LM_DROPOUT_RATE, "ring", n * (n + 1) // 2),
+             ("ulysses causal", True, 0.0, "ulysses", n),
+             ("ulysses non-causal", False, 0.0, "ulysses", n))
+    for label, causal, rate, route, blocks in cases:
+        sd = seed if rate else None
+        ref_o, ref_g = run(lambda q, k, v: fa.flash_attention(
+            q, k, v, causal=causal, dropout_rate=rate, dropout_seed=sd))
+        if route == "ring":
+            fn = lambda q, k, v: ring_flash_attention(q, k, v, mesh, causal=causal,
+                                                      dropout_rate=rate, dropout_seed=sd)
+        else:
+            fn = lambda q, k, v: ulysses_flash_attention(q, k, v, mesh, causal=causal)
+        (o, grads), got = launches_of_run(lambda: run(fn))
+        want = {"flash_fwd": blocks, "flash_dq": blocks, "flash_dkv": blocks}
+        errs = {"o": rel(o, ref_o), **{w: rel(a, b) for w, a, b in zip(("dq", "dk", "dv"),
+                                                                        grads, ref_g)}}
+        t_route = cuda_ms(lambda: fn(*base[:3]), 3)
+        t_ref = cuda_ms(lambda: fa.flash_attention(*base[:3], causal=causal,
+                                                   dropout_rate=rate, dropout_seed=sd), 3)
+        log(f"{label} over {n} slots (b={LM_B} h={LM_HEADS} T={LM_T} d={LM_D} bf16): "
+            f"launches {got} (expected {blocks} each); rel err o {errs['o']:.2e} dq "
+            f"{errs['dq']:.2e} dk {errs['dk']:.2e} dv {errs['dv']:.2e} vs the single kernel "
+            f"on the whole T; forward {t_route:.3f} ms vs the single kernel's {t_ref:.3f} ms")
+        if got != want or max(errs.values()) > FLASH_RTOL:
+            raise AssertionError(f"{label}: launches {got} (want {want}), errors {errs}")
+        results[label] = {"launches": got, "rel_err": errs, "fwd_ms": t_route,
+                          "single_kernel_fwd_ms": t_ref}
+    tl = LM_T // n
+    results["rows"] = {
+        "ring_diagonal": flash_shape_row("ring diagonal block", LM_B * LM_HEADS, tl, LM_D, True),
+        "ring_off_diagonal": flash_shape_row("ring off-diagonal block", LM_B * LM_HEADS, tl,
+                                             LM_D, False),
+        "ulysses": flash_shape_row("Ulysses", LM_B * LM_HEADS // n, LM_T, LM_D, True)}
+    del base
+    torch.cuda.empty_cache()
+    return results
+
+
+def sp_lm_conf(rate=0.0, sgd=False, experts=0, blocks=LM_BLOCKS, compute="bfloat16"):
+    from deeplearning4j_torch import Sgd
+
+    c = lm_conf(blocks=blocks, experts=experts, compute=compute)
+    for v in c.vertices.values():
+        if hasattr(v, "dropout_rate"):
+            v.dropout_rate = rate
+    if sgd:
+        c.global_conf.updater = Sgd(learning_rate=1.0)
+    return c
+
+
+def sgd_step_err(par_conf, ref_conf, mesh_step, f, l):
+    """One step of ``mesh_step`` on a network of ``par_conf`` and one
+    unsharded ``fit`` step of ``ref_conf``, both at SGD(1): the gradients'
+    largest error relative to each tensor's largest entry."""
+    from deeplearning4j_torch import DataSet
+    from deeplearning4j_torch.nn.graph import ComputationGraph
+
+    par, ref = ComputationGraph(par_conf).init(), ComputationGraph(ref_conf).init()
+    before = [(k, t.detach().float().clone()) for k, t in leaves_of(par.params)]
+    step = mesh_step(par)
+    step((f,), (l,))
+    ref.fit(DataSet(f, l))
+    err = grad_rel(par, before, ref)
+    del par, ref, step, before
+    torch.cuda.empty_cache()
+    return err
+
+
+def held_step(label, make_conf, mesh_step, per_step, turns=SP_TURNS,
+              score_rtol=LM_REF_SCORE_RTOL, grad_rtol=LM_REF_GRAD_RTOL, control_conf=None):
+    """``mesh_step`` (a parallel step factory) on a fresh network against
+    the unsharded ``fit`` step of an identical one: Adam for the main
+    path's launches, losses and times; SGD at learning rate 1 for the
+    parameters (the step's gradients). ``control_conf(sgd)``, when given,
+    builds the parallel side of a control run that must read above
+    ``grad_rtol``."""
+    from deeplearning4j_torch import DataSet
+    from deeplearning4j_torch.nn.graph import ComputationGraph
+
+    f, l = periodic_tokens(np.random.default_rng(SP_SEED), LM_B, LM_T, LM_VOCAB)
+    ds = DataSet(f, l)
+    par, ref = (ComputationGraph(make_conf(False)).init() for _ in range(2))
+    step = mesh_step(par)
+    loss, got = launches_of_run(lambda: float(step((f,), (l,))))
+    _, got_ref = launches_of_run(lambda: ref.fit(ds))
+    ref_loss = ref.score()
+    loss_err = abs(loss - ref_loss) / abs(ref_loss)
+    if got != per_step:
+        raise AssertionError(f"{label} step launched {got}, expected {per_step}")
+    times = {"parallel": [], "unsharded": []}
+    for t in range(turns):
+        for arm in (("parallel", "unsharded") if t % 2 == 0 else ("unsharded", "parallel")):
+            fn = (lambda: float(step((f,), (l,)))) if arm == "parallel" else \
+                (lambda: (ref.fit(ds), ref.score()))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            times[arm].append((time.perf_counter() - t0) * 1e3)
+    ms = {k: float(np.median(v)) for k, v in times.items()}
+    del par, ref, step
+    torch.cuda.empty_cache()
+    g_err = sgd_step_err(make_conf(True), make_conf(True), mesh_step, f, l)
+    g_ctl = (None if control_conf is None
+             else sgd_step_err(control_conf(True), make_conf(True), mesh_step, f, l))
+    log(f"{label}: launches a step {got} (the unsharded step's {got_ref}); loss {loss:.4f} vs "
+        f"the unsharded step's {ref_loss:.4f} (rel {loss_err:.2e}, limit {score_rtol}); one "
+        f"SGD(1) step's parameters (the gradients) within {g_err:.2e} of the largest entry "
+        f"(limit {grad_rtol}" + ("" if g_ctl is None else f"; the control reads {g_ctl:.2e}")
+        + f"); a step {ms['parallel']:.1f} ms vs {ms['unsharded']:.1f} ms unsharded (medians "
+        f"of {turns} alternating turns)")
+    if loss_err > score_rtol or g_err > grad_rtol or (g_ctl is not None and g_ctl <= grad_rtol):
+        raise AssertionError(f"{label}: loss rel {loss_err}, gradient rel {g_err}, "
+                             f"control {g_ctl}")
+    return {"launches": got, "unsharded_launches": got_ref, "loss_rel_err": loss_err,
+            "grad_rel_err": g_err, "control_grad_rel_err": g_ctl, "step_ms": ms["parallel"],
+            "unsharded_step_ms": ms["unsharded"]}
+
+
+def sp_transformer_lm():
+    """sequence_parallel_step over the full-width TransformerLM on SP_SLOTS
+    slots: Ulysses without dropout (SP_SLOTS K5 a layer), the ring with
+    attention dropout (SP_SLOTS (SP_SLOTS + 1) / 2 blocks a layer), each
+    against the unsharded step; then expert_parallel_step over the MoE
+    variant cut to EP_BLOCKS blocks on EP_SLOTS slots."""
+    from deeplearning4j_torch.parallel import (expert_parallel_step, make_mesh,
+                                               sequence_parallel_step)
+
+    mesh = make_mesh(["cuda:0"] * SP_SLOTS, axes=("sequence",))
+    n = SP_SLOTS
+
+    def sp(net):
+        return sequence_parallel_step(net, mesh)
+
+    def want(k):
+        return {"flash_fwd": k, "flash_dq": k, "flash_dkv": k}
+    out = {"ulysses": held_step("sp step (Ulysses)", lambda sgd: sp_lm_conf(sgd=sgd), sp,
+                                want(LM_BLOCKS * n)),
+           "ring_dropout": held_step("sp step (ring, attention dropout)",
+                                     lambda sgd: sp_lm_conf(LM_DROPOUT_RATE, sgd), sp,
+                                     want(LM_BLOCKS * n * (n + 1) // 2))}
+    emesh = make_mesh(["cuda:0"] * EP_SLOTS, axes=("expert",))
+
+    def ep(net):
+        step, place = expert_parallel_step(net, emesh)
+        place(net)
+        return lambda f, l: step(f, l)[0]
+    out["expert"] = held_step(f"expert parallel step ({MOE_EXPERTS} experts over {EP_SLOTS} "
+                              f"slots, {EP_BLOCKS} blocks, f32; control: the step in bf16)",
+                              lambda sgd: sp_lm_conf(sgd=sgd, experts=MOE_EXPERTS,
+                                                     blocks=EP_BLOCKS, compute="float32"),
+                              ep, want(EP_BLOCKS), score_rtol=EP_SCORE_RTOL,
+                              grad_rtol=EP_GRAD_RTOL,
+                              control_conf=lambda sgd: sp_lm_conf(
+                                  sgd=sgd, experts=MOE_EXPERTS, blocks=EP_BLOCKS))
+    return out
+
+
+def parallel(smi):
+    """The parallel phase: ParallelWrapper and ParallelInference over the
+    char-RNN, the ring and Ulysses at the TransformerLM's attention shape,
+    the sequence- and expert-parallel steps."""
+    t0 = time.perf_counter()
+    log(f"--- parallel ({smi})")
+    res = {"wrapper": parallel_wrapper_char_rnn()}
+    res["inference"] = parallel_inference_char_rnn()
+    res["attention"] = sp_attention_kernels()
+    res["steps"] = sp_transformer_lm()
+    res["seconds"] = time.perf_counter() - t0
+    log(f"parallel phase took {res['seconds']:.1f} s")
+    return res
+
+
 def build():
     """Compile every kernel of the port, one nvcc per source, all at once,
     and print what ptxas reports of registers, shared memory and spills."""
@@ -6553,7 +7084,7 @@ def build():
 
 
 def kernel_line(serving, training, served, streamed, trained, flash, lm, decode, moe, graph,
-                reg, lmd, ev, rf, tp, ke, rc):
+                reg, lmd, ev, rf, tp, ke, rc, par):
     """The {"kernels": [...]} entries: for K1-K4 numbers at the char-RNN's
     training shape, the launches of its training main path, and K1/K3's
     serving numbers and their decode rows (T=1, b=GEN_B, one a
@@ -6581,7 +7112,22 @@ def kernel_line(serving, training, served, streamed, trained, flash, lm, decode,
     of each held against its plain version and timed (``held``). K1-K4
     carry their launches in the char-RNN's fits under remat "on" and
     "auto" (``remat_launches``), K5-K7 theirs in a TransformerLM step
-    with remat off and on, without and with attention dropout."""
+    with remat off and on, without and with attention dropout. Every entry
+    carries its launches on each path of the parallel phase
+    (``parallel_launches``: ParallelWrapper's fits, ParallelInference's
+    requests, the ring and Ulysses calls, the sp and expert steps), and
+    K5-K7 their numbers at the ring's shard shapes and Ulysses' shape
+    (``sequence_parallel_shapes``)."""
+    par_paths = {f"wrapper_{k}": par["wrapper"][k]["launches"]
+                 for k in ("unmasked", "masked", "local_sgd", "shared_gradients")}
+    par_paths.update({f"inference_{k}": v["launches"] for k, v in par["inference"].items()})
+    par_paths.update({k.replace(" ", "_"): v["launches"]
+                      for k, v in par["attention"].items() if k != "rows"})
+    par_paths.update({f"step_{k}": v["launches"] for k, v in par["steps"].items()})
+
+    def parallel_launches(*names):
+        return {"parallel_launches": {p: sum(c.get(n, 0) for n in names)
+                                      for p, c in par_paths.items()}}
     shape = {"b": TRAIN_B, "T": TRAIN_T, "H": H, "w": "bf16", "peepholes": True}
     phases = {"early_stopping": ev["early_stopping"]["launches"],
               "evaluate_masked": ev["char_rnn"]["masked"]["launches"],
@@ -6657,14 +7203,15 @@ def kernel_line(serving, training, served, streamed, trained, flash, lm, decode,
                "transfer_pretrain_launches": {k: frozen[k] for k in ("lstm_fwd",
                                                                      "lstm_fwd_train")},
                **keras_lstm("lstm_fwd", "lstm_fwd_train"),
-               **remat_launches("lstm_fwd", "lstm_fwd_train")}),
+               **remat_launches("lstm_fwd", "lstm_fwd_train"),
+               **parallel_launches("lstm_fwd", "lstm_fwd_train")}),
         entry("lstm_bwd", "lstm_bwd", "lstm_cell_bwd.cu", "deeplearning4j_tpu/ops/lstm_cell.py:235",
               [training["lstm_bwd/masked"], training["lstm_bwd/unmasked"]],
               {"design": training["lstm_bwd/masked"]["design"],
                "graph_tbptt_launches": graph["launches"]["lstm_bwd"],
                "recurrent_family_launches": family_launches("lstm_bwd"),
                "transfer_pretrain_launches": frozen["lstm_bwd"], **keras_lstm("lstm_bwd"),
-               **remat_launches("lstm_bwd")}),
+               **remat_launches("lstm_bwd"), **parallel_launches("lstm_bwd")}),
         entry("lstm2_fwd", "lstm2_fwd_train", "lstm_fused.cu", "deeplearning4j_tpu/ops/lstm_fused.py:111",
               [training["lstm2_fwd_train"]],
               {**serving_of("lstm2_fwd", ["lstm2_fwd"]), "decode": decode["lstm2_fwd"],
@@ -6673,7 +7220,8 @@ def kernel_line(serving, training, served, streamed, trained, flash, lm, decode,
                "recurrent_family_launches": family_launches("lstm2_fwd", "lstm2_fwd_train"),
                "transfer_pretrain_launches": frozen["lstm2_fwd"] + frozen["lstm2_fwd_train"],
                **keras_lstm("lstm2_fwd", "lstm2_fwd_train"),
-               **remat_launches("lstm2_fwd", "lstm2_fwd_train")}),
+               **remat_launches("lstm2_fwd", "lstm2_fwd_train"),
+               **parallel_launches("lstm2_fwd", "lstm2_fwd_train")}),
         entry("lstm2_bwd", "lstm2_bwd", "lstm_fused_bwd.cu", "deeplearning4j_tpu/ops/lstm_fused.py:249",
               [training["lstm2_bwd"]], {"design": training["lstm2_bwd"]["design"],
                                         **evaluate_launches("lstm2_bwd"),
@@ -6681,9 +7229,13 @@ def kernel_line(serving, training, served, streamed, trained, flash, lm, decode,
                                             family_launches("lstm2_bwd"),
                                         "transfer_pretrain_launches": frozen["lstm2_bwd"],
                                         **keras_lstm("lstm2_bwd"),
-                                        **remat_launches("lstm2_bwd")}),
+                                        **remat_launches("lstm2_bwd"),
+                                        **parallel_launches("lstm2_bwd")}),
         *(flash_entry(name, src, line, flash[name], lm, moe, lmd,
                       {**(evaluate_launches(name) if name == "flash_fwd" else {}),
+                       **parallel_launches(name),
+                       "sequence_parallel_shapes": {k: r[name] for k, r in
+                                                    par["attention"]["rows"].items()},
                        "remat_launches_per_step": {
                            f"{m}{' dropout' if k.endswith('dropout') else ''}":
                            rc["models"][k]["launches_per_step"][m][name]
@@ -6791,11 +7343,14 @@ def main() -> int:
     rc = remat_clustering(smi)
     torch.cuda.empty_cache()
     print(json.dumps({"remat_clustering": rc}))
+    par = parallel(smi)
+    torch.cuda.empty_cache()
+    print(json.dumps({"parallel": par}))
 
     print(json.dumps({"generate": generated}))
     print(json.dumps({"kernels": kernel_line(serving, training, served, streamed,
                                              trained["launches"], flash, lm, decode, moe,
-                                             graph, reg, lmd, ev, rf, tp, ke, rc)}))
+                                             graph, reg, lmd, ev, rf, tp, ke, rc, par)}))
     log(f"chip_smoke took {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -30,8 +30,7 @@ A failed pin, copy or event travels as the batch's error and raises on
 the consumer in order; nothing reverts to a synchronous copy. Not ported:
 the reference's monitor series (``input_queue_depth``,
 ``input_wait_seconds``, ``input_bytes_total``, ``input_batches_total``)
-and its lockwatch locks (plain ``threading`` here), and the ``sharding=``
-argument, which waits for the port of ``parallel/``.
+and its lockwatch locks (plain ``threading`` here).
 """
 from __future__ import annotations
 
@@ -49,7 +48,8 @@ from .iterators import AsyncDataSetIterator
 
 log = logging.getLogger(__name__)
 
-__all__ = ["PrefetchIterator", "PrefetchDataSetIterator", "wrap_for_training"]
+__all__ = ["PrefetchIterator", "PrefetchDataSetIterator", "ShardedDataSet",
+           "wrap_for_training"]
 
 #: consumer/worker poll granularity (seconds): every blocking wait in this
 #: module is bounded by this and re-checks stop/liveness, so no thread can
@@ -466,12 +466,34 @@ class PrefetchDataSetIterator(PrefetchIterator, DataSetIterator):
 
     ``transform`` (on the host, before the copy) is where decode, augment
     and padding work runs in parallel across workers.
+
+    ``sharding`` (a ``parallel.Sharding``, e.g. ``batch_sharded(mesh)``)
+    places each batch into a mesh's slots on the worker
+    (:class:`ShardedDataSet`: every array a list of the slots' shards,
+    each on its slot's device; a replicated spec gives each slot a copy),
+    the counterpart of the JAX package's ``jax.device_put(x, sharding)``:
+    a ``parallel.data_parallel_step`` takes such a batch's lists as its
+    slots' shards without placing them again.
     """
 
     def __init__(self, base: DataSetIterator, workers: int = 2,
                  queue_size: Optional[int] = None, device=None, cache_device: bool = False,
                  transform: Optional[Callable] = None,
-                 concurrent_pull: Optional[bool] = None):
+                 concurrent_pull: Optional[bool] = None, sharding=None):
+        self._sharding = sharding
+        if sharding is not None:
+            if device is not None or cache_device:
+                raise ValueError("sharding places batches in the mesh's slots; it does not "
+                                 "combine with device or cache_device")
+            super().__init__(base, workers=workers, queue_size=queue_size,
+                             transform=transform, finalize=self._put_sharded,
+                             concurrent_pull=bool(getattr(base, "concurrent_pull_supported",
+                                                          lambda: False)())
+                             if concurrent_pull is None else concurrent_pull,
+                             name="input-prefetch")
+            self._device, self._device_put, self._cache_device = None, False, False
+            self._stager = None
+            return
         self._device = None if device is None else torch.device(device)
         self._device_put = self._device is not None
         self._cache_device = bool(cache_device)
@@ -490,6 +512,27 @@ class PrefetchDataSetIterator(PrefetchIterator, DataSetIterator):
         if self._stager is not None:
             return self._stager.put(arrays)
         return DeviceArrays(tuple(to_tensor(a, self._device) for a in arrays))
+
+    def _put_sharded(self, ds):
+        """The batch split into the sharding's slots (a DataSet's arrays;
+        a MultiDataSet's streams member-wise)."""
+        from ..parallel.sharding import shard_batch
+        mesh, spec = self._sharding.mesh, tuple(self._sharding.spec)
+
+        def put(a):
+            if a is None:
+                return None
+            if not spec or spec[0] is None:
+                return [to_tensor(a, d) for _, d in mesh.slots()]
+            return shard_batch(a, mesh, spec[0])
+        if isinstance(ds, MultiDataSet):
+            streams = [ds.features, ds.labels, ds.features_masks, ds.labels_masks]
+            return ShardedDataSet(*[None if seq is None else [put(a) for a in seq]
+                                    for seq in streams], multi=True, n=ds.num_examples())
+        if isinstance(ds, DataSet):
+            return ShardedDataSet(put(ds.features), put(ds.labels), put(ds.features_mask),
+                                  put(ds.labels_mask), n=ds.num_examples())
+        return ds
 
     def _put_ahead(self, ds):
         if self._stager is not None:
@@ -522,6 +565,22 @@ class PrefetchDataSetIterator(PrefetchIterator, DataSetIterator):
 
     def async_supported(self):
         return False    # already asynchronous: never wrap again
+
+
+class ShardedDataSet:
+    """A batch placed in a mesh's slots by ``PrefetchDataSetIterator(
+    sharding=...)``: each array (each stream of a MultiDataSet's, with
+    ``multi``) is a list of the slots' tensors."""
+
+    def __init__(self, features, labels, features_mask=None, labels_mask=None,
+                 multi=False, n=0):
+        self.features, self.labels = features, labels
+        self.features_mask, self.labels_mask = features_mask, labels_mask
+        self.multi = multi
+        self._n = int(n)
+
+    def num_examples(self) -> int:
+        return self._n
 
 
 def wrap_for_training(it, device, cache_device: bool = False):

@@ -2,11 +2,9 @@
 
 Counterpart of ``deeplearning4j_tpu/nlp/``: the SequenceVectors engine,
 Word2Vec/CBOW, ParagraphVectors, GloVe, vocab and Huffman, the tokenization
-pipeline, word-vector serialization, the bag-of-words vectorizers and the
-CJK and UIMA language modules (``lang.py``). Not ported yet:
-``nlp/distributed.py`` (``DistributedWord2Vec``,
-``DistributedGlove``, ``SparkWord2Vec``, ``SparkGlove``,
-``partition_sentences``), ROADMAP A 14 with the rest of the parallel layer.
+pipeline, word-vector serialization, the bag-of-words vectorizers, the
+CJK and UIMA language modules (``lang.py``) and Word2Vec and GloVe across
+processes (``distributed.py``).
 """
 from .text import (SentenceIterator, CollectionSentenceIterator,
                    BasicLineIterator, Tokenizer, TokenizerFactory,
@@ -23,6 +21,8 @@ from .lang import (Lexicon,
                    ChineseTokenizerFactory, JapaneseTokenizerFactory,
                    KoreanTokenizerFactory, UimaTokenizerFactory,
                    AnnotationPipeline)
+from .distributed import (DistributedWord2Vec, DistributedGlove, SparkWord2Vec, SparkGlove,
+                          partition_sentences)
 
 __all__ = ["SentenceIterator", "CollectionSentenceIterator", "BasicLineIterator",
            "Tokenizer", "TokenizerFactory", "DefaultTokenizerFactory",
@@ -33,4 +33,6 @@ __all__ = ["SentenceIterator", "CollectionSentenceIterator", "BasicLineIterator"
            "ParagraphVectors", "Glove", "InvertedIndex", "BagOfWordsVectorizer",
            "TfidfVectorizer", "WordVectorSerializer", "StaticWordVectors",
            "Lexicon", "ChineseTokenizerFactory", "JapaneseTokenizerFactory",
-           "KoreanTokenizerFactory", "UimaTokenizerFactory", "AnnotationPipeline"]
+           "KoreanTokenizerFactory", "UimaTokenizerFactory", "AnnotationPipeline",
+           "DistributedWord2Vec", "DistributedGlove", "SparkWord2Vec", "SparkGlove",
+           "partition_sentences"]

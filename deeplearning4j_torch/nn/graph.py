@@ -157,6 +157,8 @@ class ComputationGraph(nn.Module):
     _grads = MultiLayerNetwork._grads
     _idle_frozen = MultiLayerNetwork._idle_frozen
     _update = MultiLayerNetwork._update
+    _apply_update = MultiLayerNetwork._apply_update
+    _updates = MultiLayerNetwork._updates
     _apply_gradients = MultiLayerNetwork._apply_gradients
     _apply_constraints = MultiLayerNetwork._apply_constraints
     _steps = MultiLayerNetwork._steps
@@ -398,13 +400,21 @@ class ComputationGraph(nn.Module):
 
         return checkpointed(losses, ctx, *[acts[i] for i in out_ins]), ctx
 
+    def _train_loss(self, inputs, labels, fms, lms, rnn_state_in=None, rng=None):
+        """The training loss of one step, nothing updated: (loss, carries by
+        vertex name, the layers' new state), as
+        ``MultiLayerNetwork._train_loss``."""
+        new_states, rnn_out = {}, {}
+        loss = self._loss_fn(inputs, labels, fms, lms, True,
+                             self._gen if rng is None else rng, new_states,
+                             rnn_state_in, rnn_out,
+                             remat=remat_enabled(self.gc, self.impls.values()))
+        return loss, rnn_out, new_states
+
     def _step(self, inputs, labels, fms, lms, iteration, rnn_state_in=None):
         """One update, then the layers' new state. Returns (detached loss,
         detached carries by vertex name), as ``MultiLayerNetwork._step``."""
-        new_states, rnn_out = {}, {}
-        loss = self._loss_fn(inputs, labels, fms, lms, True, self._gen, new_states,
-                             rnn_state_in, rnn_out,
-                             remat=remat_enabled(self.gc, self.impls.values()))
+        loss, rnn_out, new_states = self._train_loss(inputs, labels, fms, lms, rnn_state_in)
         self._update(loss, iteration)
         self._commit_states(new_states)
         return loss.detach(), _detached(rnn_out)

@@ -5,8 +5,11 @@ of ``mha`` (the flash-attention kernels of ``ops/flash_attention.py`` for
 long, block-divisible sequences, the dense body otherwise), the dense body
 ``_dense_attention``, the full-sequence forward of ``SelfAttentionImpl``
 and streaming over its KV cache (``init_stream_state``,
-``_cached_attention``: ``rnn_time_step`` of a ComputationGraph). The
-sequence-parallel ring is not ported.
+``_cached_attention``: ``rnn_time_step`` of a ComputationGraph). Inside
+``parallel.sequence_parallel_step`` (``current_sp_axis`` is set for the
+step's thread only) the attention goes through ``parallel.sp_attend``:
+Ulysses or the ring over the slots on the same kernels, with the same
+dropout seed drawn as here.
 
 Attention dropout in training draws from the layer's ``torch.Generator``
 for the step (``ctx["rng"]``, which also draws the layer's input dropout
@@ -22,6 +25,13 @@ import torch
 from .base import LayerImpl, implements, train_rng
 from ..conf.dropout import draw_seed
 from ...ops import flash_attention as fa
+
+
+def _sp():
+    """``parallel.sequence`` while its sequence-parallel step runs in this
+    thread, else None (imported here: ``parallel`` imports the layers)."""
+    from ...parallel import sequence
+    return sequence if sequence.current_sp_axis() is not None else None
 
 
 def mha(q, k, v, causal, compute_dtype, dropout_rate=0.0, gen=None, train=False,
@@ -165,6 +175,13 @@ class SelfAttentionImpl(LayerImpl):
             rate = c.dropout_rate if (ctx.get("train", False) and gen is not None) else 0.0
             o, carry = self._cached_attention(q, k, v, carry, mask, rate, gen)
             ctx.setdefault("rnn_state_out", {})[self.index] = carry
+        elif _sp() is not None:
+            if mask is not None:
+                raise ValueError("the sequence-parallel step takes no masks")
+            gen = ctx.get("rng")
+            rate = c.dropout_rate if (ctx.get("train", False) and gen is not None) else 0.0
+            seed = draw_seed(gen) if rate > 0.0 else None
+            o = _sp().sp_attend(q, k, v, c.causal, self.compute_dtype, rate, seed)
         else:
             o = mha(q, k, v, c.causal, self.compute_dtype, c.dropout_rate, ctx.get("rng"),
                     ctx.get("train", False), key_mask=mask)

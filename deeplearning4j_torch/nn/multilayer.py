@@ -20,7 +20,9 @@ is the JAX step core (``_raw_update_core``/``_raw_step``): loss ->
 autograd gradients -> minimize flip -> ``normalize_gradients`` -> the
 layer's updater -> ``p - u``, applied in place -> the layers' constraints;
 then the layers' new state (BatchNormalization's running statistics) is
-committed.
+committed. The parallel steps (``parallel/``) run its halves apart:
+``_train_loss`` and ``_grads`` on each slot, then ``_apply_update`` once
+on the slots' reduced gradients.
 
 Frozen layers (``FrozenLayer``, ``nn/layers/wrapper.py``) hold parameters
 with ``requires_grad`` off: autograd records nothing of them, and their
@@ -505,21 +507,33 @@ class MultiLayerNetwork(nn.Module):
         return idle
 
     def _update(self, loss, iteration) -> None:
-        """Gradients of ``loss`` -> minimize flip -> :meth:`_apply_gradients`
-        -> :meth:`_apply_constraints`."""
-        grads = self._grads(loss, skip=self._idle_frozen())
+        """Gradients of ``loss`` -> :meth:`_apply_update`."""
+        self._apply_update(self._grads(loss, skip=self._idle_frozen()), iteration)
+
+    def _apply_update(self, grads, iteration) -> None:
+        """One update from gradients: minimize flip ->
+        :meth:`_apply_gradients` -> :meth:`_apply_constraints`. The seam of
+        the parallel steps (``parallel/``): each slot's gradients of
+        :meth:`_train_loss`, reduced across the slots, are applied here
+        once."""
         if not self.gc.minimize:
             grads = {i: tree_map(torch.neg, gs) for i, gs in grads.items()}
         self._apply_gradients(grads, iteration)
         self._apply_constraints()
 
+    def _updates(self, grads, iteration):
+        """Normalization -> the layers' updaters: the updates ``u`` of
+        ``p - u`` (the updater state advances), nothing applied."""
+        grads = normalize_gradients(grads, self.gc.gradient_normalization,
+                                    self.gc.gradient_normalization_threshold)
+        updates, self.updater_state = self.updater.apply(self.updater_state, grads, iteration)
+        return grads, updates
+
     def _apply_gradients(self, grads, iteration) -> None:
         """Normalization -> the layers' updaters -> ``p - u`` in place; a
         layer whose gradient dict is empty (no parameters, or skipped)
         keeps its parameters and updater state."""
-        grads = normalize_gradients(grads, self.gc.gradient_normalization,
-                                    self.gc.gradient_normalization_threshold)
-        updates, self.updater_state = self.updater.apply(self.updater_state, grads, iteration)
+        grads, updates = self._updates(grads, iteration)
         with torch.no_grad():
             for i, ps in self._trainable().items():
                 if updates[i]:
@@ -539,12 +553,20 @@ class MultiLayerNetwork(nn.Module):
                         if t is not ps[k]:
                             ps[k].copy_(t)
 
+    def _train_loss(self, f, l, fm, lm, rnn_state_in=None, rng=None):
+        """The training loss of one step, nothing updated: (loss, rnn state
+        out, the layers' new state). ``rng`` defaults to the network's own
+        step stream."""
+        new_states = {}
+        loss, rnn_out = self._loss_fn(f, l, fm, lm, True, rnn_state_in, new_states,
+                                      rng=self._gen if rng is None else rng,
+                                      remat=remat_enabled(self.gc, self.impls))
+        return loss, rnn_out, new_states
+
     def _step(self, f, l, fm, lm, iteration, rnn_state_in=None):
         """One update, then the layers' new state. Returns (detached loss,
         detached rnn state out)."""
-        new_states = {}
-        loss, rnn_out = self._loss_fn(f, l, fm, lm, True, rnn_state_in, new_states,
-                                      rng=self._gen, remat=remat_enabled(self.gc, self.impls))
+        loss, rnn_out, new_states = self._train_loss(f, l, fm, lm, rnn_state_in)
         self._update(loss, iteration)
         self._commit_states(new_states)
         return loss.detach(), _detached(rnn_out)

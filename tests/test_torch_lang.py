@@ -225,9 +225,7 @@ def test_nlp_exports_the_jax_lang_names():
         assert n in pnlp.__all__ and n in jnlp.__all__
         assert getattr(pnlp, n) is getattr(plang, n)
     assert set(pnlp.__all__) - set(jnlp.__all__) == {"lookup_table_from_numpy"}
-    assert set(jnlp.__all__) - set(pnlp.__all__) == {
-        "DistributedWord2Vec", "DistributedGlove", "SparkWord2Vec", "SparkGlove",
-        "partition_sentences"}
+    assert set(jnlp.__all__) - set(pnlp.__all__) == set()
 
 
 def test_cjk_factories_feed_word2vec():

@@ -7,8 +7,8 @@ a ComputationGraph, capacity dispatch against the dense oracle (values and
 gradients), overflow, groups, tail padding, exact inference routing and
 bad configurations. The two expert-parallel cases
 (``test_expert_parallel_matches_replicated_training``,
-``test_moe_sparse_expert_parallel_matches_replicated``) wait for the
-port's expert sharding (ROADMAP Queue A 14). Each network is built in the
+``test_moe_sparse_expert_parallel_matches_replicated``) are held in
+``tests/test_torch_parallel_misc.py``. Each network is built in the
 JAX package and carried to the port through its JSON and its numpy
 weights (or a model zip), so both hold the same weights.
 
