@@ -271,7 +271,28 @@ and the CUDA toolkit; run from the root of the repository. It
    the smoke's count of its convolutions' FLOPs and of the TransformerLM
    beside K5-K7's FLOPs, which the dispatcher cannot see, and
    ``StepTimerListener`` over 6 VGG16 fits;
-24. prints a ``{"cnn": ...}`` line with those numbers, a ``{"generate":
+24. (``parallel``) ParallelWrapper and ParallelInference over the char-RNN
+   on 2 slots of the card, ring and Ulysses attention at the
+   TransformerLM's shape over 4 slots, and the sequence- and
+   expert-parallel steps against the unsharded steps;
+25. (``pipeline_paramserver``) GPipe over slots of the card's ``pipe``
+   axis: TextGenerationLSTM(80, 512, 3) in bf16 on 2 slots (b=64, T=200,
+   4 microbatches: K1 with the reserve and K2 once a layer a microbatch,
+   no bubble launch) and the TransformerLM of step 8 on 4 slots (4
+   microbatches of one: 32 K5, K6 and K7 a step), each held against the
+   unpipelined step (loss; SGD(1) gradients, with a control dropping
+   microbatch 0) and timed beside it, the LM's attention dropout
+   deterministic for a seed; K1/K2 timed at the microbatch's shape beside
+   cuDNN's 1-layer LSTM, K5-K7 at bh=8 beside SDPA;
+   ParameterServerTrainingMaster over the char-RNN of step 4 against an
+   in-process server (one lossless worker against a plain net's steps, in
+   sync and overlap mode with the phases and the hidden share; two worker
+   threads at threshold 1e-3: pushes, versions, a falling loss), K3/K4 at
+   the worker's full sequence beside cuDNN's 2-layer LSTM; the char-RNN
+   fitted from a stream and from Kafka (a stub broker) against a listed
+   fit; the native host codec built and held bit for bit against numpy on
+   the char-RNN's gradient;
+26. prints a ``{"cnn": ...}`` line with those numbers, a ``{"generate":
    ...}`` line with steps 6 and 10's, a ``{"moe_lm": ..., "graph_tbptt":
    ...}`` line with steps 15 and 16's, a ``{"regularized_char_rnn": ...,
    "lm_dropout": ..., "solvers": ...}`` line with step 17's, an
@@ -279,15 +300,17 @@ and the CUDA toolkit; run from the root of the repository. It
    ``{"recurrent_family": ...}`` line with step 19's, a ``{"cnn_family":
    ...}`` line with step 20's, a ``{"transfer_pretrain": ...}`` line
    with step 21's, a ``{"keras_embeddings": ...}`` line with step 22's
-   and a ``{"remat_clustering": ...}`` line with step 23's (the card's name
-   and power limit in those six), a
+   a ``{"remat_clustering": ...}`` line with step 23's, a ``{"parallel":
+   ...}`` line with step 24's and a ``{"pipeline_paramserver": ...}`` line
+   with step 25's (the card's name and power limit in those), a
    ``{"kernels": [...]}`` line (K1's and K3's entries with their decode
    rows; K1/K2's launches in step 16's fit, K5-K7's in step 15's steps;
    K1-K4's in each regularised fit, K5-K7's in the dropout LM's steps and
    their times with dropout; K1, K3, K4 and K5's in step 18; K1-K4's in
    each path of step 19, in step 21's frozen char-RNN, on step 22's
    imported char-LSTM and under step 23's remat; K5-K7's in step 23's
-   TransformerLM steps) and, last, the
+   TransformerLM steps; every kernel's on each path of steps 24 and 25)
+   and, last, the
    ``{"ok": true, "device": ...}`` line.
 
 Any failure raises, and the script exits nonzero without the last line.
@@ -775,6 +798,42 @@ PW_SGD_LR, PW_GRAD_RTOL, PW_LOSS_RTOL = 1e-6, 1e-2, 1e-3
 PI_REQUESTS, PI_ROWS, PI_ATOL = 8, 8, 1e-3
 SP_SLOTS, SP_SEED, SP_TURNS = 4, 61, 3
 EP_SLOTS, EP_BLOCKS, EP_SCORE_RTOL, EP_GRAD_RTOL = 4, 2, 1e-6, 1e-6
+# pipeline_paramserver: PipelinedNetwork over TextGenerationLSTM(80, 512,
+# PP_LAYERS) in bf16 (the bench.py:230 widths) on PP_SLOTS pipe slots of
+# the card, b=TRAIN_B T=TRAIN_SEQ in PP_M microbatches: the entry (layer
+# 0) and each stage's layer run K1 with the reserve and K2 once a
+# microbatch, no bubble tick launches. PipelinedGraph over the
+# TransformerLM of step 8 on PP_LM_SLOTS slots (2 blocks each), b=LM_B
+# T=LM_T in PP_LM_M microbatches of one: K5, K6 and K7 once a block a
+# microbatch. Each is held against the container's unpipelined step on the
+# same batch: the losses within LM_REF_SCORE_RTOL, and with SGD at
+# learning rate 1 the parameters after one step (the gradients) within
+# PP_GRAD_RTOL (char-RNN: K1 on microbatches of 16 against K3 and K1 on
+# 64 rows, bf16 rounding) or LM_REF_GRAD_RTOL (TransformerLM) of each
+# tensor's largest entry; a control that drops microbatch 0's loss must
+# read above the limit. The TransformerLM with attention dropout
+# LM_DROPOUT_RATE: two pipelines from one seed step alike, a third with
+# another step seed differs. ParameterServerTrainingMaster over the
+# char-RNN of step 4 (full-sequence steps: one K3 with the reserve and one
+# K4 a step) against a ParameterServer on 127.0.0.1: (a) one worker,
+# threshold 0, staleness 0, PS_STEPS steps, parameters within
+# PS_PARAM_ATOL of a plain net's PS_STEPS update steps, and a plain net
+# of PS_STEPS - 1 steps (the control) above it; (b) PS_WORKERS
+# worker threads, threshold PS_THRESHOLD, staleness 1, PS_STEPS steps
+# each: pushes and the server's version counted, the loss falls; (c) (a)
+# with overlap on: the phases and the hidden share of d2h + encode + push
+# (reported, no limit). Streaming and Kafka: STREAM_BATCHES char-RNN
+# batches (their character ids on the wire, made one-hot by the
+# iterators' ``convert``) fitted from StreamingDataSetIterator and from
+# KafkaDataSetIterator over a stub broker; each fit's per-batch losses and
+# parameters equal a ListDataSetIterator fit's over the same batches. The
+# native codec on the char-RNN's flattened gradient: bit-equal to numpy.
+PP_SLOTS, PP_LAYERS, PP_M, PP_TURNS, PP_SEED = 2, 3, 4, 3, 70
+PP_GRAD_RTOL = 2e-2
+PP_LM_SLOTS, PP_LM_M = 4, 4
+PS_STEPS, PS_WORKERS, PS_THRESHOLD, PS_TURNS = 4, 2, 1e-3, 2
+PS_PARAM_ATOL = 1e-6
+STREAM_BATCHES = 8
 
 
 def log(msg):
@@ -1363,13 +1422,14 @@ def char_rnn_conf():
 
 def build_net(conf, seed=2):
     """The network on the card from the config's seed, with random
-    peepholes so that the peephole terms are exercised (init draws 0)."""
+    peepholes on every LSTM layer so that the peephole terms are exercised
+    (init draws 0)."""
     from deeplearning4j_torch import MultiLayerNetwork
 
     net = MultiLayerNetwork(conf).init()          # device defaults to the card
     g = torch.Generator().manual_seed(seed)
     with torch.no_grad():
-        for impl in list(net.impls)[:2]:
+        for impl in [im for im in net.impls if hasattr(im, "pi")]:
             for k in ("pi", "pf", "po"):
                 getattr(impl, k).copy_((torch.randn(H, generator=g) * 0.1).to(net.device))
     return net
@@ -5618,15 +5678,18 @@ def timed_launches(seen):
         library_ms = cudnn_lstm_ms(name, args, s["reserve"])
         x = args[0] if name in ("lstm_fwd", "lstm2_fwd") else args[1]
         w = args[1] if name in ("lstm_fwd", "lstm2_fwd") else args[3 if name == "lstm_bwd" else 5]
+        peep = args[{"lstm_fwd": 2, "lstm_bwd": 4, "lstm2_fwd": 5, "lstm2_bwd": 8}[name]] \
+            is not None
         rows[key] = {
             "max_abs_err": s["max_abs_err"], "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
             "bound_by": by, "library_ms": library_ms,
             "library_note": f"cuDNN nn.LSTM, {2 if name.startswith('lstm2') else 1} layer(s), "
                             f"{'backward' if name.endswith('bwd') else 'forward'}",
             "shape": {"T": int(x.shape[0]), "b": int(x.shape[1]), "H": int(x.shape[2]) // 4,
-                      "w": str(w.dtype)[6:], "peepholes": False}}
+                      "w": str(w.dtype)[6:], "peepholes": peep}}
         log(f"  {name}{' with reserve' if s['reserve'] else ''} T={x.shape[0]} b={x.shape[1]} "
-            f"{str(w.dtype)[6:]} without peepholes: max_abs_err {s['max_abs_err']:.2e}, "
+            f"{str(w.dtype)[6:]} {'with' if peep else 'without'} peepholes: max_abs_err "
+            f"{s['max_abs_err']:.2e}, "
             f"{ms:.4f} ms (plain {plain_ms:.2f}, bound {bms:.5f}, {by}; cuDNN's LSTM "
             f"{library_ms:.4f})")
     return rows
@@ -7054,6 +7117,519 @@ def parallel(smi):
     return res
 
 
+# --------------------------------------------------- pipeline_paramserver
+def pp_char_rnn_conf(sgd=False):
+    """TextGenerationLSTM(VOCAB, H, PP_LAYERS) in bf16 (Adam; SGD at
+    learning rate 1 for the gradient checks)."""
+    from deeplearning4j_torch import Sgd
+    from deeplearning4j_torch.models import TextGenerationLSTM
+
+    conf = TextGenerationLSTM(total_unique_characters=VOCAB, lstm_size=H,
+                              num_layers=PP_LAYERS, seed=1).conf()
+    conf.global_conf.compute_dtype = "bfloat16"
+    if sgd:
+        conf.global_conf.updater = Sgd(learning_rate=1.0)
+    return conf
+
+
+def unpipelined_step(net, inputs, labels):
+    """One standard-backprop step through the container's seam
+    (``_train_loss`` -> ``_update``), no TBPTT; the loss."""
+    put = net._to_device
+    if hasattr(net.conf, "vertices"):
+        loss, _, new_states = net._train_loss((put(inputs),), (put(labels),), None, None)
+    else:
+        loss, _, new_states = net._train_loss(put(inputs), put(labels), None, None)
+    net._update(loss, net.iteration_count)
+    net._commit_states(new_states)
+    net.iteration_count += 1
+    return loss.detach()
+
+
+def drop_first_microbatch(pp):
+    """The control: the pipelined step's first microbatch loss counts 0."""
+    conf = pp.model.conf
+    out = (pp.model.impls[conf.network_outputs[0]] if hasattr(conf, "vertices")
+           else pp.model.impls[-1])
+    real, calls = out.loss_on, []
+
+    def loss_on(*a, **kw):
+        v = real(*a, **kw)
+        calls.append(1)
+        return v * 0.0 if len(calls) == 1 else v
+    out.loss_on = loss_on
+
+
+def pp_held(label, make_conf, make_net, make_pp, f, l, per_step, grad_rtol):
+    """A pipelined step against the unpipelined step of an identical net:
+    Adam for launches, loss and times; SGD(1) for the gradients, with the
+    control that drops microbatch 0."""
+    pipe_net, ref = make_net(make_conf(False)), make_net(make_conf(False))
+    pp = make_pp(pipe_net)
+    loss, got = launches_of_run(lambda: float(pp.fit_batch(f, l)))
+    ref_loss, got_ref = launches_of_run(lambda: float(unpipelined_step(ref, f, l)))
+    loss_err = abs(loss - ref_loss) / abs(ref_loss)
+    if got != per_step:
+        raise AssertionError(f"{label}: a step launched {got}, expected {per_step}")
+    times = {"pipelined": [], "unpipelined": []}
+    for t in range(PP_TURNS):
+        for arm in (("pipelined", "unpipelined") if t % 2 == 0
+                    else ("unpipelined", "pipelined")):
+            fn = ((lambda: float(pp.fit_batch(f, l))) if arm == "pipelined"
+                  else (lambda: float(unpipelined_step(ref, f, l))))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            times[arm].append((time.perf_counter() - t0) * 1e3)
+    ms = {k: float(np.median(v)) for k, v in times.items()}
+    del pipe_net, ref, pp
+    torch.cuda.empty_cache()
+
+    def sgd_err(control):
+        pipe_net, ref = make_net(make_conf(True)), make_net(make_conf(True))
+        pp = make_pp(pipe_net)
+        if control:
+            drop_first_microbatch(pp)
+        before = [(k, t.detach().float().clone()) for k, t in leaves_of(pp.model.params)]
+        pp.fit_batch(f, l)
+        unpipelined_step(ref, f, l)
+        err = grad_rel(pp.model, before, ref)
+        del pipe_net, ref, pp, before
+        torch.cuda.empty_cache()
+        return err
+    g_err, g_ctl = sgd_err(False), sgd_err(True)
+    log(f"{label}: launches a step {got} (the unpipelined step's {got_ref}); loss {loss:.4f} "
+        f"vs {ref_loss:.4f} unpipelined (rel {loss_err:.2e}, limit {LM_REF_SCORE_RTOL}); one "
+        f"SGD(1) step's gradients within {g_err:.2e} of each tensor's largest entry (limit "
+        f"{grad_rtol}; the control dropping microbatch 0 reads {g_ctl:.2e}); a step "
+        f"{ms['pipelined']:.1f} ms pipelined vs {ms['unpipelined']:.1f} ms unpipelined "
+        f"(medians of {PP_TURNS} alternating turns)")
+    if loss_err > LM_REF_SCORE_RTOL or g_err > grad_rtol or g_ctl <= grad_rtol:
+        raise AssertionError(f"{label}: loss rel {loss_err}, gradient rel {g_err}, "
+                             f"control {g_ctl}")
+    return {"launches": got, "unpipelined_launches": got_ref, "loss_rel_err": loss_err,
+            "grad_rel_err": g_err, "grad_rtol": grad_rtol, "control_grad_rel_err": g_ctl,
+            "step_ms": ms["pipelined"], "unpipelined_step_ms": ms["unpipelined"],
+            "turns_ms": times}
+
+
+def held_lstm_rows(fn, names):
+    """The first launches of ``names`` in ``fn()`` held against their plain
+    versions (``first_launches_held``), then timed with their bounds and
+    cuDNN's LSTM at their shapes (``timed_launches``)."""
+    with first_launches_held() as seen:
+        fn()
+    torch.cuda.synchronize()
+    missing = [n for n in names if n not in seen]
+    if missing:
+        raise AssertionError(f"no launch of {missing} to hold (saw {sorted(seen)})")
+    rows = timed_launches({n: seen[n] for n in names})
+    for n, r in rows.items():
+        limit = BWD_ATOL if n.endswith("bwd") else KERNEL_ATOL
+        if not r["max_abs_err"] <= limit:
+            raise AssertionError(f"{n} disagrees with its plain version: "
+                                 f"{r['max_abs_err']} > {limit}")
+    return rows
+
+
+def pipelined_char_rnn():
+    from deeplearning4j_torch.parallel import make_mesh, pipeline_parallel_step
+
+    mesh = make_mesh(["cuda:0"] * PP_SLOTS, axes=("pipe",))
+    f, l = periodic_text(np.random.default_rng(PP_SEED), TRAIN_B, TRAIN_SEQ)
+
+    def make_pp(net):
+        pp = pipeline_parallel_step(net, mesh, n_microbatches=PP_M)
+        if (pp.start, pp.body_len, pp.layers_per_stage) != (1, PP_LAYERS - 1, 1):
+            raise AssertionError(f"partition {(pp.start, pp.body_len, pp.layers_per_stage)}")
+        return pp
+    k = PP_LAYERS * PP_M
+    out = pp_held(f"PipelinedNetwork TextGenerationLSTM({VOCAB}, {H}, {PP_LAYERS}) bf16 over "
+                  f"{PP_SLOTS} pipe slots, b={TRAIN_B} T={TRAIN_SEQ}, {PP_M} microbatches",
+                  pp_char_rnn_conf, build_net, make_pp, f, l,
+                  {"lstm_fwd_train": k, "lstm_bwd": k}, PP_GRAD_RTOL)
+    pp = make_pp(build_net(pp_char_rnn_conf()))
+    out["kernels"] = held_lstm_rows(lambda: pp.fit_batch(f, l), ["lstm_fwd_train", "lstm_bwd"])
+    del pp
+    torch.cuda.empty_cache()
+    return out
+
+
+def pipelined_lm():
+    from deeplearning4j_torch.nn.graph import ComputationGraph
+    from deeplearning4j_torch.parallel import make_mesh, pipeline_parallel_step
+
+    mesh = make_mesh(["cuda:0"] * PP_LM_SLOTS, axes=("pipe",))
+    f, l = periodic_tokens(np.random.default_rng(PP_SEED + 1), LM_B, LM_T, LM_VOCAB)
+
+    def make_pp(net):
+        pp = pipeline_parallel_step(net, mesh, n_microbatches=PP_LM_M)
+        if pp.body_tmpl is None or pp.period != 7 or pp.body_len != 7 * LM_BLOCKS:
+            raise AssertionError(f"block partition: period {pp.period}, {pp.body_len} vertices")
+        return pp
+    k = LM_BLOCKS * PP_LM_M
+    out = pp_held(f"PipelinedGraph TransformerLM (vocab {LM_VOCAB}, E={LM_E}, {LM_HEADS} heads, "
+                  f"{LM_BLOCKS} blocks, bf16) over {PP_LM_SLOTS} pipe slots, b={LM_B} "
+                  f"T={LM_T}, {PP_LM_M} microbatches",
+                  lambda sgd: sp_lm_conf(sgd=sgd), lambda c: ComputationGraph(c).init(),
+                  make_pp, f, l, {"flash_fwd": k, "flash_dq": k, "flash_dkv": k},
+                  LM_REF_GRAD_RTOL)
+    # attention dropout: one seed steps alike, another step seed differs
+    losses, params = [], []
+    for reseed in (False, False, True):
+        pp = make_pp(ComputationGraph(sp_lm_conf(LM_DROPOUT_RATE)).init())
+        if reseed:
+            pp.model._gen.manual_seed(12345)
+        losses.append(float(pp.fit_batch(f, l)))
+        params.append(torch.cat([t.detach().float().flatten()
+                                 for _, t in leaves_of(pp.model.params)]).cpu())
+        del pp
+        torch.cuda.empty_cache()
+    # the losses come from the forward alone; the parameters after the
+    # step also carry the backward's sums (bit-equality reported)
+    same = losses[0] == losses[1]
+    same_params = torch.equal(params[0], params[1])
+    p_same = (params[0] - params[1]).abs().max().item()
+    p_other = (params[0] - params[2]).abs().max().item()
+    moved = abs(losses[2] - losses[0]) / abs(losses[0])
+    log(f"pipelined TransformerLM with attention dropout {LM_DROPOUT_RATE}: one seed twice "
+        f"{losses[0]!r} / {losses[1]!r} (parameters after the step bit-equal: {same_params}, "
+        f"largest difference {p_same:.3e}); another step seed {losses[2]!r} (rel "
+        f"{moved:.2e}, parameters apart by {p_other:.3e})")
+    if not same or moved == 0.0 or not p_other > p_same:
+        raise AssertionError(f"pipelined dropout: losses {losses}, parameter differences "
+                             f"{p_same} (same seed) {p_other} (other seed)")
+    out["dropout"] = {"losses": losses, "same_seed_equal": same,
+                      "same_seed_params_bit_equal": same_params,
+                      "same_seed_param_diff": p_same, "other_seed_param_diff": p_other,
+                      "other_seed_rel": moved}
+    out["kernels"] = flash_shape_row("pipelined microbatch", LM_HEADS * LM_B // PP_LM_M,
+                                     LM_T, LM_D, True)
+    return out
+
+
+def ids_to_dataset(parts):
+    """A streamed message of character ids [b, T+1] as the one-hot
+    next-character DataSet (the iterators' ``convert``)."""
+    from deeplearning4j_torch import DataSet
+
+    ids = parts[0].astype(np.int64)
+    eye = np.eye(VOCAB, dtype=np.float32)
+    return DataSet(eye[ids[:, :-1]], eye[ids[:, 1:]])
+
+
+def streamed_fits():
+    """STREAM_BATCHES char-RNN batches fitted from a ListDataSetIterator,
+    from StreamingDataSetIterator (a publisher thread on localhost) and
+    from KafkaDataSetIterator (a stub broker): equal per-batch losses and
+    parameters, K3/K4 launches exact (TBPTT segments of TRAIN_T)."""
+    import threading
+    from deeplearning4j_torch import ListDataSetIterator
+    from deeplearning4j_torch.datasets.kafka import KafkaDataSetIterator, NDArrayKafkaClient
+    from deeplearning4j_torch.datasets.streaming import (NDArrayConsumer, NDArrayPublisher,
+                                                         StreamingBroker,
+                                                         StreamingDataSetIterator)
+    # the stub broker and the loss listener are shared with the CPU tests
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
+    from torch_kafka_stub import KafkaStubBroker, LossRecorder
+
+    rng = np.random.default_rng(PP_SEED + 2)
+    ids = []
+    for _ in range(STREAM_BATCHES):
+        cycle = rng.integers(0, VOCAB, 23)
+        ids.append(cycle[(rng.integers(0, 23, TRAIN_B)[:, None]
+                          + np.arange(TRAIN_SEQ + 1)[None, :]) % 23].astype(np.uint8))
+    segs = TRAIN_SEQ // TRAIN_T
+    want = {"lstm2_fwd_train": segs * STREAM_BATCHES, "lstm2_bwd": segs * STREAM_BATCHES}
+
+    def fit(it):
+        net = build_net(char_rnn_conf())
+        rec = LossRecorder()
+        net.set_listeners(rec)
+        t0 = time.perf_counter()
+        _, got = launches_of_run(lambda: net.fit(it))
+        ms = (time.perf_counter() - t0) * 1e3
+        return net, rec.scores, got, ms
+
+    ref, ref_losses, ref_got, ref_ms = fit(
+        ListDataSetIterator([ids_to_dataset([a]) for a in ids]))
+    out = {"list": {"launches": ref_got, "fit_ms": ref_ms, "losses": ref_losses}}
+
+    def streaming_iter():
+        """(the iterator, its closer): a publisher thread feeds the broker."""
+        broker = StreamingBroker()
+        consumer = NDArrayConsumer(broker.address, "chars", timeout=60.0)
+        t0 = time.monotonic()
+        while broker.subscribers("chars") < 1:
+            if time.monotonic() - t0 > 10.0:
+                raise AssertionError("the subscriber never registered")
+            time.sleep(0.005)
+
+        def publish():
+            pub = NDArrayPublisher(broker.address, "chars")
+            for a in ids:
+                pub.publish(a)
+            pub.close()
+        threading.Thread(target=publish, daemon=True).start()
+        return (StreamingDataSetIterator(consumer, num_batches=STREAM_BATCHES,
+                                         convert=ids_to_dataset),
+                lambda: (consumer.close(), broker.close()))
+
+    def kafka_iter():
+        """(the iterator, its closer): the records produced first."""
+        broker = KafkaStubBroker()
+        prod = NDArrayKafkaClient(broker.address, "chars", timeout=60.0)
+        for a in ids:
+            prod.publish(a)
+        prod.close()
+        cons = NDArrayKafkaClient(broker.address, "chars", timeout=60.0)
+        return (KafkaDataSetIterator(cons, num_batches=STREAM_BATCHES, convert=ids_to_dataset),
+                lambda: (cons.close(), broker.close()))
+
+    for label, make in (("streaming", streaming_iter), ("kafka", kafka_iter)):
+        it, close = make()
+        try:
+            net, losses, got, ms = fit(it)
+        finally:
+            close()
+        diff = param_diff(net, ref)
+        log(f"{label} fit of {STREAM_BATCHES} char-RNN batches (b={TRAIN_B} T={TRAIN_SEQ}, "
+            f"TBPTT {TRAIN_T}): launches {got} (expected {want}); per-batch losses equal the "
+            f"listed fit's: {losses == ref_losses}; largest parameter difference {diff}; "
+            f"{ms:.1f} ms vs {ref_ms:.1f} ms listed")
+        if got != want or ref_got != want or losses != ref_losses or diff != 0.0:
+            raise AssertionError(f"{label} fit: launches {got} / {ref_got}, losses {losses} "
+                                 f"vs {ref_losses}, parameter difference {diff}")
+        out[label] = {"launches": got, "fit_ms": ms, "losses_equal": True,
+                      "param_diff": diff}
+        del net
+    del ref
+    torch.cuda.empty_cache()
+    return out
+
+
+def ps_batches(seed, n):
+    """``n`` char-RNN batches cut from one text cycle (``periodic_text``
+    draws a new cycle a call), so that every batch teaches the same text."""
+    from deeplearning4j_torch import DataSet
+
+    f, l = periodic_text(np.random.default_rng(seed), n * TRAIN_B, TRAIN_SEQ)
+    return [DataSet(f[i * TRAIN_B:(i + 1) * TRAIN_B], l[i * TRAIN_B:(i + 1) * TRAIN_B])
+            for i in range(n)]
+
+
+def plain_steps(net, batches):
+    """The plain net's full-sequence update steps (the container's
+    ``_step``); ms a step."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for ds in batches:
+        f, l, fm, lm = net._tensors(ds)
+        net._step(f, l, fm, lm, net.iteration_count)
+        net.iteration_count += 1
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / len(batches)
+
+
+def paramserver_char_rnn():
+    import threading
+    from deeplearning4j_torch import ListDataSetIterator
+    from deeplearning4j_torch.paramserver import ParameterServer, ParameterServerTrainingMaster
+
+    conf = char_rnn_conf()
+    batches = ps_batches(PP_SEED + 3, PS_STEPS)
+    want = {"lstm2_fwd_train": PS_STEPS, "lstm2_bwd": PS_STEPS}
+    out = {}
+    for label, overlap in (("lossless_sync", False), ("lossless_overlap", True)):
+        net, ref = build_net(conf), build_net(conf)
+        with ParameterServer(port=0) as srv:
+            m = (ParameterServerTrainingMaster.Builder(srv.address).staleness(0)
+                 .threshold(0.0).overlap(overlap).build())
+            _, got = launches_of_run(
+                lambda: m.execute_training(net, ListDataSetIterator(batches)))
+            plain_steps(ref, batches)
+            diff = param_diff(net, ref)
+            # the control: a plain net one step short must read above the limit
+            short = build_net(conf)
+            plain_steps(short, batches[:-1])
+            control = param_diff(net, short)
+            del short
+            stats = m.client.stats()
+            snap = m.client.metrics.snapshot()["counters"]
+            phases = m.phases.snapshot()
+            share = m.phases.hidden_share()
+            # ms a step: the master's steps (wall of each) beside the plain
+            # net's, PS_TURNS alternating turns of PS_STEPS steps
+            turns = {"master": [], "plain": []}
+            for t in range(PS_TURNS):
+                for arm in (("master", "plain") if t % 2 == 0 else ("plain", "master")):
+                    if arm == "master":
+                        m.execute_training(net, ListDataSetIterator(batches))
+                        turns[arm].append(m.phases.snapshot()["wall"]["mean_ms"])
+                    else:
+                        turns[arm].append(plain_steps(ref, batches))
+            m.close()
+        ms = {k: float(np.median(v)) for k, v in turns.items()}
+        push_bytes = snap["push_bytes"] / max(snap["pushes"], 1)
+        log(f"ParameterServerTrainingMaster {label} (char-RNN b={TRAIN_B} T={TRAIN_SEQ}, "
+            f"threshold 0, staleness 0, {PS_STEPS} full-sequence steps): launches {got} "
+            f"(expected {want}); parameters within {diff:.3e} of a plain net's {PS_STEPS} "
+            f"steps (limit {PS_PARAM_ATOL}; control, {PS_STEPS - 1} plain steps: "
+            f"{control:.3e}); server version {stats['version']}, pushes "
+            f"{snap['pushes']}, {push_bytes:.0f} bytes a push; phases (mean ms) "
+            f"{ {p: round(v.get('mean_ms', 0.0), 3) for p, v in phases['phases'].items()} }, "
+            f"hidden share of d2h + encode + push {share:.3f}; a step {ms['master']:.1f} ms vs "
+            f"{ms['plain']:.1f} ms plain (medians of {PS_TURNS} alternating turns)")
+        if (got != want or not diff <= PS_PARAM_ATOL or not control > PS_PARAM_ATOL
+                or stats["version"] != 1 + PS_STEPS):
+            raise AssertionError(f"paramserver {label}: launches {got}, parameter difference "
+                                 f"{diff} (control {control}), version {stats['version']}")
+        out[label] = {"launches": got, "param_diff": diff, "control_param_diff": control,
+                      "version": stats["version"],
+                      "push_bytes": push_bytes, "phases": phases, "hidden_share": share,
+                      "step_ms": ms["master"], "plain_step_ms": ms["plain"], "turns_ms": turns}
+        del net, ref
+    # PS_WORKERS worker threads, each its own net and client
+    with ParameterServer(port=0) as srv:
+        nets = [build_net(conf) for _ in range(PS_WORKERS)]
+        # every worker's batches and the held-out one from one text cycle
+        sets = ps_batches(PP_SEED + 9, PS_WORKERS * PS_STEPS + 1)
+        held = sets[-1]
+        before = nets[0].score(held)
+        masters = [ParameterServerTrainingMaster.Builder(srv.address).staleness(1)
+                   .threshold(PS_THRESHOLD).worker_id(f"worker-{i}").build()
+                   for i in range(PS_WORKERS)]
+        errors = []
+
+        def work(i):
+            try:
+                masters[i].execute_training(nets[i], ListDataSetIterator(
+                    sets[i * PS_STEPS:(i + 1) * PS_STEPS]))
+            except BaseException as e:  # re-raised on the main thread
+                errors.append(e)
+
+        def run():
+            threads = [threading.Thread(target=work, args=(i,)) for i in range(PS_WORKERS)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=300)
+            if errors or any(t.is_alive() for t in threads):
+                raise AssertionError(f"paramserver workers failed: {errors}")
+        _, got = launches_of_run(run)
+        stats = masters[0].client.stats()
+        pushes = [mm.client.metrics.snapshot()["counters"]["pushes"] for mm in masters]
+        _, vec = masters[0].client.pull()
+        from deeplearning4j_torch.paramserver import set_params_from_flat
+        set_params_from_flat(nets[0], vec)
+        after = nets[0].score(held)
+        for mm in masters:
+            mm.close()
+    k = PS_WORKERS * PS_STEPS
+    want2 = {"lstm2_fwd_train": k, "lstm2_bwd": k}
+    log(f"ParameterServerTrainingMaster, {PS_WORKERS} worker threads (threshold {PS_THRESHOLD}, "
+        f"staleness 1, {PS_STEPS} steps each): launches {got} (expected {want2}); pushes "
+        f"{pushes} by the clients, {stats['counters']['pushes']} by the server's count "
+        f"({stats['ops']['push']} push requests), version {stats['version']} (expected "
+        f"{1 + k}); held-out loss {before:.4f} -> {after:.4f} on the server's state")
+    if (got != want2 or pushes != [PS_STEPS] * PS_WORKERS or stats["counters"]["pushes"] != k
+            or stats["ops"]["push"] != k or stats["version"] != 1 + k or not after < before):
+        raise AssertionError(f"paramserver workers: launches {got}, pushes {pushes}, stats "
+                             f"{stats['counters']}, version {stats['version']}, loss "
+                             f"{before} -> {after}")
+    out["two_workers"] = {"launches": got, "pushes": pushes, "version": stats["version"],
+                          "server_pushes": stats["counters"]["pushes"],
+                          "loss_before": before, "loss_after": after}
+    del nets
+    net = build_net(conf)
+    with ParameterServer(port=0) as srv:
+        m = ParameterServerTrainingMaster.Builder(srv.address).threshold(0.0).build()
+        out["kernels"] = held_lstm_rows(
+            lambda: m.execute_training(net, ListDataSetIterator(batches[:1])),
+            ["lstm2_fwd_train", "lstm2_bwd"])
+        m.close()
+    del net
+    torch.cuda.empty_cache()
+    return out
+
+
+def native_codec():
+    """The native host library built on this machine against the numpy
+    route on the char-RNN's flattened gradient, bit for bit, both timed."""
+    from deeplearning4j_torch.ops import native
+    from deeplearning4j_torch.parallel.accumulation import flatten_tree_f32
+
+    native.load()  # a failed build raises with the compiler's output
+    # built at its first use in this run (the accumulator's codec)
+    build_s = native.build_seconds
+    net = build_net(char_rnn_conf())
+    f, l = periodic_text(np.random.default_rng(PP_SEED + 4), TRAIN_B, TRAIN_SEQ)
+    loss, _, _ = net._train_loss(net._to_device(f), net._to_device(l), None, None)
+    g = flatten_tree_f32(net._grads(loss))[0]
+    del net, loss
+    torch.cuda.empty_cache()
+    out = {"n": int(g.size), "build_s": build_s}
+
+    def ms(fn):
+        times = []
+        for _ in range(3):
+            t = time.perf_counter()
+            fn()
+            times.append((time.perf_counter() - t) * 1e3)
+        return float(np.median(times))
+    for thr in (1e-3, 1e-4):
+        a, b = native.threshold_encode(g, thr), native.threshold_encode_plain(g, thr)
+        ok = all(np.array_equal(x, y) for x, y in zip(a, b))
+        dec_ok = np.array_equal(native.threshold_decode(a[0], a[1], thr, g.shape),
+                                native.threshold_decode_plain(a[0], a[1], thr, g.shape))
+        bm, bp = native.bitmap_encode(g, thr), native.bitmap_encode_plain(g, thr)
+        bok = (np.array_equal(bm[0], bp[0]) and bm[1] == bp[1]
+               and np.array_equal(bm[2], bp[2]))
+        bdec = np.array_equal(native.bitmap_decode(bm[0], g.size, thr),
+                              native.bitmap_decode_plain(bm[0], g.size, thr))
+        row = {"encoded": int(a[0].size), "bit_equal": bool(ok and dec_ok and bok and bdec),
+               "threshold_encode_ms": ms(lambda: native.threshold_encode(g, thr)),
+               "threshold_encode_plain_ms": ms(lambda: native.threshold_encode_plain(g, thr)),
+               "threshold_decode_ms": ms(lambda: native.threshold_decode(a[0], a[1], thr,
+                                                                         g.shape)),
+               "threshold_decode_plain_ms": ms(lambda: native.threshold_decode_plain(
+                   a[0], a[1], thr, g.shape)),
+               "bitmap_encode_ms": ms(lambda: native.bitmap_encode(g, thr)),
+               "bitmap_encode_plain_ms": ms(lambda: native.bitmap_encode_plain(g, thr)),
+               "bitmap_decode_ms": ms(lambda: native.bitmap_decode(bm[0], g.size, thr)),
+               "bitmap_decode_plain_ms": ms(lambda: native.bitmap_decode_plain(bm[0], g.size,
+                                                                               thr))}
+        log(f"native codec (built in {build_s} s at its first use) on the char-RNN's "
+            f"gradient ({g.size} entries, threshold {thr}, "
+            f"{row['encoded']} encoded): bit-equal to numpy {row['bit_equal']}; ms native / "
+            f"numpy: threshold encode {row['threshold_encode_ms']:.2f} / "
+            f"{row['threshold_encode_plain_ms']:.2f}, decode {row['threshold_decode_ms']:.2f} / "
+            f"{row['threshold_decode_plain_ms']:.2f}, bitmap encode {row['bitmap_encode_ms']:.2f}"
+            f" / {row['bitmap_encode_plain_ms']:.2f}, decode {row['bitmap_decode_ms']:.2f} / "
+            f"{row['bitmap_decode_plain_ms']:.2f}")
+        if not row["bit_equal"]:
+            raise AssertionError(f"native codec differs from numpy at threshold {thr}")
+        out[str(thr)] = row
+    return out
+
+
+def pipeline_paramserver(smi):
+    """GPipe over the pipe slots (the char-RNN, the TransformerLM), the
+    parameter server's master (lossless, two workers, overlap), the
+    streamed and Kafka-fed fits and the native codec."""
+    t0 = time.perf_counter()
+    log(f"--- pipeline_paramserver ({smi})")
+    res = {"card": smi, "pipelined_char_rnn": pipelined_char_rnn()}
+    res["pipelined_lm"] = pipelined_lm()
+    torch.cuda.empty_cache()
+    res["paramserver"] = paramserver_char_rnn()
+    res["streamed"] = streamed_fits()
+    res["native_codec"] = native_codec()
+    res["seconds"] = time.perf_counter() - t0
+    log(f"pipeline_paramserver phase took {res['seconds']:.1f} s")
+    return res
+
+
 def build():
     """Compile every kernel of the port, one nvcc per source, all at once,
     and print what ptxas reports of registers, shared memory and spills."""
@@ -7084,7 +7660,7 @@ def build():
 
 
 def kernel_line(serving, training, served, streamed, trained, flash, lm, decode, moe, graph,
-                reg, lmd, ev, rf, tp, ke, rc, par):
+                reg, lmd, ev, rf, tp, ke, rc, par, pps):
     """The {"kernels": [...]} entries: for K1-K4 numbers at the char-RNN's
     training shape, the launches of its training main path, and K1/K3's
     serving numbers and their decode rows (T=1, b=GEN_B, one a
@@ -7117,7 +7693,25 @@ def kernel_line(serving, training, served, streamed, trained, flash, lm, decode,
     (``parallel_launches``: ParallelWrapper's fits, ParallelInference's
     requests, the ring and Ulysses calls, the sp and expert steps), and
     K5-K7 their numbers at the ring's shard shapes and Ulysses' shape
-    (``sequence_parallel_shapes``)."""
+    (``sequence_parallel_shapes``). Every entry carries its launches on each
+    path of the pipeline_paramserver phase (``pipeline_paramserver_launches``:
+    the pipelined char-RNN and TransformerLM steps, the parameter server's
+    runs, the streamed and Kafka-fed fits); K1/K2 their numbers at the
+    pipeline's microbatch and K5-K7 at the pipelined LM's (``pipeline_microbatch``),
+    K3/K4 theirs at the parameter-server worker's full sequence
+    (``paramserver_full_sequence``), each with cuDNN's LSTM or SDPA beside."""
+    pp_paths = {"pipelined_char_rnn": pps["pipelined_char_rnn"]["launches"],
+                "pipelined_lm": pps["pipelined_lm"]["launches"],
+                **{f"paramserver_{k}": pps["paramserver"][k]["launches"]
+                   for k in ("lossless_sync", "lossless_overlap", "two_workers")},
+                "streamed_fit": pps["streamed"]["streaming"]["launches"],
+                "kafka_fit": pps["streamed"]["kafka"]["launches"]}
+
+    def pp_launches(*names):
+        return {"pipeline_paramserver_launches": {p: sum(c.get(n, 0) for n in names)
+                                                  for p, c in pp_paths.items()}}
+    pp_rnn = pps["pipelined_char_rnn"]["kernels"]
+    ps_rnn = pps["paramserver"]["kernels"]
     par_paths = {f"wrapper_{k}": par["wrapper"][k]["launches"]
                  for k in ("unmasked", "masked", "local_sgd", "shared_gradients")}
     par_paths.update({f"inference_{k}": v["launches"] for k, v in par["inference"].items()})
@@ -7204,14 +7798,17 @@ def kernel_line(serving, training, served, streamed, trained, flash, lm, decode,
                                                                      "lstm_fwd_train")},
                **keras_lstm("lstm_fwd", "lstm_fwd_train"),
                **remat_launches("lstm_fwd", "lstm_fwd_train"),
-               **parallel_launches("lstm_fwd", "lstm_fwd_train")}),
+               **parallel_launches("lstm_fwd", "lstm_fwd_train"),
+               **pp_launches("lstm_fwd", "lstm_fwd_train"),
+               "pipeline_microbatch": pp_rnn["lstm_fwd_train"]}),
         entry("lstm_bwd", "lstm_bwd", "lstm_cell_bwd.cu", "deeplearning4j_tpu/ops/lstm_cell.py:235",
               [training["lstm_bwd/masked"], training["lstm_bwd/unmasked"]],
               {"design": training["lstm_bwd/masked"]["design"],
                "graph_tbptt_launches": graph["launches"]["lstm_bwd"],
                "recurrent_family_launches": family_launches("lstm_bwd"),
                "transfer_pretrain_launches": frozen["lstm_bwd"], **keras_lstm("lstm_bwd"),
-               **remat_launches("lstm_bwd"), **parallel_launches("lstm_bwd")}),
+               **remat_launches("lstm_bwd"), **parallel_launches("lstm_bwd"),
+               **pp_launches("lstm_bwd"), "pipeline_microbatch": pp_rnn["lstm_bwd"]}),
         entry("lstm2_fwd", "lstm2_fwd_train", "lstm_fused.cu", "deeplearning4j_tpu/ops/lstm_fused.py:111",
               [training["lstm2_fwd_train"]],
               {**serving_of("lstm2_fwd", ["lstm2_fwd"]), "decode": decode["lstm2_fwd"],
@@ -7221,7 +7818,9 @@ def kernel_line(serving, training, served, streamed, trained, flash, lm, decode,
                "transfer_pretrain_launches": frozen["lstm2_fwd"] + frozen["lstm2_fwd_train"],
                **keras_lstm("lstm2_fwd", "lstm2_fwd_train"),
                **remat_launches("lstm2_fwd", "lstm2_fwd_train"),
-               **parallel_launches("lstm2_fwd", "lstm2_fwd_train")}),
+               **parallel_launches("lstm2_fwd", "lstm2_fwd_train"),
+               **pp_launches("lstm2_fwd", "lstm2_fwd_train"),
+               "paramserver_full_sequence": ps_rnn["lstm2_fwd_train"]}),
         entry("lstm2_bwd", "lstm2_bwd", "lstm_fused_bwd.cu", "deeplearning4j_tpu/ops/lstm_fused.py:249",
               [training["lstm2_bwd"]], {"design": training["lstm2_bwd"]["design"],
                                         **evaluate_launches("lstm2_bwd"),
@@ -7230,10 +7829,13 @@ def kernel_line(serving, training, served, streamed, trained, flash, lm, decode,
                                         "transfer_pretrain_launches": frozen["lstm2_bwd"],
                                         **keras_lstm("lstm2_bwd"),
                                         **remat_launches("lstm2_bwd"),
-                                        **parallel_launches("lstm2_bwd")}),
+                                        **parallel_launches("lstm2_bwd"),
+                                        **pp_launches("lstm2_bwd"),
+                                        "paramserver_full_sequence": ps_rnn["lstm2_bwd"]}),
         *(flash_entry(name, src, line, flash[name], lm, moe, lmd,
                       {**(evaluate_launches(name) if name == "flash_fwd" else {}),
-                       **parallel_launches(name),
+                       **parallel_launches(name), **pp_launches(name),
+                       "pipeline_microbatch": pps["pipelined_lm"]["kernels"][name],
                        "sequence_parallel_shapes": {k: r[name] for k, r in
                                                     par["attention"]["rows"].items()},
                        "remat_launches_per_step": {
@@ -7346,11 +7948,15 @@ def main() -> int:
     par = parallel(smi)
     torch.cuda.empty_cache()
     print(json.dumps({"parallel": par}))
+    pps = pipeline_paramserver(smi)
+    torch.cuda.empty_cache()
+    print(json.dumps({"pipeline_paramserver": pps}))
 
     print(json.dumps({"generate": generated}))
     print(json.dumps({"kernels": kernel_line(serving, training, served, streamed,
                                              trained["launches"], flash, lm, decode, moe,
-                                             graph, reg, lmd, ev, rf, tp, ke, rc, par)}))
+                                             graph, reg, lmd, ev, rf, tp, ke, rc, par,
+                                             pps)}))
     log(f"chip_smoke took {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

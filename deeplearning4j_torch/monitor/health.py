@@ -4,10 +4,13 @@ listener.
 Counterpart of the training half of ``deeplearning4j_tpu/monitor/health.py``:
 
 - :class:`HealthState` (:func:`get_health`): the last iteration and its age,
-  the last score, a NaN latch, the halt and the recent problems, under a
-  plain ``threading.Lock``; both containers' fit loops feed
-  ``record_iteration`` when listeners are set, clear the halt when ``fit``
-  starts, and ``snapshot()`` reads it all.
+  the last score, a NaN latch, the halt, the recent problems and the
+  parameter-server connection (``record_ps_ok``/``record_ps_error``, fed
+  by ``paramserver/client.py``; a spent retry budget makes the process
+  unhealthy until a request succeeds), under a plain ``threading.Lock``;
+  both containers' fit loops feed ``record_iteration`` when listeners are
+  set, clear the halt when ``fit`` starts, and ``snapshot()`` reads it
+  all.
 - :class:`TrainingHealthListener`: a listener-bus watchdog for a NaN/Inf
   score (and, opt-in, parameters), divergence and stalls, with the actions
   ``warn``, ``raise`` (:class:`TrainingHealthError`) and ``halt`` (sets
@@ -63,6 +66,10 @@ class HealthState:
             self._nan = False
             self._halted: Optional[str] = None
             self._problems: List[str] = []
+            self._ps_ops = 0
+            self._ps_errors = 0
+            self._ps_last_error: Optional[str] = None
+            self._ps_connected: Optional[bool] = None
 
     def record_iteration(self, iteration: int, score: float):
         with self._lock:
@@ -88,15 +95,32 @@ class HealthState:
         with self._lock:
             self._halted = None
 
+    def record_ps_ok(self):
+        """A parameter-server request answered (``paramserver/client.py``)."""
+        with self._lock:
+            self._ps_ops += 1
+            self._ps_connected = True
+
+    def record_ps_error(self, message: str):
+        """A parameter-server request spent its retry budget."""
+        with self._lock:
+            self._ps_errors += 1
+            self._ps_last_error = str(message)
+            self._ps_connected = False
+
     def snapshot(self) -> Dict[str, object]:
         with self._lock:
             age = (None if self._last_iteration_time is None
                    else time.time() - self._last_iteration_time)
-            healthy = not self._nan and self._halted is None
+            healthy = (not self._nan and self._halted is None
+                       and self._ps_connected is not False)
             return {"status": "ok" if healthy else "unhealthy", "healthy": healthy,
                     "last_iteration": self._last_iteration, "last_iteration_age_s": age,
                     "last_score": self._last_score, "nan": self._nan,
-                    "halted": self._halted, "problems": list(self._problems)}
+                    "halted": self._halted, "problems": list(self._problems),
+                    "paramserver": {"connected": self._ps_connected, "ops": self._ps_ops,
+                                    "errors": self._ps_errors,
+                                    "last_error": self._ps_last_error}}
 
 
 _HEALTH = HealthState()

@@ -1,13 +1,13 @@
 """Parallelism and distribution (reference ``deeplearning4j-scaleout/``).
 
-Counterpart of ``deeplearning4j_tpu/parallel/`` without ``pipeline.py``:
-the mesh substrate (``mesh.py``: MeshSpec, an in-process grid of slots,
+Counterpart of ``deeplearning4j_tpu/parallel/``: the mesh substrate (``mesh.py``: MeshSpec, an in-process grid of slots,
 each a :class:`torch.device`), the data-parallel steps (``sharding.py``),
 ParallelWrapper and ParallelInference, gradient accumulation and the
 threshold codec, the update transport and the TrainingMaster SPI over
 ``torch.distributed``, and the model-family axes: tensor (``model``),
-sequence (ring and Ulysses attention on the flash kernels K5-K7) and
-expert (MoE over ``expert``) parallelism.
+sequence (ring and Ulysses attention on the flash kernels K5-K7),
+pipeline (GPipe over ``pipe``: ``pipeline.py``) and expert (MoE over
+``expert``) parallelism.
 """
 from .mesh import (MeshSpec, mesh_block, require_axes, zero_update_specs, P, Sharding,
                    EXPERT_AXIS)
@@ -31,6 +31,9 @@ from .sequence import (ring_attention, ulysses_attention, full_attention,
                        ulysses_flash_attention, ulysses_flash_supported,
                        sequence_parallel_step, sp_attend, current_sp_axis)
 from .tensor import megatron_rules, tensor_parallel_step, param_shardings
+from .pipeline import (PIPELINE_AXIS, GPipe, spmd_pipeline, PipelinedNetwork, PipelinedGraph,
+                       pipeline_parallel_step, partition_network, partition_graph,
+                       stack_stage_params)
 from .expert import expert_rules, expert_parallel_step
 
 __all__ = [
@@ -51,6 +54,9 @@ __all__ = [
     "ring_flash_attention", "ring_flash_supported",
     "sequence_parallel_step",
     "megatron_rules", "tensor_parallel_step", "param_shardings",
+    "PIPELINE_AXIS", "GPipe", "spmd_pipeline", "stack_stage_params",
+    "PipelinedNetwork", "PipelinedGraph", "pipeline_parallel_step",
+    "partition_network", "partition_graph",
     "EXPERT_AXIS", "expert_rules", "expert_parallel_step",
     "allgather_objects", "DistributedDataSetLossCalculator",
     "DistributedEarlyStoppingTrainer",

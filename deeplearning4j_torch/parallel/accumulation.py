@@ -6,8 +6,9 @@ with ``EncodingHandler.java:136-178``, adaptive threshold, residual kept in
 the accumulator). Inside a mesh the slots' gradients are summed in
 process (``sharding.py``), so the accumulator is the seam for updates that
 cross a host boundary, encoded as the reference's wire format. The codec
-is the numpy route of the JAX package's ``ops/native.py`` (kept here as
-its own copy); the C++ codec of ``native/`` is not bound by the port.
+runs in the native host library (``ops/native.py``: the C++ of
+``native/``, built at first use), where the JAX package's runs when its
+library is built.
 """
 from __future__ import annotations
 
@@ -16,24 +17,8 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from ..ops import native as _native
 from ..utils.trees import nest, sorted_leaves
-
-
-def _numpy_encode(grad: np.ndarray, threshold: float):
-    """(indices, signs, residual): the numpy route of ``ops/native.py``."""
-    g = np.ascontiguousarray(grad, np.float32).ravel()
-    idx = np.flatnonzero(np.abs(g) >= threshold).astype(np.int32)
-    signs = np.sign(g[idx]).astype(np.int8)
-    residual = g.copy()
-    residual[idx] -= signs.astype(np.float32) * threshold
-    return idx, signs, residual.reshape(np.shape(grad))
-
-
-def _numpy_decode(idx, signs, threshold: float, shape) -> np.ndarray:
-    n = int(np.prod(shape))
-    out = np.zeros(n, np.float32)
-    out[idx] = signs.astype(np.float32) * threshold
-    return out.reshape(shape)
 
 
 def threshold_encode(grad: np.ndarray, threshold: float
@@ -41,7 +26,7 @@ def threshold_encode(grad: np.ndarray, threshold: float
     """Sparsify: indices where |g| >= threshold, values quantized to
     ±threshold (the reference's 1-bit-per-significant-element scheme;
     ``EncodingHandler.java:136``). Returns (int32 indices, int8 signs)."""
-    idx, signs, _ = _numpy_encode(np.asarray(grad, np.float32), threshold)
+    idx, signs, _ = _native.threshold_encode(np.asarray(grad, np.float32), threshold)
     return idx, signs
 
 
@@ -57,14 +42,14 @@ def threshold_decode(idx: np.ndarray, signs: np.ndarray, threshold: float,
         out = np.zeros(int(np.prod(shape)) if shape else 1, np.float32)
         out[np.asarray(idx, np.int64)] = signs
         return out.reshape(shape)
-    return _numpy_decode(idx, signs, threshold, shape)
+    return _native.threshold_decode(idx, signs, threshold, shape)
 
 
 def encode_residual(grad: np.ndarray, threshold: float
                     ) -> Tuple[Tuple[np.ndarray, np.ndarray], np.ndarray]:
     """Encode and return the residual kept locally for the next round
     (reference keeps sub-threshold mass in the accumulator)."""
-    idx, signs, residual = _numpy_encode(np.asarray(grad, np.float32), threshold)
+    idx, signs, residual = _native.threshold_encode(np.asarray(grad, np.float32), threshold)
     return (idx, signs), residual
 
 

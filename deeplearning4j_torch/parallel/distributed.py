@@ -239,17 +239,6 @@ class SharedTrainingMaster(TrainingMaster):
         return pw
 
 
-def async_device_get(tree):
-    """A tree of tensors copied to host numpy arrays, every copy started
-    (``non_blocking`` into pinned memory on a card) before the first one is
-    waited for: the port's copy of ``paramserver/overlap.py:50``."""
-    staged = tree_map(lambda t: (t.detach().to("cpu", non_blocking=True)
-                                 if t.is_cuda else t.detach().cpu()), tree)
-    if torch.cuda.is_available():
-        torch.cuda.synchronize()
-    return tree_map(lambda t: t.numpy(), staged)
-
-
 class SharedGradientsClusterTrainer:
     """SHARED_GRADIENTS across processes over a real wire (reference
     ``SharedTrainingWrapper.java:160-244``): each process encodes its local
@@ -266,6 +255,8 @@ class SharedGradientsClusterTrainer:
         self.dense_bytes_equiv = 0
 
     def fit(self, iterator, epochs: int = 1):
+        # imported here: the parameter server's package imports this module
+        from ..paramserver.overlap import async_device_get
         net, acc, ch = self.net, self.accumulator, self.channel
         for _ in range(epochs):
             for ds in iterator:

@@ -15,8 +15,8 @@ Counterpart of ``deeplearning4j_tpu/utils/profiling.py``:
   calls; the fit loops read the score's value (a device-to-host sync)
   before the listeners run, so each time ends after its step finished.
 
-``ParamServerMetricsListener``, which the JAX package re-exports from its
-parameter server, is not ported yet (ROADMAP A 15).
+- :class:`ParamServerMetricsListener` (from ``paramserver/metrics.py``):
+  a parameter-server client's metrics on the listener bus.
 """
 from __future__ import annotations
 
@@ -33,15 +33,9 @@ from torch.utils.flop_counter import FlopCounterMode
 
 from .. import resolve_device
 from ..optimize.listeners import TrainingListener
+from ..paramserver.metrics import ParamServerMetricsListener  # noqa: F401  (re-export)
 
 __all__ = ["trace", "ProfilerListener", "StepTimerListener", "step_cost"]
-
-
-def __getattr__(name):
-    if name == "ParamServerMetricsListener":
-        raise AttributeError("ParamServerMetricsListener comes with the parameter server, "
-                             "which the port has not ported yet (ROADMAP A 15)")
-    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
 def _activities(device):

@@ -11,6 +11,7 @@ from __future__ import annotations
 
 from typing import Callable, Dict, Iterator, Mapping, Tuple
 
+import numpy as np
 import torch
 
 __all__ = ["leaves", "sorted_leaves", "tree_map", "nest"]
@@ -28,9 +29,10 @@ def leaves(tree, prefix="") -> Iterator[Tuple[str, torch.Tensor]]:
 
 
 def sorted_leaves(tree, prefix=""):
-    """(keypath, tensor) of a dict tree in sorted key order (the JAX
-    package's ``tree_leaves`` order: dict pytrees flatten sorted)."""
-    if isinstance(tree, torch.Tensor):
+    """(keypath, leaf) of a dict tree of tensors or host arrays in sorted
+    key order (the JAX package's ``tree_leaves`` order: dict pytrees
+    flatten sorted)."""
+    if isinstance(tree, (torch.Tensor, np.ndarray)):
         return [(prefix, tree)]
     out = []
     for k in sorted(tree):

@@ -189,6 +189,29 @@ def test_profiler_listener_closes_its_trace_when_fit_raises(tmp_path):
 
 
 def test_param_server_listener_waits_for_the_parameter_server():
-    with pytest.raises(AttributeError, match="A 15"):
-        profiling.ParamServerMetricsListener
+    """The parameter server is ported: the name resolves, as the JAX
+    module's re-export does (outside ``__all__``), to the port's listener,
+    which puts a client's metrics on the listener bus every ``frequency``
+    iterations (``tests/test_paramserver.py:362``)."""
+    from deeplearning4j_torch import ListDataSetIterator
+    from deeplearning4j_torch.paramserver import (ParameterServer,
+                                                  ParameterServerTrainingMaster)
+    from deeplearning4j_torch.paramserver.metrics import ParamServerMetricsListener
+
+    assert profiling.ParamServerMetricsListener is ParamServerMetricsListener
+    assert issubclass(ParamServerMetricsListener, TrainingListener)
     assert "ParamServerMetricsListener" not in profiling.__all__
+    net = MultiLayerNetwork(_conf(NeuralNetConfiguration.builder(), Sgd(learning_rate=0.1))
+                            ).init(device="cpu")
+    rng = np.random.default_rng(0)
+    data = [DataSet(rng.normal(size=(B, N_IN)).astype(np.float32),
+                    np.eye(N_OUT, dtype=np.float32)[rng.integers(0, N_OUT, B)])
+            for _ in range(4)]
+    with ParameterServer(port=0) as srv:
+        master = ParameterServerTrainingMaster(srv.address, backoff=0.01)
+        lst = profiling.ParamServerMetricsListener(master._ensure_client(), frequency=2)
+        net.set_listeners(lst)
+        master.execute_training(net, ListDataSetIterator(data))
+        master.close()
+    assert [r["iteration"] for r in lst.rows] == [0, 2]
+    assert lst.rows[-1]["counters"]["pushes"] == 3 and "push_latency" in lst.rows[-1]
