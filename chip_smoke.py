@@ -292,7 +292,22 @@ and the CUDA toolkit; run from the root of the repository. It
    fitted from a stream and from Kafka (a stub broker) against a listed
    fit; the native host codec built and held bit for bit against numpy on
    the char-RNN's gradient;
-26. prints a ``{"cnn": ...}`` line with those numbers, a ``{"generate":
+26. (``monitor_sharded_fleet``) the sharded parameter-server fleet over the
+   char-RNN of step 4: a lossless worker over 3 shard servers on loopback
+   (4 K3 with the reserve and 4 K4; its parameters against a plain net's
+   steps and the control, bytes a push a shard, ms a step against a single
+   server's in alternating turns), two delta-push workers at
+   threshold 1e-3 (8 + 8 launches, a falling held-out loss), a shard killed
+   after a worker's first step and restarted from its snapshot (the fit
+   degrades, re-injects the dead shard's mass, the next one heals),
+   ``scale_to(4)`` with ``remap``; what the monitor planes recorded (the
+   registry's series, each server ``ps/apply_push`` span a child of a
+   client ``ps/push``, the merged fleet trace with a pid row a worker, the
+   flight recorder's JSONL dump in order); and the monitor on against
+   ``set_enabled(False)`` on a TransformerLM step and a char-RNN fit in
+   alternating turns (equal launches), a profiled LM fit's K5-K7 inside the
+   ``step`` range, and the tracer's cost a span;
+27. prints a ``{"cnn": ...}`` line with those numbers, a ``{"generate":
    ...}`` line with steps 6 and 10's, a ``{"moe_lm": ..., "graph_tbptt":
    ...}`` line with steps 15 and 16's, a ``{"regularized_char_rnn": ...,
    "lm_dropout": ..., "solvers": ...}`` line with step 17's, an
@@ -301,15 +316,16 @@ and the CUDA toolkit; run from the root of the repository. It
    ...}`` line with step 20's, a ``{"transfer_pretrain": ...}`` line
    with step 21's, a ``{"keras_embeddings": ...}`` line with step 22's
    a ``{"remat_clustering": ...}`` line with step 23's, a ``{"parallel":
-   ...}`` line with step 24's and a ``{"pipeline_paramserver": ...}`` line
-   with step 25's (the card's name and power limit in those), a
+   ...}`` line with step 24's, a ``{"pipeline_paramserver": ...}`` line
+   with step 25's and a ``{"monitor_sharded_fleet": ...}`` line with step
+   26's (the card's name and power limit in those), a
    ``{"kernels": [...]}`` line (K1's and K3's entries with their decode
    rows; K1/K2's launches in step 16's fit, K5-K7's in step 15's steps;
    K1-K4's in each regularised fit, K5-K7's in the dropout LM's steps and
    their times with dropout; K1, K3, K4 and K5's in step 18; K1-K4's in
    each path of step 19, in step 21's frozen char-RNN, on step 22's
    imported char-LSTM and under step 23's remat; K5-K7's in step 23's
-   TransformerLM steps; every kernel's on each path of steps 24 and 25)
+   TransformerLM steps; every kernel's on each path of steps 24, 25 and 26)
    and, last, the
    ``{"ok": true, "device": ...}`` line.
 
@@ -319,6 +335,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import gc
 import json
 import math
 import os
@@ -834,6 +851,18 @@ PP_LM_SLOTS, PP_LM_M = 4, 4
 PS_STEPS, PS_WORKERS, PS_THRESHOLD, PS_TURNS = 4, 2, 1e-3, 2
 PS_PARAM_ATOL = 1e-6
 STREAM_BATCHES = 8
+# monitor_sharded_fleet: FLEET_SHARDS shard servers on loopback, then
+# scale_to(FLEET_SCALE); the lossless worker (threshold 0) must equal a
+# plain net's PS_STEPS steps within PS_PARAM_ATOL (the control, PS_STEPS - 1
+# steps, above it), as a single server's worker does; two delta-push workers
+# at PS_THRESHOLD, PS_STEPS steps each; shard FLEET_KILL killed after the
+# first of a worker's PS_STEPS steps and restarted from its snapshot.
+# MON_TURNS alternating turns time the monitored fits against
+# set_enabled(False) (TransformerLM steps; char-RNN fits, MON_RNN_FITS a
+# turn); SPAN_TURNS alternating turns of SPAN_CALLS spans time the
+# tracer's cost a span.
+FLEET_SHARDS, FLEET_SCALE, FLEET_KILL = 3, 4, 1
+MON_TURNS, MON_RNN_FITS, SPAN_TURNS, SPAN_CALLS = 4, 3, 8, 20000
 
 
 def log(msg):
@@ -7630,6 +7659,422 @@ def pipeline_paramserver(smi):
     return res
 
 
+def fresh_monitor():
+    """Empty the port's process-wide monitor planes (the phase reads what
+    its own runs record)."""
+    from deeplearning4j_torch import monitor
+
+    for plane in (monitor.get_registry(), monitor.get_tracer(),
+                  monitor.get_flight_recorder(), monitor.get_fleet()):
+        plane.clear()
+    monitor.get_health().reset()
+
+
+def registry_rows(name, **match):
+    """{labels: value} of a registry family's children matching ``match``
+    (histograms: their count)."""
+    from deeplearning4j_torch.monitor import get_registry
+
+    fam = get_registry().dump().get(name, {"children": []})
+    return {tuple(sorted(r["labels"].items())): r.get("value", r.get("count"))
+            for r in fam["children"] if all(r["labels"].get(k) == v for k, v in match.items())}
+
+
+def fleet_master(address, label, threshold, **kw):
+    from deeplearning4j_torch.paramserver import ParameterServerTrainingMaster
+
+    b = (ParameterServerTrainingMaster.Builder(address).staleness(kw.pop("staleness", 0))
+         .threshold(threshold).worker_id(label).backoff(0.01).max_retries(1)
+         .telemetry_interval(0.0))
+    if "delta" in kw:
+        b = b.delta_push(kw.pop("delta"))
+    return b.build()
+
+
+def sharded_lossless(conf, batches):
+    """One lossless worker over FLEET_SHARDS shard servers against a plain
+    net's steps (and its control), per-shard bytes a push, and ms a step
+    against a single server's in alternating turns."""
+    from deeplearning4j_torch import ListDataSetIterator
+    from deeplearning4j_torch.paramserver import ParameterServer, ShardedParameterServerGroup
+
+    net, ref = build_net(conf), build_net(conf)
+    single_net = build_net(conf)
+    with ShardedParameterServerGroup(FLEET_SHARDS) as group, ParameterServer(port=0) as srv:
+        m = fleet_master(group.address, "lossless", 0.0)
+        _, got = launches_of_run(lambda: m.execute_training(net, ListDataSetIterator(batches)))
+        plain_steps(ref, batches)
+        diff = param_diff(net, ref)
+        short = build_net(conf)
+        plain_steps(short, batches[:-1])
+        control = param_diff(net, short)
+        del short
+        pushes = m.client.metrics.snapshot()["counters"]["pushes"]
+        push_tx = {j: registry_rows("paramserver_wire_bytes_total", role="client", op="push",
+                                    shard=str(j), direction="tx") for j in range(FLEET_SHARDS)}
+        bytes_a_push = {j: sum(v.values()) / PS_STEPS for j, v in push_tx.items()}
+        versions = [st["version"] for st in m.client.stats()]
+        phases = m.phases.snapshot()
+        single = fleet_master(srv.address, "single", 0.0)
+        turns = {"sharded": [], "single": []}
+        for t in range(PS_TURNS):
+            for arm in (("sharded", "single") if t % 2 == 0 else ("single", "sharded")):
+                mm, nn = (m, net) if arm == "sharded" else (single, single_net)
+                mm.execute_training(nn, ListDataSetIterator(batches))
+                turns[arm].append(mm.phases.snapshot()["wall"]["mean_ms"])
+        m.close()
+        single.close()
+    ms = {k: float(np.median(v)) for k, v in turns.items()}
+    want = {"lstm2_fwd_train": PS_STEPS, "lstm2_bwd": PS_STEPS}
+    log(f"sharded lossless worker ({FLEET_SHARDS} shard servers, char-RNN b={TRAIN_B} "
+        f"T={TRAIN_SEQ}, threshold 0, staleness 0, {PS_STEPS} steps): launches {got} "
+        f"(expected {want}); parameters within {diff:.3e} of a plain net's steps (limit "
+        f"{PS_PARAM_ATOL}; control {control:.3e}); shard versions {versions}; pushes "
+        f"{pushes} (one a shard a step); bytes a push by shard "
+        f"{ {j: round(b) for j, b in bytes_a_push.items()} }; a step {ms['sharded']:.1f} ms "
+        f"vs {ms['single']:.1f} ms on one server (medians of {PS_TURNS} alternating turns); "
+        f"phases (mean ms) "
+        f"{ {p: round(v.get('mean_ms', 0.0), 2) for p, v in phases['phases'].items()} }")
+    if (got != want or not diff <= PS_PARAM_ATOL or not control > PS_PARAM_ATOL
+            or versions != [1 + PS_STEPS] * FLEET_SHARDS):
+        raise AssertionError(f"sharded lossless worker: launches {got}, parameter difference "
+                             f"{diff} (control {control}), shard versions {versions}")
+    del net, ref, single_net
+    return {"launches": got, "param_diff": diff, "control_param_diff": control,
+            "shard_versions": versions, "pushes": pushes, "bytes_a_push": bytes_a_push,
+            "phases": phases, "step_ms": ms["sharded"], "single_server_step_ms": ms["single"],
+            "turns_ms": turns}
+
+
+def sharded_workers(conf, group):
+    """PS_WORKERS delta-push workers at PS_THRESHOLD, PS_STEPS steps each,
+    in threads against ``group``: launches, pushes, shard versions and a
+    held-out loss on the merged state."""
+    import threading
+    from deeplearning4j_torch import ListDataSetIterator
+    from deeplearning4j_torch.paramserver import set_params_from_flat
+
+    nets = [build_net(conf) for _ in range(PS_WORKERS)]
+    sets = ps_batches(PP_SEED + 11, PS_WORKERS * PS_STEPS + 1)
+    held = sets[-1]
+    before = nets[0].score(held)
+    masters = [fleet_master(group.address, f"worker-{i}", PS_THRESHOLD, staleness=1,
+                            delta=True) for i in range(PS_WORKERS)]
+    errors = []
+
+    def work(i):
+        try:
+            masters[i].execute_training(nets[i], ListDataSetIterator(
+                sets[i * PS_STEPS:(i + 1) * PS_STEPS]))
+        except BaseException as e:  # re-raised on the main thread
+            errors.append(e)
+
+    def run():
+        threads = [threading.Thread(target=work, args=(i,)) for i in range(PS_WORKERS)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        if errors or any(t.is_alive() for t in threads):
+            raise AssertionError(f"sharded workers failed: {errors}")
+    _, got = launches_of_run(run)
+    pushes = [mm.client.metrics.snapshot()["counters"]["pushes"] for mm in masters]
+    versions = [st["version"] for st in masters[0].client.stats()]
+    _, vec = masters[0].client.pull()
+    set_params_from_flat(nets[0], vec)
+    after = nets[0].score(held)
+    step_ms = [mm.phases.snapshot()["wall"]["mean_ms"] for mm in masters]
+    for mm in masters:
+        mm.close()
+    k = PS_WORKERS * PS_STEPS
+    want = {"lstm2_fwd_train": k, "lstm2_bwd": k}
+    log(f"{PS_WORKERS} delta-push workers over {FLEET_SHARDS} shards (threshold "
+        f"{PS_THRESHOLD}, staleness 1, {PS_STEPS} steps each): launches {got} (expected "
+        f"{want}); shard pushes {pushes} by the clients, shard versions {versions}; a step "
+        f"{[round(x, 1) for x in step_ms]} ms; held-out loss {before:.4f} -> {after:.4f}")
+    if got != want or not after < before or any(v > 1 + k for v in versions) \
+            or not all(p > 0 for p in pushes):
+        raise AssertionError(f"sharded workers: launches {got}, pushes {pushes}, versions "
+                             f"{versions}, loss {before} -> {after}")
+    del nets
+    return {"launches": got, "pushes": pushes, "shard_versions": versions,
+            "step_ms": step_ms, "loss_before": before, "loss_after": after}
+
+
+def shard_kill_restart(conf, group):
+    """A worker loses shard FLEET_KILL after its first step (killed from a
+    listener): it keeps stepping, the dead shard's mass goes back to its
+    accumulator; the shard restarts from its snapshot and the next fit
+    heals (``shard_server_restored``)."""
+    from deeplearning4j_torch import ListDataSetIterator
+    from deeplearning4j_torch.monitor import get_flight_recorder
+    from deeplearning4j_torch.paramserver import flatten_params
+
+    net = build_net(conf)
+    batches = ps_batches(PP_SEED + 13, PS_STEPS)
+    m = fleet_master(group.address, "survivor", PS_THRESHOLD, delta=True)
+    reinjected = []
+    real = m.accumulator.reinject
+
+    def reinject(mass):
+        reinjected.append(float(np.abs(mass).sum()))
+        real(mass)
+    m.accumulator.reinject = reinject
+    killed = {}
+
+    class Kill:
+        def iteration_done(self, model, iteration, score):
+            if not killed:
+                killed["port"], killed["snap"] = group.kill(FLEET_KILL)
+    net.set_listeners(Kill())
+    t0 = time.perf_counter()
+    _, got = launches_of_run(lambda: m.execute_training(net, ListDataSetIterator(batches)))
+    degraded_s = time.perf_counter() - t0
+    net.listeners = []
+    finite = bool(np.isfinite(flatten_params(net.params)).all())
+    downs = [e for e in get_flight_recorder().events() if e["event"] == "shard_server_down"]
+    # the next fit's join reaches every shard past the down window
+    group.restart(FLEET_KILL, snapshot=killed["snap"])
+    _, healed = launches_of_run(lambda: m.execute_training(net, ListDataSetIterator(batches)))
+    restored = [e for e in get_flight_recorder().events() if e["event"] == "shard_server_restored"]
+    versions = [st["version"] for st in m.client.stats()]
+    want = {"lstm2_fwd_train": PS_STEPS, "lstm2_bwd": PS_STEPS}
+    log(f"shard {FLEET_KILL} killed after step 1 of {PS_STEPS}: the fit finished in "
+        f"{degraded_s:.2f} s with launches {got}, finite parameters {finite}, "
+        f"{len(downs)} shard_server_down event(s), {len(reinjected)} re-injections of "
+        f"{sum(reinjected):.3e} total |mass|; restarted from its snapshot: the next fit "
+        f"launched {healed}, {len(restored)} shard_server_restored, shard versions {versions}")
+    if (got != want or healed != want or not finite or len(downs) != 1
+            or not reinjected or not restored):
+        raise AssertionError(f"shard kill/restart: launches {got} then {healed}, downs "
+                             f"{len(downs)}, re-injections {reinjected}, restored "
+                             f"{len(restored)}")
+    return {"launches": got, "healed_launches": healed, "degraded_s": degraded_s,
+            "downs": len(downs), "reinjections": len(reinjected),
+            "reinjected_mass": sum(reinjected), "shard_versions": versions,
+            "master": m, "net": net}
+
+
+def fleet_scale(group, m, net):
+    """scale_to(FLEET_SCALE), the master remapped, two steps on the new
+    layout."""
+    from deeplearning4j_torch import ListDataSetIterator
+
+    addrs = group.scale_to(FLEET_SCALE)
+    m.remap(addrs)
+    batches = ps_batches(PP_SEED + 17, 2)
+    _, got = launches_of_run(lambda: m.execute_training(net, ListDataSetIterator(batches)))
+    versions = [st["version"] for st in m.client.stats()]
+    log(f"scale_to({FLEET_SCALE}) and remap: {m.client.num_servers} shards, local versions "
+        f"{m.local_version}, shard versions {versions}, launches {got}")
+    if m.client.num_servers != FLEET_SCALE or len(m.local_version) != FLEET_SCALE \
+            or got != {"lstm2_fwd_train": 2, "lstm2_bwd": 2}:
+        raise AssertionError(f"scale_to: {m.client.num_servers} shards, launches {got}")
+    m.close()
+    return {"launches": got, "shard_versions": versions}
+
+
+def fleet_records():
+    """What the monitor planes hold after the fleet's runs: the registry's
+    series, the tracer's span nesting (each server ``ps/apply_push`` a child
+    of a client ``ps/push`` in its trace), the merged fleet trace (a pid row
+    a worker) and the flight recorder's JSONL dump, read back in order."""
+    from deeplearning4j_torch.monitor import get_fleet, get_flight_recorder, get_tracer
+
+    fams = ["paramserver_wire_bytes_total", "paramserver_requests_total",
+            "paramserver_push_ms", "paramserver_pushes_total", "paramserver_shard_staleness",
+            "paramserver_shard_unavailable_total", "train_step_phase_ms",
+            "train_step_wall_ms"]
+    series = {f: len(registry_rows(f)) for f in fams}
+    events = get_tracer().events()
+    by_id = {e["args"]["span_id"]: e for e in events}
+    applied = [e for e in events if e["name"] == "ps/apply_push"]
+    linked = [e for e in applied
+              if by_id.get(e["args"].get("parent_span_id"), {}).get("name") == "ps/push"
+              and by_id[e["args"]["parent_span_id"]]["args"]["trace_id"]
+              == e["args"]["trace_id"]]
+    in_phase = [e for e in events if e["name"] == "ps/push" and by_id.get(
+        e["args"].get("parent_span_id"), {}).get("name") == "train/push"]
+    doc = get_fleet().merged_trace()
+    rows = {e["args"]["name"]: e["pid"] for e in doc["traceEvents"] if e.get("ph") == "M"}
+    out = Path("build") / "traces"
+    out.mkdir(parents=True, exist_ok=True)
+    (out / "fleet_merged_trace.json").write_text(json.dumps(doc))
+    path = get_flight_recorder().dump(path=str(Path("build") / "flightrec-fleet.jsonl"))
+    rows_fr = [json.loads(line) for line in Path(path).read_text().splitlines()]
+    kinds = [r["event"] for r in rows_fr]
+    seqs = [r["seq"] for r in rows_fr]
+    workers = sorted(w for w in get_fleet().liveness()["workers"])
+    log(f"monitor planes after the fleet: registry series {series}; {len(applied)} server "
+        f"ps/apply_push spans, {len(linked)} children of a client ps/push in its trace, "
+        f"{len(in_phase)} ps/push spans inside train/push; merged fleet trace pid rows "
+        f"{rows}; flight recorder {len(rows_fr)} events dumped to {path}, kinds in order "
+        f"{sorted(set(kinds), key=kinds.index)}")
+    need = ["shard_group_start", "worker_join", "worker_leave", "shard_server_leave",
+            "shard_server_down", "shard_server_join", "shard_server_restored",
+            "shard_group_rebalance", "client_remap"]
+    if (not all(series.values()) or not applied or len(linked) != len(applied)
+            or not in_phase or sorted(k for k in rows if k.startswith("worker:"))
+            != [f"worker:{w}" for w in workers] or len(set(rows.values())) != len(rows)
+            or any(k not in kinds for k in need) or seqs != sorted(seqs)):
+        raise AssertionError(f"monitor planes: series {series}, apply spans {len(applied)} "
+                             f"(linked {len(linked)}), pid rows {rows}, events {kinds}")
+    return {"series": series, "apply_push_spans": len(applied), "linked": len(linked),
+            "push_spans_in_phase": len(in_phase), "pid_rows": rows,
+            "flight_events": len(rows_fr), "flight_kinds": sorted(set(kinds))}
+
+
+def step_ranges(events):
+    """From a Chrome trace: the flash kernels launched inside the first
+    ``step`` range (the step span's ``record_function``), and all of
+    them."""
+    marks = sorted((e for e in events if e.get("cat") == "user_annotation"
+                    and e.get("name") == "step" and "dur" in e), key=lambda e: e["ts"])
+    flash = [e for e in events if e.get("cat") == "kernel" and "flash" in e.get("name", "")]
+    if not marks:
+        return 0, len(flash)
+    lo, hi = marks[0]["ts"], marks[0]["ts"] + marks[0]["dur"]
+    launched = {e["args"]["correlation"] for e in events
+                if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                and lo <= e["ts"] <= hi and "correlation" in e.get("args", {})}
+    return sum(1 for e in flash if e.get("args", {}).get("correlation") in launched), len(flash)
+
+
+def monitor_cost():
+    """The monitor's cost: a TransformerLM step (K5-K7) and a char-RNN fit
+    (4 TBPTT segments, K3/K4) with the monitor on (the default) and with
+    ``set_enabled(False)``, in MON_TURNS alternating turns, the launches
+    of each arm counted (the switch changes no kernel); the step span's
+    ``record_function`` range around the LM step's K5-K7 in a profiler
+    trace; and the tracer's cost a span with no profiler (the annotation
+    check on and bypassed, in turns)."""
+    from deeplearning4j_torch import DataSet, monitor
+    from deeplearning4j_torch.monitor import tracer as tracer_mod
+    from deeplearning4j_torch.nn.graph import ComputationGraph
+    from torch.profiler import ProfilerActivity, profile
+
+    out = {}
+    lm = ComputationGraph(lm_conf()).init()
+    lm_ds = DataSet(*periodic_tokens(np.random.default_rng(21), LM_B, LM_T, LM_VOCAB))
+    rnn = build_net(char_rnn_conf())
+    f, l = periodic_text(np.random.default_rng(22), TRAIN_B, TRAIN_SEQ)
+    rnn_ds = DataSet(f, l)
+    arms = {"transformer_lm": (lm, lm_ds, 1), "char_rnn": (rnn, rnn_ds, MON_RNN_FITS)}
+    for name, (net, ds, fits) in arms.items():
+        net.fit(ds)                                     # warm
+        launches = {}
+        for on in (True, False):
+            monitor.set_enabled(on)
+            _, launches["on" if on else "off"] = launches_of_run(lambda: net.fit(ds))
+        times = {"on": [], "off": []}
+        for t in range(MON_TURNS):
+            for arm in (("on", "off") if t % 2 == 0 else ("off", "on")):
+                monitor.set_enabled(arm == "on")
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(fits):
+                    net.fit(ds)
+                net.score()                             # the value: a sync
+                times[arm].append((time.perf_counter() - t0) * 1e3 / fits)
+        monitor.set_enabled(True)
+        med = {k: float(np.median(v)) for k, v in times.items()}
+        log(f"monitor on / off, {name}: {med['on']:.2f} / {med['off']:.2f} ms a fit "
+            f"({100 * (med['on'] / med['off'] - 1):+.1f}%; medians of {MON_TURNS} alternating "
+            f"turns: on {' '.join(f'{x:.2f}' for x in times['on'])}, off "
+            f"{' '.join(f'{x:.2f}' for x in times['off'])}); launches on {launches['on']}, "
+            f"off {launches['off']}")
+        if launches["on"] != launches["off"]:
+            raise AssertionError(f"the monitor's switch changed the kernels of {name}: "
+                                 f"{launches}")
+        out[name] = {"on_ms": med["on"], "off_ms": med["off"], "turns_ms": times,
+                     "launches": launches["on"]}
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        lm.fit(lm_ds)
+        torch.cuda.synchronize()
+    path = Path("build") / "traces" / "monitored_lm_step.json"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    prof.export_chrome_trace(str(path))
+    inside, total = step_ranges(json.loads(path.read_text())["traceEvents"])
+    log(f"a profiled TransformerLM fit: {inside} of {total} flash kernels launched inside "
+        f"the step span's record_function range")
+    if total and inside != total:
+        raise AssertionError(f"{total - inside} flash kernels outside the step range")
+    out["profiled_step"] = {"flash_inside_step": inside, "flash_kernels": total}
+
+    def span_us(bypass):
+        # the collector off while timing: a turn that meets a generation-2
+        # collection of the earlier turns' event dicts reads twice as long
+        tr = monitor.Tracer(capacity=SPAN_CALLS)
+        real = tracer_mod._annotation
+        if bypass:
+            tracer_mod._annotation = lambda name: None
+        gc.collect()
+        gc.disable()
+        try:
+            t0 = time.perf_counter()
+            for _ in range(SPAN_CALLS):
+                with tr.span("x"):
+                    pass
+            return (time.perf_counter() - t0) / SPAN_CALLS * 1e6
+        finally:
+            gc.enable()
+            tracer_mod._annotation = real
+    spans = {"checked": [], "bypassed": []}
+    for t in range(SPAN_TURNS):
+        for arm in (("checked", "bypassed") if t % 2 == 0 else ("bypassed", "checked")):
+            spans[arm].append(span_us(arm == "bypassed"))
+    gc.collect()
+    gc.disable()
+    try:
+        t0 = time.perf_counter()
+        for _ in range(SPAN_CALLS):
+            with torch.profiler.record_function("x"):
+                pass
+        rf_us = (time.perf_counter() - t0) / SPAN_CALLS * 1e6
+    finally:
+        gc.enable()
+    span = {k: float(np.median(v)) for k, v in spans.items()}
+    log(f"a tracer span with no profiler: {span['checked']:.3f} us with the profiler check, "
+        f"{span['bypassed']:.3f} us without it (medians of {SPAN_TURNS} alternating turns of "
+        f"{SPAN_CALLS} spans, the collector off: "
+        f"{' '.join(f'{x:.2f}' for x in spans['checked'])} and "
+        f"{' '.join(f'{x:.2f}' for x in spans['bypassed'])}); an unconditional "
+        f"record_function range {rf_us:.3f} us")
+    out["span_us"] = {**span, "record_function_us": rf_us, "turns": spans}
+    del lm, rnn
+    torch.cuda.empty_cache()
+    return out
+
+
+def monitor_sharded_fleet(smi):
+    """The sharded parameter-server fleet over the full-width char-RNN and
+    the monitor core: a lossless worker over FLEET_SHARDS shards against a
+    plain net (and a single server's), two delta-push workers, a shard
+    killed and restarted, scale_to(FLEET_SCALE) with remap, what the
+    monitor planes recorded, and the monitor's cost."""
+    from deeplearning4j_torch.paramserver import ShardedParameterServerGroup
+
+    t0 = time.perf_counter()
+    log(f"--- monitor_sharded_fleet ({smi})")
+    fresh_monitor()
+    conf = char_rnn_conf()
+    res = {"card": smi,
+           "lossless": sharded_lossless(conf, ps_batches(PP_SEED + 3, PS_STEPS))}
+    torch.cuda.empty_cache()
+    with ShardedParameterServerGroup(FLEET_SHARDS) as group:
+        res["workers"] = sharded_workers(conf, group)
+        kill = shard_kill_restart(conf, group)
+        res["scale"] = fleet_scale(group, kill.pop("master"), kill.pop("net"))
+        res["kill_restart"] = kill
+    res["records"] = fleet_records()
+    torch.cuda.empty_cache()
+    res["monitor_cost"] = monitor_cost()
+    res["seconds"] = time.perf_counter() - t0
+    log(f"monitor_sharded_fleet phase took {res['seconds']:.1f} s")
+    return res
+
+
 def build():
     """Compile every kernel of the port, one nvcc per source, all at once,
     and print what ptxas reports of registers, shared memory and spills."""
@@ -7660,7 +8105,7 @@ def build():
 
 
 def kernel_line(serving, training, served, streamed, trained, flash, lm, decode, moe, graph,
-                reg, lmd, ev, rf, tp, ke, rc, par, pps):
+                reg, lmd, ev, rf, tp, ke, rc, par, pps, msf):
     """The {"kernels": [...]} entries: for K1-K4 numbers at the char-RNN's
     training shape, the launches of its training main path, and K1/K3's
     serving numbers and their decode rows (T=1, b=GEN_B, one a
@@ -7699,7 +8144,12 @@ def kernel_line(serving, training, served, streamed, trained, flash, lm, decode,
     runs, the streamed and Kafka-fed fits); K1/K2 their numbers at the
     pipeline's microbatch and K5-K7 at the pipelined LM's (``pipeline_microbatch``),
     K3/K4 theirs at the parameter-server worker's full sequence
-    (``paramserver_full_sequence``), each with cuDNN's LSTM or SDPA beside."""
+    (``paramserver_full_sequence``), each with cuDNN's LSTM or SDPA beside.
+    Every entry carries its launches on each path of the
+    monitor_sharded_fleet phase (``monitor_sharded_fleet_launches``: the
+    sharded lossless worker, the two delta-push workers, the fit that lost
+    a shard and the one after its restart, the fit after scale_to, and
+    the monitored TransformerLM and char-RNN fits)."""
     pp_paths = {"pipelined_char_rnn": pps["pipelined_char_rnn"]["launches"],
                 "pipelined_lm": pps["pipelined_lm"]["launches"],
                 **{f"paramserver_{k}": pps["paramserver"][k]["launches"]
@@ -7710,6 +8160,17 @@ def kernel_line(serving, training, served, streamed, trained, flash, lm, decode,
     def pp_launches(*names):
         return {"pipeline_paramserver_launches": {p: sum(c.get(n, 0) for n in names)
                                                   for p, c in pp_paths.items()}}
+    msf_paths = {"sharded_lossless": msf["lossless"]["launches"],
+                 "sharded_workers": msf["workers"]["launches"],
+                 "shard_killed": msf["kill_restart"]["launches"],
+                 "shard_restarted": msf["kill_restart"]["healed_launches"],
+                 "scaled": msf["scale"]["launches"],
+                 **{f"monitored_{k}": v["launches"] for k, v in msf["monitor_cost"].items()
+                    if k in ("transformer_lm", "char_rnn")}}
+
+    def msf_launches(*names):
+        return {"monitor_sharded_fleet_launches": {p: sum(c.get(n, 0) for n in names)
+                                                   for p, c in msf_paths.items()}}
     pp_rnn = pps["pipelined_char_rnn"]["kernels"]
     ps_rnn = pps["paramserver"]["kernels"]
     par_paths = {f"wrapper_{k}": par["wrapper"][k]["launches"]
@@ -7800,6 +8261,7 @@ def kernel_line(serving, training, served, streamed, trained, flash, lm, decode,
                **remat_launches("lstm_fwd", "lstm_fwd_train"),
                **parallel_launches("lstm_fwd", "lstm_fwd_train"),
                **pp_launches("lstm_fwd", "lstm_fwd_train"),
+               **msf_launches("lstm_fwd", "lstm_fwd_train"),
                "pipeline_microbatch": pp_rnn["lstm_fwd_train"]}),
         entry("lstm_bwd", "lstm_bwd", "lstm_cell_bwd.cu", "deeplearning4j_tpu/ops/lstm_cell.py:235",
               [training["lstm_bwd/masked"], training["lstm_bwd/unmasked"]],
@@ -7808,7 +8270,8 @@ def kernel_line(serving, training, served, streamed, trained, flash, lm, decode,
                "recurrent_family_launches": family_launches("lstm_bwd"),
                "transfer_pretrain_launches": frozen["lstm_bwd"], **keras_lstm("lstm_bwd"),
                **remat_launches("lstm_bwd"), **parallel_launches("lstm_bwd"),
-               **pp_launches("lstm_bwd"), "pipeline_microbatch": pp_rnn["lstm_bwd"]}),
+               **pp_launches("lstm_bwd"), **msf_launches("lstm_bwd"),
+               "pipeline_microbatch": pp_rnn["lstm_bwd"]}),
         entry("lstm2_fwd", "lstm2_fwd_train", "lstm_fused.cu", "deeplearning4j_tpu/ops/lstm_fused.py:111",
               [training["lstm2_fwd_train"]],
               {**serving_of("lstm2_fwd", ["lstm2_fwd"]), "decode": decode["lstm2_fwd"],
@@ -7820,6 +8283,7 @@ def kernel_line(serving, training, served, streamed, trained, flash, lm, decode,
                **remat_launches("lstm2_fwd", "lstm2_fwd_train"),
                **parallel_launches("lstm2_fwd", "lstm2_fwd_train"),
                **pp_launches("lstm2_fwd", "lstm2_fwd_train"),
+               **msf_launches("lstm2_fwd", "lstm2_fwd_train"),
                "paramserver_full_sequence": ps_rnn["lstm2_fwd_train"]}),
         entry("lstm2_bwd", "lstm2_bwd", "lstm_fused_bwd.cu", "deeplearning4j_tpu/ops/lstm_fused.py:249",
               [training["lstm2_bwd"]], {"design": training["lstm2_bwd"]["design"],
@@ -7831,10 +8295,12 @@ def kernel_line(serving, training, served, streamed, trained, flash, lm, decode,
                                         **remat_launches("lstm2_bwd"),
                                         **parallel_launches("lstm2_bwd"),
                                         **pp_launches("lstm2_bwd"),
+                                        **msf_launches("lstm2_bwd"),
                                         "paramserver_full_sequence": ps_rnn["lstm2_bwd"]}),
         *(flash_entry(name, src, line, flash[name], lm, moe, lmd,
                       {**(evaluate_launches(name) if name == "flash_fwd" else {}),
                        **parallel_launches(name), **pp_launches(name),
+                       **msf_launches(name),
                        "pipeline_microbatch": pps["pipelined_lm"]["kernels"][name],
                        "sequence_parallel_shapes": {k: r[name] for k, r in
                                                     par["attention"]["rows"].items()},
@@ -7951,12 +8417,15 @@ def main() -> int:
     pps = pipeline_paramserver(smi)
     torch.cuda.empty_cache()
     print(json.dumps({"pipeline_paramserver": pps}))
+    msf = monitor_sharded_fleet(smi)
+    torch.cuda.empty_cache()
+    print(json.dumps({"monitor_sharded_fleet": msf}))
 
     print(json.dumps({"generate": generated}))
     print(json.dumps({"kernels": kernel_line(serving, training, served, streamed,
                                              trained["launches"], flash, lm, decode, moe,
                                              graph, reg, lmd, ev, rf, tp, ke, rc, par,
-                                             pps)}))
+                                             pps, msf)}))
     log(f"chip_smoke took {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

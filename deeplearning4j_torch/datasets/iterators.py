@@ -4,18 +4,20 @@ synthetic benchmark data.
 Counterpart of ``deeplearning4j_tpu/datasets/iterators.py``:
 ``AsyncDataSetIterator`` (one background prefetch thread,
 ``AsyncDataSetIterator.java``), ``EarlyTerminationDataSetIterator``,
-``MultipleEpochsIterator`` and ``BenchmarkDataSetIterator``. The
-reference's monitor series (``dataset_next_ms``,
-``dataset_batches_total``) wait for the monitor's port.
+``MultipleEpochsIterator`` and ``BenchmarkDataSetIterator``.
+``AsyncDataSetIterator`` records the JAX package's ``dataset_next_ms``
+and ``dataset_batches_total`` in the monitor registry.
 """
 from __future__ import annotations
 
 import queue
 import threading
+import time
 
 import numpy as np
 
 from .dataset import DataSet, DataSetIterator
+from ..monitor import get_registry
 
 __all__ = ["AsyncDataSetIterator", "EarlyTerminationDataSetIterator",
            "MultipleEpochsIterator", "BenchmarkDataSetIterator"]
@@ -77,6 +79,7 @@ class AsyncDataSetIterator(DataSetIterator):
     def __next__(self):
         if self._queue is None:
             self.reset()
+        t0 = time.perf_counter()
         while True:
             # bounded get + liveness check: a worker that dies without
             # enqueueing its stop token must raise here, not park the
@@ -102,6 +105,13 @@ class AsyncDataSetIterator(DataSetIterator):
             if self._exc is not None:
                 raise self._exc
             raise StopIteration
+        # how long the training loop actually waited for data
+        reg = get_registry()
+        reg.histogram("dataset_next_ms",
+                      "blocking wait in AsyncDataSetIterator.next").observe(
+            (time.perf_counter() - t0) * 1e3)
+        reg.counter("dataset_batches_total",
+                    "minibatches served by AsyncDataSetIterator").inc()
         return item
 
     def batch(self):

@@ -27,10 +27,13 @@ Counterpart of ``deeplearning4j_tpu/datasets/prefetch.py``:
   batches hold card memory; ``2 x workers`` host batches otherwise).
 
 A failed pin, copy or event travels as the batch's error and raises on
-the consumer in order; nothing reverts to a synchronous copy. Not ported:
-the reference's monitor series (``input_queue_depth``,
-``input_wait_seconds``, ``input_bytes_total``, ``input_batches_total``)
-and its lockwatch locks (plain ``threading`` here).
+the consumer in order; nothing reverts to a synchronous copy.
+
+Monitor series (the JAX package's names): ``input_queue_depth`` (ready
+batches buffered ahead of the consumer: 0 sustained means input-bound),
+``input_wait_seconds`` (how long ``next()`` blocked), ``input_bytes_total``
+and ``input_batches_total`` (host bytes and batches fed through). The
+locks come from ``monitor.lockwatch`` under the JAX names.
 """
 from __future__ import annotations
 
@@ -38,6 +41,7 @@ import collections
 import logging
 import os
 import threading
+import time
 from typing import Callable, Optional
 
 import numpy as np
@@ -45,6 +49,8 @@ import torch
 
 from .dataset import DataSet, DataSetIterator, DeviceArrays, MultiDataSet, to_tensor
 from .iterators import AsyncDataSetIterator
+from ..monitor import get_registry
+from ..monitor.lockwatch import make_condition, make_lock
 
 log = logging.getLogger(__name__)
 
@@ -104,7 +110,7 @@ class _Epoch:
 
     def __init__(self, source):
         self.source = source
-        self.cond = threading.Condition()   # guards buf/emit_seq/end_seq
+        self.cond = make_condition("_Epoch.cond")  # guards buf/emit_seq/end_seq
         self.buf = {}                       # seq -> item | _Raise
         self.next_seq = 0
         self.emit_seq = 0
@@ -144,8 +150,24 @@ class PrefetchIterator:
         self._finalize = finalize
         self._concurrent = bool(concurrent_pull)
         self._name = name
-        self._pull_lock = threading.Lock()
+        self._pull_lock = make_lock("PrefetchIterator._pull_lock")
         self._ep: Optional[_Epoch] = None
+        self._handles = None
+
+    def _metric_handles(self):
+        if self._handles is None:
+            reg = get_registry()
+            self._handles = (
+                reg.gauge("input_queue_depth",
+                          "prefetched batches buffered ahead of the "
+                          "training loop"),
+                reg.histogram("input_wait_seconds",
+                              "blocking wait for the next batch in the "
+                              "input pipeline (seconds)", unit="s"),
+                reg.counter("input_batches_total",
+                            "batches served by the input pipeline"),
+            )
+        return self._handles
 
     # ------------------------------------------------------------- workers
     def _mark_end(self, ep: _Epoch, seq: int, exc=None):
@@ -229,6 +251,7 @@ class PrefetchIterator:
         return _Raise(e)
 
     def _worker_loop(self, ep: _Epoch):
+        depth_g = self._metric_handles()[0]
         while not ep.stop.is_set():
             pulled = self._pull(ep)
             if pulled is None:
@@ -257,6 +280,7 @@ class PrefetchIterator:
                 if ep.stop.is_set():
                     return
                 ep.buf[seq] = out
+                depth_g.set(len(ep.buf))
                 ep.cond.notify_all()
 
     # ------------------------------------------------------------ protocol
@@ -313,11 +337,14 @@ class PrefetchIterator:
         if self._ep is None:
             self.reset()
         ep = self._ep
+        depth_g, wait_h, batches_c = self._metric_handles()
+        t0 = time.perf_counter()
         with ep.cond:
             while True:
                 if ep.emit_seq in ep.buf:
                     item = ep.buf.pop(ep.emit_seq)
                     ep.emit_seq += 1
+                    depth_g.set(len(ep.buf))
                     ep.cond.notify_all()     # space freed for producers
                     break
                 if ep.end_seq is not None and ep.emit_seq >= ep.end_seq:
@@ -333,12 +360,30 @@ class PrefetchIterator:
                         f"{self._name}: all {self._workers} prefetch workers died without "
                         f"delivering batch {ep.emit_seq} or an end-of-stream marker")
                 ep.cond.wait(_POLL_S)
+        wait_h.observe(time.perf_counter() - t0)
         if isinstance(item, _Raise):
             raise item.exc
+        batches_c.inc()
         return item
 
 
 # ------------------------------------------------------------- put-ahead
+def _host_nbytes(ds) -> int:
+    """Host bytes of a DataSet/MultiDataSet's arrays (before the copy)."""
+    def nb(a):
+        return int(getattr(a, "nbytes", 0) or 0) if a is not None else 0
+    if isinstance(ds, MultiDataSet):
+        total = sum(nb(a) for a in ds.features) + sum(nb(a) for a in ds.labels)
+        for masks in (ds.features_masks, ds.labels_masks):
+            if masks is not None:
+                total += sum(nb(a) for a in masks)
+        return total
+    if isinstance(ds, DataSet):
+        return (nb(ds.features) + nb(ds.labels) + nb(ds.features_mask)
+                + nb(ds.labels_mask))
+    return 0
+
+
 class _PinnedStager:
     """The put-ahead's host-to-card copies for one pipeline on one card:
     pinned staging buffers, reused by shape and type (at most ``slots``
@@ -481,6 +526,11 @@ class PrefetchDataSetIterator(PrefetchIterator, DataSetIterator):
                  transform: Optional[Callable] = None,
                  concurrent_pull: Optional[bool] = None, sharding=None):
         self._sharding = sharding
+        self._user_transform = transform
+        self._bytes_counter = get_registry().counter(
+            "input_bytes_total",
+            "host bytes fed through the input pipeline")
+        transform = self._prepare
         if sharding is not None:
             if device is not None or cache_device:
                 raise ValueError("sharding places batches in the mesh's slots; it does not "
@@ -507,6 +557,12 @@ class PrefetchDataSetIterator(PrefetchIterator, DataSetIterator):
         if self._device_put and self._device.type == "cuda":
             self._stager = _PinnedStager(self._device, self._qsize,
                                          _copy_stream(self._device))
+
+    def _prepare(self, ds):
+        if self._user_transform is not None:
+            ds = self._user_transform(ds)
+        self._bytes_counter.inc(_host_nbytes(ds))
+        return ds
 
     def _put(self, arrays) -> DeviceArrays:
         if self._stager is not None:

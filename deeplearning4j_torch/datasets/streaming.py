@@ -20,10 +20,10 @@ Camel serving route ``routes/DL4jServeRouteBuilder.java``):
 Every socket wait has a timeout: the consumer's ``timeout``, the
 publisher's connect, and on the broker side ``BROKER_IDLE_TIMEOUT_S`` for
 a publisher's next frame and a subscriber's send (a peer idle that long
-is dropped as if it had disconnected). The broker's locks are plain
-``threading.Lock`` objects. ``subscribers``/``publishers`` count a topic's
-registered peers, so a caller can wait for its registration to land
-before it publishes.
+is dropped as if it had disconnected). The broker's locks come from
+``monitor.lockwatch.make_lock`` under the JAX names.
+``subscribers``/``publishers`` count a topic's registered peers, so a
+caller can wait for its registration to land before it publishes.
 
 For real Kafka brokers, ``datasets/kafka.py`` speaks the Kafka protocol
 and carries these ``NDArrayMessage`` payloads as record values.
@@ -39,6 +39,7 @@ import numpy as np
 import torch
 
 from .dataset import DataSet, DataSetIterator
+from ..monitor.lockwatch import make_lock
 
 __all__ = ["NDArrayMessage", "StreamingBroker", "NDArrayPublisher",
            "NDArrayConsumer", "StreamingDataSetIterator", "ServingRoute",
@@ -143,7 +144,7 @@ class StreamingBroker:
         # LAST publisher of a topic closes — one departing publisher must not
         # end the stream for a topic others are still feeding
         self._pubs: Dict[str, int] = {}
-        self._lock = threading.Lock()
+        self._lock = make_lock("StreamingBroker._lock")
         self._running = True
         self._thread = threading.Thread(target=self._accept_loop, daemon=True)
         self._thread.start()
@@ -182,7 +183,7 @@ class StreamingBroker:
         if mode == "SUB":
             with self._lock:
                 self._subs.setdefault(topic, []).append(s)
-                self._send_locks[s] = threading.Lock()
+                self._send_locks[s] = make_lock("StreamingBroker._send_locks")
             return  # frames are pushed by publishers; socket stays open
         with self._lock:
             self._pubs[topic] = self._pubs.get(topic, 0) + 1

@@ -7,26 +7,28 @@ Counterpart of the training half of ``deeplearning4j_tpu/monitor/health.py``:
   the last score, a NaN latch, the halt, the recent problems and the
   parameter-server connection (``record_ps_ok``/``record_ps_error``, fed
   by ``paramserver/client.py``; a spent retry budget makes the process
-  unhealthy until a request succeeds), under a plain ``threading.Lock``;
-  both containers' fit loops feed ``record_iteration`` when listeners are
-  set, clear the halt when ``fit`` starts, and ``snapshot()`` reads it
-  all.
+  unhealthy until a request succeeds), under ``make_lock("HealthState._lock")``.
+  Both containers' fit loops feed ``record_iteration`` through
+  ``monitor.record_training_iteration`` on every minibatch while the
+  monitor is on (the default) or listeners are set, and clear the halt
+  when ``fit`` starts. A problem is also a ``health_problem`` flight event;
+  a halt is a ``halt`` event and dumps the flight recorder to disk.
+  ``snapshot()`` reads it all and folds in the fleet's liveness table
+  (``monitor/fleet.py``) when workers have reported, as the JAX
+  ``/healthz`` does.
 - :class:`TrainingHealthListener`: a listener-bus watchdog for a NaN/Inf
   score (and, opt-in, parameters), divergence and stalls, with the actions
   ``warn``, ``raise`` (:class:`TrainingHealthError`) and ``halt`` (sets
   ``model.halt_requested``; the fit loops stop at the next minibatch).
 
-The ops-plane halves stay in the JAX package for now (ROADMAP Queue A 16
-and A 17): the flight recorder's dump and the incident flush on a halt, the
-parameter-server fields and the fleet view of the snapshot, and the
-retrace-storm drain, which needs Dynamo recompile counters
-(``watch_retrace`` is accepted and drains nothing).
+Still in the JAX package only (ROADMAP Queue A 16 and A 17): the incident
+flush on a halt, and the retrace-storm drain, which needs Dynamo recompile
+counters (``watch_retrace`` is accepted and drains nothing).
 """
 from __future__ import annotations
 
 import logging
 import math
-import threading
 import time
 from collections import deque
 from typing import Dict, List, Optional, Tuple
@@ -34,6 +36,7 @@ from typing import Dict, List, Optional, Tuple
 import torch
 
 from ..optimize.listeners import TrainingListener
+from .lockwatch import make_lock
 
 log = logging.getLogger(__name__)
 
@@ -55,7 +58,7 @@ class HealthState:
     stalled process reports a growing age."""
 
     def __init__(self):
-        self._lock = threading.Lock()
+        self._lock = make_lock("HealthState._lock")
         self.reset()
 
     def reset(self):
@@ -85,10 +88,19 @@ class HealthState:
                 self._nan = True
             self._problems.append(f"{kind}: {message}")
             del self._problems[:-8]  # keep the newest few
+        from .flightrec import get_flight_recorder
+        get_flight_recorder().record("health_problem", kind=kind,
+                                     message=message)
 
     def record_halt(self, reason: str):
         with self._lock:
             self._halted = reason
+        # training stops on purpose: persist the event history now, while
+        # the process can still write it
+        from .flightrec import get_flight_recorder
+        fr = get_flight_recorder()
+        fr.record("halt", reason=reason)
+        fr.dump(reason="training halt")
 
     def clear_halt(self):
         """A new ``fit`` supersedes an earlier halt."""
@@ -114,13 +126,20 @@ class HealthState:
                    else time.time() - self._last_iteration_time)
             healthy = (not self._nan and self._halted is None
                        and self._ps_connected is not False)
-            return {"status": "ok" if healthy else "unhealthy", "healthy": healthy,
-                    "last_iteration": self._last_iteration, "last_iteration_age_s": age,
-                    "last_score": self._last_score, "nan": self._nan,
-                    "halted": self._halted, "problems": list(self._problems),
-                    "paramserver": {"connected": self._ps_connected, "ops": self._ps_ops,
-                                    "errors": self._ps_errors,
-                                    "last_error": self._ps_last_error}}
+            out = {"status": "ok" if healthy else "unhealthy", "healthy": healthy,
+                   "last_iteration": self._last_iteration, "last_iteration_age_s": age,
+                   "last_score": self._last_score, "nan": self._nan,
+                   "halted": self._halted, "problems": list(self._problems),
+                   "paramserver": {"connected": self._ps_connected, "ops": self._ps_ops,
+                                   "errors": self._ps_errors,
+                                   "last_error": self._ps_last_error}}
+        # fleet liveness, outside the lock (the fleet table has its own):
+        # stale workers are listed but do not flip this process unhealthy
+        from .fleet import get_fleet
+        fleet = get_fleet().liveness()
+        if fleet["workers"]:
+            out["fleet"] = fleet
+        return out
 
 
 _HEALTH = HealthState()

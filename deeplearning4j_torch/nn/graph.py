@@ -52,7 +52,7 @@ from .conf.layers import Layer
 from .layers import impl_for
 from .layers.base import (StepGenerators, checkpointed, generator_state, remat_enabled,
                           replay_generator)
-from .multilayer import _detached, _fit_epochs, _observe, _run_tbptt, nchw_to_nhwc
+from .multilayer import _detached, _fit_epochs, _observed_steps, _run_tbptt, nchw_to_nhwc
 from .multilayer import MultiLayerNetwork
 from .updaters import Sgd
 from ..datasets.dataset import DataSet, MultiDataSet
@@ -460,8 +460,7 @@ class ComputationGraph(nn.Module):
                 and inputs[0].shape[1] > self.conf.tbptt_fwd_length):
             _run_tbptt(self, inputs, labels, fms, lms)
             return
-        self.score_, _ = self._steps(inputs, labels, fms, lms)
-        _observe(self)
+        _observed_steps(self, lambda: self._steps(inputs, labels, fms, lms)[0])
 
     def fit_external_errors(self, inputs, epsilons):
         """One update from errors computed outside the graph (reference

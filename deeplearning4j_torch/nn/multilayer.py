@@ -52,8 +52,15 @@ generator, so nothing is dropped or noised there.
 
 Listeners (``optimize/listeners.py``) hear ``on_epoch_start``/
 ``on_epoch_end`` around each epoch and ``iteration_done`` once a
-minibatch (under TBPTT once a batch, with its last segment's loss); the
-loss's value, a device-to-host sync, is read only when a listener is set.
+minibatch (under TBPTT once a batch, with its last segment's loss). The
+fit loop observes each minibatch as the JAX package's does, when a
+listener is set or the monitor is on (``monitor.enabled()``, the
+default): the loss's value, a device-to-host sync, is fetched inside the
+``step`` span (``monitor.step_span``), then
+``monitor.record_training_iteration`` writes the registry and the health
+state (with the step's and the wait's ms), then the listeners run; an
+``epoch`` span goes around each epoch. With the monitor off and no
+listener, nothing is fetched.
 ``halt_requested`` (``monitor/health.py``'s halt) is cleared when ``fit``
 starts and checked between minibatches; an exception out of ``fit`` goes
 to every listener's ``on_training_error`` first.
@@ -106,6 +113,7 @@ from .layers.wrapper import FrozenImpl
 from .updaters import Sgd
 from ..datasets.dataset import DataSet, ListDataSetIterator, MultiDataSet, to_tensor
 from ..datasets.prefetch import wrap_for_training
+from .. import monitor as _mon
 from ..monitor.health import get_health
 from ..ops import lstm_cell, lstm_fused
 from ..optimize.listeners import dispatch_training_error
@@ -668,8 +676,7 @@ class MultiLayerNetwork(nn.Module):
                 and f.shape[1] > self.conf.tbptt_fwd_length):
             _run_tbptt(self, f, l, fm, lm)
             return
-        self.score_, _ = self._steps(f, l, fm, lm)
-        _observe(self)
+        _observed_steps(self, lambda: self._steps(f, l, fm, lm)[0])
 
     def score(self, ds: Optional[DataSet] = None, training=False) -> float:
         """Loss (+ penalty) on a dataset (reference ``score(DataSet)``), or the
@@ -850,15 +857,44 @@ def _run_tbptt(net, f, l, fm, lm):
                                  _map_streams(lambda a: seg(a) if a.dim() == 3 else a, l),
                                  _map_streams(seg, fm), _map_streams(seg, lm), state)
     net.score_ = loss
-    _observe(net)
+    if net.listeners or _mon.enabled():
+        # as the JAX package's TBPTT: no step span, the batch size only
+        score = float(loss)
+        _mon.record_training_iteration(net, net.iteration_count - 1, score,
+                                       batch_size=int(first.shape[0]))
+        for lst in net.listeners:
+            lst.iteration_done(net, net.iteration_count - 1, score)
+
+
+def _observed_steps(net, run):
+    """One minibatch's updates (``run`` makes them and returns the last
+    loss), observed as the JAX package's ``_fit_batch`` observes them when
+    a listener is set or the monitor is on: the loss's value is fetched
+    inside the ``step`` span, so the span and ``step_ms`` cover the
+    finished step; then ``record_training_iteration`` (with ``step_ms``
+    and the minibatch's wait, ``etl_ms``), then the listeners at the last
+    update's iteration. Otherwise the loss stays on the device unread."""
+    if not (net.listeners or _mon.enabled()):
+        net.score_ = run()
+        return
+    t0 = time.perf_counter()
+    with _mon.step_span(net.iteration_count):
+        loss = run()
+        score = float(loss)   # device-to-host value fetch: the step's end
+    net.score_ = loss
+    _mon.record_training_iteration(net, net.iteration_count - 1, score,
+                                   batch_size=net.last_batch_size,
+                                   step_ms=(time.perf_counter() - t0) * 1e3,
+                                   etl_ms=net.last_etl_ms)
+    for lst in net.listeners:
+        lst.iteration_done(net, net.iteration_count - 1, score)
 
 
 def _observe(net):
-    """The listeners' view of one minibatch, after its updates: with a
-    listener set, the score's value (a device-to-host sync, taken only
-    then, as the JAX package's ``observe``) goes to the health state and
-    to each listener's ``iteration_done`` at the last update's
-    iteration."""
+    """ParallelWrapper's listener view of a round (the JAX wrapper calls
+    the listeners only): with a listener set, the score's value goes to
+    the health state and to each listener's ``iteration_done`` at the
+    last update's iteration."""
     if not net.listeners:
         return
     score = float(net.score_)
@@ -876,7 +912,8 @@ def _fit_epochs(net, data, labels, epochs):
     each, stop between minibatches once ``halt_requested`` is set (cleared
     when fit starts), hand an exception to the listeners'
     ``on_training_error`` before it leaves, and shut an owned pipeline
-    down however the loop ends."""
+    down however the loop ends. Each epoch's minibatches run inside an
+    ``epoch`` span."""
     if labels is not None:
         data = DataSet(np.asarray(data), np.asarray(labels))
     if isinstance(data, (DataSet, MultiDataSet)):
@@ -890,13 +927,14 @@ def _fit_epochs(net, data, labels, epochs):
         for _ in range(epochs):
             for lst in net.listeners:
                 lst.on_epoch_start(net, net.epoch_count)
-            t_etl = time.perf_counter()
-            for ds in it:
-                net.last_etl_ms = (time.perf_counter() - t_etl) * 1e3
-                net._fit_batch(ds)
-                if net.halt_requested:
-                    break
+            with _mon.get_tracer().span("epoch", cat="train", epoch=net.epoch_count):
                 t_etl = time.perf_counter()
+                for ds in it:
+                    net.last_etl_ms = (time.perf_counter() - t_etl) * 1e3
+                    net._fit_batch(ds)
+                    if net.halt_requested:
+                        break
+                    t_etl = time.perf_counter()
             for lst in net.listeners:
                 lst.on_epoch_end(net, net.epoch_count)
             net.epoch_count += 1

@@ -30,6 +30,7 @@ import torch
 
 from .mesh import DATA_AXIS, Mesh, default_devices, make_mesh, record_step
 from .sharding import SlotReplicas, _split_rows
+from ..monitor.lockwatch import make_lock
 
 __all__ = ["ParallelInference", "InferenceMode"]
 
@@ -108,7 +109,7 @@ class ParallelInference:
         self.queue_limit = int(queue_limit)
         self.flush_after_ms = float(flush_after_ms)
         self._replicas = SlotReplicas(net)
-        self._lock = threading.Lock()
+        self._lock = make_lock("ParallelInference._lock")
         self._cond = threading.Condition()
         self._queue: List[_Req] = []
         self._thread = None

@@ -13,6 +13,13 @@ slice/host). Frames are length-prefixed. ``broadcast`` sends the local frame
 to every peer; ``gather`` collects one frame from each peer, so a round trip
 is: encode → broadcast → gather → decode+apply all — exactly the reference's
 "each worker applies everyone's quantized update" semantics.
+
+Monitor (the JAX package's series): per-peer ``transport_bytes_total
+{direction=,peer=}``, ``transport_send_ms{peer=}`` and
+``transport_recv_ms{peer=}`` (which includes the wait for the peer: the
+straggler signal), ``transport_peer_failures_total{peer=}`` with a
+``peer_failed`` flight event, and ``transport/broadcast`` /
+``transport/gather`` spans.
 """
 from __future__ import annotations
 
@@ -21,6 +28,8 @@ import socket
 import struct
 import time
 from typing import Dict, List, Sequence
+
+from ..monitor import get_flight_recorder, get_registry, get_tracer
 
 log = logging.getLogger(__name__)
 
@@ -84,10 +93,6 @@ class UpdateChannel:
         self.P = len(self.addrs)
         self._peers: Dict[int, socket.socket] = {}
         self._listener = None
-        #: per-peer wire bytes, last send/receive ms and failures (the JAX
-        #: package's monitor series, kept on the channel)
-        self.stats = {"bytes_out": {}, "bytes_in": {}, "send_ms": {}, "recv_ms": {},
-                      "peer_failures": {}}
         if self.P > 1:
             try:
                 self._connect(timeout)
@@ -136,46 +141,81 @@ class UpdateChannel:
             self._peers[q] = s
 
     # ----------------------------------------------------------------- frames
+    @property
+    def stats(self) -> Dict[str, Dict[int, float]]:
+        """This channel's peers' rows of the process registry's transport
+        series: bytes out and in, and the peer failures (nonzero rows)."""
+        dump = get_registry().dump()
+
+        def rows(name, **match):
+            out = {}
+            for row in dump.get(name, {}).get("children", []):
+                lb = row["labels"]
+                if all(lb.get(k) == v for k, v in match.items()) \
+                        and int(lb["peer"]) in self._peers and row["value"]:
+                    out[int(lb["peer"])] = row["value"]
+            return out
+        return {"bytes_out": rows("transport_bytes_total", direction="out"),
+                "bytes_in": rows("transport_bytes_total", direction="in"),
+                "peer_failures": rows("transport_peer_failures_total")}
+
     def _peer_failed(self, rank: int, op: str, exc: OSError):
-        fails = self.stats["peer_failures"]
-        fails[rank] = fails.get(rank, 0) + 1
+        get_registry().counter(
+            "transport_peer_failures_total",
+            "peers that died mid-round (PeerFailedError)",
+            peer=str(rank)).inc()
+        # which rank died and during which collective, for the fleet timeline
+        get_flight_recorder().record("peer_failed", rank=int(rank), op=op,
+                                     local_rank=self.p, error=str(exc))
         log.warning("transport: rank %d saw peer %d fail during %s: %s", self.p, rank, op, exc)
         raise PeerFailedError(rank, f"peer {rank} failed during {op}: {exc}") from exc
 
-    def _count(self, key, q, value):
-        d = self.stats[key]
-        d[q] = d.get(q, 0) + value
-
     def broadcast(self, frame: bytes):
         """Send one frame to every peer (``SilentUpdatesMessage`` fan-out);
-        per-peer bytes and send time land in ``stats``."""
+        per-peer bytes and send time land in the registry."""
+        reg = get_registry()
         header = struct.pack("<q", len(frame))
-        for q in sorted(self._peers):
-            s = self._peers[q]
-            t0 = time.perf_counter()
-            try:
-                s.sendall(header)
-                s.sendall(frame)
-            except OSError as e:
-                self._peer_failed(q, "broadcast", e)
-            self.stats["send_ms"][q] = (time.perf_counter() - t0) * 1e3
-            self._count("bytes_out", q, len(frame) + 8)
+        with get_tracer().span("transport/broadcast", cat="transport",
+                               bytes=len(frame), peers=len(self._peers)):
+            for q in sorted(self._peers):
+                s = self._peers[q]
+                t0 = time.perf_counter()
+                try:
+                    s.sendall(header)
+                    s.sendall(frame)
+                except OSError as e:
+                    self._peer_failed(q, "broadcast", e)
+                reg.histogram("transport_send_ms",
+                              "per-peer frame send latency",
+                              peer=str(q)).observe(
+                    (time.perf_counter() - t0) * 1e3)
+                reg.counter("transport_bytes_total", "update-frame bytes "
+                            "on the wire", direction="out",
+                            peer=str(q)).inc(len(frame) + 8)
 
     def gather(self) -> List[bytes]:
         """Receive exactly one frame from every peer, rank order. A dead
         peer surfaces as :class:`PeerFailedError` naming the rank; the wait
-        for each peer (the straggler signal) lands in ``stats``."""
+        for each peer (the straggler signal) lands in the registry."""
+        reg = get_registry()
         out = []
-        for q in sorted(self._peers):
-            s = self._peers[q]
-            t0 = time.perf_counter()
-            try:
-                (n,) = struct.unpack("<q", recv_exact(s, 8))
-                out.append(recv_exact(s, n))
-            except OSError as e:
-                self._peer_failed(q, "gather", e)
-            self.stats["recv_ms"][q] = (time.perf_counter() - t0) * 1e3
-            self._count("bytes_in", q, n + 8)
+        with get_tracer().span("transport/gather", cat="transport",
+                               peers=len(self._peers)):
+            for q in sorted(self._peers):
+                s = self._peers[q]
+                t0 = time.perf_counter()
+                try:
+                    (n,) = struct.unpack("<q", recv_exact(s, 8))
+                    out.append(recv_exact(s, n))
+                except OSError as e:
+                    self._peer_failed(q, "gather", e)
+                reg.histogram("transport_recv_ms",
+                              "per-peer frame receive latency (incl. wait)",
+                              peer=str(q)).observe(
+                    (time.perf_counter() - t0) * 1e3)
+                reg.counter("transport_bytes_total", "update-frame bytes "
+                            "on the wire", direction="in",
+                            peer=str(q)).inc(n + 8)
         return out
 
     def exchange(self, frame: bytes) -> List[bytes]:

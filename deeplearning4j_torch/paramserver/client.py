@@ -4,19 +4,24 @@ Counterpart of ``deeplearning4j_tpu/paramserver/client.py`` (the client
 role of the reference's ``VoidParameterServer``): every op reconnects and
 retries with exponential backoff and jitter on socket errors, and when the
 retry budget is spent the caller gets a :class:`ServerUnavailableError`
-naming the server and the attempts; a request the server rejects raises
+naming the server and the attempts (and the flight recorder a
+``retry_exhausted`` event); a request the server rejects raises
 :class:`ParameterServerError` and is not retried. The frames are the JAX
 client's, byte for byte.
 
 Bounded staleness: :meth:`ParameterServerClient.pull_if_stale` asks for the
 server's version first (a 16-byte round trip) and skips the transfer while
 the local copy is within ``staleness`` versions. :class:`Fanout` runs
-per-shard pulls concurrently over the connection pool.
+per-shard requests concurrently (this client's ``pull_sharded`` and the
+sharded fleet's client, ``sharded.py``).
 
-The JAX client's spans, registry counters and flight-recorder events (the
-monitor planes, ROADMAP A 17) are not emitted here: the numbers stay in
-``metrics``, the process health (``monitor/health.py``) hears every op's
-outcome, and a telemetry report carries the client's metrics snapshot.
+Monitor planes, as the JAX client's: ``ps/push``, ``ps/pull`` and
+``ps/pull_delta`` spans whose context rides the wire (``FLAG_TRACE``) to a
+proto v2+ server, ``paramserver_wire_bytes_total{role="client",op=,shard=,
+direction=}`` and the :class:`~.metrics.ParamServerMetrics` series in the
+registry, every op's outcome in the process health, and
+:meth:`ParameterServerClient.send_telemetry` shipping the registry dump,
+the newest trace events and flight events.
 """
 from __future__ import annotations
 
@@ -26,25 +31,31 @@ import os
 import random
 import socket
 import struct
-import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from typing import Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from ..monitor.health import get_health
+from ..monitor import (get_flight_recorder, get_health, get_registry,
+                       get_tracer)
+from ..monitor.lockwatch import make_lock
 from ..parallel.accumulation import serialize_encoded
 from ..parallel.transport import send_frame, recv_frame
 from .metrics import ParamServerMetrics
 from .server import (OP_INIT, OP_SET, OP_PUSH, OP_PULL, OP_VERSION, OP_STATS,
-                     OP_TELEMETRY, OP_PULL_DELTA, OP_MASK,
+                     OP_TELEMETRY, OP_PULL_DELTA, FLAG_TRACE, OP_MASK,
                      OP_NAMES, ST_OK, DELTA_FRESH, DELTA_FRAMES, DELTA_FULL)
 
 log = logging.getLogger(__name__)
 
 __all__ = ["ParameterServerClient", "ServerUnavailableError",
            "ParameterServerError", "Fanout"]
+
+#: newest trace events shipped per telemetry report — a snapshot window,
+#: not the whole ring buffer (reports are meant to stay "compact")
+TELEMETRY_TRACE_EVENTS = 512
+
 
 class ServerUnavailableError(ConnectionError):
     """The parameter server stayed unreachable through the whole retry
@@ -62,19 +73,19 @@ class Fanout:
     and return their results in submission order. THE one parallel-request
     code path — :meth:`ParameterServerClient.pull_sharded` (per-shard pulls
     against a single server, over its connection pool) and
-    the sharded client of the JAX package (per-shard-server fan-out, not
-    ported yet: ROADMAP A 15b) both ride it.
+    :class:`~.sharded.ShardedParameterServerClient` (per-shard-server
+    fan-out) both ride it, so the two paths cannot diverge.
 
     An exception from any thunk re-raises after every thunk has resolved
     (each is an independent request whose effect stands either way);
     callers that need per-shard error-as-value semantics wrap their thunks
-    The first thunk
+    — see ``ShardedParameterServerClient._per_shard``. The first thunk
     runs inline on the calling thread, so the 1-server/1-shard case pays
     no thread overhead."""
 
     def __init__(self, max_workers: int):
         self.max_workers = max(1, int(max_workers))
-        self._lock = threading.Lock()
+        self._lock = make_lock("Fanout._lock")
         self._exec: Optional[ThreadPoolExecutor] = None
 
     def _executor(self) -> ThreadPoolExecutor:
@@ -134,7 +145,7 @@ class ParameterServerClient:
                  backoff_max: float = 2.0, jitter: float = 0.25,
                  timeout: float = 30.0,
                  metrics: Optional[ParamServerMetrics] = None,
-                 worker_id: Optional[str] = None,
+                 worker_id: Optional[str] = None, tracer=None,
                  pool_size: int = 1, shard: Optional[int] = None,
                  push_delay_s: float = 0.0):
         host, _, port = address.rpartition(":")
@@ -150,20 +161,18 @@ class ParameterServerClient:
         self.push_delay_s = float(push_delay_s)
         self.shard_label = "0" if shard is None else str(shard)
         self.metrics = metrics or ParamServerMetrics()
-        #: the identity this client reports telemetry under
+        #: fleet identity this client reports telemetry under; spans land
+        #: in ``tracer`` (default: the process-global one) so an in-process
+        #: multi-worker test can give each worker its own trace buffer
         self.worker_id = worker_id or f"{socket.gethostname()}:{os.getpid()}"
-        #: the last error that spent the retry budget (the JAX client's
-        #: flight-recorder record, kept here until A 17)
-        self.last_error: Optional[str] = None
-        #: wire bytes by op: {"push": {"tx": n, "rx": n}, ...}
-        self.wire: dict = {}
+        self.tracer = tracer if tracer is not None else get_tracer()
         #: negotiated server protocol version — None until the first
         #: OP_STATS answer; 1 for pre-OP_TELEMETRY servers (no flag bits,
         #: no telemetry), >= 2 to use the v2 extensions, >= 3 for the
         #: delta-pull wire
         self._proto: Optional[int] = None
         self._pool: List[socket.socket] = []
-        self._pool_lock = threading.Lock()
+        self._pool_lock = make_lock("ParameterServerClient._pool_lock")
         self._fan: Optional[Fanout] = None
         self._rand = random.Random()
 
@@ -220,14 +229,20 @@ class ParameterServerClient:
         return self._fan
 
     def _record_wire(self, op: int, n_tx: int, n_rx: int):
-        """Wire bytes by op: tx the request frame, rx the answer frame."""
+        """Client half of ``paramserver_wire_bytes_total{op=,shard=,
+        direction=}`` — tx is the request frame, rx the response frame."""
         name = OP_NAMES.get(op & OP_MASK)
         if name is None:
             return
-        with self._pool_lock:
-            row = self.wire.setdefault(name, {"tx": 0, "rx": 0})
-            row["tx"] += int(n_tx)
-            row["rx"] += int(n_rx)
+        reg = get_registry()
+        reg.counter("paramserver_wire_bytes_total",
+                    "bytes on the parameter-server wire", role="client",
+                    op=name, shard=self.shard_label,
+                    direction="tx").inc(n_tx)
+        reg.counter("paramserver_wire_bytes_total",
+                    "bytes on the parameter-server wire", role="client",
+                    op=name, shard=self.shard_label,
+                    direction="rx").inc(n_rx)
 
     def _request(self, op: int, payload: bytes = b"") -> bytes:
         """One request/response round with reconnect-retry-backoff.
@@ -272,7 +287,9 @@ class ParameterServerClient:
             f"parameter server {self.address} unavailable after "
             f"{self.max_retries + 1} attempts: {last}")
         get_health().record_ps_error(str(err))
-        self.last_error = str(err)
+        get_flight_recorder().record(
+            "retry_exhausted", worker=self.worker_id, server=self.address,
+            attempts=self.max_retries + 1, error=str(last))
         raise err from last
 
     # ------------------------------------------------------ proto v2 seam
@@ -290,6 +307,15 @@ class ParameterServerClient:
                 log.debug("proto negotiation fell back to v1: %s", e)
                 self._proto = 1
         return self._proto
+
+    def _traced(self, op: int, payload: bytes, ctx) -> Tuple[int, bytes]:
+        """Attach the active span context to an op when the server speaks
+        proto v2: sets FLAG_TRACE and prefixes the 16-byte context header
+        the server parses in ``_serve_conn``."""
+        if ctx is None or self.negotiate() < 2:
+            return op, payload
+        return (op | FLAG_TRACE,
+                struct.pack("<QQ", ctx.trace_id, ctx.span_id) + payload)
 
     # ----------------------------------------------------------------- ops
     def init_params(self, vec: np.ndarray) -> Tuple[int, bool]:
@@ -319,9 +345,12 @@ class ParameterServerClient:
         noise of the same scale the staleness bound already tolerates); use
         ``set_params`` for state that must be exact."""
         t0 = time.perf_counter()
-        if self.push_delay_s > 0.0:
-            time.sleep(self.push_delay_s)  # injected transport latency
-        out = self._request(OP_PUSH, frame)
+        with self.tracer.span("ps/push", cat="paramserver",
+                              bytes=len(frame)) as ctx:
+            if self.push_delay_s > 0.0:
+                time.sleep(self.push_delay_s)  # injected transport latency
+            op, payload = self._traced(OP_PUSH, frame, ctx)
+            out = self._request(op, payload)
         self.metrics.record_push((time.perf_counter() - t0) * 1e3,
                                  len(frame))
         return struct.unpack("<q", out)[0]
@@ -351,7 +380,12 @@ class ParameterServerClient:
         Callers must negotiate proto >= 3 first (the sharded client does);
         a v1/v2 server rejects the op as unknown."""
         t0 = time.perf_counter()
-        out = self._request(OP_PULL_DELTA, struct.pack("<qi", int(since), int(slack)))
+        with self.tracer.span("ps/pull_delta", cat="paramserver",
+                              since=int(since)) as ctx:
+            op, payload = self._traced(
+                OP_PULL_DELTA, struct.pack("<qi", int(since), int(slack)),
+                ctx)
+            out = self._request(op, payload)
         version, mode = struct.unpack("<qB", out[:9])
         body = out[9:]
         if mode == DELTA_FRESH:
@@ -398,7 +432,11 @@ class ParameterServerClient:
         round-robin slice ``s::num_shards``), stamped with the server
         version they correspond to."""
         t0 = time.perf_counter()
-        out = self._request(OP_PULL, struct.pack("<i", int(shard)))
+        with self.tracer.span("ps/pull", cat="paramserver",
+                              shard=int(shard)) as ctx:
+            op, payload = self._traced(OP_PULL,
+                                       struct.pack("<i", int(shard)), ctx)
+            out = self._request(op, payload)
         self.metrics.record_pull((time.perf_counter() - t0) * 1e3,
                                  len(out) - 12)
         version, _shard = struct.unpack("<qi", out[:12])
@@ -427,18 +465,24 @@ class ParameterServerClient:
         ``ops`` request counters)."""
         return json.loads(self._request(OP_STATS).decode("utf-8"))
 
-    def send_telemetry(self, registry=None, flight_events=None) -> bool:
-        """Ship one telemetry report over OP_TELEMETRY: this worker's id,
-        ``registry`` (a dict; default this client's metrics snapshot under
-        ``"paramserver"``) and, optionally, recent events. Returns False
-        without touching the wire when the server predates the extension
-        (proto < 2)."""
+    def send_telemetry(self, registry=None, tracer=None,
+                       flight_events=None) -> bool:
+        """Ship one fleet telemetry report over OP_TELEMETRY: this
+        worker's registry dump, the newest trace events, and (optionally)
+        flight-recorder events — the feed behind the server's ``GET
+        /fleet`` and merged-trace views. Returns False without touching
+        the wire when the server predates the extension (proto < 2)."""
         if self.negotiate() < 2:
             return False
-        reg = registry if registry is not None else {"paramserver": self.metrics.snapshot()}
-        report = {"worker": self.worker_id, "registry": reg, "trace_events": []}
+        reg = registry if registry is not None else get_registry()
+        tr = tracer if tracer is not None else self.tracer
+        report = {"worker": self.worker_id, "registry": reg.dump(),
+                  "trace_events": tr.events()[-TELEMETRY_TRACE_EVENTS:]}
         if flight_events is not None:
             report["flight_events"] = list(flight_events)
+        # default=repr: flight-recorder fields may be non-serializable by
+        # contract (they degrade, same as FlightRecorder.dump) — telemetry
+        # must never raise into the training loop over a weird field
         out = self._request(OP_TELEMETRY,
                             json.dumps(report, default=repr).encode("utf-8"))
         return bool(json.loads(out.decode("utf-8")).get("ok"))

@@ -1,15 +1,18 @@
 """Parameter-server observability: per-op counters and latency histograms.
 
-Counterpart of ``deeplearning4j_tpu/paramserver/metrics.py``. The JAX
-package mirrors every increment into its process-wide metrics registry and
-every phase into its tracer (the monitor planes, ROADMAP A 17); until the
-port has those, the numbers live on these objects: a
-:class:`ParamServerMetrics` per client and per server (``snapshot()``, the
-``OP_STATS`` shape), and a :class:`TrainStepPhases` per training master
-(each phase's histogram and running total). :class:`LatencyHistogram` is
-the port's own copy of the JAX registry's log2-bucketed histogram, without
-exemplars. :class:`ParamServerMetricsListener` surfaces a client's numbers
-on the training listener bus.
+Counterpart of ``deeplearning4j_tpu/paramserver/metrics.py``.
+:class:`LatencyHistogram` is the monitor registry's (re-exported here).
+Every :class:`ParamServerMetrics` is a registry-backed facade: its exact
+per-instance counters and histograms keep the ``snapshot()`` shape (the
+listener bus, ``OP_STATS``), while every increment is mirrored into the
+process registry under ``paramserver_<counter>_total{role=}`` and
+``paramserver_push_ms``/``paramserver_pull_ms{role=}`` (``role`` is
+``client`` or ``server``). :class:`TrainStepPhases` times the training
+master's phases as ``train/<phase>`` tracer spans and
+``train_step_phase_ms{phase=}`` / ``train_step_wall_ms`` histograms, and
+keeps running totals for :meth:`TrainStepPhases.hidden_share`.
+:class:`ParamServerMetricsListener` surfaces a client's numbers on the
+training listener bus.
 """
 from __future__ import annotations
 
@@ -19,6 +22,9 @@ import time
 from contextlib import contextmanager
 from typing import Dict, List
 
+from ..monitor import get_tracer
+from ..monitor.lockwatch import make_lock
+from ..monitor.registry import LatencyHistogram, get_registry
 from ..optimize.listeners import TrainingListener
 
 __all__ = ["LatencyHistogram", "COUNTERS", "ParamServerMetrics",
@@ -30,81 +36,27 @@ log = logging.getLogger(__name__)
 COUNTERS = ("pushes", "pulls", "push_bytes", "pull_bytes", "retries",
             "staleness_hits", "errors")
 
-_UNIT_BASE = {"ms": 0.1, "s": 1e-4}
-
-
-class LatencyHistogram:
-    """Log2-bucketed latency histogram: bucket b covers ``[base * 2^b,
-    base * 2^(b+1))`` with base 0.1 ms (``unit="ms"``) or 1e-4 s
-    (``unit="s"``); the mean is exact, p50/p95/p99 are the upper edges of
-    their buckets (capped at the largest sample)."""
-
-    N_BUCKETS = 24
-
-    def __init__(self, unit: str = "ms"):
-        if unit not in _UNIT_BASE:
-            raise ValueError(f"unit must be one of {sorted(_UNIT_BASE)}, got {unit!r}")
-        self.unit = unit
-        self._base = _UNIT_BASE[unit]
-        self.counts = [0] * self.N_BUCKETS
-        self.total_ms = 0.0      # in self.unit
-        self.n = 0
-        self.max_ms = 0.0        # in self.unit
-
-    def _bucket(self, value: float) -> int:
-        b = 0
-        edge = self._base
-        while value >= edge * 2 and b < self.N_BUCKETS - 1:
-            edge *= 2
-            b += 1
-        return b
-
-    def record(self, ms: float):
-        ms = max(float(ms), 0.0)
-        self.counts[self._bucket(ms)] += 1
-        self.total_ms += ms
-        self.n += 1
-        self.max_ms = max(self.max_ms, ms)
-
-    @classmethod
-    def bucket_edges(cls, unit: str = "ms") -> List[float]:
-        base = _UNIT_BASE[unit]
-        return [base * (2 ** (b + 1)) for b in range(cls.N_BUCKETS)]
-
-    def quantile(self, q: float) -> float:
-        """Upper edge of the bucket holding the q-quantile sample."""
-        if not self.n:
-            return 0.0
-        rank = q * (self.n - 1)
-        seen = 0
-        edge = self._base
-        for c in self.counts:
-            seen += c
-            if seen > rank:
-                return min(edge * 2, self.max_ms) if c else edge * 2
-            edge *= 2
-        return self.max_ms
-
-    def summary(self) -> Dict[str, float]:
-        if not self.n:
-            return {}
-        u = self.unit
-        return {f"mean_{u}": self.total_ms / self.n,
-                f"p50_{u}": self.quantile(0.50),
-                f"p95_{u}": self.quantile(0.95),
-                f"p99_{u}": self.quantile(0.99),
-                f"max_{u}": self.max_ms, "n": float(self.n)}
-
 
 class ParamServerMetrics:
     """Thread-safe counters and push/pull latency histograms of one
     :class:`~.server.ParameterServer` (ops served, ``role="server"``) or
     :class:`~.client.ParameterServerClient` (ops issued, retries, staleness
-    skips, ``role="client"``)."""
+    skips, ``role="client"``). ``snapshot()`` reads this instance's own
+    numbers; the registry children are shared per role, so N clients
+    aggregate into one scrape series."""
 
     def __init__(self, role: str = "client"):
         self.role = str(role)
-        self._lock = threading.Lock()
+        reg = get_registry()
+        self._reg_counters = {
+            k: reg.counter(f"paramserver_{k}_total",
+                           "parameter-server op counter", role=self.role)
+            for k in COUNTERS}
+        self._reg_push = reg.histogram(
+            "paramserver_push_ms", "push round-trip latency", role=self.role)
+        self._reg_pull = reg.histogram(
+            "paramserver_pull_ms", "pull round-trip latency", role=self.role)
+        self._lock = make_lock("ParamServerMetrics._lock")
         self.counters: Dict[str, int] = {k: 0 for k in COUNTERS}
         self.push_latency = LatencyHistogram()
         self.pull_latency = LatencyHistogram()
@@ -112,18 +64,30 @@ class ParamServerMetrics:
     def add(self, counter: str, value: int = 1):
         with self._lock:
             self.counters[counter] = self.counters.get(counter, 0) + value
+        child = self._reg_counters.get(counter)
+        if child is None:
+            child = self._reg_counters[counter] = get_registry().counter(
+                f"paramserver_{counter}_total",
+                "parameter-server op counter", role=self.role)
+        child.inc(value)
 
     def record_push(self, ms: float, nbytes: int):
         with self._lock:
             self.counters["pushes"] += 1
             self.counters["push_bytes"] += int(nbytes)
             self.push_latency.record(ms)
+        self._reg_counters["pushes"].inc()
+        self._reg_counters["push_bytes"].inc(int(nbytes))
+        self._reg_push.observe(ms)
 
     def record_pull(self, ms: float, nbytes: int):
         with self._lock:
             self.counters["pulls"] += 1
             self.counters["pull_bytes"] += int(nbytes)
             self.pull_latency.record(ms)
+        self._reg_counters["pulls"].inc()
+        self._reg_counters["pull_bytes"].inc(int(nbytes))
+        self._reg_pull.observe(ms)
 
     def snapshot(self) -> Dict[str, object]:
         """Point-in-time copy: counters and histogram summaries."""
@@ -135,16 +99,30 @@ class ParamServerMetrics:
 
 class TrainStepPhases:
     """Per-phase timing of the parameter-server training loop: compute,
-    d2h, encode and push each get a histogram and a running total, and
-    ``wall`` records whole steps. In overlap mode encode and push run on
-    the comms worker while the training thread computes the next step, so
-    the wall time falls below the sum of the phases; :meth:`hidden_share`
-    is the share of d2h + encode + push that the wall time did not pay."""
+    d2h, encode and push each get a ``train/<phase>`` span in ``tracer``
+    (default the process tracer), a ``train_step_phase_ms{phase=}``
+    histogram child and a running total; ``wall`` records whole steps
+    (``train_step_wall_ms``). In overlap mode encode and push run on the
+    comms worker while the training thread computes the next step, so the
+    wall time falls below the sum of the phases; :meth:`hidden_share` is
+    the share of d2h + encode + push that the wall time did not pay."""
 
     PHASES = ("compute", "d2h", "encode", "push")
 
-    def __init__(self, overlap: bool = False):
+    def __init__(self, tracer=None, overlap: bool = False):
+        reg = get_registry()
+        self.tracer = tracer if tracer is not None else get_tracer()
         self.overlap = bool(overlap)
+        self._reg_hist = {p: reg.histogram(
+            "train_step_phase_ms",
+            "paramserver training hot-loop phase latency", phase=p)
+            for p in self.PHASES}
+        self._reg_wall = reg.histogram(
+            "train_step_wall_ms", "paramserver training wall time per step")
+        reg.gauge(
+            "train_overlap_active",
+            "1 while the latency-hiding comms pipeline is on"
+        ).set(1.0 if overlap else 0.0)
         self._lock = threading.Lock()
         self.hist = {p: LatencyHistogram() for p in self.PHASES}
         self.totals_ms = {p: 0.0 for p in self.PHASES}
@@ -154,13 +132,16 @@ class TrainStepPhases:
     @contextmanager
     def phase(self, name: str):
         t0 = time.perf_counter()
-        yield
+        with self.tracer.span(f"train/{name}", cat="train"):
+            yield
         ms = (time.perf_counter() - t0) * 1e3
+        self._reg_hist[name].observe(ms)
         with self._lock:
             self.hist[name].record(ms)
             self.totals_ms[name] += ms
 
     def wall(self, ms: float):
+        self._reg_wall.observe(ms)
         with self._lock:
             self.wall_hist.record(ms)
             self.wall_total_ms += float(ms)

@@ -25,6 +25,7 @@ from typing import Any, Callable, Dict, Optional
 import torch
 
 from ..utils.trees import tree_map
+from ..monitor.lockwatch import make_condition
 
 __all__ = ["CommsPipeline", "async_device_get", "start_device_get", "PendingCopy"]
 
@@ -123,7 +124,7 @@ class CommsPipeline:
     flight."""
 
     def __init__(self, name: str = "ps-comms"):
-        self._cond = threading.Condition()
+        self._cond = make_condition("CommsPipeline._cond")
         self._inflight: Optional[_Job] = None
         self._closed = False
         self._thread = threading.Thread(target=self._run, name=name, daemon=True)

@@ -18,12 +18,14 @@ rises by one for each applied push or set; ``PULL_DELTA`` (proto v3)
 answers "fresh", the journal of applied frames since a version, or the
 full vector.
 
-What the JAX server reports into its monitor planes (tracer spans, fleet
-liveness, registry counters: ROADMAP A 17) stays on this object until the
-port has those planes: ``OP_STATS`` carries the per-op counters and the
-uptime, and ``OP_TELEMETRY`` keeps each worker's last report in
-:attr:`ParameterServer.telemetry`. A ``FLAG_TRACE`` header is parsed and
-its context dropped.
+Monitor planes, as the JAX server's: ``OP_TELEMETRY`` lands each worker's
+report in the fleet table (``monitor/fleet.py``; ``fleet=``, default the
+process one); a request carrying a ``FLAG_TRACE`` context is handled
+inside an ``ps/apply_<op>`` span parented to the client's span (in
+``tracer=``, default the process tracer); the registry counts
+``paramserver_requests_total{role="server",op=}`` and
+``paramserver_wire_bytes_total{role="server",op=,shard=,direction=}``.
+``OP_STATS`` carries the per-op counters and the uptime.
 
 ``ParameterServer(port=0)`` binds a free port (``.port``/``.address``).
 """
@@ -40,6 +42,8 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 
+from ..monitor import SpanContext, get_fleet, get_registry, get_tracer
+from ..monitor.lockwatch import make_lock
 from ..parallel.transport import send_frame, recv_frame
 from ..parallel.accumulation import (deserialize_encoded, threshold_decode,
                                      encode_residual, serialize_encoded)
@@ -121,8 +125,8 @@ class ParameterServer:
 
     def __init__(self, host: str = "127.0.0.1", port: int = 0,
                  num_shards: int = 1, threshold: float = 0.0,
-                 restore: Optional[tuple] = None, journal: int = 256,
-                 shard_label: str = "0"):
+                 restore: Optional[tuple] = None, tracer=None, fleet=None,
+                 journal: int = 256, shard_label: str = "0"):
         if num_shards < 1:
             raise ValueError(f"num_shards must be >= 1, got {num_shards}")
         self.num_shards = int(num_shards)
@@ -137,14 +141,14 @@ class ParameterServer:
         #: pulls resync via DELTA_FULL once, then ride frames again.
         self._journal: deque = deque(maxlen=max(int(journal), 0))
         self.metrics = ParamServerMetrics(role="server")
-        #: each worker's last OP_TELEMETRY report and when it came, by
-        #: worker id (the JAX server's fleet table, kept here until A 17)
-        self.telemetry: dict = {}
+        #: where server-side child spans land and where worker telemetry
+        #: reports aggregate (defaults: the process-wide ones)
+        self.tracer = tracer if tracer is not None else get_tracer()
+        self.fleet = fleet if fleet is not None else get_fleet()
         self._t_start = time.time()
-        self._op_lock = threading.Lock()
+        self._op_lock = make_lock("ParameterServer._op_lock")
         self._op_counts = {name: 0 for name in OP_NAMES.values()}
-        self._wire: dict = {}
-        self._lock = threading.Lock()
+        self._lock = make_lock("ParameterServer._lock")
         self._shards: Optional[List[np.ndarray]] = None
         self._n = 0
         self._version = 0
@@ -323,17 +327,17 @@ class ParameterServer:
             stats["uptime_s"] = time.time() - self._t_start
             with self._op_lock:
                 stats["ops"] = dict(self._op_counts)
-                stats["wire"] = {k: dict(v) for k, v in self._wire.items()}
             return json.dumps(stats).encode("utf-8")
         if op == OP_TELEMETRY:
             report = json.loads(payload.decode("utf-8"))
             worker = report.get("worker")
             if not worker:
                 raise ValueError("telemetry report carries no worker id")
-            with self._op_lock:
-                self.telemetry[str(worker)] = {"t": time.time(), "report": report}
-                workers = len(self.telemetry)
-            return json.dumps({"ok": True, "workers": workers}).encode("utf-8")
+            self.fleet.record_report(str(worker), report)
+            return json.dumps(
+                {"ok": True,
+                 "workers": len(self.fleet.liveness()["workers"])}
+            ).encode("utf-8")
         raise ValueError(f"unknown op {op}")
 
     # ------------------------------------------------------------- network
@@ -370,17 +374,25 @@ class ParameterServer:
             return
         with self._op_lock:
             self._op_counts[name] += 1
+        get_registry().counter("paramserver_requests_total",
+                               "requests served by op", role="server",
+                               op=name).inc()
 
     def _record_wire(self, op: int, n_rx: int, n_tx: int):
-        """Wire bytes by op: rx the request frame, tx the answer frame
-        (``OP_STATS``'s ``wire``)."""
+        """The server half of ``paramserver_wire_bytes_total``: rx the
+        request frame, tx the answer frame."""
         name = OP_NAMES.get(op)
         if name is None:
             return
-        with self._op_lock:
-            row = self._wire.setdefault(name, {"rx": 0, "tx": 0})
-            row["rx"] += int(n_rx)
-            row["tx"] += int(n_tx)
+        reg = get_registry()
+        reg.counter("paramserver_wire_bytes_total",
+                    "bytes on the parameter-server wire", role="server",
+                    op=name, shard=self.shard_label,
+                    direction="rx").inc(n_rx)
+        reg.counter("paramserver_wire_bytes_total",
+                    "bytes on the parameter-server wire", role="server",
+                    op=name, shard=self.shard_label,
+                    direction="tx").inc(n_tx)
 
     def _serve_conn(self, s: socket.socket):
         try:
@@ -394,18 +406,27 @@ class ParameterServer:
                 op = frame[0] & OP_MASK
                 flags = frame[0] & ~OP_MASK
                 payload = frame[1:]
+                parent = None
                 self._count_op(op)
                 try:
                     if flags & FLAG_TRACE:
-                        # a remote span context [trace_id u64 | span_id
-                        # u64]: parsed off and dropped until the port has a
-                        # tracer (ROADMAP A 17)
                         if len(payload) < 16:
                             raise ValueError(
                                 "FLAG_TRACE set but no 16-byte trace-"
                                 "context header precedes the payload")
+                        tid, sid = struct.unpack_from("<QQ", payload)
                         payload = payload[16:]
-                    out = self._handle(op, payload)
+                        parent = SpanContext(tid, sid)
+                    if parent is not None:
+                        # the server half of the causal chain: the client's
+                        # trace id, parented to its in-flight span
+                        with self.tracer.span(
+                                f"ps/apply_{OP_NAMES.get(op, op)}",
+                                cat="paramserver", parent=parent,
+                                bytes=len(payload)):
+                            out = self._handle(op, payload)
+                    else:
+                        out = self._handle(op, payload)
                     self._record_wire(op, len(frame), 1 + len(out))
                     send_frame(s, bytes([ST_OK]) + out)
                 except Exception as e:  # malformed frame ≠ dead server: the

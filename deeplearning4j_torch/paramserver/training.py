@@ -20,28 +20,35 @@ bounded-staleness rule (``staleness=0``: after every push; k: up to k
 unseen versions). A lossless accumulator (threshold 0) applies the
 device's own update (the fast path: decode would give the same values).
 ``overlap(True)`` hands encode, push and the staleness probe to a
-:class:`~.overlap.CommsPipeline` while the card computes the next step;
-a failed shard push's mass would be re-injected into the residual.
+:class:`~.overlap.CommsPipeline` while the card computes the next step.
 
-Only a single server is driven here: the sharded fleet and its delta
-wire (``paramserver/sharded.py`` of the JAX package) are ROADMAP A 15b,
-and a master given several addresses raises. The
-compile cache the JAX master enables at join (A 16) has nothing to do in
-an eager port.
+Several server addresses (comma-joined or a list; the order is the shard
+assignment) drive a :class:`~.sharded.ShardedParameterServerClient`: the
+versions become per-shard lists, a failed shard push's mass is
+re-injected into the accumulator's residual, and a partial resync
+scatters only the refreshed shards' slices. ``delta_push`` rides the
+proto v3 delta wire (default: on for several servers, off for one);
+``remap`` rebinds the master to a rebalanced fleet between fits. Joins,
+leaves and rejoins are flight-recorder events (``worker_join``,
+``worker_leave``, ``worker_rejoin``), and the telemetry reports carry the
+recorder's tail. The compile cache the JAX master enables at join (A 16)
+has nothing to do in an eager port.
 """
 from __future__ import annotations
 
 import logging
 import time
-from typing import List, Optional, Sequence, Union
+from typing import Optional
 
 import numpy as np
 import torch
 
+from ..monitor import get_flight_recorder
 from ..parallel.accumulation import EncodedGradientsAccumulator, flatten_tree_f32
 from ..parallel.distributed import TrainingMaster
 from ..utils.trees import sorted_leaves, tree_map
 from .client import ParameterServerClient, ParameterServerError
+from .sharded import ShardedParameterServerClient, parse_addresses
 from .metrics import ParamServerMetricsListener  # noqa: F401  (re-export)
 from .metrics import TrainStepPhases
 from .overlap import CommsPipeline, async_device_get, start_device_get
@@ -77,17 +84,6 @@ def set_params_from_flat(net, vec: np.ndarray):
             k = int(p.numel())
             p.copy_(flat[off:off + k].view(p.shape).to(p.dtype))
             off += k
-
-
-def _parse_addresses(spec: Union[str, Sequence[str]]) -> List[str]:
-    """``"h:p1,h:p2"`` or a list of addresses -> the address list."""
-    if isinstance(spec, str):
-        addrs = [a.strip() for a in spec.split(",") if a.strip()]
-    else:
-        addrs = [str(a) for a in spec]
-    if not addrs:
-        raise ValueError("no parameter-server addresses given")
-    return addrs
 
 
 def _aligned(update, params):
@@ -133,6 +129,8 @@ class ParameterServerTrainingMaster(TrainingMaster):
             self._count_own_pushes = True
             self._worker_id = None
             self._telemetry_interval = 5.0
+            self._num_servers = None
+            self._delta_push = None
             self._overlap = False
 
         def staleness(self, n):
@@ -175,6 +173,25 @@ class ParameterServerTrainingMaster(TrainingMaster):
 
         telemetryInterval = telemetry_interval
 
+        def num_servers(self, n: int):
+            """Expected shard-server count: checked against the address
+            list (a width that disagreed with the topology would mis-shard
+            every push)."""
+            self._num_servers = int(n)
+            return self
+
+        numServers = num_servers
+
+        def delta_push(self, flag: bool = True):
+            """Proto v3 delta wire: per-shard sparse pushes and
+            journal-replay pulls (default on for several addresses, off
+            for one; True with one address rides the delta wire against a
+            single server through the sharded client)."""
+            self._delta_push = bool(flag)
+            return self
+
+        deltaPush = delta_push
+
         def overlap(self, flag: bool = True):
             """The comms pipeline (``overlap.py``): step k's encode and
             push on a background thread while the card computes step k+1,
@@ -189,12 +206,14 @@ class ParameterServerTrainingMaster(TrainingMaster):
                 batch_size_per_worker=self._batch, max_retries=self._retries,
                 backoff=self._backoff, count_own_pushes=self._count_own_pushes,
                 worker_id=self._worker_id, telemetry_interval=self._telemetry_interval,
+                num_servers=self._num_servers, delta_push=self._delta_push,
                 overlap=self._overlap)
 
     def __init__(self, server_address, staleness: int = 0, threshold: float = 1e-3,
                  batch_size_per_worker: int = 32, max_retries: int = 5,
                  backoff: float = 0.05, count_own_pushes: bool = True,
                  worker_id: Optional[str] = None, telemetry_interval: float = 5.0,
+                 num_servers: Optional[int] = None, delta_push: Optional[bool] = None,
                  client: Optional[ParameterServerClient] = None, overlap: bool = False):
         self.server_address = server_address
         self.staleness = int(staleness)
@@ -212,31 +231,63 @@ class ParameterServerTrainingMaster(TrainingMaster):
         #: seconds between mid-training telemetry reports (0 = every step,
         #: None = only at join and leave)
         self.telemetry_interval = telemetry_interval
+        #: the sharded fleet's dials: ``server_address`` may name N servers
+        #: (shard order is address order), ``num_servers`` cross-checks
+        #: that width, ``delta_push`` rides the delta wire (None: on for
+        #: several servers)
+        self.num_servers = num_servers
+        self.delta_push = delta_push
         self.overlap = bool(overlap)
         self.client = client
         self.accumulator = EncodedGradientsAccumulator(initial_threshold=threshold)
+        #: the server version the net reflects; a list, one a shard, under
+        #: the sharded client
         self.local_version = 0
         self._step_net = None
         self._joined_once = False
         self._last_telemetry = 0.0
         self._pipeline: Optional[CommsPipeline] = None
         self._phases: Optional[TrainStepPhases] = None
-        #: join/leave records (the JAX master's flight-recorder events,
-        #: kept here until ROADMAP A 17)
-        self.events: List[dict] = []
 
     # ------------------------------------------------------------ plumbing
     def _ensure_client(self):
         if self.client is None:
-            addrs = _parse_addresses(self.server_address)
-            if len(addrs) > 1:
-                raise NotImplementedError(
-                    "the sharded parameter-server fleet is not ported yet "
-                    "(ROADMAP A 15b): give one server address")
-            self.client = ParameterServerClient(
-                addrs[0], staleness=self.staleness, max_retries=self.max_retries,
-                backoff=self.backoff, worker_id=self.worker_id)
+            addrs = parse_addresses(self.server_address)
+            if self.num_servers is not None and self.num_servers != len(addrs):
+                raise ValueError(
+                    f"num_servers={self.num_servers} but {len(addrs)} "
+                    f"server address(es) configured: {addrs}")
+            delta = self.delta_push if self.delta_push is not None else len(addrs) > 1
+            if len(addrs) > 1 or self.delta_push:
+                self.client = ShardedParameterServerClient(
+                    addrs, staleness=self.staleness, delta=delta,
+                    max_retries=self.max_retries, backoff=self.backoff,
+                    worker_id=self.worker_id)
+            else:
+                self.client = ParameterServerClient(
+                    addrs[0], staleness=self.staleness, max_retries=self.max_retries,
+                    backoff=self.backoff, worker_id=self.worker_id)
         return self.client
+
+    def remap(self, addresses):
+        """Rebind the master to a new shard-server set between fits (after
+        ``ShardedParameterServerGroup.scale_to`` or a move). The next fit
+        joins the new layout (``init_params`` finds it seeded and adopts
+        the rebalanced state); a sharded client remaps in place
+        (``client_remap`` flight event), a single-server client is
+        rebuilt. An in-flight comms round is drained first: its push
+        targeted the old layout, and a failed one re-raises here."""
+        self._drain_for_membership_change("remap")
+        addrs = parse_addresses(addresses)
+        self.server_address = ",".join(addrs)
+        self.num_servers = None
+        if self.client is not None:
+            if hasattr(self.client, "remap"):
+                self.client.remap(addrs)
+            else:
+                self.client.close()
+                self.client = None
+        self.local_version = 0
 
     def _ship_telemetry(self, client: ParameterServerClient, force: bool = False):
         """Best-effort OP_TELEMETRY report under the interval dial: a
@@ -249,7 +300,8 @@ class ParameterServerTrainingMaster(TrainingMaster):
             if now - self._last_telemetry < self.telemetry_interval:
                 return
         try:
-            client.send_telemetry(flight_events=self.events[-64:])
+            client.send_telemetry(
+                flight_events=get_flight_recorder().events()[-64:])
             self._last_telemetry = now
         except (ConnectionError, ParameterServerError) as e:
             log.debug("telemetry report to %s skipped: %s", client.address, e)
@@ -295,14 +347,27 @@ class ParameterServerTrainingMaster(TrainingMaster):
         other workers' pushes interleaved, which a pull must bring in."""
         if self.count_own_pushes:
             return
-        if pushed_version == self.local_version + 1:
+        if isinstance(pushed_version, list):
+            # per shard: each node's version counts its own pushes only
+            for j, pv in enumerate(pushed_version):
+                if pv is not None and pv == self.local_version[j] + 1:
+                    self.local_version[j] = pv
+        elif pushed_version == self.local_version + 1:
             self.local_version = pushed_version
 
-    def _adopt_fresh(self, net, fresh):
-        """Adopt a non-None ``pull_if_stale`` answer into the net."""
+    def _adopt_fresh(self, net, client, fresh):
+        """Adopt a non-None ``pull_if_stale`` answer into the net: a full
+        vector, or (sharded, some shards fresh) only the refreshed shards'
+        slices, the fresh shards keeping this worker's local state."""
         if fresh is None:
             return
         self.local_version, payload = fresh
+        if isinstance(payload, dict):
+            vec = flatten_params(net.params)
+            n_srv = client.num_servers
+            for j, values in payload.items():
+                vec[j::n_srv] = values
+            payload = vec
         set_params_from_flat(net, payload)
 
     def _comms_round(self, client, acc, update_host, fast):
@@ -315,11 +380,24 @@ class ParameterServerTrainingMaster(TrainingMaster):
         with self._phases.phase("push"):
             pushed_version, failed_mass = client.push_encoded(acc.last_encoded)
         if failed_mass is not None:
+            # a down shard's mass re-rides the next encode
             acc.reinject(failed_mass)
         self._adopt_pushed_version(pushed_version)
         fresh = client.pull_if_stale(self.local_version)
         self._ship_telemetry(client)
         return decoded_own, fast, fresh
+
+    def _drain_for_membership_change(self, what: str):
+        """Land an in-flight comms round before the shard set changes
+        under it; a failed push re-raises here, never discarded."""
+        if self._pipeline is None or not self._pipeline.inflight():
+            return
+        if self._step_net is not None and self.client is not None:
+            self._drain_inflight(self._step_net, self.client)
+        else:
+            log.warning("%s with an in-flight comms round but no bound net: draining "
+                        "without apply", what)
+            self._pipeline.drain()
 
     def _drain_inflight(self, net, client):
         """Drain the in-flight round (a no-op without one): apply its
@@ -330,7 +408,7 @@ class ParameterServerTrainingMaster(TrainingMaster):
         decoded_own, fast, fresh = self._pipeline.drain()
         if not fast:
             self._apply(net, decoded_own)
-        self._adopt_fresh(net, fresh)
+        self._adopt_fresh(net, client, fresh)
 
     def close(self):
         """Drain an in-flight round loudly, stop the comms thread, close
@@ -353,14 +431,11 @@ class ParameterServerTrainingMaster(TrainingMaster):
         return self._phases
 
     # ------------------------------------------------------------ training
-    def _record(self, kind: str, **fields):
-        self.events.append({"kind": kind, "t": time.time(), **fields})
-
     def execute_training(self, net, iterator):
         client = self._ensure_client()
         self._ensure_steps(net)
         acc = self.accumulator
-        phases = self._phases = TrainStepPhases(overlap=self.overlap)
+        phases = self._phases = TrainStepPhases(client.tracer, overlap=self.overlap)
         if self.overlap and self._pipeline is None:
             self._pipeline = CommsPipeline()
         # a round left in flight by an aborted fit lands before the join
@@ -368,6 +443,8 @@ class ParameterServerTrainingMaster(TrainingMaster):
 
         if not self.count_own_pushes:
             stats0 = client.stats()
+            if isinstance(stats0, list):   # sharded: one snapshot a shard
+                stats0 = next((st for st in stats0 if "threshold" in st), {})
             if float(stats0.get("threshold", 0.0)) > 0.0:
                 log.warning(
                     "count_own_pushes=False against a residual-merging server "
@@ -375,6 +452,7 @@ class ParameterServerTrainingMaster(TrainingMaster):
                     "from the server's merged state; prefer the default "
                     "count_own_pushes=True on threshold>0 servers")
 
+        fr = get_flight_recorder()
         join_kind = "worker_rejoin" if self._joined_once else "worker_join"
         version, created = client.init_params(flatten_params(net.params))
         if not created:
@@ -387,8 +465,9 @@ class ParameterServerTrainingMaster(TrainingMaster):
                     f"server {client.address} holds parameters for a different "
                     f"model: {e}") from e
         self.local_version = version
-        self._record(join_kind, worker=client.worker_id, server=client.address,
-                     seeded=created, version=int(version))
+        fr.record(join_kind, worker=client.worker_id, server=client.address, seeded=created,
+                  version=(list(map(int, version)) if isinstance(version, (list, tuple))
+                           else int(version)))
         self._joined_once = True
         self._ship_telemetry(client, force=True)
 
@@ -429,7 +508,7 @@ class ParameterServerTrainingMaster(TrainingMaster):
                     if failed_mass is not None:
                         acc.reinject(failed_mass)
                     self._adopt_pushed_version(pushed_version)
-                    self._adopt_fresh(net, client.pull_if_stale(self.local_version))
+                    self._adopt_fresh(net, client, client.pull_if_stale(self.local_version))
                 net.score_ = loss
                 net.iteration_count += 1
                 steps += 1
@@ -447,10 +526,12 @@ class ParameterServerTrainingMaster(TrainingMaster):
                 except Exception as drain_err:
                     log.warning("in-flight comms round failed during error unwind: %s",
                                 drain_err)
-            self._record("worker_leave", worker=client.worker_id, reason=f"error: {e!r}",
-                         steps=steps)
+            # whatever unwinds leaves an ordered leave event, so a later
+            # rejoin is attributable
+            fr.record("worker_leave", worker=client.worker_id, reason=f"error: {e!r}",
+                      steps=steps)
             raise
-        self._record("worker_leave", worker=client.worker_id, reason="completed", steps=steps)
+        fr.record("worker_leave", worker=client.worker_id, reason="completed", steps=steps)
         self._ship_telemetry(client, force=True)
         return net
 

@@ -22,7 +22,7 @@ caller its rows through a :class:`~concurrent.futures.Future`.
   device-to-host copy of the real result rows.
 
 Left out of the port so far: the response cache, trace spans and metrics,
-lockwatch, AOT warmup and bf16 serving precision.
+AOT warmup and bf16 serving precision.
 
 Locking: one condition variable guards the queue; the forward runs outside
 it on the scheduler thread, so submitters never wait behind the device.
@@ -39,6 +39,7 @@ import numpy as np
 import torch
 
 from ..datasets.bucketing import bucket_for, validate_buckets
+from ..monitor.lockwatch import make_condition
 
 log = logging.getLogger(__name__)
 
@@ -114,7 +115,7 @@ class ContinuousBatcher:
         self.linger_ms = float(linger_ms)
         self.default_deadline_ms = default_deadline_ms
 
-        self._cond = threading.Condition()
+        self._cond = make_condition("ContinuousBatcher._cond")
         self._queue: List[_Request] = []
         self._queued_examples = 0
         self._key_examples: Dict[Tuple, int] = {}

@@ -6,7 +6,6 @@ maps ``name -> ServedModel``; each entry owns its own
 """
 from __future__ import annotations
 
-import threading
 from concurrent.futures import Future
 from typing import Any, Dict, List, Optional, Sequence
 
@@ -14,6 +13,7 @@ import numpy as np
 
 from .. import resolve_device
 from .batcher import ContinuousBatcher, ModelNotFoundError
+from ..monitor.lockwatch import make_lock
 
 __all__ = ["ServedModel", "ModelRegistry", "DEFAULT_BATCH_BUCKETS"]
 
@@ -112,7 +112,7 @@ class ModelRegistry:
     name map only; request traffic never runs under it."""
 
     def __init__(self):
-        self._lock = threading.Lock()
+        self._lock = make_lock("ModelRegistry._lock")
         self._models: Dict[str, ServedModel] = {}
         self._reserved: set = set()
 

@@ -398,9 +398,12 @@ def test_training_error_seam():
 
 
 def test_no_host_read_of_the_loss_without_listeners(monkeypatch):
-    """A fit with no listener never reads a tensor's value on the host (on
-    the card that would be a device-to-host sync a minibatch); with one it
-    reads the score once a minibatch."""
+    """With the monitor switched off (``monitor.set_enabled(False)``), a fit
+    with no listener never reads a tensor's value on the host (on the card
+    that would be a device-to-host sync a minibatch); with one it reads the
+    score once a minibatch. With the monitor on, the default, as in the
+    JAX package, a bare fit reads it once a minibatch too."""
+    from deeplearning4j_torch import monitor
     reads = []
     for name in ("__float__", "item"):
         real = getattr(torch.Tensor, name)
@@ -413,9 +416,17 @@ def test_no_host_read_of_the_loss_without_listeners(monkeypatch):
         _, net = _pair(kind)
         data = ListDataSetIterator([DataSet(f, l) for f, l in _batches(kind)])
         reads.clear()
-        net.fit(data)
-        assert reads == [], kind
-        net.set_listeners(plisteners.CollectScoresIterationListener())
+        monitor.set_enabled(False)
+        try:
+            net.fit(data)
+            assert reads == [], kind
+            net.set_listeners(plisteners.CollectScoresIterationListener())
+            net.fit(data)
+            assert len(reads) == 3, kind
+        finally:
+            monitor.set_enabled(True)
+        net.set_listeners()
+        reads.clear()
         net.fit(data)
         assert len(reads) == 3, kind
 

@@ -214,7 +214,12 @@ def _free_ports(n):
 
 def test_update_channel_exchanges_frames_and_names_a_dead_peer():
     """Three ranks on localhost: each exchange returns the peers' frames in
-    rank order; a closed peer surfaces as PeerFailedError naming it."""
+    rank order; a closed peer surfaces as PeerFailedError naming it. The
+    per-peer series are the process registry's (``stats`` reads them), the
+    failure also a ``peer_failed`` flight event."""
+    from deeplearning4j_torch.monitor import get_flight_recorder, get_registry
+    get_registry().clear()
+    get_flight_recorder().clear()
     addrs = [f"127.0.0.1:{p}" for p in _free_ports(3)]
     chans, errs = [None] * 3, []
 
@@ -241,6 +246,8 @@ def test_update_channel_exchanges_frames_and_names_a_dead_peer():
     with pytest.raises(PeerFailedError) as e:
         chans[0].gather()
     assert e.value.rank == 1 and chans[0].stats["peer_failures"] == {1: 1}
+    assert [(r["event"], r["rank"], r["op"], r["local_rank"])
+            for r in get_flight_recorder().events()] == [("peer_failed", 1, "gather", 0)]
     chans[0].close(), chans[2].close()
 
 

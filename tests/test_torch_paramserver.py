@@ -30,6 +30,7 @@ from deeplearning4j_tpu.utils.model_serializer import ModelSerializer
 
 from deeplearning4j_torch import DataSet, ListDataSetIterator
 from deeplearning4j_torch import paramserver as ps
+from deeplearning4j_torch.monitor import get_fleet, get_flight_recorder, get_registry, get_tracer
 from deeplearning4j_torch.monitor.health import get_health
 from deeplearning4j_torch.ops import native
 from deeplearning4j_torch.parallel import DistributedMultiLayerNetwork
@@ -47,6 +48,24 @@ def _one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(old)
+
+
+@pytest.fixture(autouse=True)
+def _fresh_monitor():
+    """The port's registry, tracer, flight recorder and fleet table are
+    process-wide: each test starts from empty ones."""
+    for plane in (get_registry(), get_tracer(), get_flight_recorder(), get_fleet()):
+        plane.clear()
+    yield
+
+
+def _worker_events(kind_prefix="worker_"):
+    return [e for e in get_flight_recorder().events() if e["event"].startswith(kind_prefix)]
+
+
+def _wire(role, op, direction):
+    return get_registry().counter("paramserver_wire_bytes_total", role=role, op=op,
+                                  shard="0", direction=direction).value
 
 
 def _client(mod, srv, **kw):
@@ -113,8 +132,11 @@ def test_wire_is_bit_exact_between_the_packages(server, client):
 
 
 def test_port_server_keeps_op_stats_and_telemetry():
-    """Until the monitor planes are ported, the server keeps per-op
-    counters, wire bytes, uptime and each worker's last report."""
+    """The server keeps per-op counters and uptime under OP_STATS; wire
+    bytes go to the registry on both ends (a pull's request carries the
+    16-byte trace context: the client's span rides the wire, and the
+    server's ``ps/apply_pull`` span is its child); each worker's report
+    lands in the fleet table."""
     with ps.ParameterServer(port=0) as srv, _client(ps, srv, worker_id="w-1") as c:
         c.set_params(np.zeros(3, np.float32))
         c.pull()
@@ -124,10 +146,22 @@ def test_port_server_keeps_op_stats_and_telemetry():
         assert stats["proto"] == 3 and stats["uptime_s"] >= 0.0
         assert (stats["ops"]["set"], stats["ops"]["pull"], stats["ops"]["push"]) == (1, 2, 0)
         assert stats["ops"]["telemetry"] == 1 and stats["ops"]["stats"] >= 1
-        assert stats["wire"]["pull"]["tx"] == 2 * (1 + 12 + 12)
-        assert c.wire["pull"] == {"tx": 2 * (1 + 4), "rx": 2 * (1 + 12 + 12)}
-        assert set(srv.telemetry) == {"w-1"}
-        assert srv.telemetry["w-1"]["report"]["registry"]["paramserver"]["counters"]["pulls"] == 2
+        assert _wire("server", "pull", "tx") == 2 * (1 + 12 + 12)
+        assert _wire("server", "pull", "rx") == 2 * (1 + 16 + 4)
+        assert (_wire("client", "pull", "tx"), _wire("client", "pull", "rx")) == \
+            (2 * (1 + 16 + 4), 2 * (1 + 12 + 12))
+        assert set(get_fleet().liveness()["workers"]) == {"w-1"}
+        with get_fleet()._lock:
+            report = get_fleet()._workers["w-1"]["registry"]
+        assert [r["value"] for r in report["paramserver_pulls_total"]["children"]
+                if r["labels"]["role"] == "client"] == [2]
+        spans = {e["args"]["span_id"]: e for e in get_tracer().events()}
+        applied = [e for e in spans.values() if e["name"] == "ps/apply_pull"]
+        assert len(applied) == 2
+        for e in applied:
+            parent = spans[e["args"]["parent_span_id"]]
+            assert parent["name"] == "ps/pull"
+            assert parent["args"]["trace_id"] == e["args"]["trace_id"]
 
 
 def test_client_fault_model_and_health():
@@ -268,7 +302,7 @@ def test_master_counts_ops_and_matches_jax_master(tmp_path):
         assert snap["counters"]["staleness_hits"] > 0 and snap["counters"]["pulls"] >= 1
         stats = m.client.stats()
         assert stats["counters"]["pushes"] == 32 and stats["version"] == 33
-        assert [e["kind"] for e in m.events][:2] == ["worker_join", "worker_leave"]
+        assert [e["event"] for e in _worker_events()][:2] == ["worker_join", "worker_leave"]
         jm = jps.ParameterServerTrainingMaster.Builder(jsrv.address).staleness(1) \
             .threshold(1e-3).backoff(0.01).build()
         from deeplearning4j_tpu.parallel import DistributedMultiLayerNetwork as JDist
@@ -293,8 +327,8 @@ def test_master_join_rejoin_switch_mismatch_and_flat_roundtrip(tmp_path):
         assert m.accumulator._residual is None
         np.testing.assert_array_equal(ps.flatten_params(net_b.params),
                                       ps.flatten_params(net_a.params))
-        assert [e["kind"] for e in m.events] == ["worker_join", "worker_leave",
-                                                 "worker_rejoin", "worker_leave"]
+        assert [e["event"] for e in _worker_events()] == ["worker_join", "worker_leave",
+                                                          "worker_rejoin", "worker_leave"]
         small = (JConf.builder().seed(1).updater(JSgd(learning_rate=5e-2)).list()
                  .layer(jl.DenseLayer(n_in=6, n_out=4))
                  .layer(jl.OutputLayer(n_in=4, n_out=4, activation="softmax", loss="mcxent"))
@@ -314,8 +348,10 @@ def test_master_join_rejoin_switch_mismatch_and_flat_roundtrip(tmp_path):
     np.testing.assert_array_equal(ps.flatten_params(net_a.params), new)
     with pytest.raises(ValueError):
         ps.set_params_from_flat(net_a, new[:-1])
-    with pytest.raises(NotImplementedError, match="A 15b"):
-        ps.ParameterServerTrainingMaster("127.0.0.1:1,127.0.0.1:2")._ensure_client()
+    fleet_client = ps.ParameterServerTrainingMaster("127.0.0.1:1,127.0.0.1:2")._ensure_client()
+    assert isinstance(fleet_client, ps.ShardedParameterServerClient)
+    assert fleet_client.num_servers == 2
+    fleet_client.close()
 
 
 def test_master_server_death_and_count_own_pushes(tmp_path):
@@ -341,7 +377,8 @@ def test_master_server_death_and_count_own_pushes(tmp_path):
         with pytest.raises(ps.ServerUnavailableError):
             m.execute_training(net, ListDataSetIterator(data))
         assert np.all(np.isfinite(ps.flatten_params(net.params)))
-        assert m.events[-1]["kind"] == "worker_leave"
+        assert _worker_events()[-1]["event"] == "worker_leave"
+        assert "error:" in _worker_events()[-1]["reason"]
     finally:
         srv.stop()
         get_health().reset()

@@ -5,10 +5,10 @@
 contract, the device-to-host copy, the exact (threshold 0) wire frame, a
 lossless one-worker run equal to local steps in sync and overlap mode
 (``:115``, ``:181``), the quantized overlap loop one update behind the
-sync one, failed mass re-injected mid-overlap (``:294``;
-the port has no sharded fleet yet, so a client that loses half of each
-push stands in for a dead shard server), and the drain at epoch end and
-``close``. Networks are JAX-initialised and carried over in the model
+sync one, failed mass re-injected mid-overlap (``:294``: a client that
+loses half of each push, and a shard server of a sharded group killed
+mid-fit, with its ``shard_server_down`` flight event and the phases'
+registry series), and the drain at epoch end and ``close``. Networks are JAX-initialised and carried over in the model
 zip; every socket binds port 0.
 """
 import threading
@@ -183,6 +183,49 @@ def test_failed_mass_reinjected_mid_overlap(tmp_path):
     assert len(seen) == 8 and max(s for _, s in seen) > 0.0
     assert {t for t, _ in seen} == {"ps-comms"}
     assert m.accumulator.has_residual
+
+
+def test_shard_killed_mid_overlap_reinjects_on_the_comms_thread(tmp_path):
+    """The JAX test's own shape (``:294``): shard 1 of a two-node group
+    killed after step 2 of an overlapped fit; the comms worker's push comes
+    back with the dead shard's decoded mass and re-injects it, the fit
+    completes, ``shard_server_down`` is recorded, the mass is pending; the
+    phases land in the registry (``train_step_phase_ms``,
+    ``train_overlap_active``) as in JAX."""
+    from deeplearning4j_torch.monitor import get_flight_recorder, get_registry
+    from deeplearning4j_torch.paramserver import ShardedParameterServerGroup
+
+    get_registry().clear()
+    get_flight_recorder().clear()
+    net = _net(tmp_path)
+    with ShardedParameterServerGroup(2) as group:
+        m = ParameterServerTrainingMaster(group.address, staleness=0, threshold=1e-3,
+                                          backoff=0.01, max_retries=1, overlap=True)
+        seen = []
+        orig = m.accumulator.reinject
+
+        def spy(mass):
+            seen.append((threading.current_thread().name, float(np.abs(mass).sum())))
+            return orig(mass)
+        m.accumulator.reinject = spy
+        killed = []
+
+        class Killer:
+            def iteration_done(self, model, iteration, score):
+                if iteration == 2 and not killed:
+                    killed.append(group.kill(1))
+        net.set_listeners(Killer())
+        m.execute_training(net, ListDataSetIterator(_batches(8)))
+        m.close()
+    assert killed and seen and max(x for _, x in seen) > 0.0
+    assert {t for t, _ in seen} == {"ps-comms"}
+    assert "shard_server_down" in [e["event"] for e in get_flight_recorder().events()]
+    assert m.accumulator.has_residual
+    reg = get_registry()
+    assert reg.gauge("train_overlap_active").value == 1.0
+    assert all(reg.histogram("train_step_phase_ms", phase=p).summary()["n"] == 8
+               for p in TrainStepPhases.PHASES)
+    assert reg.histogram("train_step_wall_ms").summary()["n"] == 8
 
 
 def test_overlap_drains_at_epoch_end_and_close_and_is_reusable(tmp_path):
