@@ -307,7 +307,25 @@ and the CUDA toolkit; run from the root of the repository. It
    ``set_enabled(False)`` on a TransformerLM step and a char-RNN fit in
    alternating turns (equal launches), a profiled LM fit's K5-K7 inside the
    ``step`` range, and the tracer's cost a span;
-27. prints a ``{"cnn": ...}`` line with those numbers, a ``{"generate":
+27. (``serving_plane``) the char-RNN of step 4 served over HTTP from three
+   registrations, each on its own copy of the net: precision f32 with time
+   buckets (K1's CUDA-core body: f32 has no K3 grid at b <= 32, H=512),
+   bf16 with time buckets (K1's tensor-core body) and bf16 at T=200 with a
+   response cache (K3); per registration the launches (no training
+   kernel), the bodies, the answers (bf16 within 1e-3 of the f32 plain
+   forward on the CPU; f32 rows bit for bit their bucket's forward), H2D
+   and D2H bytes a flush, and under request-size churn the signatures of
+   ``mln/output`` inside ``compile_signatures`` with no first call and no
+   retrace storm; a cache hit launching nothing; an ``X-DL4J-Trace`` id
+   found on ``/trace`` under ``serving/flush``; the ``serving_*`` series on
+   ``/metrics`` and ``/profile``'s p50/p99; HTTP p50/p99 at 8 clients for
+   f32, bf16 and cache hits; a warmup artifact exported and two child
+   replicas started at once (one from the artifact with an empty
+   ``DL4J_TPU_COMPILE_CACHE_DIR``: seconds to its first answer beside the
+   kernels' build, no ``nvcc``, bit-equal to the warm replica; one from a
+   corrupted copy: ``compile_cache_miss`` and an answer); K1 in f32 timed
+   at b=32, T=200; jitwatch's signature check timed a call;
+28. prints a ``{"cnn": ...}`` line with those numbers, a ``{"generate":
    ...}`` line with steps 6 and 10's, a ``{"moe_lm": ..., "graph_tbptt":
    ...}`` line with steps 15 and 16's, a ``{"regularized_char_rnn": ...,
    "lm_dropout": ..., "solvers": ...}`` line with step 17's, an
@@ -318,14 +336,16 @@ and the CUDA toolkit; run from the root of the repository. It
    a ``{"remat_clustering": ...}`` line with step 23's, a ``{"parallel":
    ...}`` line with step 24's, a ``{"pipeline_paramserver": ...}`` line
    with step 25's and a ``{"monitor_sharded_fleet": ...}`` line with step
-   26's (the card's name and power limit in those), a
+   26's and a ``{"serving_plane": ...}`` line with step 27's (the card's
+   name and power limit in those), a
    ``{"kernels": [...]}`` line (K1's and K3's entries with their decode
    rows; K1/K2's launches in step 16's fit, K5-K7's in step 15's steps;
    K1-K4's in each regularised fit, K5-K7's in the dropout LM's steps and
    their times with dropout; K1, K3, K4 and K5's in step 18; K1-K4's in
    each path of step 19, in step 21's frozen char-RNN, on step 22's
    imported char-LSTM and under step 23's remat; K5-K7's in step 23's
-   TransformerLM steps; every kernel's on each path of steps 24, 25 and 26)
+   TransformerLM steps; every kernel's on each path of steps 24, 25, 26 and
+   27, and K1's f32 body at step 27's shape)
    and, last, the
    ``{"ok": true, "device": ...}`` line.
 
@@ -863,6 +883,94 @@ STREAM_BATCHES = 8
 # tracer's cost a span.
 FLEET_SHARDS, FLEET_SCALE, FLEET_KILL = 3, 4, 1
 MON_TURNS, MON_RNN_FITS, SPAN_TURNS, SPAN_CALLS = 4, 3, 8, 20000
+# serving_plane: the char-RNN of step 4 served over HTTP from three
+# registrations, each on its own copy of the net: "sp_f32" (precision f32,
+# time buckets: K1's CUDA-core body, per layer), "sp_bf16" (bf16, time
+# buckets: K1's tensor-core body) and "sp_bf16_fixed" (bf16, T=200
+# unmasked, a response cache of SP_CACHE examples: K3). SP_REQUESTS
+# requests a registration (1-8 rows, T 50-200; T=200 when fixed), then
+# SP_LAT_REQUESTS more a registration and as many cache hits at
+# SP_CONCURRENCY clients in a client process of their own (no torch:
+# requests encoded before the clock starts) for p50/p99. bf16 answers are held within
+# SP_BF16_ATOL of the f32 plain forward on the CPU: set from the readings,
+# 8.07e-5-9.22e-5 on an H100 80GB HBM3 at 700 W (PERF.md §6), about ten
+# times below it (the serving contract's 5e-2, which golden() keeps, is
+# four times a typical probability of 0.0125 and would pass a wrong
+# body); f32 answers bit for bit against the same bucket's forward.
+SP_REQUESTS, SP_LAT_REQUESTS, SP_CONCURRENCY, SP_CACHE, SP_SEED = 8, 32, 8, 64, 90
+SP_BF16_ATOL = 1e-3
+# The signature check's cost: SP_COST_CALLS calls of a watched no-op
+# against the bare one, SP_COST_TURNS alternating turns.
+SP_COST_CALLS, SP_COST_TURNS = 5000, 5
+SP_CLIENT = r"""
+import json, sys, time, urllib.request
+from concurrent.futures import ThreadPoolExecutor
+import numpy as np
+
+port, name, mode = sys.argv[1:4]
+n, conc, seed, T, V = (int(a) for a in sys.argv[4:9])
+rng = np.random.default_rng(seed)
+
+
+def one_hot(b, t):
+    return np.eye(V, dtype=np.float32)[rng.integers(0, V, (b, t))]
+
+
+xs = ([one_hot(4, T)] * (n + 1) if mode == "hit" else
+      [one_hot(int(rng.integers(1, 9)), T if mode == "fixed" else int(rng.integers(T // 4, T + 1)))
+       for _ in range(n)])
+bodies = [json.dumps({"inputs": x.tolist()}).encode() for x in xs]
+
+
+def post(body):
+    req = urllib.request.Request(f"http://127.0.0.1:{port}/v1/models/{name}/predict",
+                                 data=body, headers={"Content-Type": "application/json"})
+    t0 = time.perf_counter()
+    with urllib.request.urlopen(req, timeout=120) as resp:
+        json.loads(resp.read())
+    return (time.perf_counter() - t0) * 1e3
+
+
+if mode == "hit":
+    post(bodies.pop())        # the miss that fills the cache, not timed
+with ThreadPoolExecutor(conc) as pool:
+    ms = list(pool.map(post, bodies))
+print(json.dumps({"ms": ms, "request_bytes": sum(map(len, bodies)) / len(bodies)}))
+"""
+# The cold replica: a child process with an empty
+# DL4J_TPU_COMPILE_CACHE_DIR, the warmup artifact and no input_shape; a
+# second child gets a corrupted copy (one library byte flipped) and the
+# build directory the kernels were built in.
+SP_CHILD = r"""
+import json, os, sys, time
+t0 = time.perf_counter()
+sys.path.insert(0, os.getcwd())
+import hashlib
+import numpy as np
+import chip_smoke as cs
+from deeplearning4j_torch.compilecache import cache as cc
+from deeplearning4j_torch.monitor import get_flight_recorder
+from deeplearning4j_torch.serving import ServedModel
+
+artifact, seed = sys.argv[1], int(sys.argv[2])
+net = cs.build_net(cs.char_rnn_conf())
+t1 = time.perf_counter()
+m = ServedModel("sp_replica", net, linger_ms=5.0, precision="bf16", cache_size=cs.SP_CACHE,
+                warmup_artifact=artifact)
+t2 = time.perf_counter()
+y = m.predict(cs.one_hot(np.random.default_rng(seed), 2, cs.T))
+t3 = time.perf_counter()
+events = [{k: e.get(k) for k in ("event", "reason", "signatures", "libraries", "written")}
+          for e in get_flight_recorder().events() if e["event"].startswith("compile_cache")]
+print(json.dumps({"process_to_answer_s": t3 - t0, "register_s": t2 - t1,
+                  "register_to_answer_s": t3 - t1, "nvcc_runs": cc.persistent_cache_counts()["misses"],
+                  "library_hits": cc.persistent_cache_counts()["hits"],
+                  "aot_signatures": m.stats()["aot_signatures"],
+                  "input_shape": list(m.input_shape) if m.input_shape else None,
+                  "answer_sha256": hashlib.sha256(np.ascontiguousarray(y).tobytes()).hexdigest(),
+                  "cache_dir": cc.cache_dir(), "events": events}))
+m.close()
+"""
 
 
 def log(msg):
@@ -1491,10 +1599,12 @@ def serve(net):
     stream = one_hot(rng, 2, 120)
 
     srv = InferenceServer()
+    # precision="bf16": a registration sets the net's compute dtype (an f32
+    # one would flip this bf16 net, and its config, to f32)
     srv.register("charrnn", net, time_buckets=TIME_BUCKETS, linger_ms=10.0,
-                 input_shape=(T, VOCAB), warmup=True)
+                 input_shape=(T, VOCAB), warmup=True, precision="bf16")
     srv.register("charrnn_fixed", net, linger_ms=10.0, input_shape=(T, VOCAB),
-                 warmup=True)
+                 warmup=True, precision="bf16")
     port = srv.start(port=0)
     try:
         reset_counts()
@@ -8075,6 +8185,381 @@ def monitor_sharded_fleet(smi):
     return res
 
 
+def sp_post(port, name, x, headers=None):
+    """One predict over HTTP: (outputs, trace id, client milliseconds)."""
+    body = json.dumps({"inputs": x.tolist()}).encode()
+    req = urllib.request.Request(f"http://127.0.0.1:{port}/v1/models/{name}/predict",
+                                 data=body, headers={"Content-Type": "application/json",
+                                                     **(headers or {})})
+    t0 = time.perf_counter()
+    with urllib.request.urlopen(req, timeout=120) as resp:
+        doc = json.loads(resp.read())
+    return (np.asarray(doc["outputs"], np.float32), doc["trace_id"],
+            (time.perf_counter() - t0) * 1e3)
+
+
+def sp_get(port, path):
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}", timeout=60) as resp:
+        raw = resp.read().decode()
+    return json.loads(raw) if resp.headers.get_content_type() == "application/json" else raw
+
+
+def sp_requests(rng, n, fixed):
+    return [one_hot(rng, int(rng.integers(1, 9)), T if fixed else int(rng.integers(T // 4, T + 1)))
+            for _ in range(n)]
+
+
+def sp_signature_strings(served):
+    """``mln/output``'s variant keys for the batcher's closed set."""
+    out = set()
+    for shape, dt, masked in served.batcher.compile_signatures((T, VOCAB)):
+        key = f"[0][0]={dt}[{','.join(str(d) for d in shape)}]"
+        out.add(key + (f";[0][1]=float32[{shape[0]},{shape[1]}]" if masked else ""))
+    return out
+
+
+def sp_k1_f32_body():
+    """K1 in f32 at the serving shape (b=32, T=200, masked): the
+    CUDA-core body the f32 registration runs, against its plain version."""
+    from deeplearning4j_torch.ops import lstm_cell
+
+    g = torch.Generator().manual_seed(1)
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(shape, generator=g) * scale).cuda()
+    lengths = torch.randint(T // 4, T + 1, (B,), generator=g)
+    mask = (torch.arange(T)[:, None] < lengths[None, :]).float().cuda()
+    args = (rnd(T, B, 4 * H), rnd(H, 4 * H, scale=H ** -0.5), rnd(3, H, scale=0.1), mask,
+            rnd(B, H, scale=0.5), rnd(B, H, scale=0.5))
+    got = lstm_cell.lstm_fwd(*args)
+    ref = lstm_cell.lstm_fwd_plain(*args)
+    err = max((a - r).abs().max().item() for a, r in zip(got, ref))
+    ms = cuda_ms(lambda: lstm_cell.lstm_fwd(*args), 10)
+    plain_ms = cuda_ms(lambda: lstm_cell.lstm_fwd_plain(*args), 2)
+    bms, by = lstm_launch_bound("lstm_fwd", args, reserve=False)
+    row = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+               design=lstm_design("K1", torch.float32, B, H),
+               shape={"b": B, "T": T, "H": H, "w": "f32", "peepholes": True, "mask": True})
+    log(f"K1 f32 (serving_plane's body) b={B} T={T}: max_abs_err={err:.3e} kernel_ms={ms:.4f} "
+        f"plain_ms={plain_ms:.3f} bound_ms={bms:.5f} ({by}); route: {row['design']}")
+    if not err <= KERNEL_ATOL:
+        raise AssertionError(f"K1 f32 disagrees with its plain version: {err}")
+    return row
+
+
+def sp_watch_cost(dev):
+    """jitwatch's per-call cost on the card's host: a watched no-op against
+    the bare one, with the served forward's arguments (a [32, 200, 80]
+    batch and its mask) and a TBPTT step's (b=64, T=50 segments, an
+    iteration number and a two-layer (h, c) carry), median of alternating
+    turns, microseconds a call."""
+    from deeplearning4j_torch.monitor import monitored_jit
+
+    def z(*shape):
+        return torch.zeros(shape, device=dev)
+    cases = {"mln/output": (z(32, T, VOCAB), z(32, T)),
+             "mln/step": (z(64, 50, VOCAB), z(64, 50, VOCAB), None, None, 7,
+                          {0: (z(64, H), z(64, H)), 1: (z(64, H), z(64, H))})}
+    out = {}
+    for name, args in cases.items():
+        def bare(*a):
+            return None
+        watched = monitored_jit(bare, name=f"serving_plane/cost {name}")
+        watched(*args)
+        turns = []
+        for _ in range(SP_COST_TURNS):
+            t0 = time.perf_counter()
+            for _ in range(SP_COST_CALLS):
+                bare(*args)
+            t1 = time.perf_counter()
+            for _ in range(SP_COST_CALLS):
+                watched(*args)
+            t2 = time.perf_counter()
+            turns.append(((t2 - t1) - (t1 - t0)) / SP_COST_CALLS * 1e6)
+        out[name] = {"us_a_call": float(np.median(turns)), "turns": turns}
+        log(f"jitwatch's check a call with {name}'s arguments: {out[name]['us_a_call']:.2f} us "
+            f"(median of {SP_COST_TURNS} turns of {SP_COST_CALLS} calls: "
+            f"{', '.join(f'{t:.2f}' for t in turns)})")
+    return out
+
+
+def sp_latency(port, name, mode, seed):
+    """Client milliseconds at SP_CONCURRENCY clients, p50/p99, from a
+    client process: SP_LAT_REQUESTS requests of 1-8 rows (T 50-200, or
+    T=200 when ``mode`` is "fixed"), or one 4-row request repeated
+    ("hit", its first send filling the cache)."""
+    out = subprocess.run([sys.executable, "-c", SP_CLIENT, str(port), name, mode,
+                          str(SP_LAT_REQUESTS), str(SP_CONCURRENCY), str(seed), str(T),
+                          str(VOCAB)], capture_output=True, text=True, timeout=300)
+    if out.returncode != 0:
+        raise AssertionError(f"serving_plane client failed:\n{out.stderr[-2000:]}")
+    doc = json.loads(out.stdout.strip().splitlines()[-1])
+    ms = doc["ms"]
+    return {"p50_ms": float(np.percentile(ms, 50)), "p99_ms": float(np.percentile(ms, 99)),
+            "requests": len(ms), "concurrency": SP_CONCURRENCY,
+            "request_bytes": doc["request_bytes"]}
+
+
+def sp_cold_replicas(artifact, smi, build_s, warm_sha):
+    """Two child processes at once: one from the artifact with an empty
+    compile-cache directory, one from a corrupted copy with the build
+    directory; each answers the same request."""
+    out_dir = Path(artifact).parent
+    bad = out_dir / "corrupted.dl4jaot"
+    import zipfile
+    with zipfile.ZipFile(artifact) as zin, zipfile.ZipFile(bad, "w") as zout:
+        for name in zin.namelist():
+            data = zin.read(name)
+            if name.startswith("lib/"):
+                data = data[:-1] + bytes([data[-1] ^ 1])
+            zout.writestr(name, data)
+    cold_dir = out_dir / "cold_cache"
+    shutil.rmtree(cold_dir, ignore_errors=True)
+    cold_dir.mkdir(parents=True)
+    base = {k: v for k, v in os.environ.items() if k != "DL4J_TPU_COMPILE_CACHE_DIR"}
+    runs = {"cold": (artifact, {**base, "DL4J_TPU_COMPILE_CACHE_DIR": str(cold_dir)}),
+            "corrupted": (str(bad), base)}
+    procs = {k: subprocess.Popen([sys.executable, "-c", SP_CHILD, a, str(SP_SEED + 7)],
+                                 stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                                 env=env) for k, (a, env) in runs.items()}
+    res = {}
+    for k, p in procs.items():
+        try:
+            so, se = p.communicate(timeout=300)
+        finally:
+            if p.poll() is None:
+                p.kill()
+        if p.returncode != 0:
+            raise AssertionError(f"serving_plane {k} replica failed:\n{se[-3000:]}")
+        res[k] = json.loads(so.strip().splitlines()[-1])
+    cold, corr = res["cold"], res["corrupted"]
+    cold["bit_equal_to_warm"] = cold.pop("answer_sha256") == warm_sha
+    corr["bit_equal_to_warm"] = corr.pop("answer_sha256") == warm_sha
+    cold["installed"] = sorted(p.name for p in cold_dir.glob("lib*.so"))
+    log(f"cold replica from the artifact ({smi}): first answer {cold['process_to_answer_s']:.2f} s "
+        f"after process start ({cold['register_to_answer_s']:.2f} s after the net was built, "
+        f"registration {cold['register_s']:.2f} s), nvcc runs {cold['nvcc_runs']}, library "
+        f"loads from the cache {cold['library_hits']}, installed {cold['installed']}, "
+        f"aot_signatures {cold['aot_signatures']}, input_shape {cold['input_shape']}, "
+        f"bit-equal to the warm replica: {cold['bit_equal_to_warm']}; the kernels' build "
+        f"took {build_s:.1f} s at the start of this run")
+    log(f"corrupted artifact: events {[e['event'] for e in corr['events']]} "
+        f"({corr['events'][0].get('reason') if corr['events'] else None}); nvcc runs "
+        f"{corr['nvcc_runs']}; answered, bit-equal to the warm replica: "
+        f"{corr['bit_equal_to_warm']}; first answer {corr['process_to_answer_s']:.2f} s")
+    if cold["nvcc_runs"] or not cold["bit_equal_to_warm"] or not cold["installed"] \
+            or cold["input_shape"] != [T, VOCAB] \
+            or not any(e["event"] == "compile_cache_artifact_loaded" for e in cold["events"]):
+        raise AssertionError(f"cold replica: {cold}")
+    if corr["nvcc_runs"] or not any(e["event"] == "compile_cache_miss"
+                                    for e in corr["events"]):
+        raise AssertionError(f"corrupted-artifact replica: {corr}")
+    return {"cold": cold, "corrupted": corr, "build_s": build_s}
+
+
+def serving_plane(smi, build_s):
+    """The serving tier's rest and the compile plane on the card: the
+    char-RNN served over HTTP at f32 and bf16 (K1's two bodies and K3),
+    answers held, bytes a flush, cache hits, a traced request, the
+    monitor routes, a closed signature set under churn, p50/p99, and a
+    cold replica from a warmup artifact."""
+    from deeplearning4j_torch import InferenceServer, MultiLayerNetwork
+    from deeplearning4j_torch.datasets.bucketing import bucket_for
+    from deeplearning4j_torch.monitor import get_flight_recorder, get_jit_registry
+    from deeplearning4j_torch.serving import DEFAULT_BATCH_BUCKETS, TRACE_HEADER
+    from deeplearning4j_torch.serving.registry import _flip_compute_dtype
+
+    t_start = time.perf_counter()
+    log(f"--- serving_plane ({smi})")
+    fresh_monitor()
+    get_jit_registry().clear()
+    regs = {"sp_f32": dict(precision="f32", time_buckets=TIME_BUCKETS),
+            "sp_bf16": dict(precision="bf16", time_buckets=TIME_BUCKETS),
+            "sp_bf16_fixed": dict(precision="bf16", cache_size=SP_CACHE)}
+    nets = {k: build_net(char_rnn_conf()) for k in regs}
+    cpu = MultiLayerNetwork(char_rnn_conf()).init(
+        params={k: {n: t.cpu() for n, t in p.items()} for k, p in nets["sp_f32"].params.items()},
+        device="cpu")
+    _flip_compute_dtype(cpu, "float32")
+    srv = InferenceServer()
+    res = {"card": smi, "registrations": {}}
+    t0 = time.perf_counter()
+    for name, kw in regs.items():
+        srv.register(name, nets[name], linger_ms=5.0, input_shape=(T, VOCAB), warmup=True, **kw)
+    res["warm_s"] = time.perf_counter() - t0
+    port = srv.start(port=0)
+    rng = np.random.default_rng(SP_SEED)
+    try:
+        for name in regs:
+            served = srv.registry.get(name)
+            fixed = served.batcher._tb is None
+            wrapper = nets[name]._jit_output[(False, not fixed)]
+            compiles0 = wrapper.compiles
+            storms0 = len([e for e in get_flight_recorder().events()
+                           if e["event"] == "retrace_storm"])
+            xs = sp_requests(rng, SP_REQUESTS, fixed)
+            reset_counts()
+            with ThreadPoolExecutor(max_workers=SP_CONCURRENCY) as pool:
+                answers = [r[0] for r in pool.map(lambda x: sp_post(port, name, x), xs)]
+            torch.cuda.synchronize()
+            launches = read_counts()
+            stats = served.batcher.transfer_stats()
+            storms = len([e for e in get_flight_recorder().events()
+                          if e["event"] == "retrace_storm"]) - storms0
+            seen, closed = set(wrapper.signatures), sp_signature_strings(served)
+            w_dtype = torch.bfloat16 if served.precision == "bf16" else torch.float32
+            designs = sorted({(k3_design(w_dtype, bucket_for(DEFAULT_BATCH_BUCKETS, len(x)), H)
+                               if fixed else lstm_design("K1", w_dtype,
+                                                         bucket_for(DEFAULT_BATCH_BUCKETS,
+                                                                    len(x)), H))
+                              for x in xs})
+            if served.precision == "f32":
+                worst = max(float(np.abs(y - cpu.output(x).numpy()).max())
+                            for x, y in zip(xs, answers))
+                if not worst <= SERVE_ATOL:
+                    raise AssertionError(f"{name}: f32 answers {worst} from the f32 plain "
+                                         f"forward (limit {SERVE_ATOL})")
+                # one request at a time, so that each flush is its own
+                # bucket: the served rows are that bucket's forward
+                for x in xs[:4]:
+                    y = sp_post(port, name, x)[0]
+                    b, t = x.shape[:2]
+                    pb, pt = bucket_for(DEFAULT_BATCH_BUCKETS, b), bucket_for(TIME_BUCKETS, t)
+                    dev = nets[name].device
+                    xp = torch.zeros((pb, pt, VOCAB), device=dev)
+                    xp[:b, :t] = torch.from_numpy(x).to(dev)
+                    mp = torch.zeros((pb, pt), device=dev)
+                    mp[:b, :t] = 1.0
+                    ref = nets[name].output(xp, mask=mp)[:b, :t].float().cpu().numpy()
+                    if not np.array_equal(y, ref):
+                        raise AssertionError(f"{name}: a served row differs from its bucket's "
+                                             f"forward by {np.abs(y - ref).max()}")
+                check = {"bit_equal_to_bucket_forward": 4, "vs_cpu_plain_f32": worst,
+                         "atol": SERVE_ATOL}
+            else:
+                worst = max(float(np.abs(y - cpu.output(x).numpy()).max())
+                            for x, y in zip(xs, answers))
+                if not worst <= SP_BF16_ATOL:
+                    raise AssertionError(f"{name}: bf16 answers {worst} from the f32 plain "
+                                         f"forward (limit {SP_BF16_ATOL})")
+                check = {"vs_cpu_plain_f32": worst, "atol": SP_BF16_ATOL}
+            want = "lstm2_fwd" if fixed else "lstm_fwd"
+            others = {k: v for k, v in launches.items() if k != want and v}
+            row = {"launches": {k: v for k, v in launches.items() if v}, "designs": designs,
+                   "check": check, "flushes": stats["flushes"],
+                   "h2d_bytes_per_flush": stats["h2d_bytes"] / max(stats["flushes"], 1),
+                   "d2h_bytes_per_flush": stats["d2h_bytes"] / max(stats["flushes"], 1),
+                   "compiles_in_churn": wrapper.compiles - compiles0,
+                   "signatures_seen": len(seen), "closed_set": len(closed),
+                   "storms_in_churn": storms}
+            res["registrations"][name] = row
+            log(f"{name} ({served.precision}{', fixed T' if fixed else ', time buckets'}): "
+                f"{SP_REQUESTS} HTTP requests, launches {row['launches']}, bodies {designs}; "
+                f"{check}; {stats['flushes']} flushes, h2d {row['h2d_bytes_per_flush']:.0f} B "
+                f"and d2h {row['d2h_bytes_per_flush']:.0f} B a flush; mln/output first calls "
+                f"in the churn {row['compiles_in_churn']}, signatures seen {len(seen)} of the "
+                f"closed set's {len(closed)}, retrace storms {storms}")
+            if not launches[want] or others:
+                raise AssertionError(f"{name}: launches {launches} (want {want} only)")
+            if row["compiles_in_churn"] or storms or not seen <= closed:
+                raise AssertionError(f"{name}: signatures {sorted(seen - closed)} outside the "
+                                     f"closed set, {storms} storms")
+
+        # a cache hit answers bit-equal and launches nothing
+        x = sp_requests(rng, 1, True)[0]
+        first = sp_post(port, "sp_bf16_fixed", x)[0]
+        reset_counts()
+        again = sp_post(port, "sp_bf16_fixed", x)[0]
+        torch.cuda.synchronize()
+        hit_launches = {k: v for k, v in read_counts().items() if v}
+        res["cache_hit"] = {"launches": hit_launches, "bit_equal": first.tobytes() ==
+                            again.tobytes(), "stats": srv.registry.get("sp_bf16_fixed")
+                            .batcher.cache_stats()}
+        log(f"cache hit on sp_bf16_fixed: launches {hit_launches}, bit-equal "
+            f"{res['cache_hit']['bit_equal']}, cache {res['cache_hit']['stats']}")
+        if hit_launches or not res["cache_hit"]["bit_equal"]:
+            raise AssertionError(f"a cache hit launched {hit_launches} or differs")
+
+        # a traced request found on /trace, linked to its flush
+        tid = f"{int(rng.integers(1, 2 ** 62)):x}"
+        got_tid = sp_post(port, "sp_f32", sp_requests(rng, 1, False)[0],
+                          {TRACE_HEADER: f"{tid}:1f"})[1]
+        evs = sp_get(port, "/trace")["traceEvents"]
+        waits = [e for e in evs if e["name"] == "serving/queue_wait"
+                 and e["args"]["trace_id"] == tid]
+        flushes = {e["args"]["span_id"]: e for e in evs if e["name"] == "serving/flush"}
+        linked = [flushes[w["args"]["flush_span_id"]] for w in waits
+                  if w["args"]["flush_span_id"] in flushes]
+        res["trace"] = {"trace_id": tid, "response_trace_id": got_tid,
+                        "queue_wait_spans": len(waits),
+                        "flush": linked[0]["args"] if linked else None,
+                        "flush_ms": linked[0]["dur"] / 1e3 if linked else None}
+        log(f"X-DL4J-Trace {tid}: response trace_id {got_tid}, {len(waits)} queue_wait span(s) "
+            f"linked to serving/flush {res['trace']['flush']}")
+        if got_tid != tid or not linked:
+            raise AssertionError(f"trace {tid} not found under serving/flush on /trace")
+
+        # the monitor routes: the serving series and /profile's p50/p99
+        metrics = sp_get(port, "/metrics")
+        series = sorted({ln.split("{")[0] for ln in metrics.splitlines()
+                         if ln.startswith("serving_")})
+        report = sp_get(port, "/profile")
+        prof = report["serving"]
+        res["profile"] = {m: {k: prof[m]["latency_ms"].get(k) for k in ("p50_ms", "p99_ms")}
+                          for m in regs}
+        res["jit_output"] = {k: report["jit"]["mln/output"].get(k) for k in (
+            "calls", "compiles", "compile_seconds", "storms")}
+        log(f"/profile jit row of mln/output ({smi}): {res['jit_output']}")
+        log(f"/metrics serving series: {series}")
+        log(f"/profile serving p50/p99 ({smi}): {res['profile']}")
+        for fam in ("serving_requests_total", "serving_request_latency_ms_bucket",
+                    "serving_batch_examples_bucket", "serving_pad_ms_bucket",
+                    "serving_transfer_ms_bucket", "serving_cache_hits_total",
+                    "serving_cache_misses_total", "serving_qps", "serving_queue_depth"):
+            if fam not in series:
+                raise AssertionError(f"/metrics lacks {fam}")
+        res["metrics_series"] = series
+        res["profile_text_ok"] = "# serving (per hosted model)" in sp_get(
+            port, "/profile?format=text")
+
+        # HTTP p50/p99 at a fixed concurrency, the same request streams for
+        # f32 and bf16
+        res["latency"] = {
+            "f32": sp_latency(port, "sp_f32", "churn", SP_SEED + 1),
+            "bf16": sp_latency(port, "sp_bf16", "churn", SP_SEED + 1),
+            "bf16_fixed": sp_latency(port, "sp_bf16_fixed", "fixed", SP_SEED + 2),
+            "cache_hit": sp_latency(port, "sp_bf16_fixed", "hit", SP_SEED + 3)}
+        for k, v in res["latency"].items():
+            log(f"HTTP {k} ({smi}): p50 {v['p50_ms']:.2f} ms, p99 {v['p99_ms']:.2f} ms over "
+                f"{v['requests']} requests at {v['concurrency']} clients (a client process; "
+                f"{v['request_bytes'] / 1e3:.0f} kB of JSON a request)")
+
+        # a warmup artifact and two cold replicas
+        out_dir = Path("build") / "serving_plane"
+        shutil.rmtree(out_dir, ignore_errors=True)
+        fixed = srv.registry.get("sp_bf16_fixed")
+        t0 = time.perf_counter()
+        artifact = fixed.export_warmup(str(out_dir) + os.sep)
+        res["export_s"] = time.perf_counter() - t0
+        from deeplearning4j_torch.compilecache import read_manifest
+        man = read_manifest(artifact)
+        res["artifact"] = {"bytes": os.path.getsize(artifact), "libraries": [
+            lib["name"] for lib in man["libraries"]], "signatures": len(man["signatures"]),
+            "fingerprint": man["fingerprint"]}
+        log(f"warmup artifact {artifact}: {res['artifact']}, exported in {res['export_s']:.2f} s")
+        import hashlib
+        warm = fixed.predict(one_hot(np.random.default_rng(SP_SEED + 7), 2, T))
+        res["replicas"] = sp_cold_replicas(artifact, smi, build_s,
+                                           hashlib.sha256(warm.tobytes()).hexdigest())
+    finally:
+        srv.stop()
+    res["k1_f32_body"] = sp_k1_f32_body()
+    res["watch_cost"] = sp_watch_cost(nets["sp_f32"].device)
+    res["seconds"] = time.perf_counter() - t_start
+    log(f"serving_plane phase took {res['seconds']:.1f} s")
+    return res
+
+
 def build():
     """Compile every kernel of the port, one nvcc per source, all at once,
     and print what ptxas reports of registers, shared memory and spills."""
@@ -8084,7 +8569,8 @@ def build():
     logs = cuda_build.build_all([lstm_cell.SOURCE, lstm_cell.BWD_SOURCE, lstm_fused.SOURCE,
                                  lstm_fused.BWD_SOURCE, flash_attention.FWD_SOURCE,
                                  flash_attention.DQ_SOURCE, flash_attention.DKV_SOURCE])
-    log(f"built kernels in {time.perf_counter() - t0:.1f} s")
+    build_s = time.perf_counter() - t0
+    log(f"built kernels in {build_s:.1f} s")
     for src, text in logs.items():
         flash = src.startswith("flash")
         # K1-K4 have two bodies each
@@ -8102,10 +8588,11 @@ def build():
             spill = "spill" in line and "0 bytes spill stores" not in line
             if ("registers" in line or "spill" in line) and (path or spill) or "arning" in line:
                 log(f"  {src}: {entry[:72] + ': ' if named else ''}{line.strip()}")
+    return build_s
 
 
 def kernel_line(serving, training, served, streamed, trained, flash, lm, decode, moe, graph,
-                reg, lmd, ev, rf, tp, ke, rc, par, pps, msf):
+                reg, lmd, ev, rf, tp, ke, rc, par, pps, msf, sp):
     """The {"kernels": [...]} entries: for K1-K4 numbers at the char-RNN's
     training shape, the launches of its training main path, and K1/K3's
     serving numbers and their decode rows (T=1, b=GEN_B, one a
@@ -8149,7 +8636,16 @@ def kernel_line(serving, training, served, streamed, trained, flash, lm, decode,
     monitor_sharded_fleet phase (``monitor_sharded_fleet_launches``: the
     sharded lossless worker, the two delta-push workers, the fit that lost
     a shard and the one after its restart, the fit after scale_to, and
-    the monitored TransformerLM and char-RNN fits)."""
+    the monitored TransformerLM and char-RNN fits). Every entry carries its
+    launches in each registration of the serving_plane phase and in its
+    cache hit (``serving_plane_launches``), and K1 its f32 CUDA-core body's
+    numbers at the serving shape (``serving_plane_f32_body``)."""
+    sp_paths = {k: v["launches"] for k, v in sp["registrations"].items()}
+    sp_paths["cache_hit"] = sp["cache_hit"]["launches"]
+
+    def sp_launches(*names):
+        return {"serving_plane_launches": {p: sum(c.get(n, 0) for n in names)
+                                           for p, c in sp_paths.items()}}
     pp_paths = {"pipelined_char_rnn": pps["pipelined_char_rnn"]["launches"],
                 "pipelined_lm": pps["pipelined_lm"]["launches"],
                 **{f"paramserver_{k}": pps["paramserver"][k]["launches"]
@@ -8262,6 +8758,8 @@ def kernel_line(serving, training, served, streamed, trained, flash, lm, decode,
                **parallel_launches("lstm_fwd", "lstm_fwd_train"),
                **pp_launches("lstm_fwd", "lstm_fwd_train"),
                **msf_launches("lstm_fwd", "lstm_fwd_train"),
+               **sp_launches("lstm_fwd", "lstm_fwd_train"),
+               "serving_plane_f32_body": sp["k1_f32_body"],
                "pipeline_microbatch": pp_rnn["lstm_fwd_train"]}),
         entry("lstm_bwd", "lstm_bwd", "lstm_cell_bwd.cu", "deeplearning4j_tpu/ops/lstm_cell.py:235",
               [training["lstm_bwd/masked"], training["lstm_bwd/unmasked"]],
@@ -8271,6 +8769,7 @@ def kernel_line(serving, training, served, streamed, trained, flash, lm, decode,
                "transfer_pretrain_launches": frozen["lstm_bwd"], **keras_lstm("lstm_bwd"),
                **remat_launches("lstm_bwd"), **parallel_launches("lstm_bwd"),
                **pp_launches("lstm_bwd"), **msf_launches("lstm_bwd"),
+               **sp_launches("lstm_bwd"),
                "pipeline_microbatch": pp_rnn["lstm_bwd"]}),
         entry("lstm2_fwd", "lstm2_fwd_train", "lstm_fused.cu", "deeplearning4j_tpu/ops/lstm_fused.py:111",
               [training["lstm2_fwd_train"]],
@@ -8284,6 +8783,7 @@ def kernel_line(serving, training, served, streamed, trained, flash, lm, decode,
                **parallel_launches("lstm2_fwd", "lstm2_fwd_train"),
                **pp_launches("lstm2_fwd", "lstm2_fwd_train"),
                **msf_launches("lstm2_fwd", "lstm2_fwd_train"),
+               **sp_launches("lstm2_fwd", "lstm2_fwd_train"),
                "paramserver_full_sequence": ps_rnn["lstm2_fwd_train"]}),
         entry("lstm2_bwd", "lstm2_bwd", "lstm_fused_bwd.cu", "deeplearning4j_tpu/ops/lstm_fused.py:249",
               [training["lstm2_bwd"]], {"design": training["lstm2_bwd"]["design"],
@@ -8296,11 +8796,12 @@ def kernel_line(serving, training, served, streamed, trained, flash, lm, decode,
                                         **parallel_launches("lstm2_bwd"),
                                         **pp_launches("lstm2_bwd"),
                                         **msf_launches("lstm2_bwd"),
+                                        **sp_launches("lstm2_bwd"),
                                         "paramserver_full_sequence": ps_rnn["lstm2_bwd"]}),
         *(flash_entry(name, src, line, flash[name], lm, moe, lmd,
                       {**(evaluate_launches(name) if name == "flash_fwd" else {}),
                        **parallel_launches(name), **pp_launches(name),
-                       **msf_launches(name),
+                       **msf_launches(name), **sp_launches(name),
                        "pipeline_microbatch": pps["pipelined_lm"]["kernels"][name],
                        "sequence_parallel_shapes": {k: r[name] for k, r in
                                                     par["attention"]["rows"].items()},
@@ -8349,7 +8850,7 @@ def main() -> int:
     log(smi)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
 
-    build()
+    build_s = build()
     serving = check_kernels()
     training = check_training_kernels()
     check_lstm2_fwd_small()
@@ -8420,12 +8921,15 @@ def main() -> int:
     msf = monitor_sharded_fleet(smi)
     torch.cuda.empty_cache()
     print(json.dumps({"monitor_sharded_fleet": msf}))
+    sp = serving_plane(smi, build_s)
+    torch.cuda.empty_cache()
+    print(json.dumps({"serving_plane": sp}))
 
     print(json.dumps({"generate": generated}))
     print(json.dumps({"kernels": kernel_line(serving, training, served, streamed,
                                              trained["launches"], flash, lm, decode, moe,
                                              graph, reg, lmd, ev, rf, tp, ke, rc, par,
-                                             pps, msf)}))
+                                             pps, msf, sp)}))
     log(f"chip_smoke took {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

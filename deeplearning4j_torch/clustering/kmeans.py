@@ -23,10 +23,12 @@ import torch
 import torch.nn.functional as F
 
 from .. import resolve_device
+from ..monitor.jitwatch import monitored_jit
 
 __all__ = ["KMeansClustering", "ClusterSet", "Cluster"]
 
 
+@monitored_jit(name="clustering/kmeans_step")
 def _assign_update(points, centroids):
     """(assignments, new centroids, inertia): one Lloyd iteration on the
     points' device. An empty cluster keeps its centroid."""

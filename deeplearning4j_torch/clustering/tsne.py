@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from .. import resolve_device
+from ..monitor.jitwatch import monitored_jit
 from .trees import SpTree, VPTree
 
 __all__ = ["Tsne", "BarnesHutTsne"]
@@ -68,6 +69,7 @@ def _binary_search_p(d2: np.ndarray, perplexity: float, tol: float = 1e-5,
 
 
 # ------------------------------------------------------------- exact stepper
+@monitored_jit(name="clustering/tsne_step")
 def _tsne_step(y, P, gains, vel, lr, momentum):
     """(y, gains, vel, kl) after one exact gradient step on y's device."""
     sq = (y ** 2).sum(1)

@@ -14,7 +14,12 @@
   server's ``OP_TELEMETRY`` (merged scrape, merged trace, liveness).
 - :func:`get_lockwatch` and the lock factories (``make_lock`` ...):
   plain ``threading`` primitives unless ``DL4J_TPU_LOCKWATCH=1``.
-- :func:`sample_device_memory`: the allocator's gauges.
+- :func:`monitored_jit` and :func:`get_jit_registry`: first-call
+  (compile) counts, retrace storms and their cost, and
+  :func:`profile_report`/:func:`render_profile_text` (``GET /profile``);
+  :func:`sample_device_memory`: the allocator's gauges.
+- :func:`get_history`: the metric-history ring (``GET /history``, the
+  profile's trends block).
 
 The fit loops, the transport, the input pipeline and the parameter server
 (single and sharded) report here under the JAX package's names. The
@@ -24,8 +29,7 @@ per-iteration score the fit loops record is a device-to-host value fetch
 listener is set. The switch changes what is recorded, never which device
 or kernel runs.
 
-Not ported yet (ROADMAP A 16/A 17): history, alerts, collector, probes,
-incidents and the rest of jitwatch.
+Not ported yet (ROADMAP A 17): alerts, collector, probes and incidents.
 """
 from __future__ import annotations
 
@@ -41,7 +45,10 @@ from .health import (HealthState, get_health, TrainingHealthListener,
                      TrainingHealthError)
 from .flightrec import FlightRecorder, get_flight_recorder
 from .fleet import FleetState, get_fleet, merge_traces
-from .jitwatch import sample_device_memory, maybe_sample_device_memory
+from .history import MetricsHistory, get_history
+from .jitwatch import (MonitoredJit, JitRegistry, monitored_jit, get_jit_registry,
+                       sample_device_memory, maybe_sample_device_memory, profile_report,
+                       render_profile_text)
 
 __all__ = [
     "MetricsRegistry", "LatencyHistogram", "Counter", "Gauge", "Histogram",
@@ -49,7 +56,9 @@ __all__ = [
     "get_tracer", "new_context", "HealthState", "get_health",
     "TrainingHealthListener", "TrainingHealthError",
     "FlightRecorder", "get_flight_recorder", "FleetState", "get_fleet",
-    "merge_traces", "sample_device_memory", "maybe_sample_device_memory",
+    "merge_traces", "MonitoredJit", "JitRegistry", "monitored_jit",
+    "get_jit_registry", "sample_device_memory", "maybe_sample_device_memory",
+    "profile_report", "render_profile_text", "MetricsHistory", "get_history",
     "InstrumentedLock", "LockWatch", "get_lockwatch", "make_lock",
     "make_rlock", "make_condition",
     "set_enabled", "enabled", "record_training_iteration", "step_span",

@@ -21,14 +21,16 @@ Counterpart of the training half of ``deeplearning4j_tpu/monitor/health.py``:
   ``warn``, ``raise`` (:class:`TrainingHealthError`) and ``halt`` (sets
   ``model.halt_requested``; the fit loops stop at the next minibatch).
 
-Still in the JAX package only (ROADMAP Queue A 16 and A 17): the incident
-flush on a halt, and the retrace-storm drain, which needs Dynamo recompile
-counters (``watch_retrace`` is accepted and drains nothing).
+With ``watch_retrace`` (the default) the listener drains jitwatch's
+retrace storms (``monitor/jitwatch.py``) each iteration and applies its
+action to those of its own fit thread that fired after it was made. Still
+in the JAX package only (ROADMAP A 17): the incident flush on a halt.
 """
 from __future__ import annotations
 
 import logging
 import math
+import threading
 import time
 from collections import deque
 from typing import Dict, List, Optional, Tuple
@@ -165,9 +167,11 @@ class TrainingHealthListener(TrainingListener):
     :func:`get_health`; ``"raise"`` raises :class:`TrainingHealthError`;
     ``"halt"`` sets ``model.halt_requested`` and the health state's halt.
     Every trigger is appended to ``triggered`` as ``(kind, iteration,
-    message)``. ``watch_retrace`` is accepted for the JAX package's
-    signature; there are no recompile counters to drain yet (ROADMAP Queue
-    A 16)."""
+    message)``. With ``watch_retrace`` a retrace storm of a monitored
+    function (jitwatch's detector already recorded the problem and the
+    ``retrace_storm`` flight event) is acted on as ``"retrace"``; storms of
+    other fit threads are requeued for their own listeners, and storms
+    older than the listener are ignored."""
 
     ACTIONS = ("warn", "raise", "halt")
 
@@ -182,13 +186,15 @@ class TrainingHealthListener(TrainingListener):
         self.stall_timeout = stall_timeout
         self.check_params_every = int(check_params_every)
         self.watch_retrace = bool(watch_retrace)
+        self._armed_at = time.time()
         self.triggered: List[Tuple[str, int, str]] = []
         self._scores = deque(maxlen=self.divergence_window)
         self._last_time: Optional[float] = None
 
-    def _fire(self, model, kind: str, iteration: int, message: str):
+    def _fire(self, model, kind: str, iteration: int, message: str, record: bool = True):
         self.triggered.append((kind, iteration, message))
-        get_health().record_problem(kind, message)
+        if record:      # a storm arrives recorded by the detector
+            get_health().record_problem(kind, message)
         if self.action == "raise":
             raise TrainingHealthError(kind, message)
         if self.action == "halt":
@@ -207,7 +213,23 @@ class TrainingHealthListener(TrainingListener):
         return any(not bool(torch.isfinite(t).all())
                    for ps in params.values() for t in ps.values())
 
+    def _drain_retrace(self, model, iteration):
+        from .jitwatch import get_jit_registry
+        reg = get_jit_registry()
+        storms = reg.drain_storms()
+        if not storms:
+            return
+        me = threading.get_ident()
+        foreign = [s for s in storms if s.get("thread") not in (None, me)]
+        reg.requeue_storms(foreign)
+        for storm in storms:
+            if storm in foreign or storm.get("t", 0) < self._armed_at:
+                continue
+            self._fire(model, "retrace", iteration, storm["message"], record=False)
+
     def iteration_done(self, model, iteration, score):
+        if self.watch_retrace:
+            self._drain_retrace(model, iteration)
         now = time.perf_counter()
         if (self.stall_timeout is not None and self._last_time is not None
                 and now - self._last_time > self.stall_timeout):

@@ -19,12 +19,14 @@ import torch
 
 from .. import resolve_device
 from .vocab import VocabCache, build_vocab
+from ..monitor.jitwatch import monitored_jit
 from .text import (CollectionSentenceIterator, DefaultTokenizerFactory,
                    SentenceIterator, TokenizerFactory)
 
 __all__ = ["Glove"]
 
 
+@monitored_jit(name="nlp/glove_step")
 def _glove_step(w, wc, b, bc, hw, hwc, hb, hbc, rows, cols, logx, fx, lr):
     """One AdaGrad batch of J = f(x) (w_i . wc_j + b_i + bc_j - log x)^2, in
     place. The gradients are taken at the batch's entry values; the

@@ -35,6 +35,7 @@ import torch
 
 from .. import resolve_device
 from .vocab import VocabCache, build_vocab
+from ..monitor.jitwatch import monitored_jit
 
 __all__ = ["InMemoryLookupTable", "SequenceVectors", "lookup_table_from_numpy"]
 
@@ -97,6 +98,7 @@ def lookup_table_from_numpy(vocab: VocabCache, syn0, syn1=None, syn1neg=None,
 
 
 # ------------------------------------------------------------------- steps
+@monitored_jit(name="nlp/hs_step")
 def _hs_step(syn0, syn1, rows, targets, hs_points, hs_codes, hs_mask, lr):
     """Hierarchical-softmax skip-gram/CBOW update of one batch, in place.
 
@@ -119,6 +121,7 @@ def _hs_step(syn0, syn1, rows, targets, hs_points, hs_codes, hs_mask, lr):
     return syn0, syn1
 
 
+@monitored_jit(name="nlp/ns_step")
 def _ns_step(syn0, syn1neg, rows, targets, lr):
     """Negative-sampling update of one batch, in place. rows: [B]; targets:
     [B, K+1], the positive target then K negatives (label 1, then 0).

@@ -22,6 +22,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..monitor.jitwatch import monitored_jit
 from ..utils.trees import sorted_leaves
 
 __all__ = ["GradientCheckUtil", "check_gradients", "check_function_gradients"]
@@ -92,6 +93,7 @@ def check_function_gradients(loss_fn, params, epsilon: float = 1e-6,
     a dict tree of float64 tensors) against its autograd gradient.
     ``expect_zero``: path substrings whose gradient must be exactly zero;
     those tensors skip the numeric comparison."""
+    loss_fn = monitored_jit(loss_fn, name="gradientcheck/loss")
     tree = _detached_copy(params)
     leaves = sorted_leaves(tree)
     for _, t in leaves:
@@ -141,7 +143,8 @@ class GradientCheckUtil:
                 f"Gradient checks require float64 params (got {dtypes}); build the net "
                 f"with dtype='float64', compute_dtype='float64' (reference "
                 f"GradientCheckUtil double-precision rule)")
-        grads = net._grads(_loss_at(net, ds))
+        loss_at = monitored_jit(_loss_at, name="gradientcheck/loss_at")
+        grads = net._grads(loss_at(net, ds))
         analytic = {name: g.detach().cpu().numpy() for name, g in sorted_leaves(grads)}
 
         def fail(msg):
@@ -151,7 +154,7 @@ class GradientCheckUtil:
                 raise AssertionError(msg)
 
         checked, failed, worst = _check(
-            leaves, analytic, lambda: _loss_at(net, ds), epsilon, max_rel_error,
+            leaves, analytic, lambda: loss_at(net, ds), epsilon, max_rel_error,
             min_abs_error, max_per_param, seed,
             skip=(lambda n: any(x in n for x in exclude)) if exclude else None, on_fail=fail)
         if print_results:

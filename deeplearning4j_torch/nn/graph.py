@@ -52,7 +52,9 @@ from .conf.layers import Layer
 from .layers import impl_for
 from .layers.base import (StepGenerators, checkpointed, generator_state, remat_enabled,
                           replay_generator)
-from .multilayer import _detached, _fit_epochs, _observed_steps, _run_tbptt, nchw_to_nhwc
+from .multilayer import (_detached, _fit_epochs, _observed_steps, _run_tbptt, as_tensor,
+                         nchw_to_nhwc, watched)
+from ..monitor.jitwatch import monitored_jit
 from .multilayer import MultiLayerNetwork
 from .updaters import Sgd
 from ..datasets.dataset import DataSet, MultiDataSet
@@ -93,6 +95,8 @@ class ComputationGraph(nn.Module):
         self._rnn_state = None       # streaming state for rnn_time_step, by vertex
         self._warned_tbptt = False
         self._idle_seen = {}         # frozen vertex -> (updater state, all zero?)
+        self._jit_output = {}        # (train, masked) -> "cg/output" watch
+        self._jit_score = {}         # training -> "cg/score" watch
 
     # ------------------------------------------------------------------ init
     def init(self, params: Optional[Dict[str, Dict]] = None, device="cuda",
@@ -230,12 +234,20 @@ class ComputationGraph(nn.Module):
     def output(self, *inputs, masks=None):
         """Activations of the output vertices; one tensor (on the network's
         device) when the graph has one output, else a list."""
+        key = (False, masks is not None)
+        fn = self._jit_output.get(key)
+        if fn is None:
+            fn = self._jit_output[key] = monitored_jit(self._output_fwd, name="cg/output")
         with torch.inference_mode():
-            xs = [self._to_device(x) for x in inputs]
-            ms = None if masks is None else [self._to_device(m) for m in masks]
-            acts, _, _ = self._apply_graph(xs, ms, False)
-            outs = [acts[n] for n in self.conf.network_outputs]
+            outs = fn([as_tensor(x) for x in inputs],
+                      None if masks is None else [as_tensor(m) for m in masks])
         return outs[0] if len(outs) == 1 else outs
+
+    def _output_fwd(self, xs, ms):
+        xs = [self._to_device(x) for x in xs]
+        ms = None if ms is None else [self._to_device(m) for m in ms]
+        acts, _, _ = self._apply_graph(xs, ms, False)
+        return [acts[n] for n in self.conf.network_outputs]
 
     def feed_forward(self, *inputs, train=False):
         """Every vertex's activation, and the inputs', by name (reference
@@ -266,9 +278,8 @@ class ComputationGraph(nn.Module):
                 xs = [x[:, None, :] for x in xs]
             if self._rnn_state is None:
                 self._rnn_state = self._init_rnn_state(int(xs[0].shape[0]))
-            acts, _, ctx = self._apply_graph(xs, None, False, rnn_state_in=self._rnn_state)
-            self._rnn_state = ctx.get("rnn_state_out")
-            outs = [acts[n] for n in self.conf.network_outputs]
+            outs, self._rnn_state = watched(self, "_jit_rnn_step", "cg/rnn_step",
+                                            self._rnn_step_fwd)(xs, self._rnn_state)
         if single_step:
             outs = [o[:, -1, :] if o.dim() == 3 else o for o in outs]
         return outs[0] if len(outs) == 1 else outs
@@ -411,9 +422,21 @@ class ComputationGraph(nn.Module):
                              remat=remat_enabled(self.gc, self.impls.values()))
         return loss, rnn_out, new_states
 
-    def _step(self, inputs, labels, fms, lms, iteration, rnn_state_in=None):
+    def _rnn_step_fwd(self, xs, state):
+        acts, _, ctx = self._apply_graph(xs, None, False, rnn_state_in=state)
+        return [acts[n] for n in self.conf.network_outputs], ctx.get("rnn_state_out")
+
+    def _step(self, inputs, labels, fms, lms, iteration, rnn_state_in=None, watch=True):
         """One update, then the layers' new state. Returns (detached loss,
-        detached carries by vertex name), as ``MultiLayerNetwork._step``."""
+        detached carries by vertex name), as ``MultiLayerNetwork._step``
+        (watched as ``cg/step``)."""
+        if not watch:
+            return self._step_body(inputs, labels, fms, lms, iteration, rnn_state_in)
+        slot = "_jit_step" if rnn_state_in is None else "_jit_tbptt_step"
+        return watched(self, slot, "cg/step", self._step_body)(inputs, labels, fms, lms,
+                                                               iteration, rnn_state_in)
+
+    def _step_body(self, inputs, labels, fms, lms, iteration, rnn_state_in=None):
         loss, rnn_out, new_states = self._train_loss(inputs, labels, fms, lms, rnn_state_in)
         self._update(loss, iteration)
         self._commit_states(new_states)
@@ -473,13 +496,16 @@ class ComputationGraph(nn.Module):
         constraint, and no dropout or weight noise is drawn."""
         xs = [self._to_device(x) for x in _as_list(inputs)]
         eps = [self._to_device(e) for e in _as_list(epsilons)]
+        watched(self, "_jit_ext_step", "cg/ext_grad_step", self._ext_step)(xs, eps)
+        return self
+
+    def _ext_step(self, xs, eps):
         acts, _, _ = self._apply_graph(xs, None, True)
         outs = [acts[n] for n in self.conf.network_outputs]
         grads = self._grads(outs, [e.to(o.dtype) for o, e in zip(outs, eps)],
                             skip=self._idle_frozen())
         self._apply_gradients(grads, self.iteration_count)
         self.iteration_count += 1
-        return self
 
     def score(self, ds=None, training=False) -> float:
         """Loss (+ penalty and auxiliary losses) on a DataSet or
@@ -488,8 +514,12 @@ class ComputationGraph(nn.Module):
         if ds is None:
             return float(self.score_)
         inputs, labels, fms, lms = self._streams(ds)
+        fn = self._jit_score.get(bool(training))
+        if fn is None:
+            fn = self._jit_score[bool(training)] = monitored_jit(
+                lambda i, l, fm, lm: self._loss_fn(i, l, fm, lm, training), name="cg/score")
         with torch.no_grad():
-            loss = self._loss_fn(inputs, labels, fms, lms, training)
+            loss = fn(inputs, labels, fms, lms)
         return float(loss)
 
     def compute_gradient_and_score(self, ds):

@@ -115,6 +115,7 @@ from ..datasets.dataset import DataSet, ListDataSetIterator, MultiDataSet, to_te
 from ..datasets.prefetch import wrap_for_training
 from .. import monitor as _mon
 from ..monitor.health import get_health
+from ..monitor.jitwatch import monitored_jit
 from ..ops import lstm_cell, lstm_fused
 from ..optimize.listeners import dispatch_training_error
 from ..optimize.updater import NetworkUpdater, normalize_gradients
@@ -174,6 +175,8 @@ class MultiLayerNetwork(nn.Module):
         self._warned_tbptt = False
         self._idle_seen = {}        # frozen layer -> (updater state, all zero?)
         self._pretrained = False    # fit's one-time pretrain hook
+        self._jit_output = {}       # (train, masked) -> "mln/output" watch
+        self._jit_score = {}        # training -> "mln/score" watch
 
     # ------------------------------------------------------------------ init
     def init(self, params: Optional[Dict[str, Dict]] = None, device="cuda",
@@ -370,8 +373,15 @@ class MultiLayerNetwork(nn.Module):
         [b, T] features mask for sequence inputs (values in [0, 1]).
         Inputs may be arrays or tensors; the result is a tensor on the
         network's device."""
+        key = (False, mask is not None)
+        fn = self._jit_output.get(key)
+        if fn is None:
+            fn = self._jit_output[key] = monitored_jit(self._output_fwd, name="mln/output")
         with torch.inference_mode():
-            y, _ = self._apply_layers(self._to_device(x), self._to_device(mask))
+            return fn(as_tensor(x), as_tensor(mask))
+
+    def _output_fwd(self, x, mask):
+        y, _ = self._apply_layers(self._to_device(x), self._to_device(mask))
         return y
 
     def _init_rnn_state(self, batch):
@@ -389,9 +399,13 @@ class MultiLayerNetwork(nn.Module):
                 x = x[:, None, :]
             if self._rnn_state is None:
                 self._rnn_state = self._init_rnn_state(int(x.shape[0]))
-            y, ctx = self._apply_layers(x, None, self._rnn_state)
-            self._rnn_state = ctx.get("rnn_state_out")
+            y, self._rnn_state = watched(self, "_jit_rnn_step", "mln/rnn_step",
+                                         self._rnn_step_fwd)(x, self._rnn_state)
         return y[:, -1, :] if single_step else y
+
+    def _rnn_step_fwd(self, x, state):
+        y, ctx = self._apply_layers(x, None, state)
+        return y, ctx.get("rnn_state_out")
 
     rnnTimeStep = rnn_time_step
 
@@ -571,19 +585,29 @@ class MultiLayerNetwork(nn.Module):
                                       remat=remat_enabled(self.gc, self.impls))
         return loss, rnn_out, new_states
 
-    def _step(self, f, l, fm, lm, iteration, rnn_state_in=None):
+    def _step(self, f, l, fm, lm, iteration, rnn_state_in=None, watch=True):
         """One update, then the layers' new state. Returns (detached loss,
-        detached rnn state out)."""
+        detached rnn state out). Watched as ``mln/step`` (a minibatch's
+        step, and apart from it a TBPTT segment's, as the JAX package's two
+        step functions) unless ``watch`` is False (inside ``nn/tbptt_scan``)."""
+        if not watch:
+            return self._step_body(f, l, fm, lm, iteration, rnn_state_in)
+        slot = "_jit_step" if rnn_state_in is None else "_jit_tbptt_step"
+        return watched(self, slot, "mln/step", self._step_body)(f, l, fm, lm, iteration,
+                                                                rnn_state_in)
+
+    def _step_body(self, f, l, fm, lm, iteration, rnn_state_in=None):
         loss, rnn_out, new_states = self._train_loss(f, l, fm, lm, rnn_state_in)
         self._update(loss, iteration)
         self._commit_states(new_states)
         return loss.detach(), _detached(rnn_out)
 
-    def _steps(self, f, l, fm, lm, rnn_state_in=None):
+    def _steps(self, f, l, fm, lm, rnn_state_in=None, watch=True):
         """``iterations(n)`` updates on one minibatch or segment, each from
         the same carried-in state; the last loss and state are kept."""
         for k in range(_n_iterations(self.gc)):
-            loss, rnn_out = self._step(f, l, fm, lm, self.iteration_count + k, rnn_state_in)
+            loss, rnn_out = self._step(f, l, fm, lm, self.iteration_count + k, rnn_state_in,
+                                       watch=watch)
         self.iteration_count += _n_iterations(self.gc)
         return loss, rnn_out
 
@@ -633,17 +657,23 @@ class MultiLayerNetwork(nn.Module):
         params = impl.param_dict()
         state = updater.init_state(params)
         it = 0
+
+        def step(x, it, state):
+            loss = impl.pretrain_loss(x, self._gen)
+            grads = dict(zip(params, torch.autograd.grad(loss, list(params.values()))))
+            updates, state = updater.apply(state, grads, it)
+            with torch.no_grad():
+                for k, p in params.items():
+                    p.sub_(updates[k].to(p.dtype))
+            return loss, state
+
+        jstep = monitored_jit(step, name="mln/pretrain_step")
         for _ in range(epochs):
             for ds in iterator:
                 f = self._to_device(ds.features)
                 x = (self.feed_forward_to_layer(layer_idx - 1, f) if layer_idx > 0
                      else nchw_to_nhwc(f, self.conf.input_type))
-                loss = impl.pretrain_loss(x, self._gen)
-                grads = dict(zip(params, torch.autograd.grad(loss, list(params.values()))))
-                updates, state = updater.apply(state, grads, it)
-                with torch.no_grad():
-                    for k, p in params.items():
-                        p.sub_(updates[k].to(p.dtype))
+                loss, state = jstep(x, it, state)
                 it += 1
         self.score_ = loss.detach()
         return self
@@ -683,8 +713,13 @@ class MultiLayerNetwork(nn.Module):
         last training score when called without arguments."""
         if ds is None:
             return float(self.score_)
+        fn = self._jit_score.get(bool(training))
+        if fn is None:
+            fn = self._jit_score[bool(training)] = monitored_jit(
+                lambda f, l, fm, lm: self._loss_fn(f, l, fm, lm, training)[0],
+                name="mln/score")
         with torch.no_grad():
-            loss, _ = self._loss_fn(*self._tensors(ds), training)
+            loss = fn(*self._tensors(ds))
         return float(loss)
 
     def compute_gradient_and_score(self, ds: DataSet):
@@ -846,6 +881,28 @@ def _run_tbptt(net, f, l, fm, lm):
         net._warned_tbptt = True
     first = f[0] if isinstance(f, (tuple, list)) else f
     T = int(first.shape[1])
+    if T % L == 0:
+        loss = watched(net, "_jit_tbptt_scan", "nn/tbptt_scan",
+                       lambda *a: _tbptt_segments(net, *a, watch=False))(f, l, fm, lm, L)
+    else:
+        loss = _tbptt_segments(net, f, l, fm, lm, L, watch=True)
+    net.score_ = loss
+    if net.listeners or _mon.enabled():
+        # as the JAX package's TBPTT: no step span, the batch size only
+        score = float(loss)
+        _mon.record_training_iteration(net, net.iteration_count - 1, score,
+                                       batch_size=int(first.shape[0]))
+        for lst in net.listeners:
+            lst.iteration_done(net, net.iteration_count - 1, score)
+
+
+def _tbptt_segments(net, f, l, fm, lm, L, watch):
+    """The segments of one TBPTT minibatch from a zero carry; returns the
+    last segment's loss. Equal segments run as one watched
+    ``nn/tbptt_scan`` call (the JAX package scans them in one program), a
+    ragged tail as watched ``mln/step`` segments."""
+    first = f[0] if isinstance(f, (tuple, list)) else f
+    T = int(first.shape[1])
     state = net._init_rnn_state(int(first.shape[0]))
     for start in range(0, T, L):
         sl = slice(start, min(start + L, T))
@@ -855,15 +912,26 @@ def _run_tbptt(net, f, l, fm, lm):
 
         loss, state = net._steps(_map_streams(seg, f),
                                  _map_streams(lambda a: seg(a) if a.dim() == 3 else a, l),
-                                 _map_streams(seg, fm), _map_streams(seg, lm), state)
-    net.score_ = loss
-    if net.listeners or _mon.enabled():
-        # as the JAX package's TBPTT: no step span, the batch size only
-        score = float(loss)
-        _mon.record_training_iteration(net, net.iteration_count - 1, score,
-                                       batch_size=int(first.shape[0]))
-        for lst in net.listeners:
-            lst.iteration_done(net, net.iteration_count - 1, score)
+                                 _map_streams(seg, fm), _map_streams(seg, lm), state,
+                                 watch=watch)
+    return loss
+
+
+def as_tensor(a):
+    """An input as a tensor where it lies, its dtype kept (None stays
+    None): what a watched forward's signature reads."""
+    if a is None or isinstance(a, torch.Tensor):
+        return a
+    return torch.as_tensor(np.asarray(a))
+
+
+def watched(net, slot, name, fn):
+    """``net``'s watched wrapper of ``fn`` in attribute ``slot`` under
+    ``name`` (``monitor/jitwatch.py``), made at first use."""
+    w = net.__dict__.get(slot)
+    if w is None:
+        w = net.__dict__[slot] = monitored_jit(fn, name=name)
+    return w
 
 
 def _observed_steps(net, run):

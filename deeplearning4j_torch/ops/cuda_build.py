@@ -3,33 +3,44 @@
 Each source under ``deeplearning4j_torch/csrc/`` compiles into its own
 shared library with a plain C interface (no PyTorch headers, so a build
 takes seconds, not minutes). Libraries land in ``build/torch_kernels/`` at
-the repository root, named by a hash of the sources and flags, and are
-built at first use. :func:`build_all` starts one ``nvcc`` per source at
-once; :func:`library` builds (or reuses) and loads one.
+the repository root, or in the shared compile-cache directory once
+``compilecache.enable`` (``DL4J_TPU_COMPILE_CACHE_DIR``) names one. They
+are named by a hash of the sources and flags and built at first use; each
+carries a ``.json`` sidecar with the toolkit fingerprint it was built
+under. :func:`build_all` starts one ``nvcc`` per source at once;
+:func:`library` builds (or reuses) and loads one. A library that is
+already on disk is a compile-cache hit, an ``nvcc`` run a miss
+(``compilecache.cache``), and :func:`recording` collects the sources a
+block of code loads (the warmup artifact's library list).
 
 Nothing here runs at import: the CPU tests import every module, and this
 machine may have no ``nvcc``.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
+import json
 import os
 import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, List
+from typing import Dict, List, Optional, Set
 
 import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+ARCH = "sm_90a"
+NVCC_FLAGS = ["-gencode", f"arch=compute_90a,code={ARCH}", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}
+_recordings: List[Set[str]] = []
+_toolkit: List[Optional[str]] = []
 
 
 def _nvcc() -> str:
@@ -40,6 +51,31 @@ def _nvcc() -> str:
     return path
 
 
+def toolkit_version() -> Optional[str]:
+    """The ``nvcc --version`` release line, or None without a toolkit."""
+    if not _toolkit:
+        try:
+            out = subprocess.run([_nvcc(), "--version"], capture_output=True, text=True,
+                                 timeout=60).stdout.strip().splitlines()
+            _toolkit.append(next((ln for ln in out if "release" in ln), out[-1] if out else None))
+        except (RuntimeError, OSError, subprocess.SubprocessError):
+            _toolkit.append(None)
+    return _toolkit[0]
+
+
+def fingerprint() -> Dict[str, Optional[str]]:
+    """What a library was built under: toolkit, flags and architecture."""
+    return {"nvcc": toolkit_version(), "flags": " ".join(NVCC_FLAGS), "arch": ARCH}
+
+
+def build_dir() -> Path:
+    """Where libraries are built and loaded: the compile-cache directory
+    when one is enabled, else ``build/torch_kernels/``."""
+    from ..compilecache.cache import cache_dir
+    d = cache_dir()
+    return Path(d) if d else BUILD_DIR
+
+
 def _target(source: str) -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for p in sorted(CSRC.iterdir()):
@@ -47,14 +83,17 @@ def _target(source: str) -> Path:
                                             or p.suffix == ".cuh"):
             h.update(p.name.encode())
             h.update(p.read_bytes())
-    return BUILD_DIR / f"lib{Path(source).stem}-{h.hexdigest()[:12]}.so"
+    return build_dir() / f"lib{Path(source).stem}-{h.hexdigest()[:12]}.so"
 
 
 def _start(source: str):
+    from ..compilecache import cache as _cc
     out = _target(source)
     if out.exists():
+        _cc.note_library(hit=True)
         return None
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    _cc.note_library(hit=False)
+    out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / source)]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
@@ -71,6 +110,7 @@ def _finish(source: str, started) -> None:
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed on {source} (exit "
                            f"{proc.returncode}):\n{log}")
+    out.with_suffix(".json").write_text(json.dumps({"source": source, **fingerprint()}))
     os.replace(tmp, out)
 
 
@@ -90,6 +130,8 @@ def library(source: str, entry: str, argtypes) -> ctypes.CDLL:
     """The loaded library of one source, built first if needed, with
     ``entry``'s ``argtypes`` declared (``restype`` int: a cudaError_t). A
     source may hold several entries; each is declared at its first call."""
+    for used in _recordings:
+        used.add(source)
     with _lock:
         lib = _loaded.get(source)
         if lib is None:
@@ -103,6 +145,18 @@ def library(source: str, entry: str, argtypes) -> ctypes.CDLL:
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
         return lib
+
+
+@contextlib.contextmanager
+def recording():
+    """Collect the sources whose library :func:`library` hands out inside
+    the block (every launch asks for its library)."""
+    used: Set[str] = set()
+    _recordings.append(used)
+    try:
+        yield used
+    finally:
+        _recordings.remove(used)
 
 
 def check(lib: ctypes.CDLL, code: int, what: str) -> None:

@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from ..nn.conf import OptimizationAlgorithm
+from ..monitor.jitwatch import monitored_jit
 from ..nn.gradientcheck import _loss_at
 from ..utils.trees import sorted_leaves
 
@@ -60,6 +61,8 @@ class BaseOptimizer:
         self.ds = ds
         self.max_iterations = max_iterations
         self.tol = tol
+        self._loss = monitored_jit(_loss_at, name="solvers/loss")
+        self._value_and_grad = monitored_jit(self._loss_and_grads, name="solvers/value_and_grad")
         self._params = [p for _, p in sorted_leaves(net._trainable())]
         self._x0 = np.concatenate(
             [p.detach().cpu().double().numpy().ravel() for p in self._params]) \
@@ -76,12 +79,15 @@ class BaseOptimizer:
     def f(self, x: np.ndarray) -> float:
         self._load(x)
         with torch.no_grad():
-            return float(_loss_at(self.net, self.ds))
+            return float(self._loss(self.net, self.ds))
+
+    def _loss_and_grads(self, net, ds):
+        loss = _loss_at(net, ds)
+        return loss, torch.autograd.grad(loss, self._params, allow_unused=True)
 
     def f_g(self, x: np.ndarray) -> Tuple[float, np.ndarray]:
         self._load(x)
-        loss = _loss_at(self.net, self.ds)
-        grads = torch.autograd.grad(loss, self._params, allow_unused=True)
+        loss, grads = self._value_and_grad(self.net, self.ds)
         g = torch.cat([(torch.zeros_like(p) if gi is None else gi).reshape(-1).double()
                        for p, gi in zip(self._params, grads)])
         return float(loss.detach()), g.cpu().numpy()

@@ -26,6 +26,7 @@ import torch
 import torch.distributed as dist
 
 from .accumulation import EncodedGradientsAccumulator
+from ..monitor.jitwatch import monitored_jit
 from ..utils.trees import leaves
 from .mesh import tree_get, tree_map
 from .wrapper import ParallelWrapper, TrainingMode
@@ -253,6 +254,8 @@ class SharedGradientsClusterTrainer:
         self.accumulator = accumulator or EncodedGradientsAccumulator()
         self.wire_bytes_sent = 0
         self.dense_bytes_equiv = 0
+        self._update_step = monitored_jit(_local_update, name="distributed/update_step")
+        self._apply_step = monitored_jit(_apply_total, name="distributed/apply_step")
 
     def fit(self, iterator, epochs: int = 1):
         # imported here: the parameter server's package imports this module
@@ -260,12 +263,7 @@ class SharedGradientsClusterTrainer:
         net, acc, ch = self.net, self.accumulator, self.channel
         for _ in range(epochs):
             for ds in iterator:
-                f, l, fm, lm = net._tensors(ds)
-                loss, _, new_states = net._train_loss(f, l, fm, lm)
-                grads = net._grads(loss, skip=net._idle_frozen())
-                if not net.gc.minimize:
-                    grads = tree_map(torch.neg, grads)
-                _, update = net._updates(grads, net.iteration_count)
+                loss, update, new_states = self._update_step(net, *net._tensors(ds))
                 update = async_device_get(update)
                 decoded_own = acc.store_update(update)
                 frame = acc.serialize_last()
@@ -280,19 +278,35 @@ class SharedGradientsClusterTrainer:
                 for q in sorted(contributions):
                     c = contributions[q]
                     total = c if total is None else tree_map(np.add, total, c)
-                with torch.no_grad():
-                    for path, p in leaves(net._trainable()):
-                        try:
-                            u = tree_get(total, path)
-                        except KeyError:
-                            continue
-                        p.sub_(torch.as_tensor(u).to(p.device, p.dtype))
+                self._apply_step(net, total)
                 net._commit_states(new_states)
                 net.score_ = loss.detach()
                 net.iteration_count += 1
                 for lst in net.listeners:
                     lst.iteration_done(net, net.iteration_count - 1, float(loss))
         return net
+
+
+def _local_update(net, f, l, fm, lm):
+    """One process's update, nothing applied: (loss, update tree, the
+    layers' new state)."""
+    loss, _, new_states = net._train_loss(f, l, fm, lm)
+    grads = net._grads(loss, skip=net._idle_frozen())
+    if not net.gc.minimize:
+        grads = tree_map(torch.neg, grads)
+    _, update = net._updates(grads, net.iteration_count)
+    return loss, update, new_states
+
+
+def _apply_total(net, total):
+    """``p -= u`` with the rank-ordered sum of the decoded updates."""
+    with torch.no_grad():
+        for path, p in leaves(net._trainable()):
+            try:
+                u = tree_get(total, path)
+            except KeyError:
+                continue
+            p.sub_(torch.as_tensor(u).to(p.device, p.dtype))
 
 
 def _np_leaves(tree):

@@ -13,17 +13,14 @@ requests are queued, or ``flush_after_ms`` after the oldest request, so a
 lone request is never stranded; a request larger than ``batch_limit``
 runs as a batch of its own, and ``close(drain=True)`` serves what is
 queued first. Requests coalesce only with requests of the same trailing
-shape and mask presence. ``INPLACE`` and ``SEQUENTIAL`` run each request
-at once. The JAX package delegates the scheduling to its serving
-batcher; the port's batcher has fixed buckets and rejects a request past
-the largest, so the scheduler here is its own.
+shape and mask presence. As in the JAX package the scheduling is the
+serving batcher's (``serving/batcher.py``, ``queue_policy="flush"``,
+unbucketed). ``INPLACE`` and ``SEQUENTIAL`` run each request at once.
 """
 from __future__ import annotations
 
-import threading
-import time
 from concurrent.futures import Future
-from typing import List, Optional
+from typing import Optional
 
 import numpy as np
 import torch
@@ -39,17 +36,6 @@ class InferenceMode:
     SEQUENTIAL = "sequential"
     BATCHED = "batched"
     INPLACE = "inplace"
-
-
-class _Req:
-    __slots__ = ("x", "mask", "fut", "t")
-
-    def __init__(self, x, mask, fut):
-        self.x, self.mask, self.fut, self.t = x, mask, fut, time.perf_counter()
-
-    def key(self):
-        return (self.x.shape[1:], self.x.dtype.str,
-                None if self.mask is None else self.mask.shape[1:])
 
 
 class ParallelInference:
@@ -110,12 +96,7 @@ class ParallelInference:
         self.flush_after_ms = float(flush_after_ms)
         self._replicas = SlotReplicas(net)
         self._lock = make_lock("ParallelInference._lock")
-        self._cond = threading.Condition()
-        self._queue: List[_Req] = []
-        self._thread = None
-        self._closing = False
-        self._flush_now = False
-        self._in_flight = 0
+        self._batcher = None      # made at the first BATCHED submit
         record_step("inference/fwd", mesh)
 
     # ------------------------------------------------------------------
@@ -152,112 +133,43 @@ class ParallelInference:
                              else x, mask)
 
     # ----------------------------------------------------- async batched path
+    def _ensure_batcher(self):
+        with self._lock:
+            if self._batcher is None:
+                from ..serving.batcher import ContinuousBatcher
+                # queue_policy="flush": batch_limit examples or queue_limit
+                # requests force a flush (the reference semantics) instead of
+                # a rejection; the host path, since _forward splits the rows
+                # over the slots itself
+                self._batcher = ContinuousBatcher(
+                    self._forward, name="parallel-inference", max_batch=self.batch_limit,
+                    max_queue_examples=None, max_queue_requests=self.queue_limit,
+                    linger_ms=self.flush_after_ms, queue_policy="flush")
+            return self._batcher
+
     def submit(self, x, mask=None) -> Future:
         """Queue a request; the Future resolves to its rows (numpy). BATCHED
-        mode flushes as the module docstring says; other modes run it now."""
+        mode coalesces on the serving batcher; other modes run it now."""
         x = np.asarray(x, np.float32)
         m = None if mask is None else np.asarray(mask, np.float32)
-        fut: Future = Future()
         if self.mode != InferenceMode.BATCHED:
+            fut: Future = Future()
             try:
                 fut.set_result(self._forward(x, m).cpu().numpy())
             except Exception as e:       # the caller's Future carries it
                 fut.set_exception(e)
             return fut
-        with self._cond:
-            if self._thread is None or not self._thread.is_alive():
-                self._closing = False
-                self._thread = threading.Thread(target=self._loop, daemon=True,
-                                                name="parallel-inference")
-                self._thread.start()
-            self._queue.append(_Req(x, m, fut))
-            self._cond.notify_all()
-        return fut
-
-    def _ripe(self, now):
-        q = self._queue
-        if not q:
-            return False
-        if self._flush_now or self._closing:
-            return True
-        if sum(r.x.shape[0] for r in q) >= self.batch_limit or len(q) >= self.queue_limit:
-            return True
-        return (now - q[0].t) * 1e3 >= self.flush_after_ms
-
-    def _take(self):
-        """The oldest request and the queued ones that coalesce with it, up
-        to ``batch_limit`` examples (a larger first request alone)."""
-        first = self._queue[0]
-        batch, total = [first], first.x.shape[0]
-        rest = []
-        for r in self._queue[1:]:
-            if r.key() == first.key() and total + r.x.shape[0] <= self.batch_limit:
-                batch.append(r)
-                total += r.x.shape[0]
-            else:
-                rest.append(r)
-        self._queue = rest
-        return batch
-
-    def _loop(self):
-        while True:
-            with self._cond:
-                while not self._ripe(time.perf_counter()):
-                    if self._closing and not self._queue:
-                        return
-                    if not self._queue:
-                        self._flush_now = False
-                        self._cond.notify_all()
-                        self._cond.wait(0.5)
-                    else:
-                        wait = self.flush_after_ms / 1e3 - (time.perf_counter()
-                                                            - self._queue[0].t)
-                        self._cond.wait(max(wait, 1e-4))
-                batch = self._take()
-                self._in_flight += 1
-            try:
-                x = np.concatenate([r.x for r in batch])
-                m = (None if batch[0].mask is None
-                     else np.concatenate([r.mask for r in batch]))
-                y = self._forward(x, m).cpu().numpy()
-                pos = 0
-                for r in batch:
-                    n = r.x.shape[0]
-                    r.fut.set_result(y[pos:pos + n])
-                    pos += n
-            except Exception as e:       # every request of the batch gets it
-                for r in batch:
-                    if not r.fut.done():
-                        r.fut.set_exception(e)
-            finally:
-                with self._cond:
-                    self._in_flight -= 1
-                    self._cond.notify_all()
+        return self._ensure_batcher().submit(x, mask=m)
 
     def flush(self):
         """Run everything queued now; returns once the queue is drained."""
-        with self._cond:
-            if self._thread is None:
-                return
-            self._flush_now = True
-            self._cond.notify_all()
-            while self._queue or self._in_flight:
-                self._cond.wait(0.5)
-            self._flush_now = False
+        if self._batcher is not None:
+            self._batcher.flush(wait=True)
 
     def close(self, drain: bool = True):
-        """Stop the scheduler; ``drain=True`` serves every queued request
-        first, else they fail. A later ``submit`` starts it again."""
-        with self._cond:
-            t = self._thread
-            if not drain:
-                for r in self._queue:
-                    r.fut.set_exception(RuntimeError("ParallelInference closed"))
-                self._queue = []
-            self._closing = True
-            self._cond.notify_all()
-        if t is not None:
-            t.join()
-        with self._cond:
-            self._thread = None
-            self._closing = False
+        """Stop the batcher; ``drain=True`` serves every queued request
+        first, else they fail. A later ``submit`` starts a new one."""
+        with self._lock:
+            batcher, self._batcher = self._batcher, None
+        if batcher is not None:
+            batcher.close(drain=drain)

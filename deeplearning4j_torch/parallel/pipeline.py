@@ -51,6 +51,7 @@ from typing import Any, Callable, Optional
 import torch
 
 from ..nn.conf.dropout import draw_seed
+from ..monitor.jitwatch import monitored_jit
 from ..nn.multilayer import nchw_to_nhwc
 from .mesh import PIPELINE_AXIS, P, record_step, require_axes, tree_map
 
@@ -220,6 +221,7 @@ class GPipe:
             return tree_map(lambda p: torch.as_tensor(p).detach().to(dev).clone(), tree)
         return put(params) if upd_state is None else (put(params), put(upd_state))
 
+    @monitored_jit(name="pipeline/step")
     def train_step(self, params, upd_state, iteration, x, y):
         """One pipelined step: ``(params, upd_state, loss)``."""
         M = self.n_microbatches
@@ -624,6 +626,7 @@ class PipelinedNetwork(_PipelinedBase):
             return x
         return call
 
+    @monitored_jit(name="pipeline/container_step")
     def fit_batch(self, f, l, features_mask=None, labels_mask=None):
         """One pipelined step on a (features, labels) batch whose leading
         dim splits into ``n_microbatches`` equal chunks; convolutional
@@ -798,6 +801,7 @@ class PipelinedGraph(_PipelinedBase):
                 acts[name] = v.forward([acts[i] for i in in_names], ctx)
                 masks[name] = v.propagate_mask([masks.get(i) for i in in_names])
 
+    @monitored_jit(name="pipeline/container_step")
     def fit_batch(self, inputs, labels, features_mask=None, labels_mask=None):
         """One pipelined step; ``inputs``/``labels`` are tuples of arrays
         (one array is wrapped), ``features_mask``/``labels_mask`` one [b, T]

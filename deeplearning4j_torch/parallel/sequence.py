@@ -46,6 +46,7 @@ from typing import Optional
 
 import torch
 
+from ..monitor.jitwatch import monitored_jit
 from ..ops import flash_attention as fa
 from .mesh import SEQUENCE_AXIS, Mesh, record_step, require_axes
 
@@ -516,4 +517,4 @@ def sequence_parallel_step(net, mesh: Mesh, axis: str = SEQUENCE_AXIS, data_axis
         net.score_ = total.detach()
         return net.score_
 
-    return step
+    return monitored_jit(step, name="sequence/step")

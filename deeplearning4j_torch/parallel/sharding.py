@@ -33,6 +33,7 @@ from typing import Dict, Optional, Sequence
 import torch
 
 from ..datasets.dataset import to_tensor
+from ..monitor.jitwatch import monitored_jit
 from ..nn.multilayer import _detached
 from ..optimize.updater import normalize_gradients
 from ..utils.trees import leaves
@@ -306,6 +307,12 @@ class SyncStep:
         self.store: Optional[ShardedModel] = None
         self.slot_bytes: Dict = {}
         self.replicas = SlotReplicas(net)
+        # watched under the JAX package's step names (expert steps are
+        # tensor-parallel steps there)
+        name = "tensor/step" if style in ("tensor/step", "expert/step") else style
+        self._watch = monitored_jit(self._step, name=name)
+        self._watch_tbptt = monitored_jit(self._step, name=(
+            "sharding/dp_tbptt_step" if name == "sharding/dp_step" else name))
         record_step(style, mesh, self.par_specs, self.upd_specs,
                     zero=shard_update or shard_params)
 
@@ -361,6 +368,10 @@ class SyncStep:
         """One update. ``fs``/``ls``/``fms``/``lms`` are the data slots'
         shards (lists), or whole batches (tensors, or a graph's tuples of
         streams), which are split here."""
+        watch = self._watch if rnn_in is None else self._watch_tbptt
+        return watch(fs, ls, fms, lms, rnn_in)
+
+    def _step(self, fs, ls, fms, lms, rnn_in):
         net = self.net
         n = len(self.data_devices)
         if not isinstance(fs, list):

@@ -43,6 +43,7 @@ from ..datasets.dataset import (DataSet, DataSetIterator, ListDataSetIterator, M
 from ..datasets.iterators import AsyncDataSetIterator
 from ..datasets.prefetch import PrefetchDataSetIterator
 from ..nn.conf import BackpropType, CacheMode
+from ..monitor.jitwatch import monitored_jit
 from ..nn.multilayer import _map_streams, _observe
 from ..utils.trees import leaves
 from .accumulation import EncodedGradientsAccumulator, GradientsAccumulator
@@ -441,6 +442,7 @@ class ParallelWrapper:
             loss, _ = self._shared_step(step, fs, ls, fms, lms)
             self._scored(loss)
 
+    @monitored_jit(name="wrapper/shared_apply_step")
     def _shared_step(self, step: SyncStep, fs, ls, fms, lms, carries=None):
         net = self.net
         per_slot = step.slot_grads(fs, ls, fms, lms, carries)

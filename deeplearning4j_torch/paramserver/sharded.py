@@ -273,6 +273,9 @@ class ShardedParameterServerClient:
                  down_backoff: float = 1.0,
                  metrics: Optional[ParamServerMetrics] = None,
                  push_delay_s: float = 0.0):
+        # join, rejoin and remap: the fleet's shared kernel-library cache
+        from ..compilecache.cache import maybe_enable
+        maybe_enable()
         self.addresses = parse_addresses(addresses)
         self.address = ",".join(self.addresses)
         self.staleness = int(staleness)

@@ -44,6 +44,7 @@ import numpy as np
 import torch
 
 from ..monitor import get_flight_recorder
+from ..monitor.jitwatch import monitored_jit
 from ..parallel.accumulation import EncodedGradientsAccumulator, flatten_tree_f32
 from ..parallel.distributed import TrainingMaster
 from ..utils.trees import sorted_leaves, tree_map
@@ -316,6 +317,7 @@ class ParameterServerTrainingMaster(TrainingMaster):
             self._step_net = net
 
     @staticmethod
+    @monitored_jit(name="paramserver/update_step")
     def _update_step(net, ds):
         """One step's update, nothing applied: (update tree aligned to the
         parameters, detached loss). The layers' new state is committed, as
@@ -330,6 +332,7 @@ class ParameterServerTrainingMaster(TrainingMaster):
         return _aligned(update, net._trainable()), loss.detach()
 
     @staticmethod
+    @monitored_jit(name="paramserver/apply_step")
     def _apply(net, update):
         """``p -= u`` in place; ``update`` holds tensors (the fast path's
         device update) or host arrays (a decoded frame)."""
@@ -432,6 +435,10 @@ class ParameterServerTrainingMaster(TrainingMaster):
 
     # ------------------------------------------------------------ training
     def execute_training(self, net, iterator):
+        # a joining or rejoining worker is about to load (or build) its
+        # kernel libraries: the fleet's shared cache directory, if any
+        from ..compilecache.cache import maybe_enable
+        maybe_enable()
         client = self._ensure_client()
         self._ensure_steps(net)
         acc = self.accumulator

@@ -1,74 +1,77 @@
 """HTTP/JSON inference front door.
 
 Counterpart of ``deeplearning4j_tpu/serving/server.py`` (stdlib
-``ThreadingHTTPServer``):
+``ThreadingHTTPServer`` on the shared
+:class:`~deeplearning4j_torch.ui.server.JsonRequestHandler`):
 
-- ``POST /v1/models/<name>/predict`` — body ``{"inputs": [[...], ...],
+- ``POST /v1/models/<name>/predict``: body ``{"inputs": [[...], ...],
   "deadline_ms": optional}``; responds ``{"model", "outputs",
-  "latency_ms"}``. Unknown model -> 404, malformed body or shape -> 400,
-  :class:`OverloadedError` -> 429 with ``Retry-After``,
+  "latency_ms", "trace_id"}``. Unknown model -> 404, malformed body or
+  shape -> 400, :class:`OverloadedError` -> 429 with ``Retry-After``,
   :class:`DeadlineExceededError` -> 504, anything else -> 500.
-- ``GET /v1/models`` — hosted models with their serving config.
-- ``GET /v1/models/<name>`` — one model's row.
+- ``GET /v1/models`` (each model's row: config, precision, cache
+  occupancy, golden version) and ``GET /v1/models/<name>``.
+- the monitor routes of ``JsonRequestHandler._monitor_get`` (``/metrics``,
+  ``/healthz``, ``/profile``, ``/history``, ``/trace``, ``/events``,
+  ``/fleet``, ``/fleet/trace``), so a serving replica is scrapeable alone.
 
-The monitor routes of the JAX server are not ported yet. Each handler
-thread blocks on its request's Future while the model's batcher coalesces
-concurrent requests; ``stop(drain=True)`` stops accepting, drains every
-model's queue, then closes the socket.
+Requests are traced: the ``X-DL4J-Trace`` header (``<trace hex>:<span
+hex>``) joins the caller's trace, the ``http/predict`` span's context rides
+the request through the batcher (``serving/queue_wait`` links to the shared
+``serving/flush``), and the response carries the ``trace_id``. An
+``X-DL4J-Probe`` request bypasses the response cache. Each handler thread
+blocks on its request's Future while the batcher coalesces;
+``stop(drain=True)`` stops accepting, drains every model, then closes.
 """
 from __future__ import annotations
 
 import json
 import threading
 import time
-from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from http.server import ThreadingHTTPServer
 from typing import Optional
-from urllib.parse import urlparse
+from urllib.parse import parse_qs, urlparse
 
 import numpy as np
 
+from ..monitor.tracer import SpanContext, get_tracer
+from ..ui.server import JsonRequestHandler, MAX_POST_BYTES
 from .batcher import DeadlineExceededError, ModelNotFoundError, OverloadedError
 from .registry import ModelRegistry
 
-__all__ = ["InferenceServer", "MAX_POST_BYTES"]
+__all__ = ["InferenceServer", "MAX_POST_BYTES", "TRACE_HEADER", "PROBE_HEADER",
+           "parse_trace_header"]
 
-#: request bodies above this are refused (413) before they are read
-MAX_POST_BYTES = 8 << 20
+#: request trace-context header: ``<trace_id hex>:<span_id hex>``
+TRACE_HEADER = "X-DL4J-Trace"
+
+#: probe-traffic marker: the request bypasses the response cache
+PROBE_HEADER = "X-DL4J-Probe"
 
 
-class _ServingHandler(BaseHTTPRequestHandler):
+def parse_trace_header(value: Optional[str]) -> Optional[SpanContext]:
+    """``"<trace hex>:<span hex>"`` -> :class:`SpanContext`; None for a
+    missing or malformed header (it never fails the request)."""
+    if not value:
+        return None
+    try:
+        tid_s, _, sid_s = value.partition(":")
+        tid, sid = int(tid_s, 16), int(sid_s, 16)
+        if not (0 < tid < 1 << 64 and 0 < sid < 1 << 64):
+            return None
+        return SpanContext(tid, sid)
+    except ValueError:
+        return None
+
+
+class _ServingHandler(JsonRequestHandler):
     registry: ModelRegistry = None     # bound by the server
 
-    def log_message(self, fmt, *args):  # quiet
-        pass
-
-    def _json(self, obj, code=200, headers=None):
-        payload = json.dumps(obj).encode("utf-8")
-        self.send_response(code)
-        self.send_header("Content-Type", "application/json")
-        self.send_header("Content-Length", str(len(payload)))
-        for k, v in (headers or {}).items():
-            self.send_header(k, v)
-        self.end_headers()
-        self.wfile.write(payload)
-
-    def _post_body(self) -> Optional[str]:
-        """The POST body, or None after sending the 400/413 reply."""
-        try:
-            length = int(self.headers.get("Content-Length", 0))
-        except (TypeError, ValueError):
-            length = -1
-        if length < 0:
-            self._json({"error": "bad Content-Length"}, 400)
-            return None
-        if length > MAX_POST_BYTES:
-            self._json({"error": f"body of {length} bytes exceeds the "
-                        f"{MAX_POST_BYTES}-byte limit"}, 413)
-            return None
-        return self.rfile.read(length).decode("utf-8")
-
     def do_GET(self):
-        parts = [p for p in urlparse(self.path).path.split("/") if p]
+        url = urlparse(self.path)
+        if self._monitor_get(url, parse_qs(url.query)):
+            return
+        parts = [p for p in url.path.split("/") if p]
         if parts == ["v1", "models"]:
             self._json({"models": self.registry.list_models()})
             return
@@ -83,8 +86,7 @@ class _ServingHandler(BaseHTTPRequestHandler):
 
     def do_POST(self):
         parts = [p for p in urlparse(self.path).path.split("/") if p]
-        if not (len(parts) == 4 and parts[:2] == ["v1", "models"]
-                and parts[3] == "predict"):
+        if not (len(parts) == 4 and parts[:2] == ["v1", "models"] and parts[3] == "predict"):
             self._json({"error": "not found"}, 404)
             return
         body = self._post_body()
@@ -105,10 +107,19 @@ class _ServingHandler(BaseHTTPRequestHandler):
             self._json({"error": f"bad request body: {e}"}, 400)
             return
         t0 = time.perf_counter()
+        remote = parse_trace_header(self.headers.get(TRACE_HEADER))
+        probe = self.headers.get(PROBE_HEADER) not in (None, "", "0")
+        span_args = {"model": name}
+        if probe:
+            span_args["probe"] = True
+        ctx = None
         try:
-            fut = self.registry.submit(name, inputs, deadline_ms=deadline_ms)
-            # transport-level backstop; shedding is the batcher's deadline
-            out = fut.result(timeout=max(60.0, (deadline_ms or 0.0) / 1e3 + 30.0))
+            with get_tracer().span("http/predict", cat="serving", parent=remote,
+                                   **span_args) as ctx:
+                fut = self.registry.submit(name, inputs, deadline_ms=deadline_ms,
+                                           trace_ctx=ctx, cache_bypass=probe)
+                # transport-level backstop; shedding is the batcher's deadline
+                out = fut.result(timeout=max(60.0, (deadline_ms or 0.0) / 1e3 + 30.0))
         except ModelNotFoundError:
             self._json({"error": f"model {name!r} not found",
                         "models": self.registry.names()}, 404)
@@ -126,7 +137,8 @@ class _ServingHandler(BaseHTTPRequestHandler):
             self._json({"error": f"{type(e).__name__}: {e}"}, 500)
             return
         self._json({"model": name, "outputs": np.asarray(out).tolist(),
-                    "latency_ms": round((time.perf_counter() - t0) * 1e3, 3)})
+                    "latency_ms": round((time.perf_counter() - t0) * 1e3, 3),
+                    "trace_id": f"{ctx.trace_id:x}"})
 
 
 class InferenceServer:
@@ -134,8 +146,8 @@ class InferenceServer:
     bound port; the bind is loopback by default (the endpoints are
     unauthenticated)."""
 
-    def __init__(self, registry: Optional[ModelRegistry] = None,
-                 port: int = 8500, host: str = "127.0.0.1"):
+    def __init__(self, registry: Optional[ModelRegistry] = None, port: int = 8500,
+                 host: str = "127.0.0.1"):
         self.registry = registry if registry is not None else ModelRegistry()
         self.port = port
         self.host = host
@@ -154,19 +166,18 @@ class InferenceServer:
             self.port = port
         if host is not None:
             self.host = host
-        handler = type("BoundServingHandler", (_ServingHandler,),
-                       {"registry": self.registry})
+        handler = type("BoundServingHandler", (_ServingHandler,), {"registry": self.registry})
         self._httpd = ThreadingHTTPServer((self.host, self.port), handler)
         self.port = self._httpd.server_address[1]
-        self._thread = threading.Thread(target=self._httpd.serve_forever,
-                                        daemon=True, name="inference-server")
+        self._thread = threading.Thread(target=self._httpd.serve_forever, daemon=True,
+                                        name="inference-server")
         self._thread.start()
         return self.port
 
     def stop(self, drain: bool = True, timeout: float = 30.0):
         """Stop accepting, drain every model's batcher so accepted requests
-        resolve, then close the listening socket. The models' batchers are
-        closed even when the server was never started."""
+        resolve, then close the socket. The batchers are closed even when
+        the server was never started."""
         if self._httpd is None:
             self.registry.close_all(drain=drain, timeout=timeout)
             return
