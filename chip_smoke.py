@@ -325,7 +325,23 @@ and the CUDA toolkit; run from the root of the repository. It
    kernels' build, no ``nvcc``, bit-equal to the warm replica; one from a
    corrupted copy: ``compile_cache_miss`` and an answer); K1 in f32 timed
    at b=32, T=200; jitwatch's signature check timed a call;
-28. prints a ``{"cnn": ...}`` line with those numbers, a ``{"generate":
+28. (``alerts_probes``) the alert engine, the probe plane and the scrape
+   collector over the same three registrations on fresh nets: golden sets
+   captured on the card, 8 healthy ticks of the process ``Prober`` (every
+   outcome ``ok``, one K1 launch a layer or one K3 launch for every probe
+   flush, no response-cache hit); a gray failure (the f32 net's output
+   layer times 8 on the card, no version bump) that ``probe_mismatch``
+   fires on once, naming the target, with a trace id ``/trace`` resolves,
+   and that resolves when undone; a latency burn (a sleep around the bf16
+   net) that ``serving_p99_breach`` fires on with an exemplar on
+   ``/trace`` and resolves; a ``TelemetryCollector`` over this server and
+   a child replica from step 27's artifact (no replay of the child's
+   earlier flight events, both on ``/fleet``), the child killed until
+   ``fleet_target_down`` and ``fleet_worker_stale`` fire; the training
+   rules on a TBPTT fit (K3 with the reserve, K4) whose batch holds a NaN;
+   ``/alerts``, ``/probes``, ``/telemetry?since_seq=`` and
+   ``alerts_firing`` on ``/metrics``;
+29. prints a ``{"cnn": ...}`` line with those numbers, a ``{"generate":
    ...}`` line with steps 6 and 10's, a ``{"moe_lm": ..., "graph_tbptt":
    ...}`` line with steps 15 and 16's, a ``{"regularized_char_rnn": ...,
    "lm_dropout": ..., "solvers": ...}`` line with step 17's, an
@@ -336,8 +352,9 @@ and the CUDA toolkit; run from the root of the repository. It
    a ``{"remat_clustering": ...}`` line with step 23's, a ``{"parallel":
    ...}`` line with step 24's, a ``{"pipeline_paramserver": ...}`` line
    with step 25's and a ``{"monitor_sharded_fleet": ...}`` line with step
-   26's and a ``{"serving_plane": ...}`` line with step 27's (the card's
-   name and power limit in those), a
+   26's, a ``{"serving_plane": ...}`` line with step 27's and an
+   ``{"alerts_probes": ...}`` line with step 28's (the card's name and
+   power limit in those), a
    ``{"kernels": [...]}`` line (K1's and K3's entries with their decode
    rows; K1/K2's launches in step 16's fit, K5-K7's in step 15's steps;
    K1-K4's in each regularised fit, K5-K7's in the dropout LM's steps and
@@ -345,7 +362,7 @@ and the CUDA toolkit; run from the root of the repository. It
    each path of step 19, in step 21's frozen char-RNN, on step 22's
    imported char-LSTM and under step 23's remat; K5-K7's in step 23's
    TransformerLM steps; every kernel's on each path of steps 24, 25, 26 and
-   27, and K1's f32 body at step 27's shape)
+   27, and K1's f32 body at step 27's shape; K1, K3 and K4's in step 28)
    and, last, the
    ``{"ok": true, "device": ...}`` line.
 
@@ -362,7 +379,9 @@ import os
 import shutil
 import subprocess
 import sys
+import threading
 import time
+import urllib.error
 import urllib.request
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -970,6 +989,47 @@ print(json.dumps({"process_to_answer_s": t3 - t0, "register_s": t2 - t1,
                   "answer_sha256": hashlib.sha256(np.ascontiguousarray(y).tobytes()).hexdigest(),
                   "cache_dir": cc.cache_dir(), "events": events}))
 m.close()
+"""
+
+
+# alerts_probes: the char-RNN served from three registrations as in
+# serving_plane (f32 and bf16 with time buckets: K1; bf16 at T=200 with a
+# response cache: K3), probed by the process Prober for AP_TICKS healthy
+# ticks, then a gray failure (the f32 net's output-layer W times 8 on the
+# card, undone after) and an injected AP_SLOW_S sleep around the bf16 net.
+# The probe and fleet packs run on a synthetic clock of AP_BEAT_S a beat with JAX's
+# test windows (tests/test_alerts.py, tests/test_probes.py): AP_WINDOWS,
+# hold-down AP_FOR_S, the deadman at AP_DEADMAN_S; the latency target
+# AP_P99_MS sits between a healthy request (about 10 ms) and a slowed one.
+# The scraped child replica must print its port within AP_CHILD_TIMEOUT_S;
+# the fleet table's staleness horizon is AP_STALE_S during the phase; the
+# training rule's problem window is AP_WITHIN_S.
+AP_TICKS, AP_BEAT_S, AP_WINDOWS, AP_FOR_S, AP_DEADMAN_S = 8, 0.5, (1.5, 3.0), 0.2, 2.0
+# the latency burn runs on the wall clock (``/alerts`` evaluates at request
+# time), one request a beat of AP_SERVE_BEAT_S: a slowed beat takes about
+# AP_SLOW_S, so the samples stay dense enough for a window to count as
+# covered (MetricsHistory.covers: within a quarter window of its edge)
+AP_SERVE_BEAT_S = 0.25
+AP_SLOW_S, AP_P99_MS, AP_CHILD_TIMEOUT_S, AP_STALE_S, AP_WITHIN_S = 0.25, 150.0, 120.0, 2.0, 2.0
+# The scraped replica: a child process serving the bf16 char-RNN from the
+# warmup artifact with an empty compile-cache directory. It records a
+# flight event before it serves (which must not replay at the collector),
+# prints its port and serves until its stdin closes.
+AP_REPLICA = r"""
+import json, os, sys
+sys.path.insert(0, os.getcwd())
+import chip_smoke as cs
+from deeplearning4j_torch import InferenceServer
+from deeplearning4j_torch.monitor import get_flight_recorder
+
+net = cs.build_net(cs.char_rnn_conf())
+get_flight_recorder().record("preexisting_incident", origin="replica-b")
+srv = InferenceServer()
+srv.register("ap_replica", net, linger_ms=5.0, precision="bf16", cache_size=cs.SP_CACHE,
+             warmup_artifact=sys.argv[1])
+print(json.dumps({"port": srv.start(port=0)}), flush=True)
+sys.stdin.read()
+srv.stop()
 """
 
 
@@ -2615,7 +2675,12 @@ def lm_pipeline():
         # it records must be pinned and off the compute stream, and those
         # made once the first step had begun mostly overlapped by their
         # kernels. The first batch's copy comes before that: the step waits
-        # for it, and only the fit's set-up kernels can run beside it.
+        # for it, and only the fit's set-up kernels can run beside it. The
+        # copies of batches 1 and 2 are held until steps 0 and 1 begin
+        # their backward (prefetch.backward_begins): a copy started where
+        # a worker happened to finish staging could land in the forward or
+        # the update, launched one small kernel at a time, and read as
+        # little as 3% (ROADMAP C 7).
         got = ahead["batch_copies"]
         bad = [c for c in got if c["stream"] == ahead["compute_stream"]
                or "Pinned" not in c["name"]
@@ -8543,7 +8608,7 @@ def serving_plane(smi, build_s):
         res["export_s"] = time.perf_counter() - t0
         from deeplearning4j_torch.compilecache import read_manifest
         man = read_manifest(artifact)
-        res["artifact"] = {"bytes": os.path.getsize(artifact), "libraries": [
+        res["artifact"] = {"path": artifact, "bytes": os.path.getsize(artifact), "libraries": [
             lib["name"] for lib in man["libraries"]], "signatures": len(man["signatures"]),
             "fingerprint": man["fingerprint"]}
         log(f"warmup artifact {artifact}: {res['artifact']}, exported in {res['export_s']:.2f} s")
@@ -8557,6 +8622,367 @@ def serving_plane(smi, build_s):
     res["watch_cost"] = sp_watch_cost(nets["sp_f32"].device)
     res["seconds"] = time.perf_counter() - t_start
     log(f"serving_plane phase took {res['seconds']:.1f} s")
+    return res
+
+
+def ap_start_replica(artifact):
+    """The scraped child replica (AP_REPLICA), started at once: its port is
+    read later, bounded by AP_CHILD_TIMEOUT_S."""
+    cache = Path("build") / "alerts_probes" / "replica_cache"
+    shutil.rmtree(cache, ignore_errors=True)
+    cache.mkdir(parents=True)
+    env = {**os.environ, "DL4J_TPU_COMPILE_CACHE_DIR": str(cache)}
+    return subprocess.Popen([sys.executable, "-c", AP_REPLICA, artifact], stdin=subprocess.PIPE,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env)
+
+
+def ap_replica_port(child):
+    box = {}
+    reader = threading.Thread(target=lambda: box.update(line=child.stdout.readline()),
+                              daemon=True)
+    reader.start()
+    reader.join(AP_CHILD_TIMEOUT_S)
+    line = (box.get("line") or "").strip()
+    if not line:
+        child.kill()
+        raise AssertionError(f"alerts_probes: the child replica printed no port within "
+                             f"{AP_CHILD_TIMEOUT_S} s:\n{child.stderr.read()[-3000:]}")
+    return json.loads(line)["port"]
+
+
+def ap_walk(step, beat, until, limit, label):
+    """Beats until ``until(states)`` holds, at most ``limit``; the states
+    after each beat."""
+    walk = []
+    for _ in range(limit):
+        walk.append(beat(step))
+        step += 1
+        if until(walk[-1]):
+            return step, walk
+    raise AssertionError(f"alerts_probes: {label} not reached in {limit} beats: {walk[-3:]}")
+
+
+def alerts_probes(smi, artifact):
+    """The alert engine, the probe plane and the scrape collector over the
+    char-RNN served on the card: healthy probes (K1/K3 launches a probe
+    flush, no cache hit), a gray failure caught by ``probe_mismatch``, a
+    latency burn with a resolvable exemplar, a collector over this server
+    and a child replica that is then killed, the training rules on a NaN
+    fit, and the monitor routes."""
+    from deeplearning4j_torch import DataSet, InferenceServer
+    from deeplearning4j_torch.monitor import (AlertEngine, MetricsHistory, TelemetryCollector,
+                                              TrainingHealthListener,
+                                              default_fleet_rules, default_fleet_scope_rules,
+                                              default_probe_rules, default_serving_rules,
+                                              default_training_rules, get_alert_engine,
+                                              get_fleet, get_flight_recorder, get_history,
+                                              get_prober)
+
+    t_start = time.perf_counter()
+    log(f"--- alerts_probes ({smi})")
+    fresh_monitor()
+    child = ap_start_replica(artifact)
+    regs = {"ap_f32": dict(precision="f32", time_buckets=TIME_BUCKETS),
+            "ap_bf16": dict(precision="bf16", time_buckets=TIME_BUCKETS),
+            "ap_bf16_fixed": dict(precision="bf16", cache_size=SP_CACHE)}
+    nets = {k: build_net(char_rnn_conf()) for k in regs}
+    srv = InferenceServer()
+    served = {k: srv.register(k, nets[k], linger_ms=5.0, input_shape=(T, VOCAB), **kw)
+              for k, kw in regs.items()}
+    port = srv.start(port=0)
+    rec, fleet = get_flight_recorder(), get_fleet()
+    prober, engine, hist = get_prober(), get_alert_engine(), get_history()
+    engine.clear()
+    hist.clear()
+    stale0, fleet.stale_after = fleet.stale_after, AP_STALE_S
+    collector = None
+    res = {"card": smi}
+    try:
+        # (a) healthy probes: golden sets captured on the card, then
+        # AP_TICKS ticks of three targets with the probe pack attached
+        goldens = {k: m.golden(examples=1) for k, m in served.items()}
+        res["goldens"] = {k: {"version": g["version"], "atol": g["atol"],
+                              "precision": g["precision"]} for k, g in goldens.items()}
+        prober.engine.clear()
+        for k, g in goldens.items():
+            prober.add_target(k, f"127.0.0.1:{port}", g)
+        edges = []
+        prober.engine.subscribe(lambda ev, pl: edges.append((ev, dict(pl))))
+        prober.engine.add(*default_probe_rules(prober, windows=AP_WINDOWS,
+                                               deadman_s=AP_DEADMAN_S, for_seconds=AP_FOR_S))
+        t0 = time.time()
+        ticks = []
+
+        def probe_beat(step):
+            r = prober.tick(now=t0 + AP_BEAT_S * step)
+            ticks.append(r)
+            return {"outcomes": r["outcomes"],
+                    **{x.name: x.state for x in prober.engine.rules()}}
+        flushes0 = {k: m.batcher.transfer_stats()["flushes"] for k, m in served.items()}
+        def cache_now():
+            return {**served["ap_bf16_fixed"].batcher.cache_stats(),
+                    "hits": sum(registry_rows("serving_cache_hits_total",
+                                              model="ap_bf16_fixed").values())}
+        cache0 = cache_now()
+        reset_counts()
+        healthy = [probe_beat(i) for i in range(AP_TICKS)]
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in read_counts().items() if v}
+        flushes = {k: m.batcher.transfer_stats()["flushes"] - flushes0[k]
+                   for k, m in served.items()}
+        cache1 = cache_now()
+        want = {"lstm_fwd": 2 * (flushes["ap_f32"] + flushes["ap_bf16"]),
+                "lstm2_fwd": flushes["ap_bf16_fixed"]}
+        res["healthy"] = {"outcomes": [h["outcomes"] for h in healthy], "launches": launches,
+                          "flushes": flushes, "cache_before": cache0, "cache_after": cache1,
+                          "states": healthy[-1]}
+        log(f"alerts_probes healthy ({smi}): {AP_TICKS} ticks of {len(goldens)} targets, "
+            f"outcomes all ok: {all(set(h['outcomes'].values()) == {'ok'} for h in healthy)}; "
+            f"launches {launches} for flushes {flushes} (want {want}); cache {cache0} -> "
+            f"{cache1}; rules {healthy[-1]}")
+        if not all(set(h["outcomes"].values()) == {"ok"} for h in healthy):
+            raise AssertionError(f"alerts_probes: a healthy probe failed: {res['healthy']}")
+        if launches != want or any(v != AP_TICKS for v in flushes.values()):
+            raise AssertionError(f"alerts_probes: probe launches {launches}, flushes {flushes}, "
+                                 f"want {want} and {AP_TICKS} flushes each")
+        if (cache1["hits"], cache1["entries"]) != (cache0["hits"], cache0["entries"]):
+            raise AssertionError(f"alerts_probes: probes touched the response cache: "
+                                 f"{cache0} -> {cache1}")
+
+        # (b) the gray failure: the f32 net answers wrong, fast, no version
+        # bump; probe_mismatch fires once, names the target, and carries a
+        # trace id the server's /trace resolves; undone, every rule resolves
+        w = nets["ap_f32"].params["2"]["W"]
+        step = AP_TICKS
+        with torch.no_grad():
+            w.mul_(8.0)
+        try:
+            step, wrong = ap_walk(step, probe_beat, lambda st: st["probe_mismatch"] == "FIRING",
+                                  6, "probe_mismatch FIRING")
+        finally:
+            with torch.no_grad():
+                w.div_(8.0)
+        step, back = ap_walk(step, probe_beat,
+                             lambda st: all(v == "OK" for k, v in st.items()
+                                            if k != "outcomes"), 16, "probe rules OK")
+        fired = [pl for ev, pl in edges if ev == "alert_firing" and pl["rule"] == "probe_mismatch"]
+        resolved = [pl for ev, pl in edges
+                    if ev == "alert_resolved" and pl["rule"] == "probe_mismatch"]
+        traced = {(e.get("args") or {}).get("trace_id")
+                  for e in sp_get(port, "/trace")["traceEvents"]}
+        mismatch_rule = {r.name: r for r in prober.engine.rules()}["probe_mismatch"]
+        res["gray"] = {"outcomes": [x["outcomes"] for x in wrong + back],
+                       "walk": [x["probe_mismatch"] for x in healthy + wrong + back],
+                       "edges": [(ev, pl["rule"]) for ev, pl in edges],
+                       "detail": fired[0]["detail"] if fired else None,
+                       "exemplar": fired[0]["exemplar_trace_id"] if fired else None,
+                       "exemplar_on_trace": bool(fired) and fired[0]["exemplar_trace_id"] in traced,
+                       "fired_count": mismatch_rule.fired_count}
+        log(f"alerts_probes gray failure ({smi}): outcomes {res['gray']['outcomes']}; "
+            f"probe_mismatch walk {res['gray']['walk']}; edges {res['gray']['edges']}; detail "
+            f"{res['gray']['detail']!r}; exemplar {res['gray']['exemplar']} on /trace: "
+            f"{res['gray']['exemplar_on_trace']}")
+        if len(fired) != 1 or len(resolved) != 1 or mismatch_rule.fired_count != 1 \
+                or "ap_f32" not in (fired[0]["detail"] or "") \
+                or not res["gray"]["exemplar_on_trace"] \
+                or any(o != "ok" for k, o in wrong[0]["outcomes"].items() if k != "ap_f32") \
+                or wrong[0]["outcomes"]["ap_f32"] != "mismatch":
+            raise AssertionError(f"alerts_probes: the gray failure: {res['gray']}")
+        evals = []
+        for _ in range(20):
+            e0 = time.perf_counter()
+            prober.engine.evaluate(now=t0 + AP_BEAT_S * step, strict=False)
+            evals.append((time.perf_counter() - e0) * 1e6)
+        res["evaluate_us"] = {"median": float(np.median(evals)), "rules": 4, "calls": len(evals)}
+        res["tick_ms"] = [r["duration_ms"] for r in ticks]
+        log(f"alerts_probes ({smi}): the prober's tick over 3 targets {np.median(res['tick_ms']):.1f} "
+            f"ms (median of {len(ticks)}; {min(res['tick_ms']):.1f}-{max(res['tick_ms']):.1f}); "
+            f"the probe pack's evaluate {res['evaluate_us']['median']:.1f} us (median of 20)")
+
+        # (c) the latency burn: an injected sleep around the bf16 net;
+        # serving_p99_breach fires with an exemplar on /trace and resolves
+        rules = default_serving_rules("ap_bf16", windows=AP_WINDOWS, p99_target_ms=AP_P99_MS,
+                                      for_seconds=AP_FOR_S)
+        engine.add(*rules)
+        p99 = rules[1].name
+        sedges = []
+        engine.subscribe(lambda ev, pl: sedges.append((ev, dict(pl))))
+        rng = np.random.default_rng(SP_SEED + 11)
+        x = one_hot(rng, 1, T // 2)
+        net, real = nets["ap_bf16"], nets["ap_bf16"].output
+        t1 = time.time()
+
+        def serve_beat(step):
+            # on the wall clock: /alerts evaluates the process engine at
+            # request time, so its samples must not lie ahead of it
+            time.sleep(max(0.0, t1 + AP_SERVE_BEAT_S * step - time.time()))
+            sp_post(port, "ap_bf16", x)
+            now = time.time()
+            hist.sample(now=now)
+            engine.evaluate(now=now, strict=False)
+            return {r.name: r.state for r in engine.rules()}
+        base = [serve_beat(i) for i in range(int(AP_WINDOWS[-1] / AP_SERVE_BEAT_S) + 1)]
+        step = len(base)
+        if any(v != "OK" for v in base[-1].values()):
+            raise AssertionError(f"alerts_probes: the serving rules before the fault: {base}")
+
+        def slow(*a, **k):
+            time.sleep(AP_SLOW_S)
+            return real(*a, **k)
+        net.output = slow
+        try:
+            step, slowed = ap_walk(step, serve_beat, lambda st: st[p99] == "FIRING", 12,
+                                   f"{p99} FIRING")
+        finally:
+            del net.output
+        step, fast = ap_walk(step, serve_beat, lambda st: st[p99] == "OK", 24, f"{p99} OK")
+        fired = [pl for ev, pl in sedges if ev == "alert_firing" and pl["rule"] == p99]
+        traced = {(e.get("args") or {}).get("trace_id")
+                  for e in sp_get(port, "/trace")["traceEvents"]}
+        res["latency"] = {"walk": [st[p99] for st in base + slowed + fast],
+                          "edges": [(ev, pl["rule"]) for ev, pl in sedges],
+                          "detail": fired[0]["detail"] if fired else None,
+                          "exemplar": fired[0]["exemplar_trace_id"] if fired else None,
+                          "exemplar_on_trace": bool(fired)
+                          and fired[0]["exemplar_trace_id"] in traced}
+        log(f"alerts_probes latency burn ({smi}): {p99} walk {res['latency']['walk']}; edges "
+            f"{res['latency']['edges']}; detail {res['latency']['detail']!r}; exemplar "
+            f"{res['latency']['exemplar']} on /trace: {res['latency']['exemplar_on_trace']}")
+        if len(fired) != 1 or not res["latency"]["exemplar_on_trace"] \
+                or ("alert_resolved", p99) not in res["latency"]["edges"]:
+            raise AssertionError(f"alerts_probes: the latency burn: {res['latency']}")
+
+        # (d) the collector over this server (replica-a) and the child
+        # replica (replica-b); the child killed: its target goes down
+        bport = ap_replica_port(child)
+        collector = TelemetryCollector(timeout_s=10.0)
+        collector.engine.add(*default_fleet_scope_rules(fleet=collector.fleet,
+                                                        windows=AP_WINDOWS,
+                                                        for_seconds=AP_FOR_S),
+                             *default_fleet_rules(for_seconds=AP_FOR_S))
+        collector.add_target("replica-a", f"127.0.0.1:{port}")
+        collector.add_target("replica-b", f"127.0.0.1:{bport}")
+        t2 = time.time()
+
+        def scrape_beat(step):
+            r = collector.tick(now=t2 + AP_BEAT_S * step)
+            return {"scraped": r["scraped"], "errors": sorted(r["errors"]),
+                    **{x.name: x.state for x in collector.engine.rules()}}
+        step, up = 0, []
+        for _ in range(4):
+            up.append(scrape_beat(step))
+            step += 1
+        sp_post(bport, "ap_replica", one_hot(rng, 1, T))
+        up.append(scrape_beat(step))
+        step += 1
+        replayed = [e for e in rec.events() if e["event"] == "preexisting_incident"]
+        fleet_text = sp_get(port, "/fleet")
+        child.kill()
+        child.wait(timeout=30)
+        time.sleep(AP_STALE_S + 0.2)
+        step, down = ap_walk(step, scrape_beat,
+                             lambda st: st["fleet_target_down"] == st["fleet_worker_stale"]
+                             == "FIRING", 6, "fleet_target_down and fleet_worker_stale FIRING")
+        res["collector"] = {
+            "up": up, "down": down, "replayed_preexisting": len(replayed),
+            "fleet_lists": {w: f'worker="{w}"' in fleet_text for w in ("replica-a", "replica-b")},
+            "down_targets": [t.label for t in collector.down_targets()],
+            "target_down_events": [e["target"] for e in rec.events()
+                                   if e["event"] == "fleet_target_down" and "origin_seq" not in e],
+            "snapshot": collector.snapshot()["targets"]}
+        log(f"alerts_probes collector ({smi}): healthy ticks {up}; after the kill {down}; "
+            f"pre-existing events replayed {len(replayed)}; /fleet lists "
+            f"{res['collector']['fleet_lists']}; down targets {res['collector']['down_targets']}")
+        if replayed or not all(res["collector"]["fleet_lists"].values()) \
+                or any(u["errors"] for u in up) \
+                or res["collector"]["down_targets"] != ["replica-b"]:
+            raise AssertionError(f"alerts_probes: the collector: {res['collector']}")
+        collector.stop()
+        collector.engine.clear()
+
+        # (e) the training rules on a TBPTT fit (K3 with the reserve, K4)
+        # whose batch holds a NaN
+        tengine = AlertEngine(history=MetricsHistory(capacity=8))
+        truls = default_training_rules(stall_after_s=600.0, for_seconds=0.0)
+        truls[1].within_s = AP_WITHIN_S
+        tengine.add(*truls)
+        tnet = build_net(char_rnn_conf())
+        tnet.set_listeners(TrainingHealthListener())
+        f, l = periodic_text(np.random.default_rng(SP_SEED + 12), TRAIN_B, TRAIN_SEQ)
+        f[0, 0, 0] = np.nan
+        reset_counts()
+        tnet.fit(DataSet(f, l))
+        torch.cuda.synchronize()
+        tlaunches = {k: v for k, v in read_counts().items() if v}
+        nans = [e for e in rec.events() if e["event"] == "health_problem" and e["kind"] == "nan"]
+        firing = tengine.evaluate(now=time.time(), strict=False)
+        later = tengine.evaluate(now=max(e["t"] for e in nans) + AP_WITHIN_S + 0.5,
+                                 strict=False) if nans else []
+        state = {r["rule"]: r["state"] for r in firing}
+        after = {r["rule"]: r["state"] for r in later}
+        res["training"] = {"launches": tlaunches, "nan_problems": len(nans), "firing": state,
+                           "after_within_s": after}
+        log(f"alerts_probes training rules ({smi}): a TBPTT fit b={TRAIN_B} T={TRAIN_SEQ} with a "
+            f"NaN launched {tlaunches}; {len(nans)} nan problems; rules {state}, then {after} "
+            f"once they aged past {AP_WITHIN_S} s")
+        segs = TRAIN_SEQ // TRAIN_T
+        if tlaunches != {"lstm2_fwd_train": segs, "lstm2_bwd": segs} or not nans \
+                or state.get("training_divergence") != "FIRING" \
+                or after.get("training_divergence") != "OK":
+            raise AssertionError(f"alerts_probes: the training rules: {res['training']}")
+
+        # (f) the routes, with JAX's document keys
+        prime = sp_get(port, "/telemetry")
+        rec.record("alerts_probes_route_check")
+        fresh = sp_get(port, f"/telemetry?since_seq={prime['last_seq']}")
+        try:
+            sp_get(port, "/telemetry?since_seq=x")
+            bad = 200
+        except urllib.error.HTTPError as e:
+            bad = e.code
+        alerts = sp_get(port, "/alerts")
+        probes = sp_get(port, "/probes")
+        metrics = sp_get(port, "/metrics")
+        res["routes"] = {
+            "alerts_keys": sorted(alerts), "alerts_rules": {r["rule"]: (r["state"], r["fired_count"])
+                                                            for r in alerts["alerts"]},
+            "probes_keys": sorted(probes), "probes_targets": sorted(probes["targets"]),
+            "telemetry_keys": sorted(prime), "telemetry_prime_events": len(prime["flight_events"]),
+            "telemetry_fresh": [e["event"] for e in fresh["flight_events"]],
+            "telemetry_bad_cursor": bad,
+            "metrics_alerts_firing": sorted(ln.split(" ")[0] for ln in metrics.splitlines()
+                                            if ln.startswith("alerts_firing{"))}
+        log(f"alerts_probes routes ({smi}): {res['routes']}")
+        if sorted(alerts) != ["alerts", "evaluated_at", "firing", "pending"] \
+                or res["routes"]["alerts_rules"].get(p99) != ("OK", 1) \
+                or sorted(probes) != ["fail_threshold", "interval_s", "running", "targets",
+                                      "timeout_s"] \
+                or res["routes"]["probes_targets"] != sorted(regs) \
+                or sorted(prime) != ["exemplars", "flight_events", "health", "last_seq",
+                                     "registry", "trace_events"] \
+                or prime["flight_events"] or "alerts_probes_route_check" not in \
+                res["routes"]["telemetry_fresh"] or bad != 400 \
+                or f'alerts_firing{{rule="{p99}"}}' not in res["routes"]["metrics_alerts_firing"] \
+                or 'alerts_firing{rule="probe_mismatch"}' not in \
+                res["routes"]["metrics_alerts_firing"]:
+            raise AssertionError(f"alerts_probes: the routes: {res['routes']}")
+        res["launches"] = {"probes": launches, "training_rules_fit": tlaunches}
+    finally:
+        if collector is not None:
+            collector.stop()
+            collector.engine.clear()
+        for k in regs:
+            prober.remove_target(k)
+        prober.engine.clear()
+        engine.clear()
+        hist.clear()
+        fleet.stale_after = stale0
+        if child.poll() is None:
+            child.kill()
+            child.wait(timeout=30)
+        srv.stop()
+    res["seconds"] = time.perf_counter() - t_start
+    log(f"alerts_probes phase took {res['seconds']:.1f} s ({smi})")
     return res
 
 
@@ -8592,7 +9018,7 @@ def build():
 
 
 def kernel_line(serving, training, served, streamed, trained, flash, lm, decode, moe, graph,
-                reg, lmd, ev, rf, tp, ke, rc, par, pps, msf, sp):
+                reg, lmd, ev, rf, tp, ke, rc, par, pps, msf, sp, ap):
     """The {"kernels": [...]} entries: for K1-K4 numbers at the char-RNN's
     training shape, the launches of its training main path, and K1/K3's
     serving numbers and their decode rows (T=1, b=GEN_B, one a
@@ -8639,13 +9065,20 @@ def kernel_line(serving, training, served, streamed, trained, flash, lm, decode,
     the monitored TransformerLM and char-RNN fits). Every entry carries its
     launches in each registration of the serving_plane phase and in its
     cache hit (``serving_plane_launches``), and K1 its f32 CUDA-core body's
-    numbers at the serving shape (``serving_plane_f32_body``)."""
+    numbers at the serving shape (``serving_plane_f32_body``). K1, K3 and
+    K4 carry their launches in the alerts_probes phase
+    (``alerts_probes_launches``: the healthy probes, the training rules'
+    NaN fit)."""
     sp_paths = {k: v["launches"] for k, v in sp["registrations"].items()}
     sp_paths["cache_hit"] = sp["cache_hit"]["launches"]
 
     def sp_launches(*names):
         return {"serving_plane_launches": {p: sum(c.get(n, 0) for n in names)
                                            for p, c in sp_paths.items()}}
+
+    def ap_launches(*names):
+        return {"alerts_probes_launches": {p: sum(c.get(n, 0) for n in names)
+                                           for p, c in ap["launches"].items()}}
     pp_paths = {"pipelined_char_rnn": pps["pipelined_char_rnn"]["launches"],
                 "pipelined_lm": pps["pipelined_lm"]["launches"],
                 **{f"paramserver_{k}": pps["paramserver"][k]["launches"]
@@ -8759,6 +9192,7 @@ def kernel_line(serving, training, served, streamed, trained, flash, lm, decode,
                **pp_launches("lstm_fwd", "lstm_fwd_train"),
                **msf_launches("lstm_fwd", "lstm_fwd_train"),
                **sp_launches("lstm_fwd", "lstm_fwd_train"),
+               **ap_launches("lstm_fwd", "lstm_fwd_train"),
                "serving_plane_f32_body": sp["k1_f32_body"],
                "pipeline_microbatch": pp_rnn["lstm_fwd_train"]}),
         entry("lstm_bwd", "lstm_bwd", "lstm_cell_bwd.cu", "deeplearning4j_tpu/ops/lstm_cell.py:235",
@@ -8784,6 +9218,7 @@ def kernel_line(serving, training, served, streamed, trained, flash, lm, decode,
                **pp_launches("lstm2_fwd", "lstm2_fwd_train"),
                **msf_launches("lstm2_fwd", "lstm2_fwd_train"),
                **sp_launches("lstm2_fwd", "lstm2_fwd_train"),
+               **ap_launches("lstm2_fwd", "lstm2_fwd_train"),
                "paramserver_full_sequence": ps_rnn["lstm2_fwd_train"]}),
         entry("lstm2_bwd", "lstm2_bwd", "lstm_fused_bwd.cu", "deeplearning4j_tpu/ops/lstm_fused.py:249",
               [training["lstm2_bwd"]], {"design": training["lstm2_bwd"]["design"],
@@ -8797,6 +9232,7 @@ def kernel_line(serving, training, served, streamed, trained, flash, lm, decode,
                                         **pp_launches("lstm2_bwd"),
                                         **msf_launches("lstm2_bwd"),
                                         **sp_launches("lstm2_bwd"),
+                                        **ap_launches("lstm2_bwd"),
                                         "paramserver_full_sequence": ps_rnn["lstm2_bwd"]}),
         *(flash_entry(name, src, line, flash[name], lm, moe, lmd,
                       {**(evaluate_launches(name) if name == "flash_fwd" else {}),
@@ -8924,12 +9360,15 @@ def main() -> int:
     sp = serving_plane(smi, build_s)
     torch.cuda.empty_cache()
     print(json.dumps({"serving_plane": sp}))
+    ap = alerts_probes(smi, sp["artifact"]["path"])
+    torch.cuda.empty_cache()
+    print(json.dumps({"alerts_probes": ap}))
 
     print(json.dumps({"generate": generated}))
     print(json.dumps({"kernels": kernel_line(serving, training, served, streamed,
                                              trained["launches"], flash, lm, decode, moe,
                                              graph, reg, lmd, ev, rf, tp, ke, rc, par,
-                                             pps, msf, sp)}))
+                                             pps, msf, sp, ap)}))
     log(f"chip_smoke took {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -19,7 +19,13 @@ Counterpart of ``deeplearning4j_tpu/datasets/prefetch.py``:
   consumer's stream waits for that event and is recorded on each tensor
   (``record_stream``), so the caching allocator does not hand the memory
   to a later copy while the step still reads it. On the CPU the put is a
-  plain tensor conversion.
+  plain tensor conversion. In the fit loops' pipelines
+  (``copy_under_backward``) the copy of batch k+1 is held until the step
+  on batch k begins its backward
+  (:func:`backward_begins`), so that it runs beside the backward's
+  kernels: the forward and the update are launched one small kernel at a
+  time and leave the card idle for stretches, where a copy that started
+  at a random moment was overlapped as little as 3% (ROADMAP C 7).
 - :func:`wrap_for_training`: the containers' fit-loop wrap, with the
   reference's dials ``DL4J_TPU_PREFETCH_WORKERS`` (default 2; 0 is the
   synchronous path), ``DL4J_TPU_PUT_AHEAD`` (default on) and
@@ -87,6 +93,37 @@ def _copy_stream(device: torch.device):
         return stream
 
 
+#: the training steps' signal to held put-ahead copies: the number of
+#: backwards begun so far in the process, and the condition a held copy
+#: waits on (notified by each backward and by a consumer that starts
+#: waiting). Plain ``threading`` primitives: no counterpart lock in the
+#: JAX package.
+_BACKWARDS = 0
+_BACKWARD_COND = threading.Condition()
+
+
+def backward_begins():
+    """Called by the training steps just before their backward
+    (``torch.autograd.grad``): a put-ahead copy held for it is queued
+    now, to run beside the backward's kernels."""
+    global _BACKWARDS
+    with _BACKWARD_COND:
+        _BACKWARDS += 1
+        _BACKWARD_COND.notify_all()
+
+
+def _hold_copy(ep: "_Epoch", seq: int):
+    """Block the copy of batch ``seq`` until the consumer has taken batch
+    ``seq - 1`` and a backward began after that, or until the consumer
+    waits for a batch or the epoch stops. Batch 0 goes at once."""
+    if seq == 0:
+        return
+    with _BACKWARD_COND:
+        while not (ep.stop.is_set() or ep.waiting
+                   or (ep.emit_seq == seq and _BACKWARDS > ep.take_gen)):
+            _BACKWARD_COND.wait(_POLL_S)
+
+
 class _Raise:
     """A worker-side error travelling the reorder buffer in batch order:
     batches produced before the failure are still delivered, then the
@@ -106,7 +143,8 @@ class _Epoch:
     excluding the next epoch's workers from the shared base."""
 
     __slots__ = ("source", "cond", "buf", "next_seq", "emit_seq", "end_seq", "exc",
-                 "ended", "pulling", "source_done", "stop", "threads")
+                 "ended", "pulling", "source_done", "stop", "threads", "take_gen",
+                 "waiting")
 
     def __init__(self, source):
         self.source = source
@@ -121,6 +159,8 @@ class _Epoch:
         self.source_done = False            # concurrent mode: saw exhaustion
         self.stop = threading.Event()
         self.threads = []
+        self.take_gen = 0                   # _BACKWARDS when the consumer last took a batch
+        self.waiting = False                # the consumer waits for a batch
 
 
 class PrefetchIterator:
@@ -151,6 +191,7 @@ class PrefetchIterator:
         self._concurrent = bool(concurrent_pull)
         self._name = name
         self._pull_lock = make_lock("PrefetchIterator._pull_lock")
+        self._hold_copies = False           # finalize(out, hold): see _hold_copy
         self._ep: Optional[_Epoch] = None
         self._handles = None
 
@@ -273,7 +314,8 @@ class PrefetchIterator:
                     continue   # past the recorded end: drop, never deliver
             if self._finalize is not None and not isinstance(out, _Raise):
                 try:
-                    out = self._finalize(out)
+                    out = (self._finalize(out, lambda ep=ep, seq=seq: _hold_copy(ep, seq))
+                           if self._hold_copies else self._finalize(out))
                 except Exception as e:
                     out = self._fail(ep, seq, e)
             with ep.cond:
@@ -343,7 +385,9 @@ class PrefetchIterator:
             while True:
                 if ep.emit_seq in ep.buf:
                     item = ep.buf.pop(ep.emit_seq)
+                    ep.take_gen = _BACKWARDS
                     ep.emit_seq += 1
+                    ep.waiting = False
                     depth_g.set(len(ep.buf))
                     ep.cond.notify_all()     # space freed for producers
                     break
@@ -359,6 +403,10 @@ class PrefetchIterator:
                     raise RuntimeError(
                         f"{self._name}: all {self._workers} prefetch workers died without "
                         f"delivering batch {ep.emit_seq} or an end-of-stream marker")
+                if self._hold_copies and not ep.waiting:
+                    ep.waiting = True        # releases a copy held for a backward
+                    with _BACKWARD_COND:
+                        _BACKWARD_COND.notify_all()
                 ep.cond.wait(_POLL_S)
         wait_h.observe(time.perf_counter() - t0)
         if isinstance(item, _Raise):
@@ -439,12 +487,17 @@ class _PinnedStager:
             self._count[key] -= 1
             self._cond.notify_all()
 
-    def put(self, arrays) -> DeviceArrays:
+    def put(self, arrays, hold=None) -> DeviceArrays:
         """Host arrays (or None) -> their tensors on the card, with the
-        event recorded on the side stream after the copies. Each staging
-        buffer goes back to the ring as soon as its copy is queued (with an
-        event of its own), so a batch may hold more arrays of one shape and
-        type than there are slots."""
+        event recorded on the side stream after the copies. ``hold``, when
+        given, is called first and returns when the copies may start (it
+        comes before the staging: a batch holding staged buffers would keep
+        them from another worker's batch, which could hold the rest). Each
+        staging buffer goes back to the ring as soon as its copy is queued
+        (with an event of its own), so a batch may hold more arrays of one
+        shape and type than there are slots."""
+        if hold is not None:
+            hold()
         hosts = [None if a is None else to_tensor(a, "cpu") for a in arrays]
         out = []
         with torch.cuda.stream(self._stream):
@@ -512,6 +565,12 @@ class PrefetchDataSetIterator(PrefetchIterator, DataSetIterator):
     ``transform`` (on the host, before the copy) is where decode, augment
     and padding work runs in parallel across workers.
 
+    ``copy_under_backward`` (the fit loops' pipelines, on the card): the
+    copy of batch k+1 (staging included) is held on its worker until the
+    consumer has taken batch k and the step on it begins its backward
+    (:func:`backward_begins`), so it runs beside the backward's kernels;
+    a consumer that waits for a held batch releases it at once.
+
     ``sharding`` (a ``parallel.Sharding``, e.g. ``batch_sharded(mesh)``)
     places each batch into a mesh's slots on the worker
     (:class:`ShardedDataSet`: every array a list of the slots' shards,
@@ -524,7 +583,8 @@ class PrefetchDataSetIterator(PrefetchIterator, DataSetIterator):
     def __init__(self, base: DataSetIterator, workers: int = 2,
                  queue_size: Optional[int] = None, device=None, cache_device: bool = False,
                  transform: Optional[Callable] = None,
-                 concurrent_pull: Optional[bool] = None, sharding=None):
+                 concurrent_pull: Optional[bool] = None, sharding=None,
+                 copy_under_backward: bool = False):
         self._sharding = sharding
         self._user_transform = transform
         self._bytes_counter = get_registry().counter(
@@ -557,6 +617,7 @@ class PrefetchDataSetIterator(PrefetchIterator, DataSetIterator):
         if self._device_put and self._device.type == "cuda":
             self._stager = _PinnedStager(self._device, self._qsize,
                                          _copy_stream(self._device))
+            self._hold_copies = bool(copy_under_backward) and not self._cache_device
 
     def _prepare(self, ds):
         if self._user_transform is not None:
@@ -564,9 +625,9 @@ class PrefetchDataSetIterator(PrefetchIterator, DataSetIterator):
         self._bytes_counter.inc(_host_nbytes(ds))
         return ds
 
-    def _put(self, arrays) -> DeviceArrays:
+    def _put(self, arrays, hold=None) -> DeviceArrays:
         if self._stager is not None:
-            return self._stager.put(arrays)
+            return self._stager.put(arrays, hold)
         return DeviceArrays(tuple(to_tensor(a, self._device) for a in arrays))
 
     def _put_sharded(self, ds):
@@ -590,7 +651,7 @@ class PrefetchDataSetIterator(PrefetchIterator, DataSetIterator):
                                   put(ds.labels_mask), n=ds.num_examples())
         return ds
 
-    def _put_ahead(self, ds):
+    def _put_ahead(self, ds, hold=None):
         if self._stager is not None:
             torch.cuda.set_device(self._device)   # the worker's current card
         if self._cache_device and isinstance(ds, (DataSet, MultiDataSet)):
@@ -599,7 +660,7 @@ class PrefetchDataSetIterator(PrefetchIterator, DataSetIterator):
             ds._device_entry(self._device, self._put)
             return ds
         if isinstance(ds, (DataSet, MultiDataSet)):
-            return _device_view(ds, self._put)
+            return _device_view(ds, lambda arrays: self._put(arrays, hold))
         return ds
 
     def __next__(self):
@@ -670,4 +731,4 @@ def wrap_for_training(it, device, cache_device: bool = False):
         queue_size = 2 if put_ahead else None
     return PrefetchDataSetIterator(it, workers=workers, queue_size=queue_size,
                                    device=device if put_ahead else None,
-                                   cache_device=cache_device), True
+                                   cache_device=cache_device, copy_under_backward=True), True

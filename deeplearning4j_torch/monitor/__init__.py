@@ -20,6 +20,18 @@
   :func:`sample_device_memory`: the allocator's gauges.
 - :func:`get_history`: the metric-history ring (``GET /history``, the
   profile's trends block).
+- :func:`get_alert_engine`: threshold, burn-rate, health and fleet rules
+  over the history (OK -> PENDING -> FIRING with hold-down,
+  ``alert_firing``/``alert_resolved`` flight events, the
+  ``alerts_firing{rule=}`` gauge, ``GET /alerts``) and the rule packs
+  ``default_*_rules``.
+- :func:`get_collector`: the scrape plane, a :class:`TelemetryCollector`
+  that polls each replica's ``GET /telemetry`` (:func:`telemetry_snapshot`)
+  into the fleet table, with a history ring of its own for fleet-scope
+  rules.
+- :func:`get_prober`: the probe plane, a :class:`Prober` that posts each
+  :class:`ProbeTarget`'s golden inputs to its replica and compares the
+  answers (``GET /probes``).
 
 The fit loops, the transport, the input pipeline and the parameter server
 (single and sharded) report here under the JAX package's names. The
@@ -29,7 +41,7 @@ per-iteration score the fit loops record is a device-to-host value fetch
 listener is set. The switch changes what is recorded, never which device
 or kernel runs.
 
-Not ported yet (ROADMAP A 17): alerts, collector, probes and incidents.
+Not ported yet (ROADMAP A 17d): the incident recorder.
 """
 from __future__ import annotations
 
@@ -46,6 +58,12 @@ from .health import (HealthState, get_health, TrainingHealthListener,
 from .flightrec import FlightRecorder, get_flight_recorder
 from .fleet import FleetState, get_fleet, merge_traces
 from .history import MetricsHistory, get_history
+from .alerts import (AlertEngine, AlertError, AlertRule, BurnRateRule, FleetStalenessRule,
+                     HealthRule, ThresholdRule, default_fleet_rules, default_fleet_scope_rules,
+                     default_probe_rules, default_rules, default_serving_rules,
+                     default_training_rules, get_alert_engine)
+from .collector import ScrapeTarget, TelemetryCollector, get_collector, telemetry_snapshot
+from .probes import ProbeTarget, Prober, get_prober
 from .jitwatch import (MonitoredJit, JitRegistry, monitored_jit, get_jit_registry,
                        sample_device_memory, maybe_sample_device_memory, profile_report,
                        render_profile_text)
@@ -61,6 +79,12 @@ __all__ = [
     "profile_report", "render_profile_text", "MetricsHistory", "get_history",
     "InstrumentedLock", "LockWatch", "get_lockwatch", "make_lock",
     "make_rlock", "make_condition",
+    "AlertEngine", "AlertError", "AlertRule", "ThresholdRule", "BurnRateRule",
+    "HealthRule", "FleetStalenessRule", "get_alert_engine", "default_rules",
+    "default_serving_rules", "default_training_rules", "default_fleet_rules",
+    "default_fleet_scope_rules", "default_probe_rules",
+    "ScrapeTarget", "TelemetryCollector", "get_collector", "telemetry_snapshot",
+    "ProbeTarget", "Prober", "get_prober",
     "set_enabled", "enabled", "record_training_iteration", "step_span",
 ]
 

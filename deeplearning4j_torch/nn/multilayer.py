@@ -112,7 +112,7 @@ from .layers.recurrent import GravesBidirectionalLSTMImpl, _BaseLSTMImpl
 from .layers.wrapper import FrozenImpl
 from .updaters import Sgd
 from ..datasets.dataset import DataSet, ListDataSetIterator, MultiDataSet, to_tensor
-from ..datasets.prefetch import wrap_for_training
+from ..datasets.prefetch import backward_begins, wrap_for_training
 from .. import monitor as _mon
 from ..monitor.health import get_health
 from ..monitor.jitwatch import monitored_jit
@@ -501,6 +501,7 @@ class MultiLayerNetwork(nn.Module):
         params = self._trainable()
         flat = list(leaves({k: v for k, v in params.items() if k not in skip}))
         want = [p for _, p in flat if p.requires_grad]
+        backward_begins()       # a put-ahead copy held for the backward starts now
         gs = (torch.autograd.grad(outputs, want, grad_outputs=grad_outputs, allow_unused=True)
               if want else [])
         got = {id(p): g for p, g in zip(want, gs)}
@@ -660,6 +661,7 @@ class MultiLayerNetwork(nn.Module):
 
         def step(x, it, state):
             loss = impl.pretrain_loss(x, self._gen)
+            backward_begins()
             grads = dict(zip(params, torch.autograd.grad(loss, list(params.values()))))
             updates, state = updater.apply(state, grads, it)
             with torch.no_grad():

@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from ..nn.conf import OptimizationAlgorithm
+from ..datasets.prefetch import backward_begins
 from ..monitor.jitwatch import monitored_jit
 from ..nn.gradientcheck import _loss_at
 from ..utils.trees import sorted_leaves
@@ -83,6 +84,7 @@ class BaseOptimizer:
 
     def _loss_and_grads(self, net, ds):
         loss = _loss_at(net, ds)
+        backward_begins()
         return loss, torch.autograd.grad(loss, self._params, allow_unused=True)
 
     def f_g(self, x: np.ndarray) -> Tuple[float, np.ndarray]:

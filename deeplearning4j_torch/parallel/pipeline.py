@@ -51,6 +51,7 @@ from typing import Any, Callable, Optional
 import torch
 
 from ..nn.conf.dropout import draw_seed
+from ..datasets.prefetch import backward_begins
 from ..monitor.jitwatch import monitored_jit
 from ..nn.multilayer import nchw_to_nhwc
 from .mesh import PIPELINE_AXIS, P, record_step, require_axes, tree_map
@@ -238,6 +239,7 @@ class GPipe:
                             for m in range(M)]).mean()
         flat = []
         tree_map(flat.append, live)
+        backward_begins()
         gs = torch.autograd.grad(loss, flat, allow_unused=True)
         it = iter(gs)
         grads = tree_map(lambda p: (lambda g: torch.zeros_like(p) if g is None else g)(next(it)),

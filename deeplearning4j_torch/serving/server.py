@@ -13,7 +13,8 @@ Counterpart of ``deeplearning4j_tpu/serving/server.py`` (stdlib
   occupancy, golden version) and ``GET /v1/models/<name>``.
 - the monitor routes of ``JsonRequestHandler._monitor_get`` (``/metrics``,
   ``/healthz``, ``/profile``, ``/history``, ``/trace``, ``/events``,
-  ``/fleet``, ``/fleet/trace``), so a serving replica is scrapeable alone.
+  ``/fleet``, ``/fleet/trace``, ``/alerts``, ``/probes``, ``/telemetry``), so a
+  serving replica is scrapeable and probeable alone.
 
 Requests are traced: the ``X-DL4J-Trace`` header (``<trace hex>:<span
 hex>``) joins the caller's trace, the ``http/predict`` span's context rides

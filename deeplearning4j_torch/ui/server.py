@@ -15,10 +15,15 @@ so that every server shares their routing and framing:
 - ``/trace``: the tracer's Chrome trace-event JSON;
 - ``/events``: the flight recorder;
 - ``/fleet`` (``?format=json`` for the liveness table) and
-  ``/fleet/trace``: the merged fleet views.
+  ``/fleet/trace``: the merged fleet views;
+- ``/alerts``: the alert engine's snapshot, evaluated at request time
+  (``strict=False``) and always HTTP 200;
+- ``/probes``: the prober's snapshot, always HTTP 200;
+- ``/telemetry``: the scrape payload (``?since_seq=N`` for the flight
+  events after N; none without it; 400 on a cursor that is not an int).
 
-``/alerts``, ``/control``, ``/probes``, ``/telemetry`` and ``/incidents``
-need modules not ported yet (ROADMAP A 17) and answer 404.
+``/control`` (the control plane, ROADMAP A 17e) and ``/incidents`` (the
+incident recorder, A 17d) are not ported yet and answer 404.
 """
 from __future__ import annotations
 
@@ -120,6 +125,27 @@ class JsonRequestHandler(BaseHTTPRequestHandler):
             return True
         if url.path == "/fleet/trace":
             self._json(get_fleet().merged_trace())
+            return True
+        if url.path == "/alerts":
+            from ..monitor.alerts import get_alert_engine
+            engine = get_alert_engine()
+            engine.evaluate(strict=False)
+            self._json(engine.snapshot())
+            return True
+        if url.path == "/probes":
+            from ..monitor.probes import get_prober
+            self._json(get_prober().snapshot())
+            return True
+        if url.path == "/telemetry":
+            from ..monitor.collector import telemetry_snapshot
+            since = q.get("since_seq", [None])[0]
+            if since is not None:
+                try:
+                    since = int(since)
+                except ValueError:
+                    self._json({"error": "since_seq must be an int"}, 400)
+                    return True
+            self._json(telemetry_snapshot(since_seq=since), default=repr)
             return True
         if url.path == "/events":
             rec = get_flight_recorder()

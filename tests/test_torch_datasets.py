@@ -709,3 +709,37 @@ def test_normalizers_match_jax_package(name, args, shape):
                                atol=1e-6)
     back = jn.Normalizer.from_bytes(port.to_bytes())
     assert back.to_bytes() == ref.to_bytes()
+
+
+def test_put_ahead_copy_is_held_for_the_backward_after_the_take():
+    """A fit loop's put-ahead copy of batch k+1 waits (``prefetch.
+    _hold_copy``) until the consumer has taken batch k and a backward was
+    begun after that; a consumer waiting for a batch, or a stopped epoch,
+    releases it; batch 0 never waits."""
+    from deeplearning4j_torch.datasets import prefetch as pf
+
+    def held(ep, seq):
+        done = threading.Event()
+        t = threading.Thread(target=lambda: (pf._hold_copy(ep, seq), done.set()), daemon=True)
+        t.start()
+        return done, t
+
+    ep = pf._Epoch(iter(()))
+    pf._hold_copy(ep, 0)
+    done, t = held(ep, 2)
+    pf.backward_begins()                     # step 0's backward: batch 2 is not next
+    assert not done.wait(0.3)
+    ep.take_gen, ep.emit_seq = pf._BACKWARDS, 2   # the consumer takes batch 1
+    assert not done.wait(0.3)
+    pf.backward_begins()                     # step 1's backward
+    assert done.wait(5)
+    t.join()
+    ep = pf._Epoch(iter(()))
+    done, t = held(ep, 1)
+    assert not done.wait(0.3)
+    ep.waiting = True                        # the consumer waits: release now
+    assert done.wait(5)
+    ep = pf._Epoch(iter(()))
+    done, t = held(ep, 1)
+    ep.stop.set()
+    assert done.wait(5)

@@ -453,7 +453,9 @@ def test_golden_inputs_equal_jax_and_the_version_recipe(tmp_path):
 def test_monitor_routes_of_a_serving_replica(tmp_path):
     """``/metrics`` carries the serving series, ``/profile`` its serving
     block (and text), ``/healthz``, ``/history``, ``/events``, ``/fleet``
-    and ``/fleet/trace`` answer; the routes of unported planes 404."""
+    and ``/fleet/trace`` answer; ``/alerts``, ``/probes`` and ``/telemetry``
+    answer with the JAX package's document keys; the routes of unported
+    planes (``/control``, ``/incidents``) 404."""
     srv = InferenceServer()
     srv.register("routes", _port(_jdense(), tmp_path, "i.zip"), device="cpu",
                  batch_buckets=(2, 4), linger_ms=1.0)
@@ -475,7 +477,17 @@ def test_monitor_routes_of_a_serving_replica(tmp_path):
         assert "events" in _http(port, "/events")[1]
         assert _http(port, "/fleet")[0] == 200 and _http(port, "/fleet?format=json")[0] == 200
         assert "traceEvents" in _http(port, "/fleet/trace")[1]
-        for path in ("/alerts", "/control", "/probes", "/telemetry", "/incidents"):
+        code, alerts = _http(port, "/alerts")
+        assert code == 200 and set(alerts) == {"alerts", "firing", "pending", "evaluated_at"}
+        code, probes = _http(port, "/probes")
+        assert code == 200 and set(probes) == {"interval_s", "timeout_s", "fail_threshold",
+                                               "running", "targets"}
+        code, tel = _http(port, "/telemetry")
+        assert code == 200 and set(tel) == {"registry", "trace_events", "flight_events",
+                                            "last_seq", "health", "exemplars"}
+        assert tel["flight_events"] == []
+        assert _http(port, "/telemetry?since_seq=x")[0] == 400
+        for path in ("/control", "/incidents"):
             assert _http(port, path)[0] == 404
     finally:
         srv.stop()
