@@ -341,7 +341,27 @@ and the CUDA toolkit; run from the root of the repository. It
    rules on a TBPTT fit (K3 with the reserve, K4) whose batch holds a NaN;
    ``/alerts``, ``/probes``, ``/telemetry?since_seq=`` and
    ``alerts_firing`` on ``/metrics``;
-29. prints a ``{"cnn": ...}`` line with those numbers, a ``{"generate":
+29. (``control_incidents``) the control plane and the incident recorder on
+   the char-RNN served in bf16 with time buckets (K1, admission cap 64)
+   and trained by a delta-push worker over a ``ShardedParameterServerGroup(2)``
+   (K3 with the reserve, K4): a sleep around the served net fires a
+   latency burn and ``serving_pressure_policy`` steps the cap to 32 once;
+   shard 1 is killed during the worker's fit and ``shard_restart_policy``
+   restarts it from its snapshot once (the fits launch K3 and K4 once a
+   step, finite parameters, the dead shard's mass re-injected,
+   ``shard_server_restored``); the sleep removed, the cap comes back;
+   ``/events`` in seq order; a stale worker scaled out to 3 servers by
+   ``fleet_scale_policy`` (two steps on the new layout), then ``at_max``;
+   the f32 registration's output layer times 8 restarted from its zip by
+   ``probe_failure_policy`` (every later probe ``ok`` through K1); a child
+   replica from step 27's artifact killed and respawned by
+   ``fleet_replica_policy``, answering as the server here does; the
+   overlapping edges merged into one persisted incident holding both
+   rules and both actions, its exemplar spans kept after the tracer is
+   cleared, loaded and rendered; a halt (a NaN fit) flushing an open
+   incident as ``aborted``; ``/control``, ``/incidents[/<id>]``,
+   ``/profile``'s control block and ``/metrics``;
+30. prints a ``{"cnn": ...}`` line with those numbers, a ``{"generate":
    ...}`` line with steps 6 and 10's, a ``{"moe_lm": ..., "graph_tbptt":
    ...}`` line with steps 15 and 16's, a ``{"regularized_char_rnn": ...,
    "lm_dropout": ..., "solvers": ...}`` line with step 17's, an
@@ -352,8 +372,9 @@ and the CUDA toolkit; run from the root of the repository. It
    a ``{"remat_clustering": ...}`` line with step 23's, a ``{"parallel":
    ...}`` line with step 24's, a ``{"pipeline_paramserver": ...}`` line
    with step 25's and a ``{"monitor_sharded_fleet": ...}`` line with step
-   26's, a ``{"serving_plane": ...}`` line with step 27's and an
-   ``{"alerts_probes": ...}`` line with step 28's (the card's name and
+   26's, a ``{"serving_plane": ...}`` line with step 27's, an
+   ``{"alerts_probes": ...}`` line with step 28's and a
+   ``{"control_incidents": ...}`` line with step 29's (the card's name and
    power limit in those), a
    ``{"kernels": [...]}`` line (K1's and K3's entries with their decode
    rows; K1/K2's launches in step 16's fit, K5-K7's in step 15's steps;
@@ -362,7 +383,8 @@ and the CUDA toolkit; run from the root of the repository. It
    each path of step 19, in step 21's frozen char-RNN, on step 22's
    imported char-LSTM and under step 23's remat; K5-K7's in step 23's
    TransformerLM steps; every kernel's on each path of steps 24, 25, 26 and
-   27, and K1's f32 body at step 27's shape; K1, K3 and K4's in step 28)
+   27, and K1's f32 body at step 27's shape; K1, K3 and K4's in steps 28
+   and 29)
    and, last, the
    ``{"ok": true, "device": ...}`` line.
 
@@ -1031,6 +1053,25 @@ print(json.dumps({"port": srv.start(port=0)}), flush=True)
 sys.stdin.read()
 srv.stop()
 """
+
+
+# control_incidents: the char-RNN served as in alerts_probes (bf16 with time
+# buckets: K1, capped at CI_CAP queued examples; f32 with time buckets for
+# the gray failure; bf16 at T=200 to compare with the respawned child) and
+# trained by one delta-push worker over a ShardedParameterServerGroup(2)
+# (PS_STEPS steps a fit, K3 with the reserve, then K4). The latency drills
+# run on the phase's clock: AP_SERVE_BEAT_S a beat of one request, never
+# ahead of the wall clock (a beat also runs inside each of the worker's
+# steps, which take longer than a beat: on the wall clock the burn windows
+# went uncovered and the alert resolved mid-fit), with AP_SLOW_S injected;
+# the probe and scrape drills on synthetic clocks of AP_BEAT_S a beat. The
+# plane and the recorders are ticked at each beat's time. The policies'
+# cooldown is CI_COOLDOWN_S; the shard rule is a rate over CI_SHARD_WINDOW_S
+# of paramserver_shard_unavailable_total; the recorders look back
+# CI_LOOKBACK_S; fleet_scale_policy stops at CI_FLEET_MAX servers. The walks
+# give up after CI_WALK beats; the phase fails past CI_PHASE_LIMIT_S.
+CI_CAP, CI_COOLDOWN_S, CI_SHARD_WINDOW_S, CI_LOOKBACK_S, CI_FLEET_MAX = 64, 1.0, 1.5, 10.0, 3
+CI_WALK, CI_PHASE_LIMIT_S = 40, 60.0
 
 
 def log(msg):
@@ -8986,6 +9027,565 @@ def alerts_probes(smi, artifact):
     return res
 
 
+def ci_walk(beat, until, limit, label):
+    """Beats until ``until(state)`` holds, at most ``limit``; the states."""
+    walk = []
+    for _ in range(limit):
+        walk.append(beat())
+        if until(walk[-1]):
+            return walk
+    raise AssertionError(f"control_incidents: {label} not reached in {limit} beats: "
+                         f"{walk[-3:]}")
+
+
+def ci_delta(before):
+    """Kernel launches since ``before`` (a ``read_counts()``), after a sync."""
+    torch.cuda.synchronize()
+    return {k: v - before.get(k, 0) for k, v in read_counts().items() if v - before.get(k, 0)}
+
+
+def control_incidents(smi, artifact):
+    """The control plane and the incident recorder over the char-RNN served
+    on the card and trained over a sharded fleet: (a) the chaos drill, a
+    latency burn and a shard killed mid-fit, both acted on once; (b) a
+    stale worker scaled out; (c) a gray failure restarted by
+    ``probe_failure_policy``; (d) a killed replica respawned from its
+    warmup artifact by ``fleet_replica_policy``; (e) the incidents they
+    opened, persisted, loaded and rendered; (f) a halt flushing an open
+    incident; (g) the routes."""
+    from deeplearning4j_torch import DataSet, InferenceServer, ListDataSetIterator
+    from deeplearning4j_torch.control import (fleet_replica_policy, fleet_scale_policy,
+                                              get_control_plane, probe_failure_policy,
+                                              serving_pressure_policy, shard_restart_policy)
+    from deeplearning4j_torch.monitor import (BurnRateRule, IncidentRecorder, Prober,
+                                              TelemetryCollector, ThresholdRule,
+                                              TrainingHealthListener, default_fleet_rules,
+                                              default_fleet_scope_rules, default_probe_rules,
+                                              get_alert_engine, get_fleet, get_history,
+                                              get_incident_recorder, get_tracer, load_bundle,
+                                              render_incident_text)
+    from deeplearning4j_torch.paramserver import ShardedParameterServerGroup, flatten_params
+    from deeplearning4j_torch.utils.model_serializer import restore_model, write_model
+
+    t_start = time.perf_counter()
+    log(f"--- control_incidents ({smi})")
+    fresh_monitor()
+    child = ap_start_replica(artifact)
+    children = [child]
+    out_dir = Path("build") / "control_incidents"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    dirs = {k: out_dir / k for k in ("main", "probe", "fleet")}
+    for d in dirs.values():
+        d.mkdir(parents=True)
+    regs = {"ci_bf16": dict(precision="bf16", time_buckets=TIME_BUCKETS,
+                            max_queue_examples=CI_CAP),
+            "ci_f32": dict(precision="f32", time_buckets=TIME_BUCKETS),
+            "ci_bf16_fixed": dict(precision="bf16", cache_size=SP_CACHE)}
+    nets = {k: build_net(char_rnn_conf()) for k in regs}
+    srv = InferenceServer()
+    served = {k: srv.register(k, nets[k], linger_ms=5.0, input_shape=(T, VOCAB), **kw)
+              for k, kw in regs.items()}
+    port = srv.start(port=0)
+    engine, hist = get_alert_engine(), get_history()
+    plane, recorder = get_control_plane(), get_incident_recorder()
+    plane.stop()
+    plane.clear()
+    recorder.stop()
+    recorder.clear()
+    engine.clear()
+    hist.clear()
+    recorder_settings = recorder.dump_dir, recorder.lookback_s
+    recorder.dump_dir, recorder.lookback_s = str(dirs["main"]), CI_LOOKBACK_S
+    group = ShardedParameterServerGroup(2)
+    master = prober = collector = None
+    side_recorders = []
+    tick_us = []
+    rng = np.random.default_rng(SP_SEED + 21)
+    res = {"card": smi}
+
+    def control_beat(now):
+        hist.sample(now=now)
+        engine.evaluate(now=now, strict=False)
+        t0 = time.perf_counter()
+        plane.tick(now=now)
+        tick_us.append((time.perf_counter() - t0) * 1e6)
+        recorder.tick(now=now)
+
+    def acts(name):
+        return [a for a in plane.actions() if a["action"] == name]
+
+    def flushes():
+        return sum(m.batcher.transfer_stats()["flushes"] for m in served.values())
+
+    x = one_hot(rng, 1, T // 2)
+    bf16_net, real = nets["ci_bf16"], nets["ci_bf16"].output
+    clock = [time.time()]
+
+    def advance():
+        """The phase's clock: AP_SERVE_BEAT_S a beat, never ahead of the
+        wall clock. A slow beat or a worker's step leaves it behind, so the
+        burn windows stay covered in its time however long a step takes."""
+        clock[0] += AP_SERVE_BEAT_S
+        time.sleep(max(0.0, clock[0] - time.time()))
+        return clock[0]
+
+    def serve_beat():
+        now = advance()
+        sp_post(port, "ci_bf16", x)
+        control_beat(now)
+        return {r.name: r.state for r in engine.rules()}
+
+    def slow(*a, **k):
+        time.sleep(AP_SLOW_S)
+        return real(*a, **k)
+
+    try:
+        # (a) the chaos drill: a latency burn on the served net, then shard
+        # 1 killed during the worker's fit while the burn fires
+        engine.add(BurnRateRule("ci_p99", kind="latency", target_ms=AP_P99_MS,
+                                windows=AP_WINDOWS, latency_labels={"model": "ci_bf16"},
+                                for_seconds=AP_FOR_S),
+                   ThresholdRule("ci_shard_unavailable", "paramserver_shard_unavailable_total",
+                                 threshold=0.0, mode="rate", window_s=CI_SHARD_WINDOW_S,
+                                 for_seconds=0.0))
+        plane.add(serving_pressure_policy(srv.registry, "ci_bf16", rules=("ci_p99",),
+                                          factor=0.5, min_cap=8, cooldown_s=CI_COOLDOWN_S),
+                  shard_restart_policy(group, cooldown_s=CI_COOLDOWN_S))
+        plane.start(interval_s=3600.0)
+        recorder.start(interval_s=3600.0)
+        wnet = build_net(char_rnn_conf())
+        master = fleet_master(group.address, "ci-worker", PS_THRESHOLD, delta=True)
+        reinjected = []
+        real_reinject = master.accumulator.reinject
+
+        def reinject(mass):
+            reinjected.append(float(np.abs(mass).sum()))
+            real_reinject(mass)
+        master.accumulator.reinject = reinject
+        killed = {}
+
+        class Beat:
+            """A serving beat after every step of the worker; with ``kill``,
+            shard 1 dies after the first."""
+
+            def __init__(self, kill):
+                self.kill = kill
+
+            def iteration_done(self, model, iteration, score):
+                if self.kill and not killed:
+                    killed["port"], killed["snap"] = group.kill(1)
+                serve_beat()
+
+        def worker_fit(kill, seed):
+            wnet.set_listeners(Beat(kill))
+            before = read_counts()
+            master.execute_training(wnet, ListDataSetIterator(ps_batches(seed, PS_STEPS)))
+            wnet.listeners = []
+            d = ci_delta(before)
+            return {k: d.get(k, 0) for k in ("lstm2_fwd_train", "lstm2_bwd")}, d
+
+        reset_counts()
+        fl0 = flushes()
+        base = [serve_beat() for _ in range(int(AP_WINDOWS[-1] / AP_SERVE_BEAT_S) + 1)]
+        if any(v != "OK" for v in base[-1].values()) or plane.actions():
+            raise AssertionError(f"control_incidents: before the fault: {base[-1]}, "
+                                 f"{plane.actions()}")
+        bf16_net.output = slow
+        try:
+            slowed = ci_walk(serve_beat, lambda st: bool(acts("set_admission")), CI_WALK,
+                             "set_admission")
+            capped = (served["ci_bf16"].batcher.max_queue_examples,
+                      served["ci_bf16"].batcher.linger_ms)
+            get_tracer().clear()            # the bundle keeps the exemplar's copy
+            degraded, degraded_all = worker_fit(True, PP_SEED + 31)
+            restarts = acts("restart")
+            healed, healed_all = worker_fit(False, PP_SEED + 37)
+        finally:
+            del bf16_net.output
+        finite = bool(np.isfinite(flatten_params(wnet.params)).all())
+        recovered = ci_walk(serve_beat, lambda st: all(v == "OK" for v in st.values())
+                            and bool(acts("restore_admission"))
+                            and not recorder.snapshot()["open"], CI_WALK, "recovery")
+        launches_a = ci_delta({})
+        flushes_a = flushes() - fl0
+        events = sp_get(port, "/events")["events"]
+        downs = [e for e in events if e["event"] == "shard_server_down"]
+        restored = [e for e in events if e["event"] == "shard_server_restored"]
+        marks = {"fire": ("alert_firing", "rule", "ci_p99"),
+                 "step": ("control_action", "action", "set_admission"),
+                 "down": ("shard_server_down", None, None),
+                 "restart": ("control_action", "action", "restart"),
+                 "restored": ("shard_server_restored", None, None),
+                 "resolved": ("alert_resolved", "rule", "ci_p99"),
+                 "restore": ("control_action", "action", "restore_admission")}
+        first = {}
+        for mark, (kind, key, value) in marks.items():
+            hits = [e for e in events if e["event"] == kind and (key is None or e[key] == value)]
+            if not hits:
+                raise AssertionError(f"control_incidents: no {mark} event on /events")
+            first[mark] = hits[0]
+        order = {mark: e["seq"] for mark, e in first.items()}
+        fire_ev, step_ev = first["fire"], first["step"]
+        want_fit = {"lstm2_fwd_train": PS_STEPS, "lstm2_bwd": PS_STEPS}
+        chaos = {"walk": [st["ci_p99"] for st in base + slowed + recovered],
+                 "capped": capped,
+                 "restored_knobs": (served["ci_bf16"].batcher.max_queue_examples,
+                                    served["ci_bf16"].batcher.linger_ms),
+                 "actions": [(a["policy"], a["action"], a["outcome"], a["rule"])
+                             for a in plane.actions()],
+                 "exemplar": step_ev["exemplar_trace_id"],
+                 "degraded_fit": degraded_all, "healed_fit": healed_all,
+                 "finite": finite, "downs": len(downs), "restored": len(restored),
+                 "reinjections": len(reinjected), "reinjected_mass": sum(reinjected),
+                 "seq": order, "launches": launches_a, "flushes": flushes_a}
+        res["chaos"] = chaos
+        log(f"control_incidents chaos drill ({smi}): ci_p99 walk {chaos['walk']}; cap "
+            f"{capped} then {chaos['restored_knobs']}; actions {chaos['actions']}; the fit "
+            f"that lost shard 1 launched {degraded_all}, the next {healed_all}; finite "
+            f"{finite}; {len(downs)} shard_server_down, {len(restored)} restored, "
+            f"{len(reinjected)} re-injections of {sum(reinjected):.3e} |mass|; seqs {order}; "
+            f"launches {launches_a} for {flushes_a} flushes")
+        kinds = [a[1] for a in chaos["actions"]]
+        if (len(restarts) != 1 or kinds.count("restart") != 1
+                or kinds.count("set_admission") != 1 or kinds.count("restore_admission") != 1
+                or capped != (32, 0.0) or chaos["restored_knobs"] != (CI_CAP, 5.0)
+                or step_ev["exemplar_trace_id"] != fire_ev["exemplar_trace_id"]
+                or not step_ev["exemplar_trace_id"]
+                or restarts[0]["outcome"] != "restarted" or degraded != want_fit
+                or healed != want_fit or not finite or len(downs) != 1 or not reinjected
+                or not restored
+                or not order["fire"] < order["step"]
+                or not order["down"] < order["restart"] < order["restored"]
+                or not order["resolved"] < order["restore"]
+                or launches_a != {"lstm_fwd": 2 * flushes_a, **{k: 2 * v
+                                                               for k, v in want_fit.items()}}):
+            raise AssertionError(f"control_incidents: the chaos drill: {chaos}")
+
+        # (e) the chaos drill's incident: both rules merged, both actions,
+        # the exemplar's spans (the tracer was cleared after the fire)
+        (inc,) = recorder.incidents()
+        bundle = load_bundle(inc.path)
+        text = render_incident_text(bundle)
+        lines = text.splitlines()
+
+        def line_of(*words):
+            return next(i for i, ln in enumerate(lines) if all(w in ln for w in words))
+        timeline = [line_of("alert_firing", "rule=ci_p99"),
+                    line_of("control_action", "action=set_admission"),
+                    line_of("control_action", "action=restart"),
+                    line_of("alert_resolved", "rule=ci_p99"),
+                    line_of("control_action", "action=restore_admission")]
+        incidents = {"chaos": {"id": inc.id, "status": bundle["status"],
+                               "rules": sorted(bundle["rules"]),
+                               "actions": [a["action"] for a in bundle["control_actions"]],
+                               "exemplar_spans": len(bundle["rules"]["ci_p99"]["exemplar_spans"]),
+                               "history_samples": len(bundle["history"]),
+                               "flight_events": len(bundle["flight_events"]),
+                               "bundle_bytes": inc.bundle_bytes, "path": inc.path,
+                               "timeline_lines": timeline}}
+        log(f"control_incidents incident of the chaos drill ({smi}): {incidents['chaos']}")
+        if (bundle["status"] != "resolved"
+                or incidents["chaos"]["rules"] != ["ci_p99", "ci_shard_unavailable"]
+                or incidents["chaos"]["actions"] != ["set_admission", "restart",
+                                                     "restore_admission"]
+                or not incidents["chaos"]["exemplar_spans"] or not bundle["history"]
+                or timeline != sorted(timeline) or not text.startswith(f"# incident {inc.id}")):
+            raise AssertionError(f"control_incidents: the chaos incident: {incidents['chaos']}")
+
+        # (b) the scale-out: the worker's report aged past the staleness
+        # horizon fires fleet_worker_stale; scale_to(3) and remap once
+        fleet = get_fleet()
+
+        def age_workers():
+            with fleet._lock:
+                for entry in fleet._workers.values():
+                    entry["last_seen"] -= 10 * fleet.stale_after
+        engine.add(*default_fleet_rules(for_seconds=0.0))
+        plane.add(fleet_scale_policy(group, master, max_servers=CI_FLEET_MAX, cooldown_s=0.0))
+        age_workers()
+        control_beat(advance())
+        scaled = acts("scale_to")
+        before = read_counts()
+        master.execute_training(wnet, ListDataSetIterator(ps_batches(PP_SEED + 41, 2)))
+        launches_b = ci_delta(before)
+        control_beat(advance())
+        fresh_state = {r.name: r.state for r in engine.rules()}["fleet_worker_stale"]
+        age_workers()
+        control_beat(advance())
+        again = acts("scale_to")
+        engine.remove("fleet_worker_stale")
+        control_beat(advance())
+        res["scale"] = {"actions": [a["outcome"] for a in again], "servers": group.num_servers,
+                        "client_servers": master.client.num_servers,
+                        "local_versions": len(master.local_version),
+                        "after_fresh_reports": fresh_state, "launches": launches_b}
+        log(f"control_incidents scale-out ({smi}): {res['scale']}")
+        if ([a["outcome"] for a in scaled] != [f"scaled_to_{CI_FLEET_MAX}"]
+                or res["scale"]["actions"] != [f"scaled_to_{CI_FLEET_MAX}", "at_max"]
+                or group.num_servers != CI_FLEET_MAX
+                or master.client.num_servers != CI_FLEET_MAX
+                or len(master.local_version) != CI_FLEET_MAX or fresh_state != "OK"
+                or launches_b != {"lstm2_fwd_train": 2, "lstm2_bwd": 2}):
+            raise AssertionError(f"control_incidents: the scale-out: {res['scale']}")
+
+        # (c) the gray failure: the f32 registration's output layer times 8;
+        # probe_failure_policy re-registers it from its zip, once
+        zip_path = out_dir / "ci_f32.zip"
+        write_model(nets["ci_f32"], str(zip_path))
+        prober = Prober(timeout_s=10.0)
+        goldens = {k: served[k].golden(examples=1) for k in ("ci_f32", "ci_bf16")}
+        for k, g in goldens.items():
+            prober.add_target(k, f"127.0.0.1:{port}", g)
+        prober.engine.add(*default_probe_rules(prober, windows=AP_WINDOWS,
+                                               deadman_s=AP_DEADMAN_S, for_seconds=AP_FOR_S))
+        rec_probe = IncidentRecorder(engine=prober.engine, dump_dir=str(dirs["probe"]),
+                                     lookback_s=CI_LOOKBACK_S).start(interval_s=3600.0)
+        side_recorders.append(rec_probe)
+        restarted, gone = [], []
+
+        def restart_replica(label, url):
+            """Re-register the model from its zip; probe its fresh golden."""
+            restarted.append(label)
+            gone.append(served[label].batcher.transfer_stats()["flushes"])
+            srv.registry.unregister(label)
+            served[label] = srv.register(label, restore_model(str(zip_path)), linger_ms=5.0,
+                                         input_shape=(T, VOCAB), **regs[label])
+            goldens[label + "/restarted"] = served[label].golden(examples=1)
+            prober.add_target(label, url, goldens[label + "/restarted"])
+        plane.add(probe_failure_policy(prober, restart_replica, cooldown_s=60.0))
+        prober.engine.subscribe(plane._on_edge)
+        tp0, pstep = time.time(), [0]
+
+        def probe_beat():
+            pstep[0] += 1
+            now = tp0 + AP_BEAT_S * pstep[0]
+            r = prober.tick(now=now)
+            t0 = time.perf_counter()
+            plane.tick(now=now)
+            tick_us.append((time.perf_counter() - t0) * 1e6)
+            rec_probe.tick(now=now)
+            return {"outcomes": r["outcomes"], **{x.name: x.state for x in prober.engine.rules()}}
+        reset_counts()
+        fl0 = flushes()
+        hits0 = sum(registry_rows("serving_cache_hits_total", model="ci_f32").values())
+        healthy = [probe_beat() for _ in range(AP_TICKS)]
+        w = nets["ci_f32"].params["2"]["W"]
+        with torch.no_grad():
+            w.mul_(8.0)
+        wrong = ci_walk(probe_beat, lambda st: bool(restarted), CI_WALK,
+                        "probe_failure_policy's restart")
+        after = ci_walk(probe_beat, lambda st: all(v == "OK" for k, v in st.items()
+                                                   if k != "outcomes"), CI_WALK,
+                        "probe rules OK")
+        launches_c = ci_delta({})
+        flushes_c = flushes() - fl0 + sum(gone)
+        hits = sum(registry_rows("serving_cache_hits_total", model="ci_f32").values()) - hits0
+        gray_actions = acts("restart_replica")
+        (pinc,) = rec_probe.incidents()
+        res["gray"] = {"healthy": [h["outcomes"] for h in healthy],
+                       "wrong": [h["outcomes"] for h in wrong],
+                       "after": [h["outcomes"] for h in after], "restarted": restarted,
+                       "actions": [(a["outcome"], a["rule"]) for a in gray_actions],
+                       "versions": (goldens["ci_f32"]["version"],
+                                    goldens["ci_f32/restarted"]["version"]),
+                       "cache_hits": hits, "launches": launches_c, "flushes": flushes_c,
+                       "incident": {"id": pinc.id, "status": pinc.status,
+                                    "rules": sorted(pinc.rules), "path": pinc.path,
+                                    "bundle_bytes": pinc.bundle_bytes}}
+        log(f"control_incidents gray failure ({smi}): {res['gray']}")
+        every_ok = all(set(o.values()) == {"ok"}
+                       for o in res["gray"]["healthy"] + res["gray"]["after"])
+        if (restarted != ["ci_f32"] or not every_ok
+                or [a[0] for a in res["gray"]["actions"]] != ["restarted_ci_f32"]
+                or res["gray"]["wrong"][0]["ci_f32"] != "mismatch"
+                or res["gray"]["versions"][0] != res["gray"]["versions"][1] or hits
+                or launches_c != {"lstm_fwd": 2 * flushes_c} or pinc.status != "resolved"
+                or "probe_mismatch" not in pinc.rules or not pinc.path):
+            raise AssertionError(f"control_incidents: the gray failure: {res['gray']}")
+
+        # (d) the replica: the child from the warmup artifact killed;
+        # fleet_replica_policy respawns it from the same artifact
+        bport = ap_replica_port(child)
+        collector = TelemetryCollector(timeout_s=10.0)
+        collector.engine.add(*[r for r in default_fleet_scope_rules(
+            fleet=collector.fleet, windows=AP_WINDOWS, for_seconds=AP_FOR_S)
+            if r.name == "fleet_target_down"])
+        collector.add_target("replica-c", f"127.0.0.1:{bport}")
+        rec_fleet = IncidentRecorder(engine=collector.engine, dump_dir=str(dirs["fleet"]),
+                                     lookback_s=CI_LOOKBACK_S).start(interval_s=3600.0)
+        side_recorders.append(rec_fleet)
+        xd = one_hot(rng, 1, T)
+        respawn = {}
+
+        def respawn_replica(label, url):
+            """A new child from the same artifact; its first answer timed."""
+            t0 = time.perf_counter()
+            fresh = ap_start_replica(artifact)
+            children.append(fresh)
+            p = ap_replica_port(fresh)
+            respawn["ready_s"] = time.perf_counter() - t0
+            respawn["outputs"] = sp_post(p, "ap_replica", xd)[0]
+            respawn["answer_s"] = time.perf_counter() - t0
+            collector.remove_target(label)
+            collector.add_target(label, f"127.0.0.1:{p}")
+        plane.add(fleet_replica_policy(collector, respawn_replica, cooldown_s=60.0))
+        collector.engine.subscribe(plane._on_edge)
+        tc0, cstep = time.time(), [0]
+
+        def scrape_beat():
+            cstep[0] += 1
+            now = tc0 + AP_BEAT_S * cstep[0]
+            r = collector.tick(now=now)
+            t0 = time.perf_counter()
+            plane.tick(now=now)
+            tick_us.append((time.perf_counter() - t0) * 1e6)
+            rec_fleet.tick(now=now)
+            return {"errors": sorted(r["errors"]),
+                    **{x.name: x.state for x in collector.engine.rules()}}
+        up = [scrape_beat() for _ in range(4)]
+        child.kill()
+        child.wait(timeout=30)
+        down_walk = ci_walk(scrape_beat, lambda st: bool(respawn), CI_WALK,
+                            "fleet_replica_policy's respawn")
+        up_again = ci_walk(scrape_beat, lambda st: st["fleet_target_down"] == "OK", CI_WALK,
+                           "fleet_target_down OK")
+        reset_counts()
+        here = sp_post(port, "ci_bf16_fixed", xd)[0]
+        launches_d = ci_delta({})
+        (finc,) = rec_fleet.incidents()
+        err = float(np.abs(respawn["outputs"] - here).max())
+        res["replica"] = {"up": up, "down": down_walk, "up_again": up_again,
+                          "actions": [a["outcome"] for a in acts("restart_replica")
+                                      if a["rule"] == "fleet_target_down"],
+                          "ready_s": respawn["ready_s"], "answer_s": respawn["answer_s"],
+                          "max_abs_err_vs_here": err, "launches": launches_d,
+                          "incident": {"id": finc.id, "status": finc.status,
+                                       "rules": sorted(finc.rules), "path": finc.path,
+                                       "bundle_bytes": finc.bundle_bytes}}
+        log(f"control_incidents replica ({smi}): {res['replica']}")
+        if (any(u["errors"] for u in up) or res["replica"]["actions"] != ["restarted_replica-c"]
+                or not err <= SP_BF16_ATOL or launches_d != {"lstm2_fwd": 1}
+                or finc.status != "resolved" or finc.rules.keys() != {"fleet_target_down"}
+                or not finc.path):
+            raise AssertionError(f"control_incidents: the replica: {res['replica']}")
+
+        # (f) the halt: a latency burn held open, then a NaN fit under
+        # TrainingHealthListener(action="halt"); the open incident aborts
+        plane.remove("serving_pressure_ci_bf16")
+        bf16_net.output = slow
+        try:
+            ci_walk(serve_beat, lambda st: st["ci_p99"] == "FIRING"
+                    and bool(recorder.snapshot()["open"]), CI_WALK, "an open ci_p99 incident")
+        finally:
+            del bf16_net.output
+        open_id = recorder.snapshot()["open"][0]
+        tnet = build_net(char_rnn_conf())
+        tnet.set_listeners(TrainingHealthListener(action="halt"))
+        f, l = periodic_text(np.random.default_rng(SP_SEED + 22), TRAIN_B, TRAIN_SEQ)
+        f[0, 0, 0] = np.nan
+        before = read_counts()
+        tnet.fit(DataSet(f, l))
+        launches_f = ci_delta(before)
+        aborted = sorted(dirs["main"].glob(f"{open_id}-*.dl4jinc"))
+        abundle = load_bundle(str(aborted[0])) if aborted else {}
+        res["halt"] = {"incident": open_id, "status": abundle.get("status"),
+                       "rules": sorted(abundle.get("rules", {})), "path":
+                       str(aborted[0]) if aborted else None,
+                       "open_after": recorder.snapshot()["open"], "launches": launches_f}
+        log(f"control_incidents halt ({smi}): {res['halt']}")
+        segs = TRAIN_SEQ // TRAIN_T
+        if (abundle.get("status") != "aborted" or "ci_p99" not in abundle.get("rules", {})
+                or res["halt"]["open_after"] or set(launches_f) - {"lstm2_fwd_train", "lstm2_bwd"}
+                or not 1 <= launches_f.get("lstm2_bwd", 0) == launches_f.get("lstm2_fwd_train")
+                <= segs):
+            raise AssertionError(f"control_incidents: the halt: {res['halt']}")
+
+        # (g) the routes
+        control = sp_get(port, "/control")
+        table = sp_get(port, "/incidents")
+        one = sp_get(port, f"/incidents/{inc.id}")
+        try:
+            sp_get(port, "/incidents/inc-none")
+            missing = (200, None)
+        except urllib.error.HTTPError as e:
+            missing = (e.code, json.loads(e.read()))
+        block = sp_get(port, "/profile")["control"]
+        metrics = sp_get(port, "/metrics")
+        res["routes"] = {"control_keys": sorted(control), "policies": [
+            (r["policy"], r["state"], r["fired_count"]) for r in control["policies"]],
+            "incidents_keys": sorted(table), "incidents": [
+                (r["id"], r["status"], r["rules"]) for r in table["incidents"]],
+            "bundle_equal": one == json.loads(json.dumps(recorder.bundle(inc.id),
+                                                         default=repr)),
+            "missing": missing, "profile_control": block,
+            "metrics": sorted({ln.split("{")[0].split(" ")[0] for ln in metrics.splitlines()
+                               if ln.startswith(("control_actions_total", "incidents_open",
+                                                 "control_cooldown_active",
+                                                 "incident_captures_total"))})}
+        log(f"control_incidents routes ({smi}): {res['routes']}")
+        if (res["routes"]["control_keys"] != ["actions", "cooldowns_active", "evaluated_at",
+                                              "policies", "running"]
+                or res["routes"]["incidents_keys"] != ["evaluated_at", "evicted", "incidents",
+                                                       "lookback_s", "max_incidents", "open",
+                                                       "running"]
+                or not res["routes"]["bundle_equal"]
+                or missing != (404, {"error": "unknown incident 'inc-none'"})
+                or set(block) != {"policies", "running", "cooldowns_active", "pending",
+                                  "actions_total", "last_action"}
+                or not block["policies"] or not block["running"]
+                or not {"control_actions_total", "incidents_open"}
+                <= set(res["routes"]["metrics"])):
+            raise AssertionError(f"control_incidents: the routes: {res['routes']}")
+
+        captures = [c["capture_ms"] for r in (recorder, *side_recorders)
+                    for i in r.incidents() for c in i.captures]
+        incidents["gray"], incidents["replica"] = res["gray"]["incident"], \
+            res["replica"]["incident"]
+        incidents["halt"] = {"id": open_id, "status": "aborted", "path": res["halt"]["path"]}
+        incidents["all"] = [(r["id"], r["status"], r["rules"], r["bundle_bytes"])
+                            for r in table["incidents"]]
+        res["incidents"] = incidents
+        res["capture_ms"] = {"median": float(np.median(captures)), "max": float(max(captures)),
+                             "n": len(captures)}
+        res["plane_tick_us"] = {"median": float(np.median(tick_us)), "max": float(max(tick_us)),
+                                "n": len(tick_us)}
+        res["actions"] = [(a["policy"], a["action"], a["outcome"], a["rule"])
+                          for a in plane.actions()]
+        res["launches"] = {"chaos": launches_a, "scale": launches_b, "gray": launches_c,
+                           "replica": launches_d, "halt": launches_f}
+        log(f"control_incidents ({smi}): incident_capture_ms {res['capture_ms']}; the plane's "
+            f"tick {res['plane_tick_us']} us; the respawned child answered "
+            f"{respawn['answer_s']:.2f} s after its start")
+    finally:
+        for r in side_recorders:
+            r.stop()
+        recorder.stop()
+        plane.stop()
+        plane.clear()
+        recorder.clear()
+        recorder.dump_dir, recorder.lookback_s = recorder_settings
+        if collector is not None:
+            collector.stop()
+        if prober is not None:
+            prober.stop()
+        engine.clear()
+        hist.clear()
+        for c in children:
+            if c.poll() is None:
+                c.kill()
+                c.wait(timeout=30)
+        if master is not None:
+            master.close()
+        group.stop()
+        srv.stop()
+    res["seconds"] = time.perf_counter() - t_start
+    log(f"control_incidents phase took {res['seconds']:.1f} s ({smi})")
+    if res["seconds"] > CI_PHASE_LIMIT_S:
+        raise AssertionError(f"control_incidents took {res['seconds']:.1f} s, over its "
+                             f"{CI_PHASE_LIMIT_S} s")
+    return res
+
+
 def build():
     """Compile every kernel of the port, one nvcc per source, all at once,
     and print what ptxas reports of registers, shared memory and spills."""
@@ -9018,7 +9618,7 @@ def build():
 
 
 def kernel_line(serving, training, served, streamed, trained, flash, lm, decode, moe, graph,
-                reg, lmd, ev, rf, tp, ke, rc, par, pps, msf, sp, ap):
+                reg, lmd, ev, rf, tp, ke, rc, par, pps, msf, sp, ap, ci):
     """The {"kernels": [...]} entries: for K1-K4 numbers at the char-RNN's
     training shape, the launches of its training main path, and K1/K3's
     serving numbers and their decode rows (T=1, b=GEN_B, one a
@@ -9068,7 +9668,10 @@ def kernel_line(serving, training, served, streamed, trained, flash, lm, decode,
     numbers at the serving shape (``serving_plane_f32_body``). K1, K3 and
     K4 carry their launches in the alerts_probes phase
     (``alerts_probes_launches``: the healthy probes, the training rules'
-    NaN fit)."""
+    NaN fit) and in each drill of the control_incidents phase
+    (``control_incidents_launches``: the chaos drill's requests and fits,
+    the scale-out's steps, the gray failure's probes, the request answered
+    beside the respawned replica, the halted NaN fit)."""
     sp_paths = {k: v["launches"] for k, v in sp["registrations"].items()}
     sp_paths["cache_hit"] = sp["cache_hit"]["launches"]
 
@@ -9079,6 +9682,10 @@ def kernel_line(serving, training, served, streamed, trained, flash, lm, decode,
     def ap_launches(*names):
         return {"alerts_probes_launches": {p: sum(c.get(n, 0) for n in names)
                                            for p, c in ap["launches"].items()}}
+
+    def ci_launches(*names):
+        return {"control_incidents_launches": {p: sum(c.get(n, 0) for n in names)
+                                               for p, c in ci["launches"].items()}}
     pp_paths = {"pipelined_char_rnn": pps["pipelined_char_rnn"]["launches"],
                 "pipelined_lm": pps["pipelined_lm"]["launches"],
                 **{f"paramserver_{k}": pps["paramserver"][k]["launches"]
@@ -9193,6 +9800,7 @@ def kernel_line(serving, training, served, streamed, trained, flash, lm, decode,
                **msf_launches("lstm_fwd", "lstm_fwd_train"),
                **sp_launches("lstm_fwd", "lstm_fwd_train"),
                **ap_launches("lstm_fwd", "lstm_fwd_train"),
+               **ci_launches("lstm_fwd", "lstm_fwd_train"),
                "serving_plane_f32_body": sp["k1_f32_body"],
                "pipeline_microbatch": pp_rnn["lstm_fwd_train"]}),
         entry("lstm_bwd", "lstm_bwd", "lstm_cell_bwd.cu", "deeplearning4j_tpu/ops/lstm_cell.py:235",
@@ -9219,6 +9827,7 @@ def kernel_line(serving, training, served, streamed, trained, flash, lm, decode,
                **msf_launches("lstm2_fwd", "lstm2_fwd_train"),
                **sp_launches("lstm2_fwd", "lstm2_fwd_train"),
                **ap_launches("lstm2_fwd", "lstm2_fwd_train"),
+               **ci_launches("lstm2_fwd", "lstm2_fwd_train"),
                "paramserver_full_sequence": ps_rnn["lstm2_fwd_train"]}),
         entry("lstm2_bwd", "lstm2_bwd", "lstm_fused_bwd.cu", "deeplearning4j_tpu/ops/lstm_fused.py:249",
               [training["lstm2_bwd"]], {"design": training["lstm2_bwd"]["design"],
@@ -9233,6 +9842,7 @@ def kernel_line(serving, training, served, streamed, trained, flash, lm, decode,
                                         **msf_launches("lstm2_bwd"),
                                         **sp_launches("lstm2_bwd"),
                                         **ap_launches("lstm2_bwd"),
+                                        **ci_launches("lstm2_bwd"),
                                         "paramserver_full_sequence": ps_rnn["lstm2_bwd"]}),
         *(flash_entry(name, src, line, flash[name], lm, moe, lmd,
                       {**(evaluate_launches(name) if name == "flash_fwd" else {}),
@@ -9363,12 +9973,15 @@ def main() -> int:
     ap = alerts_probes(smi, sp["artifact"]["path"])
     torch.cuda.empty_cache()
     print(json.dumps({"alerts_probes": ap}))
+    ci = control_incidents(smi, sp["artifact"]["path"])
+    torch.cuda.empty_cache()
+    print(json.dumps({"control_incidents": ci}, default=repr))
 
     print(json.dumps({"generate": generated}))
     print(json.dumps({"kernels": kernel_line(serving, training, served, streamed,
                                              trained["launches"], flash, lm, decode, moe,
                                              graph, reg, lmd, ev, rf, tp, ke, rc, par,
-                                             pps, msf, sp, ap)}))
+                                             pps, msf, sp, ap, ci)}))
     log(f"chip_smoke took {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -32,6 +32,12 @@
 - :func:`get_prober`: the probe plane, a :class:`Prober` that posts each
   :class:`ProbeTarget`'s golden inputs to its replica and compares the
   answers (``GET /probes``).
+- :func:`get_incident_recorder`: the incident plane, an
+  :class:`IncidentRecorder` that captures the evidence at an alert's fire
+  edge into one :class:`Incident` per overlapping set of rules and
+  persists it as a content-addressed bundle (:func:`load_bundle`,
+  :func:`render_incident_text`; ``GET /incidents``);
+  :func:`abort_open_incidents` is the halt's flush.
 
 The fit loops, the transport, the input pipeline and the parameter server
 (single and sharded) report here under the JAX package's names. The
@@ -40,8 +46,6 @@ per-iteration score the fit loops record is a device-to-host value fetch
 ``DL4J_TPU_MONITOR=0``, turns the fit-loop instrumentation off when no
 listener is set. The switch changes what is recorded, never which device
 or kernel runs.
-
-Not ported yet (ROADMAP A 17d): the incident recorder.
 """
 from __future__ import annotations
 
@@ -64,6 +68,8 @@ from .alerts import (AlertEngine, AlertError, AlertRule, BurnRateRule, FleetStal
                      default_training_rules, get_alert_engine)
 from .collector import ScrapeTarget, TelemetryCollector, get_collector, telemetry_snapshot
 from .probes import ProbeTarget, Prober, get_prober
+from .incidents import (Incident, IncidentRecorder, abort_open_incidents, get_incident_recorder,
+                        load_bundle, render_incident_text)
 from .jitwatch import (MonitoredJit, JitRegistry, monitored_jit, get_jit_registry,
                        sample_device_memory, maybe_sample_device_memory, profile_report,
                        render_profile_text)
@@ -76,15 +82,17 @@ __all__ = [
     "FlightRecorder", "get_flight_recorder", "FleetState", "get_fleet",
     "merge_traces", "MonitoredJit", "JitRegistry", "monitored_jit",
     "get_jit_registry", "sample_device_memory", "maybe_sample_device_memory",
-    "profile_report", "render_profile_text", "MetricsHistory", "get_history",
+    "profile_report", "render_profile_text",
     "InstrumentedLock", "LockWatch", "get_lockwatch", "make_lock",
-    "make_rlock", "make_condition",
+    "make_rlock", "make_condition", "MetricsHistory", "get_history",
     "AlertEngine", "AlertError", "AlertRule", "ThresholdRule", "BurnRateRule",
     "HealthRule", "FleetStalenessRule", "get_alert_engine", "default_rules",
     "default_serving_rules", "default_training_rules", "default_fleet_rules",
     "default_fleet_scope_rules", "default_probe_rules",
     "ScrapeTarget", "TelemetryCollector", "get_collector", "telemetry_snapshot",
     "ProbeTarget", "Prober", "get_prober",
+    "Incident", "IncidentRecorder", "get_incident_recorder", "abort_open_incidents",
+    "load_bundle", "render_incident_text",
     "set_enabled", "enabled", "record_training_iteration", "step_span",
 ]
 

@@ -598,7 +598,7 @@ class AlertEngine:
         """Remove a subscribed listener (no-op when absent). An edge
         fan-out already in flight may still deliver to ``fn`` once —
         callers that need a hard cut synchronize on their own state, as
-        the JAX package's ``ControlPlane`` does."""
+        ``control.plane.ControlPlane`` does."""
         with self._lock:
             try:
                 self._listeners.remove(fn)

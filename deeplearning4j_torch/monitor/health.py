@@ -23,8 +23,9 @@ Counterpart of the training half of ``deeplearning4j_tpu/monitor/health.py``:
 
 With ``watch_retrace`` (the default) the listener drains jitwatch's
 retrace storms (``monitor/jitwatch.py``) each iteration and applies its
-action to those of its own fit thread that fired after it was made. Still
-in the JAX package only (ROADMAP A 17): the incident flush on a halt.
+action to those of its own fit thread that fired after it was made. A
+halt also flushes an open incident as an ``aborted`` bundle when the
+incident recorder (``monitor/incidents.py``) was ever imported.
 """
 from __future__ import annotations
 
@@ -103,6 +104,16 @@ class HealthState:
         fr = get_flight_recorder()
         fr.record("halt", reason=reason)
         fr.dump(reason="training halt")
+        # a halt mid-incident leaves the incident's evidence on disk too,
+        # but only where the incident plane was imported: a bare process
+        # pays nothing, and the flush never makes the halt fail
+        import sys
+        inc = sys.modules.get("deeplearning4j_torch.monitor.incidents")
+        if inc is not None:
+            try:
+                inc.abort_open_incidents(reason=f"halt: {reason}")
+            except Exception:
+                log.exception("incident flush on halt failed")
 
     def clear_halt(self):
         """A new ``fit`` supersedes an earlier halt."""

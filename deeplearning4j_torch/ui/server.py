@@ -1,7 +1,7 @@
 """The JSON request handler every server of the port builds on.
 
 Counterpart of ``deeplearning4j_tpu/ui/server.py``'s
-``JsonRequestHandler``; the training UI (``UIServer``) is ROADMAP A 17.
+``JsonRequestHandler``.
 :meth:`JsonRequestHandler._monitor_get` serves the process-monitor routes
 so that every server shares their routing and framing:
 
@@ -19,11 +19,15 @@ so that every server shares their routing and framing:
 - ``/alerts``: the alert engine's snapshot, evaluated at request time
   (``strict=False``) and always HTTP 200;
 - ``/probes``: the prober's snapshot, always HTTP 200;
+- ``/control``: the control plane's snapshot, always HTTP 200;
+- ``/incidents``: the incident recorder's table, always HTTP 200, and
+  ``/incidents/<id>``: one incident's bundle (404 on an unknown id);
 - ``/telemetry``: the scrape payload (``?since_seq=N`` for the flight
   events after N; none without it; 400 on a cursor that is not an int).
 
-``/control`` (the control plane, ROADMAP A 17e) and ``/incidents`` (the
-incident recorder, A 17d) are not ported yet and answer 404.
+The training UI (``UIServer``, with its stats storages and listener) is
+ROADMAP A 17f; until then the port serves these routes from every
+``InferenceServer`` and every other server built on this handler.
 """
 from __future__ import annotations
 
@@ -135,6 +139,23 @@ class JsonRequestHandler(BaseHTTPRequestHandler):
         if url.path == "/probes":
             from ..monitor.probes import get_prober
             self._json(get_prober().snapshot())
+            return True
+        if url.path == "/control":
+            from ..control.plane import get_control_plane
+            self._json(get_control_plane().snapshot())
+            return True
+        if url.path == "/incidents":
+            from ..monitor.incidents import get_incident_recorder
+            self._json(get_incident_recorder().snapshot())
+            return True
+        if url.path.startswith("/incidents/"):
+            from ..monitor.incidents import get_incident_recorder
+            incident_id = url.path[len("/incidents/"):]
+            bundle = get_incident_recorder().bundle(incident_id)
+            if bundle is None:
+                self._json({"error": f"unknown incident {incident_id!r}"}, 404)
+            else:
+                self._json(bundle, default=repr)
             return True
         if url.path == "/telemetry":
             from ..monitor.collector import telemetry_snapshot

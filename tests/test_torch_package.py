@@ -5,6 +5,8 @@
 - No source file of the port (nor ``chip_smoke.py``) imports either.
 - With no CUDA device, every entry point that defaults to the card raises
   instead of falling back to the CPU.
+- Every subpackage's ``__all__`` holds the JAX package's names, but those
+  still to port (``ui/``'s training UI).
 """
 import ast
 import json
@@ -140,3 +142,35 @@ def test_dense_network_matches_jax_package():
     x = np.random.default_rng(0).standard_normal((5, 6)).astype(np.float32)
     np.testing.assert_allclose(net.output(x).numpy(), np.asarray(jnet.output(x)),
                                rtol=0, atol=1e-5)
+
+
+JAX_PKG = ROOT / "deeplearning4j_tpu"
+#: JAX names still to port, by subpackage: the training UI (ROADMAP A 17f)
+STILL_TO_PORT = {"ui": {"StatsListener", "StatsStorage", "InMemoryStatsStorage",
+                        "FileStatsStorage", "SqliteStatsStorage", "RemoteUIStatsStorageRouter",
+                        "StatsReport", "UIServer"}}
+#: JAX subpackages with no counterpart yet: provision/ (A 17g), analysis/ (A 17h)
+NOT_PORTED = {"provision", "analysis"}
+
+
+@pytest.mark.parametrize("sub", sorted(p.name for p in JAX_PKG.iterdir()
+                                       if (p / "__init__.py").exists()))
+def test_subpackage_all_holds_the_jax_names(sub):
+    """Every subpackage's ``__all__`` holds every name of the JAX
+    package's (monitor and control: the same list), but for the names
+    still to port."""
+    import importlib
+    if sub in NOT_PORTED:
+        assert not (PORT / sub).exists()
+        return
+    jax_all = importlib.import_module(f"deeplearning4j_tpu.{sub}").__dict__.get("__all__")
+    port = importlib.import_module(f"deeplearning4j_torch.{sub}")
+    port_all = port.__dict__.get("__all__")
+    if jax_all is None:
+        assert port_all is None or all(hasattr(port, n) for n in port_all)
+        return
+    assert port_all is not None, f"deeplearning4j_torch.{sub} has no __all__"
+    assert set(jax_all) - set(port_all) == STILL_TO_PORT.get(sub, set())
+    assert all(hasattr(port, n) for n in port_all)
+    if sub in ("monitor", "control"):
+        assert port_all == jax_all

@@ -13,10 +13,8 @@ across the wire both ways.
   problems, down targets, the lifecycle, the lock and the rule pack.
 - JAX's gray-failure drill with its replicas in this process: a replica
   that answers fast but wrong while every self-reported surface stays
-  green is caught by ``probe_mismatch`` and ``probe_deadman`` only. The
-  drill's control-plane restart (``ControlPlane`` with
-  ``probe_failure_policy``) waits for the port's control plane; here the
-  test restarts the replica itself.
+  green is caught by ``probe_mismatch`` and ``probe_deadman`` only, and
+  the port's ``ControlPlane`` with ``probe_failure_policy`` restarts it.
 
 The JAX side runs on planes of its own for each test (its ``get_*``
 functions patched to private instances); the port's process-wide
@@ -43,6 +41,7 @@ from deeplearning4j_tpu.nn.conf import layers as jl
 from deeplearning4j_tpu.serving import InferenceServer as JServer
 from deeplearning4j_tpu.utils.model_serializer import ModelSerializer
 
+from deeplearning4j_torch.control import ControlPlane, probe_failure_policy
 from deeplearning4j_torch.monitor import (ProbeTarget, Prober, default_probe_rules, get_fleet,
                                           get_flight_recorder, get_health, get_prober,
                                           get_registry, get_tracer, lockwatch)
@@ -395,8 +394,11 @@ def test_gray_failure_drill_in_process():
     and wrong while its ``/healthz`` and ``/telemetry`` stay green and a
     cached right answer keeps serving normal traffic; ``probe_mismatch``
     and ``probe_deadman`` walk PENDING -> FIRING naming r1 with a trace id
-    r1's ``/trace`` resolves; a restarted r1 recovers every rule; no probe
-    lands in a response cache; the incident reads back from ``/events``."""
+    r1's ``/trace`` resolves; ``ControlPlane`` with ``probe_failure_policy``
+    restarts r1 once, at fire time, and the restarted r1 recovers every
+    rule; no probe lands in a response cache; the incident reads back from
+    ``/events``. The plane's ticks are held back during the wedge, as in
+    JAX's drill, so that both rules reach FIRING before it acts."""
     rec = get_flight_recorder()
     host = InferenceServer()
     host_port = host.start(port=0)
@@ -406,10 +408,28 @@ def test_gray_failure_drill_in_process():
     prober.engine.add(*default_probe_rules(prober, windows=(1.5, 3.0), deadman_s=2.0,
                                            for_seconds=0.2))
     servers, states, step = [], [], [0]
+    restarted, box = [], {}
 
-    def beat():
+    def restart_replica(label, url):
+        """Stop the wedged replica, serve a fresh one, point the prober at
+        it with its own golden set."""
+        restarted.append(label)
+        box.pop("server").stop()
+        s1b, port1b, _, golden1b = _gray_server()
+        servers.append(s1b)
+        box.update(server=s1b, port=port1b, golden=golden1b)
+        prober.add_target(label, f"127.0.0.1:{port1b}", golden1b)
+
+    plane = ControlPlane(engine=prober.engine)
+    plane.add(probe_failure_policy(prober, restart_replica, cooldown_s=60.0))
+    prober.engine.subscribe(plane._on_edge)
+
+    def beat(drive_plane=True):
         step[0] += 1
-        res = prober.tick(now=t0 + 0.5 * step[0])
+        now = t0 + 0.5 * step[0]
+        res = prober.tick(now=now)
+        if drive_plane:
+            plane.tick(now=now)
         states.append({r.name: r.state for r in prober.engine.rules()})
         return res
 
@@ -417,6 +437,7 @@ def test_gray_failure_drill_in_process():
         s0, port0, _, golden0 = _gray_server()
         s1, port1, model1, golden1 = _gray_server()
         servers += [s0, s1]
+        box["server"] = s1
         prober.add_target("r0", f"127.0.0.1:{port0}", golden0)
         prober.add_target("r1", f"127.0.0.1:{port1}", golden1)
         prober.start(interval_s=120.0)
@@ -441,7 +462,7 @@ def test_gray_failure_drill_in_process():
         np.testing.assert_allclose(cached["outputs"], golden1["outputs"],
                                    atol=golden1["atol"])
         for _ in range(18):
-            beat()
+            beat(drive_plane=False)
             if states[-1]["probe_mismatch"] == states[-1]["probe_deadman"] == "FIRING":
                 break
             code, h = _get(port1, "/healthz")
@@ -457,11 +478,15 @@ def test_gray_failure_drill_in_process():
         assert [e for e in _events(rec, "health_problem", kind="probe") if "r1" in e["message"]]
         assert len(_events(rec, "probe_target_failing", target="r1")) == 1
 
-        s1.stop()                                   # the restart a policy would make
-        s1b, port1b, _, golden1b = _gray_server()
-        servers.append(s1b)
+        assert restarted == []
+        plane.tick(now=t0 + 0.5 * step[0])          # catches up on the queued edges
+        assert restarted == ["r1"], restarted
+        pol = plane.policies()[0]
+        assert pol.last_action["outcome"] == "restarted_r1"
+        assert pol.last_action["rule"] in ("probe_mismatch", "probe_deadman")
+        assert pol.suppressed_count == 1            # the second rule's edge: one bounce
+        port1b, golden1b = box["port"], box["golden"]
         assert golden1b["version"] == golden1["version"]
-        prober.add_target("r1", f"127.0.0.1:{port1b}", golden1b)
         for _ in range(20):
             beat()
             if set(states[-1].values()) == {"OK"}:
@@ -469,20 +494,23 @@ def test_gray_failure_drill_in_process():
         assert set(states[-1].values()) == {"OK"}, \
             [(r.name, r.state, r.last_detail) for r in prober.engine.rules()]
         assert _events(rec, "probe_target_recovered", target="r1")
+        assert restarted == ["r1"]                  # the cooldown held: no flap
         assert {pl["rule"] for ev, pl in edges if ev == "alert_resolved"} >= \
             {"probe_mismatch", "probe_deadman"}
         for port in (port0, port1b):
             assert _get(port, "/v1/models/drill")[1]["cache"]["entries"] == 0
         names = [e["event"] for e in _get(host_port, "/events")[1]["events"]]
         for needed in ("probe_target_failing", "health_problem", "alert_firing",
-                       "probe_target_recovered", "alert_resolved"):
+                       "control_action", "probe_target_recovered", "alert_resolved"):
             assert needed in names, names
-        assert names.index("probe_target_failing") < names.index("probe_target_recovered")
+        assert names.index("probe_target_failing") < names.index("control_action") \
+            < names.index("probe_target_recovered")
         prober.stop()
         assert "prober" not in [t.name for t in threading.enumerate()]
     finally:
         prober.stop()
         prober.engine.clear()
+        plane.clear()
         for s in servers:
             s.stop()
         host.stop()

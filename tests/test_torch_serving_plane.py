@@ -453,9 +453,9 @@ def test_golden_inputs_equal_jax_and_the_version_recipe(tmp_path):
 def test_monitor_routes_of_a_serving_replica(tmp_path):
     """``/metrics`` carries the serving series, ``/profile`` its serving
     block (and text), ``/healthz``, ``/history``, ``/events``, ``/fleet``
-    and ``/fleet/trace`` answer; ``/alerts``, ``/probes`` and ``/telemetry``
-    answer with the JAX package's document keys; the routes of unported
-    planes (``/control``, ``/incidents``) 404."""
+    and ``/fleet/trace`` answer; ``/alerts``, ``/probes``, ``/telemetry``,
+    ``/control`` and ``/incidents`` answer with the JAX package's document
+    keys, and an unknown ``/incidents/<id>`` 404s."""
     srv = InferenceServer()
     srv.register("routes", _port(_jdense(), tmp_path, "i.zip"), device="cpu",
                  batch_buckets=(2, 4), linger_ms=1.0)
@@ -487,7 +487,13 @@ def test_monitor_routes_of_a_serving_replica(tmp_path):
                                             "last_seq", "health", "exemplars"}
         assert tel["flight_events"] == []
         assert _http(port, "/telemetry?since_seq=x")[0] == 400
-        for path in ("/control", "/incidents"):
-            assert _http(port, path)[0] == 404
+        code, control = _http(port, "/control")
+        assert code == 200 and set(control) == {"policies", "cooldowns_active", "actions",
+                                                "running", "evaluated_at"}
+        code, incidents = _http(port, "/incidents")
+        assert code == 200 and set(incidents) == {"incidents", "open", "max_incidents",
+                                                  "lookback_s", "evicted", "running",
+                                                  "evaluated_at"}
+        assert _http(port, "/incidents/inc-none")[0] == 404
     finally:
         srv.stop()
