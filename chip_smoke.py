@@ -361,7 +361,25 @@ and the CUDA toolkit; run from the root of the repository. It
    cleared, loaded and rendered; a halt (a NaN fit) flushing an open
    incident as ``aborted``; ``/control``, ``/incidents[/<id>]``,
    ``/profile``'s control block and ``/metrics``;
-30. prints a ``{"cnn": ...}`` line with those numbers, a ``{"generate":
+30. (``ui_cli``) the training UI and the operational CLI on the char-RNN
+   of step 4 written as a zip: ``python -m deeplearning4j_torch train``'s
+   ``main`` fits it (a data factory's 4 batches of b=64, T=200; K3 with
+   the reserve and K4, 16 launches each) under a StatsListener writing a
+   JSON-lines file, and the trained zip must be bit-equal to a direct
+   ``ParallelWrapper`` fit of the same zip and data; the file holds a
+   report a batch with the card's memory, and the last report's
+   statistics equal numpy's of the trained parameters (rtol 1e-9, counts
+   exact); one listener call under ``torch.profiler`` copies at most two
+   vectors of at most 64 kB to the host; the fit with and without the
+   listener in alternating turns (a step's cost); ``serve-ui`` over the
+   file (the train routes and the monitor routes), a second ``train``
+   posting through ``--ui-url``; ``monitor --url`` with ``--alerts``,
+   ``--control``, ``--incidents`` and ``--profile``; ``incident show`` on
+   step 29's aborted bundle; ``cache --stats``/``--gc`` on step 27's
+   artifact directory; ``cache --export`` of the trained zip (bf16,
+   T=200) and a replica warmed from that artifact answering one request
+   through K3, bit-equal to the trained net's forward at its bucket;
+31. prints a ``{"cnn": ...}`` line with those numbers, a ``{"generate":
    ...}`` line with steps 6 and 10's, a ``{"moe_lm": ..., "graph_tbptt":
    ...}`` line with steps 15 and 16's, a ``{"regularized_char_rnn": ...,
    "lm_dropout": ..., "solvers": ...}`` line with step 17's, an
@@ -374,8 +392,8 @@ and the CUDA toolkit; run from the root of the repository. It
    with step 25's and a ``{"monitor_sharded_fleet": ...}`` line with step
    26's, a ``{"serving_plane": ...}`` line with step 27's, an
    ``{"alerts_probes": ...}`` line with step 28's and a
-   ``{"control_incidents": ...}`` line with step 29's (the card's name and
-   power limit in those), a
+   ``{"control_incidents": ...}`` line with step 29's and a ``{"ui_cli":
+   ...}`` line with step 30's (the card's name and power limit in those), a
    ``{"kernels": [...]}`` line (K1's and K3's entries with their decode
    rows; K1/K2's launches in step 16's fit, K5-K7's in step 15's steps;
    K1-K4's in each regularised fit, K5-K7's in the dropout LM's steps and
@@ -384,7 +402,7 @@ and the CUDA toolkit; run from the root of the repository. It
    imported char-LSTM and under step 23's remat; K5-K7's in step 23's
    TransformerLM steps; every kernel's on each path of steps 24, 25, 26 and
    27, and K1's f32 body at step 27's shape; K1, K3 and K4's in steps 28
-   and 29)
+   and 29; K3 and K4's in each path of step 30)
    and, last, the
    ``{"ok": true, "device": ...}`` line.
 
@@ -1072,6 +1090,31 @@ srv.stop()
 # give up after CI_WALK beats; the phase fails past CI_PHASE_LIMIT_S.
 CI_CAP, CI_COOLDOWN_S, CI_SHARD_WINDOW_S, CI_LOOKBACK_S, CI_FLEET_MAX = 64, 1.0, 1.5, 10.0, 3
 CI_WALK, CI_PHASE_LIMIT_S = 40, 60.0
+# The ui_cli phase: the data factory's UI_BATCHES batches of periodic text
+# (TRAIN_B x TRAIN_SEQ, one-hot over VOCAB, from UI_SEED); the listener's
+# cost over UI_TURNS alternating turns of the fit with and without it; at
+# most UI_COPIES device-to-host copies in one listener call, none over
+# UI_COPY_BYTES (the char-RNN's parameters are ~13 MB); its statistics
+# against numpy's at UI_STATS_RTOL (both reduce in float64; only the order
+# of the sums differs); the replica's request holds UI_ROWS examples. The
+# phase fails past UI_PHASE_LIMIT_S.
+UI_BATCHES, UI_SEED, UI_TURNS, UI_ROWS = 4, 77, 5, 5
+UI_COPIES, UI_COPY_BYTES, UI_STATS_RTOL, UI_PHASE_LIMIT_S = 2, 64 << 10, 1e-9, 120.0
+UI_FACTORY = r"""
+import numpy as np
+from deeplearning4j_torch import DataSet, ListDataSetIterator
+
+
+def make():
+    rng = np.random.default_rng({seed})
+    eye = np.eye({vocab}, dtype=np.float32)
+    sets = []
+    for _ in range({n}):
+        cycle = rng.integers(0, {vocab}, 23)
+        ids = cycle[(rng.integers(0, 23, {b})[:, None] + np.arange({t} + 1)[None, :]) % 23]
+        sets.append(DataSet(eye[ids[:, :-1]], eye[ids[:, 1:]]))
+    return ListDataSetIterator(sets)
+"""
 
 
 def log(msg):
@@ -9586,6 +9629,326 @@ def control_incidents(smi, artifact):
     return res
 
 
+def np_array_stats(a, bins=20):
+    """The JAX package's ``_array_stats`` (``deeplearning4j_tpu/ui/stats.py:30``)
+    in numpy on the host: the reference for the listener's statistics,
+    which the port reduces on the card."""
+    a = np.asarray(a, np.float64).ravel()
+    hist, edges = np.histogram(a, bins=bins)
+    return {"mean": float(a.mean()), "stdev": float(a.std()), "min": float(a.min()),
+            "max": float(a.max()), "norm2": float(np.linalg.norm(a)),
+            "mean_magnitude": float(np.abs(a).mean()), "histogram": hist.tolist(),
+            "histogram_edges": [float(edges[0]), float(edges[-1])]}
+
+
+def listener_copies(lst, net, iteration):
+    """One ``iteration_done`` of ``lst`` under torch.profiler: the bytes of
+    each device-to-host and host-to-device copy (from the Chrome trace),
+    the kernels launched and the call's wall time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        lst.iteration_done(net, iteration, 1.0)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    out = Path("build") / "traces"
+    out.mkdir(parents=True, exist_ok=True)
+    path = out / "ui_listener_call.json"
+    prof.export_chrome_trace(str(path))
+    dev = [e for e in json.loads(path.read_text())["traceEvents"]
+           if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    if not dev:
+        raise AssertionError("ui_cli: the profiler recorded no device event in a listener call")
+    copies = {d: [e.get("args", {}).get("bytes") for e in dev
+                  if e["cat"] == "gpu_memcpy" and d in e["name"]] for d in ("DtoH", "HtoD")}
+    by_name = {}
+    for e in dev:
+        n, us = by_name.get(e["name"], (0, 0.0))
+        by_name[e["name"]] = (n + 1, us + e.get("dur", 0.0))
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:6]
+    return {"d2h_bytes": copies["DtoH"], "h2d_bytes": copies["HtoD"],
+            "kernels": sum(e["cat"] == "kernel" for e in dev), "wall_ms": wall_ms,
+            "device_ms": sum(e.get("dur", 0.0) for e in dev) / 1e3,
+            "top_device_ms": {name[:80]: [n, us / 1e3] for name, (n, us) in top}}
+
+
+def ui_cli(smi, artifact, bundle):
+    """The training UI and the operational CLI on the card (step 30 of the
+    module docstring): ``train`` through ``main`` against a direct
+    ParallelWrapper fit, the stats file and its statistics, the
+    listener's host copies and cost, ``serve-ui``, ``monitor --url``,
+    ``incident show`` on ``bundle``, ``cache`` on ``artifact``'s
+    directory, and ``cache --export`` with a replica warmed from it."""
+    import importlib
+    import io
+
+    from deeplearning4j_torch.datasets.bucketing import bucket_for
+    from deeplearning4j_torch.main import build_parser, cmd_serve_ui, main as cli
+    from deeplearning4j_torch.monitor import get_flight_recorder
+    from deeplearning4j_torch.parallel import ParallelWrapper
+    from deeplearning4j_torch.serving import DEFAULT_BATCH_BUCKETS, InferenceServer
+    from deeplearning4j_torch.ui import (FileStatsStorage, InMemoryStatsStorage, StatsListener,
+                                         UIServer)
+    from deeplearning4j_torch.utils.model_serializer import restore_model, write_model
+
+    t_start = time.perf_counter()
+    log(f"--- ui_cli ({smi})")
+    fresh_monitor()
+    work = Path("build") / "ui_cli"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    (work / "ui_factory.py").write_text(UI_FACTORY.format(seed=UI_SEED, vocab=VOCAB,
+                                                          n=UI_BATCHES, b=TRAIN_B, t=TRAIN_SEQ))
+    sys.path.insert(0, str(work))
+    factory = importlib.import_module("ui_factory")
+    model, trained, stats = (str(work / n) for n in ("m.zip", "t.zip", "s.jsonl"))
+    write_model(build_net(char_rnn_conf()), model)
+    segs = UI_BATCHES * (TRAIN_SEQ // TRAIN_T)
+    res = {"card": smi, "launches": {}}
+
+    def run_cli(*argv):
+        """``main(argv)`` with its standard output captured: (rc, text)."""
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = cli(list(argv))
+        return rc, buf.getvalue()
+
+    def counted(label, fn):
+        reset_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        res["launches"][label] = {k: v for k, v in read_counts().items() if v}
+        return out
+
+    def wrapper(net):
+        """The wrapper ``train`` builds for these flags."""
+        return (ParallelWrapper.Builder(net).averaging_frequency(1).prefetch_buffer(16)
+                .report_score_after_averaging().build())
+
+    def direct_fit():
+        net = restore_model(model)
+        wrapper(net).fit(factory.make())
+        return net.param_table()
+
+    def max_diff(a, b):
+        return max(float((a[k].double() - b[k].double()).abs().max()) for k in a)
+
+    srv = None
+    try:
+        # (a) train through main, against two direct fits
+        t0 = time.perf_counter()
+        rc, text = counted("cli_train", lambda: run_cli(
+            "train", "--model-path", model, "--model-output-path", trained,
+            "--data-factory", "ui_factory:make", "--epochs", "1", "--report-score",
+            "--stats-file", stats))
+        res["cli_train_s"] = time.perf_counter() - t0
+        if rc != 0 or "model written to" not in text or res["launches"]["cli_train"] != {
+                "lstm2_fwd_train": segs, "lstm2_bwd": segs}:
+            raise AssertionError(f"ui_cli: train rc {rc}, launches "
+                                 f"{res['launches']['cli_train']} (want {segs} K3 with the "
+                                 f"reserve and {segs} K4), output {text[-500:]}")
+        got = restore_model(trained).param_table()
+        want, again = counted("direct_fits", lambda: [direct_fit() for _ in range(2)])
+        start = restore_model(model).param_table()
+        res["fit"] = {"direct_fits_bit_equal": all(torch.equal(want[k], again[k]) for k in want),
+                      "cli_bit_equal": all(torch.equal(got[k], want[k]) for k in want),
+                      "cli_vs_direct_max_abs": max_diff(got, want),
+                      "direct_vs_direct_max_abs": max_diff(want, again),
+                      "moved_from_start": max_diff(got, start)}
+        log(f"ui_cli train ({smi}): {res['cli_train_s']:.2f} s through main, launches "
+            f"{res['launches']['cli_train']}; {res['fit']}")
+        fit = res["fit"]
+        if not fit["moved_from_start"] > 0 or not (
+                fit["cli_bit_equal"] if fit["direct_fits_bit_equal"]
+                else fit["cli_vs_direct_max_abs"] <= fit["direct_vs_direct_max_abs"]):
+            raise AssertionError(f"ui_cli: the CLI's fit against the direct fits: {fit}")
+
+        store = FileStatsStorage(stats)
+        (sid,) = store.list_session_ids()
+        ups = store.get_all_updates(sid)
+        store.close()
+        last = ups[-1]
+        worst, bad = 0.0, []
+        for name, t in got.items():
+            ref = np_array_stats(t.detach().cpu().numpy())
+            mine = last.param_stats[name]
+            if (mine["histogram"], mine["histogram_edges"]) != (ref["histogram"],
+                                                                 ref["histogram_edges"]):
+                bad.append(name)
+            for k in ("mean", "stdev", "min", "max", "norm2", "mean_magnitude"):
+                worst = max(worst, abs(mine[k] - ref[k]) / abs(ref[k]) if ref[k] else
+                            abs(mine[k]))
+        res["stats_file"] = {
+            "reports": len(ups), "iterations": [u.iteration for u in ups],
+            "scores": [u.score for u in ups],
+            "device_bytes_in_use": [u.system.get("device_bytes_in_use") for u in ups],
+            "device_bytes_limit": last.system.get("device_bytes_limit"),
+            "update_stats_from": [bool(u.update_stats) for u in ups],
+            "params": len(last.param_stats), "histogram_mismatches": bad,
+            "worst_moment_rel": worst}
+        log(f"ui_cli stats file ({smi}): {res['stats_file']}")
+        sf = res["stats_file"]
+        if (sf["reports"] != UI_BATCHES or not all(math.isfinite(x) for x in sf["scores"])
+                or not all((b or 0) > 0 for b in sf["device_bytes_in_use"])
+                or sf["update_stats_from"] != [False] + [True] * (UI_BATCHES - 1)
+                or set(last.param_stats) != set(got) or bad or not worst <= UI_STATS_RTOL):
+            raise AssertionError(f"ui_cli: the stats file: {sf}")
+
+        pnet = restore_model(trained)
+        lst = StatsListener(InMemoryStatsStorage(), session_id="probe")
+        lst.iteration_done(pnet, 0, 1.0)
+        with torch.no_grad():
+            for t in pnet.param_table().values():
+                t.mul_(1.0 + 2.0 ** -10)
+        res["listener_call"] = listener_copies(lst, pnet, 1)
+        res["listener_call"]["prev_params_bytes"] = sum(
+            t.numel() * t.element_size() for t in lst._prev_params.values())
+        log(f"ui_cli listener call ({smi}): {res['listener_call']}")
+        d2h = res["listener_call"]["d2h_bytes"]
+        if len(d2h) > UI_COPIES or not all(b is not None and b <= UI_COPY_BYTES for b in d2h):
+            raise AssertionError(f"ui_cli: a listener call copied {d2h} bytes to the host "
+                                 f"(at most {UI_COPIES} copies of {UI_COPY_BYTES} bytes)")
+        del pnet, lst
+
+        # (b) the listener's cost a step, in alternating turns
+        cnet = restore_model(model)
+        pw = wrapper(cnet)
+        pw.fit(factory.make())                 # the first fit's allocations, untimed
+        cost = StatsListener(InMemoryStatsStorage(), session_id="cost")
+        step_ms = {"none": [], "listener": []}
+
+        def turns():
+            for _ in range(UI_TURNS):
+                for arm in ("none", "listener"):
+                    cnet.set_listeners(*([cost] if arm == "listener" else []))
+                    it = factory.make()
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    pw.fit(it)
+                    torch.cuda.synchronize()
+                    step_ms[arm].append((time.perf_counter() - t0) * 1e3 / UI_BATCHES)
+
+        counted("listener_cost", turns)
+        med = {k: float(np.median(v)) for k, v in step_ms.items()}
+        res["listener_cost"] = {
+            "step_ms": step_ms, "median_ms": med,
+            "spread_ms": {k: [float(min(v)), float(max(v))] for k, v in step_ms.items()},
+            "overhead_ms": med["listener"] - med["none"],
+            "overhead_pct": 100.0 * (med["listener"] - med["none"]) / med["none"]}
+        log(f"ui_cli listener cost ({smi}): a step (one b={TRAIN_B}, T={TRAIN_SEQ} batch, "
+            f"{TRAIN_SEQ // TRAIN_T} TBPTT segments) {med['none']:.2f} ms without, "
+            f"{med['listener']:.2f} ms with a StatsListener at frequency 1 (medians of "
+            f"{UI_TURNS} alternating turns; {step_ms})")
+        del cnet, pw
+
+        # (c) serve-ui over the stats file, and a second train posting to it
+        port = cmd_serve_ui(build_parser().parse_args(["serve-ui", "--stats-file", stats,
+                                                       "--port", "0"]), block=False)
+        routes = {p: sp_get(port, p) for p in (
+            "/train/sessions", f"/train/overview?sid={sid}", f"/train/model?sid={sid}",
+            f"/train/system?sid={sid}", "/fleet?format=json", "/alerts", "/control",
+            "/incidents")}
+        metrics = sp_get(port, "/metrics")
+        rc2, text2 = counted("ui_url_train", lambda: run_cli(
+            "train", "--model-path", model, "--model-output-path", str(work / "t2.zip"),
+            "--data-factory", "ui_factory:make", "--ui-url", f"127.0.0.1:{port}"))
+        sessions = sp_get(port, "/train/sessions")
+        system = routes[f"/train/system?sid={sid}"]
+        res["serve_ui"] = {
+            "sessions": routes["/train/sessions"], "after_ui_url": sessions,
+            "overview_scores": len(routes[f"/train/overview?sid={sid}"]["scores"]),
+            "model_params": len(routes[f"/train/model?sid={sid}"]["params"]),
+            "device_series": system["device_bytes_in_use"],
+            "monitor_keys": {p: sorted(routes[p]) for p in ("/fleet?format=json", "/alerts",
+                                                             "/control", "/incidents")},
+            "metrics_lines": len(metrics.splitlines()), "ui_url_rc": rc2}
+        log(f"ui_cli serve-ui ({smi}): {res['serve_ui']}; the --ui-url train's launches "
+            f"{res['launches']['ui_url_train']}")
+        su = res["serve_ui"]
+        if (su["sessions"] != [sid] or su["overview_scores"] != UI_BATCHES
+                or su["model_params"] != len(got)
+                or not all((b or 0) > 0 for b in su["device_series"])
+                or len(su["device_series"]) != UI_BATCHES or rc2 != 0
+                or len(sessions) != 2 or sid not in sessions
+                or res["launches"]["ui_url_train"] != {"lstm2_fwd_train": segs,
+                                                       "lstm2_bwd": segs}
+                or "# TYPE" not in metrics):
+            raise AssertionError(f"ui_cli: serve-ui: {su}, launches "
+                                 f"{res['launches']['ui_url_train']}")
+
+        # (d) monitor --url against that server, and incident show
+        mon = {}
+        for flag in ("--alerts", "--control", "--incidents", "--profile"):
+            rc3, out = run_cli("monitor", "--url", f"127.0.0.1:{port}", flag, "--format", "json")
+            mon[flag] = {"rc": rc3, "keys": sorted(json.loads(out))}
+        rc4, shown = run_cli("incident", "show", bundle)
+        inc_id = "-".join(Path(bundle).name.split("-")[:2])         # inc-NNNN
+        res["monitor"] = {**mon, "incident_show": {"rc": rc4, "id": inc_id,
+                                                   "lines": len(shown.splitlines()),
+                                                   "head": shown.splitlines()[0]}}
+        log(f"ui_cli monitor --url and incident show ({smi}): {res['monitor']}")
+        if (any(v["rc"] != 0 for v in mon.values()) or rc4 != 0 or inc_id not in shown
+                or "aborted" not in shown or "jit" not in mon["--profile"]["keys"]):
+            raise AssertionError(f"ui_cli: monitor/incident: {res['monitor']}")
+
+        # (e) cache on step 27's directory, the export, and a replica from it
+        rc5, census = run_cli("cache", "--stats", "--dir", str(Path(artifact).parent))
+        rc6, gc_doc = run_cli("cache", "--gc", "--dir", str(Path(artifact).parent))
+        census, gc_doc = json.loads(census), json.loads(gc_doc)
+        out_dir = work / "artifacts"
+        out_dir.mkdir()
+        rc7, path = counted("cache_export", lambda: run_cli(
+            "cache", "--export", "--model-path", trained, "--input-shape", f"{TRAIN_SEQ},{VOCAB}",
+            "--precision", "bf16", "--name", "ui_trained", "--out", str(out_dir)))
+        path = path.strip()
+        rnet = restore_model(trained)
+        srv = InferenceServer()
+        served = counted("replica_warm", lambda: srv.register(
+            "ui_replica", rnet, precision="bf16", input_shape=(TRAIN_SEQ, VOCAB),
+            linger_ms=0.0, warmup_artifact=path))
+        port2 = srv.start(port=0)
+        x = one_hot(np.random.default_rng(UI_SEED + 1), UI_ROWS, TRAIN_SEQ)
+        y = counted("replica_request", lambda: sp_post(port2, "ui_replica", x)[0])
+        pb = bucket_for(DEFAULT_BATCH_BUCKETS, UI_ROWS)
+        xp = torch.zeros((pb, TRAIN_SEQ, VOCAB), dtype=torch.bfloat16, device=rnet.device)
+        xp[:UI_ROWS] = torch.from_numpy(x).to(rnet.device)
+        ref = rnet.output(xp)[:UI_ROWS].float().cpu().numpy()
+        loaded = [e for e in get_flight_recorder().events()
+                  if e["event"] in ("compile_cache_artifact_loaded", "compile_cache_miss")
+                  and e.get("model") == "ui_replica"]
+        res["cache"] = {"stats_rc": rc5, "artifacts": census["artifacts"],
+                        "gc_rc": rc6, "gc_dry_run": gc_doc["dry_run"],
+                        "gc_kept": gc_doc["kept"],
+                        "gc_evicted": [Path(e["path"]).name for e in gc_doc["evicted"]],
+                        "export_rc": rc7, "artifact": path,
+                        "artifact_bytes": os.path.getsize(path),
+                        "aot_signatures": len(served._aot),
+                        "install": [e["event"] for e in loaded],
+                        "bucket": pb, "bit_equal": bool(np.array_equal(y, ref)),
+                        "max_abs_vs_forward": float(np.abs(y - ref).max())}
+        log(f"ui_cli cache ({smi}): {res['cache']}; launches {res['launches']}")
+        ca = res["cache"]
+        if (rc5 or rc6 or rc7 or ca["artifacts"] < 1 or not ca["gc_dry_run"]
+                or Path(artifact).name in ca["gc_evicted"] or not ca["aot_signatures"]
+                or ca["install"] != ["compile_cache_artifact_loaded"] or not ca["bit_equal"]
+                or res["launches"]["replica_request"] != {"lstm2_fwd": 1}
+                or set(res["launches"]["cache_export"]) != {"lstm2_fwd"}):
+            raise AssertionError(f"ui_cli: cache/replica: {ca}, launches {res['launches']}")
+    finally:
+        if srv is not None:
+            srv.stop()
+        UIServer.get_instance().stop()
+        sys.path.remove(str(work))
+    res["seconds"] = time.perf_counter() - t_start
+    log(f"ui_cli phase took {res['seconds']:.1f} s ({smi})")
+    if res["seconds"] > UI_PHASE_LIMIT_S:
+        raise AssertionError(f"ui_cli took {res['seconds']:.1f} s, over its "
+                             f"{UI_PHASE_LIMIT_S} s")
+    return res
+
+
 def build():
     """Compile every kernel of the port, one nvcc per source, all at once,
     and print what ptxas reports of registers, shared memory and spills."""
@@ -9618,7 +9981,7 @@ def build():
 
 
 def kernel_line(serving, training, served, streamed, trained, flash, lm, decode, moe, graph,
-                reg, lmd, ev, rf, tp, ke, rc, par, pps, msf, sp, ap, ci):
+                reg, lmd, ev, rf, tp, ke, rc, par, pps, msf, sp, ap, ci, ui):
     """The {"kernels": [...]} entries: for K1-K4 numbers at the char-RNN's
     training shape, the launches of its training main path, and K1/K3's
     serving numbers and their decode rows (T=1, b=GEN_B, one a
@@ -9671,7 +10034,11 @@ def kernel_line(serving, training, served, streamed, trained, flash, lm, decode,
     NaN fit) and in each drill of the control_incidents phase
     (``control_incidents_launches``: the chaos drill's requests and fits,
     the scale-out's steps, the gray failure's probes, the request answered
-    beside the respawned replica, the halted NaN fit)."""
+    beside the respawned replica, the halted NaN fit). K3 and K4 carry their
+    launches in each path of the ui_cli phase (``ui_cli_launches``: the
+    CLI's fit, the two direct fits, the listener-cost turns, the
+    ``--ui-url`` fit, the artifact export's warmup, the replica's warmup
+    and its request)."""
     sp_paths = {k: v["launches"] for k, v in sp["registrations"].items()}
     sp_paths["cache_hit"] = sp["cache_hit"]["launches"]
 
@@ -9686,6 +10053,10 @@ def kernel_line(serving, training, served, streamed, trained, flash, lm, decode,
     def ci_launches(*names):
         return {"control_incidents_launches": {p: sum(c.get(n, 0) for n in names)
                                                for p, c in ci["launches"].items()}}
+
+    def ui_launches(*names):
+        return {"ui_cli_launches": {p: sum(c.get(n, 0) for n in names)
+                                    for p, c in ui["launches"].items()}}
     pp_paths = {"pipelined_char_rnn": pps["pipelined_char_rnn"]["launches"],
                 "pipelined_lm": pps["pipelined_lm"]["launches"],
                 **{f"paramserver_{k}": pps["paramserver"][k]["launches"]
@@ -9828,6 +10199,7 @@ def kernel_line(serving, training, served, streamed, trained, flash, lm, decode,
                **sp_launches("lstm2_fwd", "lstm2_fwd_train"),
                **ap_launches("lstm2_fwd", "lstm2_fwd_train"),
                **ci_launches("lstm2_fwd", "lstm2_fwd_train"),
+               **ui_launches("lstm2_fwd", "lstm2_fwd_train"),
                "paramserver_full_sequence": ps_rnn["lstm2_fwd_train"]}),
         entry("lstm2_bwd", "lstm2_bwd", "lstm_fused_bwd.cu", "deeplearning4j_tpu/ops/lstm_fused.py:249",
               [training["lstm2_bwd"]], {"design": training["lstm2_bwd"]["design"],
@@ -9843,6 +10215,7 @@ def kernel_line(serving, training, served, streamed, trained, flash, lm, decode,
                                         **sp_launches("lstm2_bwd"),
                                         **ap_launches("lstm2_bwd"),
                                         **ci_launches("lstm2_bwd"),
+                                        **ui_launches("lstm2_bwd"),
                                         "paramserver_full_sequence": ps_rnn["lstm2_bwd"]}),
         *(flash_entry(name, src, line, flash[name], lm, moe, lmd,
                       {**(evaluate_launches(name) if name == "flash_fwd" else {}),
@@ -9976,12 +10349,15 @@ def main() -> int:
     ci = control_incidents(smi, sp["artifact"]["path"])
     torch.cuda.empty_cache()
     print(json.dumps({"control_incidents": ci}, default=repr))
+    ui = ui_cli(smi, sp["artifact"]["path"], ci["halt"]["path"])
+    torch.cuda.empty_cache()
+    print(json.dumps({"ui_cli": ui}))
 
     print(json.dumps({"generate": generated}))
     print(json.dumps({"kernels": kernel_line(serving, training, served, streamed,
                                              trained["launches"], flash, lm, decode, moe,
                                              graph, reg, lmd, ev, rf, tp, ke, rc, par,
-                                             pps, msf, sp, ap, ci)}))
+                                             pps, msf, sp, ap, ci, ui)}))
     log(f"chip_smoke took {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -17,9 +17,6 @@ in the process-global :class:`FleetState` (:func:`get_fleet`), which gives
 - per-worker liveness (:meth:`FleetState.liveness`), which
   ``HealthState.snapshot`` folds in: a worker whose last report is older
   than ``stale_after`` is listed as stale.
-
-The HTTP routes that serve these in the JAX package (``GET /fleet``,
-``/fleet/trace``, ``/healthz``) are ``ui/``'s and not ported yet.
 """
 from __future__ import annotations
 

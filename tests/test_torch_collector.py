@@ -19,7 +19,9 @@ functions patched to private instances), so the JAX package's
 process-wide state is not touched; the port's is cleared around each test.
 A replica in this process shares the port's planes with a port collector,
 so the two-replica fleet drill runs its replicas as processes of their own
-and is marked ``slow``.
+and is marked ``slow``; like JAX's (``TestFleetAcceptanceDrill``) it is
+hosted on a ``UIServer``, and its in-process half (a collector's merged
+views read from a ``UIServer``) runs in tier 1.
 """
 import json
 import os
@@ -44,6 +46,7 @@ from deeplearning4j_torch.monitor import (FleetState, TelemetryCollector,
                                           get_flight_recorder, get_health, get_registry,
                                           get_tracer, lockwatch, telemetry_snapshot)
 from deeplearning4j_torch.serving import InferenceServer
+from deeplearning4j_torch.ui import InMemoryStatsStorage, UIServer
 
 
 class DrillModel:
@@ -359,6 +362,39 @@ def test_lifecycle_and_the_lock_is_a_leaf():
     assert not get_collector().running() and get_collector().targets() == []
 
 
+def test_merged_views_on_a_ui_server():
+    """The drill's surfaces without its processes: a collector scraping an
+    in-process replica and a refused target lands the replica's series
+    under ``worker=r0`` and the down edge, which a ``UIServer`` serves from
+    ``/fleet``, ``/fleet?format=json``, ``/fleet/trace`` and ``/events``."""
+    srv, port = _serve(InferenceServer)
+    ui = UIServer(port=0)
+    ui.attach(InMemoryStatsStorage())
+    ui_port = ui.start()
+    c = TelemetryCollector(timeout_s=10.0)
+    try:
+        c.add_target("r0", f"127.0.0.1:{port}")
+        c.add_target("gone", "127.0.0.1:9")
+        c.tick()
+        assert _predict(port) == 200
+        res = c.tick()
+        assert res["scraped"] == ["r0"] and set(res["errors"]) == {"gone"}
+        code, text = _get(ui_port, "/fleet")
+        assert code == 200 and 'fleet_worker_up{worker="r0"} 1' in text
+        assert 'serving_requests_total{model="drill",outcome="ok",worker="r0"}' in text
+        code, live = _get(ui_port, "/fleet?format=json")
+        assert code == 200 and live["workers"]["r0"]["stale"] is False
+        code, trace = _get(ui_port, "/fleet/trace")
+        assert any(e.get("name") == "http/predict" for e in trace["traceEvents"])
+        code, doc = _get(ui_port, "/events")
+        downs = [e for e in doc["events"] if e["event"] == "fleet_target_down"]
+        assert code == 200 and [e["target"] for e in downs] == ["gone"]
+    finally:
+        c.stop()
+        ui.stop()
+        srv.stop()
+
+
 # ------------------------------------------------------- the fleet drill
 _REPLICA_SRC = r"""
 import sys, time
@@ -415,15 +451,16 @@ def _spawn_replica(flag_path, err_path):
 @pytest.mark.slow
 def test_two_replica_fleet_drill(tmp_path):
     """JAX's fleet acceptance drill on the port: two port replica processes
-    scraped by a live collector hosted beside a port ``InferenceServer``
-    (the JAX drill's ``UIServer`` is not ported yet). A slow, erroring r1
+    scraped by a live collector hosted on a port ``UIServer``. A slow,
+    erroring r1
     walks ``fleet_p99_worst_replica`` and ``fleet_error_burn`` through
     PENDING to FIRING, naming r1 with an exemplar that r1's ``/trace``
     resolves; killing r1 fires ``fleet_target_down``; a respawn resolves
     every rule; the incident reads back from ``/events``."""
     rec = get_flight_recorder()
-    host = InferenceServer()
-    host_port = host.start(port=0)
+    host = UIServer(port=0)
+    host.attach(InMemoryStatsStorage())
+    host_port = host.start()
     flag = tmp_path / "fault_r1"
     collector = TelemetryCollector(timeout_s=10.0)
     edges = []
